@@ -1,0 +1,98 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` into ``_build/lib<name>-<source hash>.so`` inside the package
+(a directory ``.gitignore`` lists), then loaded with ``ctypes``. Nothing
+includes PyTorch's headers, so a build takes seconds. The build runs at
+first use, never at import: importing this module needs no CUDA
+toolkit. A rebuilt source gets a new hash, so a stale library is never
+loaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``PATH``, then
+    ``/usr/local/cuda/bin``. Raises when there is none."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (CUDA_HOME, PATH, /usr/local/cuda/bin): the port's "
+        "CUDA kernels are built with nvcc for sm_90a"
+    )
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to (keyed by source and flags)."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; returns the
+    library path. The compiler's output (``-Xptxas -v``: registers,
+    shared memory, spills) is kept beside the library as ``.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = library_path(name)
+    if path.exists():
+        return path
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    log = path.with_suffix(".log")
+    res = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    log.write_text(res.stdout)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"kernel build failed: {name} (nvcc rc={res.returncode}, see {log})"
+        )
+    os.replace(tmp, path)  # atomic: a reader never sees half a file
+    return path
+
+
+def build_log(name: str) -> str:
+    """The compiler output of ``name``'s current build ('' if none)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = build(name)
+        lib = ctypes.CDLL(str(path))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,117 @@
+"""Host-side PRNG key schedules for the serving tier.
+
+A verbatim copy of ``distributeddeeplearning_tpu/serving/keys.py``: the
+port derives the same per-request key ladder as the JAX package, with
+no dependency on it (``tests/test_torch_serving.py`` holds the two
+together).
+
+Why this exists: per-request sampling parity with sequential
+``inference.generate`` requires the *exact* key sequence its compiled
+program derives —
+
+    rng_0, rng_loop = jax.random.split(rng)            # first token
+    step_keys       = jax.random.split(rng_loop, n-1)  # tokens 2..n
+
+— at the request's own ``n``, per admission, on the host. Doing that
+with ``jax.random`` would compile a tiny program per distinct ``n``,
+noise the engine's zero-recompile guarantee would have to carve
+exceptions for. So the split is reimplemented here in pure numpy.
+
+This repo pins ``jax_threefry_partitionable=True`` (``utils/compat.py``
+— the modern, layout-invariant semantics), under which
+``split(key, n)`` is *fold-like*: row ``i`` is the threefry2x32 cipher
+of the 64-bit counter ``i`` (hi/lo words) under ``key`` — and therefore
+prefix-stable in ``n``. The legacy non-partitionable derivation
+(counter array split in half) is different bit-for-bit;
+``tests/test_serving.py`` pins this module against the in-process
+``jax.random.split`` so any mode or version drift is caught, not
+silently diverged from.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = np.uint32(0x1BD11BDA)
+
+
+def _rotl(x: np.ndarray, r: int) -> np.ndarray:
+    return ((x << np.uint32(r)) | (x >> np.uint32(32 - r))).astype(np.uint32)
+
+
+def _threefry2x32_core(
+    key: np.ndarray, x0: np.ndarray, x1: np.ndarray
+) -> tuple:
+    """The threefry-2x32 block cipher, elementwise over word pairs
+    ``(x0[i], x1[i])`` under ``key`` ([2] uint32). 20 rounds with the
+    key schedule injected every 4 — matches jax's lowering exactly."""
+    key = np.asarray(key, np.uint32).reshape(2)
+    x0 = np.asarray(x0, np.uint32).copy()
+    x1 = np.asarray(x1, np.uint32).copy()
+    ks = [key[0], key[1], key[0] ^ key[1] ^ _PARITY]
+    x0 = (x0 + ks[0]).astype(np.uint32)
+    x1 = (x1 + ks[1]).astype(np.uint32)
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1).astype(np.uint32)
+            x1 = _rotl(x1, r)
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(i + 1) % 3]).astype(np.uint32)
+        x1 = (x1 + ks[(i + 2) % 3] + np.uint32(i + 1)).astype(np.uint32)
+    return x0, x1
+
+
+def split_key(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """``jax.random.split(key, num)`` in numpy — bitwise-identical
+    under the partitionable-threefry semantics this repo pins
+    ([num, 2] uint32). Row ``i`` ciphers the 64-bit counter ``i``:
+    ``(hi_i, lo_i) -> (out0_i, out1_i)``."""
+    if num < 1:
+        raise ValueError(f"num must be >= 1, got {num}")
+    idx = np.arange(num, dtype=np.uint64)
+    hi = (idx >> np.uint64(32)).astype(np.uint32)
+    lo = (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    out0, out1 = _threefry2x32_core(key, hi, lo)
+    return np.stack([out0, out1], axis=-1)
+
+
+def fold_key(key: np.ndarray, data: int) -> np.ndarray:
+    """A distinct child key from ``key`` and an integer — the fold-like
+    derivation (cipher the 64-bit ``data`` under ``key``), used for
+    per-row keys in ``serving.generate_with_engine``."""
+    d = np.uint64(int(data))
+    out0, out1 = _threefry2x32_core(
+        key,
+        np.asarray([(d >> np.uint64(32))], np.uint32),
+        np.asarray([d & np.uint64(0xFFFFFFFF)], np.uint32),
+    )
+    return np.array([out0[0], out1[0]], np.uint32)
+
+
+def request_key_ladder(key: np.ndarray, max_new_tokens: int) -> np.ndarray:
+    """The per-token key schedule of one request ([max_new_tokens, 2]
+    uint32): row 0 samples the first (prefill) token, row i the i-th
+    decode token — exactly the keys ``inference.generate``'s compiled
+    program derives from the same request ``rng``."""
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    rng_0, rng_loop = split_key(np.asarray(key, np.uint32).reshape(2), 2)
+    if max_new_tokens == 1:
+        return rng_0[None]
+    return np.concatenate(
+        [rng_0[None], split_key(rng_loop, max_new_tokens - 1)], axis=0
+    )
+
+
+def key_from_seed(seed: int) -> np.ndarray:
+    """``np.asarray(jax.random.PRNGKey(seed))`` without jax. This repo
+    runs with x64 disabled (jax default), where the seed is a 32-bit
+    value: the hi word is zero and the lo word is the seed's uint32
+    bits (``shift_right_logical`` of an int32 by 32 lowers to 0 —
+    pinned against the in-process ``PRNGKey`` in
+    ``tests/test_serving.py``, so an x64 or version drift is caught)."""
+    s = np.int64(seed)
+    if not -(2**31) <= s < 2**31:
+        raise ValueError(f"seed must fit in int32 (no-x64 jax), got {seed}")
+    return np.array([0, s & np.int64(0xFFFFFFFF)], np.uint32)
