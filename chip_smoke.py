@@ -3,28 +3,39 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,serve,train]
 
-Phases (any failure raises and the script exits non-zero):
+(all phases by default). Any failure raises and the script exits
+non-zero.
 
 1. Device: print ``nvidia-smi --query-gpu=name,power.limit`` and pin
    float32 matmuls and convolutions to full precision (no TF32).
-2. Build the serving path's kernel from ``csrc/`` with ``nvcc`` for
-   ``sm_90a``.
-3. Kernel cases at lm_base shapes: the hand-written decode-attention
-   kernel against its plain PyTorch version on the same device (run in
-   f32 on the same bf16 inputs), with CUDA-event times of the kernel,
-   the plain version and ``F.scaled_dot_product_attention`` (a
-   yardstick only) beside the byte/operation bound.
-4. Serving: full-width ``lm_base`` with seeded random weights behind
+2. Build every kernel from ``csrc/`` with ``nvcc`` for ``sm_90a``, one
+   ``nvcc`` per source, all started together; print ptxas's registers,
+   shared memory and spills.
+3. ``kernels``: each hand-written kernel against its plain PyTorch
+   version on the card (run in f32 on the same bf16 inputs), with
+   CUDA-event times of the kernel, the plain version and one library
+   call (a yardstick only) beside the byte/operation bound:
+   decode attention at lm_base shapes; ``matmul_stats`` and
+   ``bn_relu_matmul_stats`` at the four ResNet-50 training shapes, a
+   ragged M and a prologue channel with σ ≪ |μ|.
+4. ``serve``: full-width ``lm_base`` with seeded random weights behind
    ``Server.build`` (paged KV, fused kernel, 8 slots) answers 16
    requests. Checks: lengths and vocab range, the kernel ran exactly
    once per layer per forward (``launches == 12 × (prefills +
    decode_steps)``), each greedy stream equals the same request served
    alone, and the first request's first-token logits agree with a
-   full-sequence plain re-forward.
-5. The ``kernels`` JSON line, then the contract's last line
-   ``{"ok": true, "device": {...}}``.
+   full-sequence plain re-forward; then a decode-tick profile.
+5. ``train``: ResNet-50 (224 px, 1000 classes, batch 64, bf16) through
+   the port's entry points on seeded synthetic data, ``fused=True``:
+   3 warm-up and 20 timed steps, finite losses, and the fused kernels
+   launched exactly 32 times per forward; a profile of 5 steady steps;
+   the same protocol with ``fused=False`` (cuDNN 1x1 convs) as the
+   yardstick of the whole step; and one fused against one unfused step
+   from the same weights and batch, within stated limits.
+6. The ``kernels`` JSON line (every kernel whose phases ran), then the
+   contract's last line ``{"ok": true, "device": {...}}``.
 
 Exits with code 2 and prints no result when CUDA is absent or the port
 is not importable (the script on its own, outside the repository).
@@ -217,6 +228,191 @@ def kernel_phase(pd, flush):
     return cases
 
 
+FB_ROW_TILE = 128  # csrc/fused_block.cu kBM: rows of y per block
+
+# The training path's shapes (ResNet-50, batch 64, 224 px): (where, M, K, N).
+FB_SHAPES = (
+    ("stage1_conv3", 200_704, 64, 256),
+    ("stage1_conv1", 200_704, 256, 64),
+    ("stage3_conv1", 12_544, 1024, 256),
+    ("stage4_conv3", 3_136, 512, 2048),
+)
+
+
+def fb_y_limit(ref: torch.Tensor) -> torch.Tensor:
+    """Per-element limit on |kernel y - plain y| for bf16 inputs.
+
+    The reference is the plain version's f32 product of the same bf16
+    inputs; with the BN-ReLU prologue, its z is rounded to bf16 where
+    the kernel (and the TPU kernel) rounds it. The kernel then differs
+    by the rounding of y to bf16 (at most 2**-9·|ref| under
+    round-to-nearest), by f32 accumulation in another order (K·2**-24
+    of Σ|z_k·w_k|, far below), and, with the prologue, by its fused
+    multiply-add, which can move a z that lies on a rounding boundary
+    by one bf16 step: 2**-8 of one term of the row, below 2**-8 of the
+    row's largest |y|. So the limit is 2**-8·|ref| + 2**-8·(the row's
+    max |ref|). Written before the first run on the card: the plain
+    version in bf16 against this reference on the CPU, at these
+    shapes' K and N and the chip run's input distributions (2,048
+    rows), reads 0.49 of the limit; dropping one 32-wide K slice
+    exceeds it 80-fold or more, and skipping the ReLU 380-fold."""
+    row_max = ref.abs().amax(dim=-1, keepdim=True)
+    return 2 ** -8 * ref.abs() + 2 ** -8 * row_max
+
+
+def fb_stats_limit(terms: torch.Tensor, m: int) -> torch.Tensor:
+    """Per-column limit on |kernel Σ - f64 Σ of the kernel's own y|.
+
+    The kernel sums each 128-row tile in f32, then the tiles' partials
+    in f32 in a fixed order. Recursive f32 summation of n terms errs by
+    at most (n-1)·2**-24·Σ|term|, so a BM-row tile sum followed by a
+    sum over the row tiles stays within (BM + tiles)·2**-24·Σ|term|
+    (|y| for Σy, y² for Σy²). At M = 200,704 that is about 1e-4 of
+    Σ|term|; a dropped row tile moves Σy² by about 1/1568 = 6.4e-4 of
+    it and fails. (M·2**-24, 0.012, would pass it.)"""
+    tiles = -(-m // FB_ROW_TILE)
+    return (FB_ROW_TILE + tiles) * 2 ** -24 * terms
+
+
+def fb_case(name, fb, op, a, w, flush, *, bn=None):
+    """One fused-block case: the kernel against its plain version run in
+    f32 on the same bf16 inputs, the two limits above, and CUDA-event
+    times of the kernel, the plain version (bf16 operands), the library
+    yardstick (torch.matmul, then the two column sums; the elementwise
+    prologue first for bn_relu) and the bound."""
+    m, k = a.shape
+    n = w.shape[0]
+    if bn is None:
+        def kern():
+            return fb.matmul_stats(a, w)
+
+        def plain():
+            return fb.matmul_stats_plain(a, w)
+
+        ref_y = fb.matmul_stats_plain(a.float(), w.float())[0]
+        prologue_bytes = 0
+    else:
+        mean, var, scale, bias = bn
+
+        def kern():
+            return fb.bn_relu_matmul_stats(a, mean, var, scale, bias, w)
+
+        def plain():
+            return fb.bn_relu_matmul_stats_plain(a, mean, var, scale, bias, w)
+
+        inv = torch.rsqrt(var + 1e-5) * scale
+        z = torch.relu(a.float() * inv + (bias - mean * inv)).to(a.dtype)
+        ref_y = fb.matmul_stats_plain(z.float(), w.float())[0]
+        del z
+        prologue_bytes = 4 * 4 * k
+    with torch.no_grad():
+        y, s, ss = kern()
+    torch.cuda.synchronize()
+    if y.shape != (m, n) or y.dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: y {tuple(y.shape)} {y.dtype}")
+    yf = y.float()
+    if not torch.isfinite(yf).all() or not (torch.isfinite(s).all() and torch.isfinite(ss).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    diff = (yf - ref_y).abs()
+    lim = fb_y_limit(ref_y)
+    err = diff.max().item()
+    y_ratio = (diff / lim.clamp(min=torch.finfo(torch.float32).tiny)).max().item()
+    if not (diff <= lim).all():
+        raise AssertionError(f"{name}: |y - plain| exceeds its limit {y_ratio:.2f}x (max {err})")
+    y64 = y.double()
+    s_ratio = 0.0
+    for got, exact, terms, what in (
+        (s, y64.sum(0), y64.abs().sum(0), "sum"),
+        (ss, (y64 * y64).sum(0), (y64 * y64).sum(0), "sumsq"),
+    ):
+        d = (got.double() - exact).abs()
+        lim_s = fb_stats_limit(terms, m)
+        ratio = (d / lim_s.clamp(min=1e-300)).max().item()
+        s_ratio = max(s_ratio, ratio)
+        if not (d <= lim_s).all():
+            raise AssertionError(f"{name}: {what} exceeds its limit {ratio:.2f}x")
+    del y64, yf, diff, lim
+
+    # Library yardstick: one bf16 product, then the column sums (f32).
+    if bn is None:
+        def library():
+            yl = torch.matmul(a, w.t())
+            yf = yl.float()
+            return yl, yf.sum(0), (yf * yf).sum(0)
+    else:
+        shift = bias - mean * inv
+
+        def library():
+            z = torch.relu(a.float() * inv + shift).to(a.dtype)
+            yl = torch.matmul(z, w.t())
+            yf = yl.float()
+            return yl, yf.sum(0), (yf * yf).sum(0)
+
+    nbytes = 2 * m * k + 2 * k * n + 2 * m * n + 8 * n + prologue_bytes
+    flops = 2.0 * m * k * n
+    bound_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ops = flops / H100_BF16_FLOP_S * 1e3
+    with torch.no_grad():
+        out = {
+            "case": name, "op": "matmul_stats" if bn is None else "bn_relu_matmul_stats",
+            "shape": {"M": m, "K": k, "N": n},
+            "max_abs_err": err, "y_err_over_limit": y_ratio,
+            "stats_err_over_limit": s_ratio,
+            "ms": time_ms(kern, flush), "plain_ms": time_ms(plain, flush),
+            "library_ms": time_ms(library, flush),
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "bytes": int(nbytes), "flops": flops,
+        }
+    return out
+
+
+def fused_block_phase(fb, flush):
+    """Both ops at the four training shapes, a ragged M for each (not a
+    multiple of the 128-row tile), and a prologue channel with σ ≪ |μ|."""
+    dev, bf = "cuda", torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(4321)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=g)
+
+    def weights(n, k):  # He-scaled, as the model's 1x1 kernels
+        return (randn(n, k) * (2.0 / n) ** 0.5).to(bf)
+
+    def bn_inputs(m, k, wide=None):
+        """Pre-norm rows with per-channel mean μ and sd σ, and the BN
+        affine; channel ``wide`` gets σ = 0.01 at μ = 100."""
+        mu = randn(k) * 0.5
+        sd = randn(k).abs() * 0.5 + 0.5
+        if wide is not None:
+            mu[wide], sd[wide] = 100.0, 0.01
+        a = (randn(m, k) * sd + mu).to(bf)
+        af = a.float()
+        mean = af.mean(0)
+        var = (af * af).mean(0) - mean * mean
+        return a, (mean, var, 1.0 + 0.1 * randn(k), 0.1 * randn(k))
+
+    cases = []
+    for where, m, k, n in FB_SHAPES:
+        w = weights(n, k)
+        a = randn(m, k).to(bf)
+        cases.append(fb_case(f"matmul_stats/{where}", fb, "matmul_stats", a, w, flush))
+        a, bn = bn_inputs(m, k)
+        cases.append(fb_case(f"bn_relu_matmul_stats/{where}", fb, "bn_relu", a, w,
+                             flush, bn=bn))
+        del a, w, bn
+    m, k, n = 3_136 + 77, 512, 128
+    w = weights(n, k)
+    cases.append(fb_case("matmul_stats/ragged_m", fb, "matmul_stats",
+                         randn(m, k).to(bf), w, flush))
+    a, bn = bn_inputs(m, k)
+    cases.append(fb_case("bn_relu_matmul_stats/ragged_m", fb, "bn_relu", a, w, flush, bn=bn))
+    a, bn = bn_inputs(12_544, 256, wide=3)
+    cases.append(fb_case("bn_relu_matmul_stats/sigma_much_less_than_mu", fb, "bn_relu",
+                         a, weights(256, 256), flush, bn=bn))
+    return cases
+
+
 def serving_phase(pd, card):
     from distributeddeeplearning_tpu_torch.models import convert, get_model
     from distributeddeeplearning_tpu_torch.serving import Request, ServeConfig, Server
@@ -368,11 +564,245 @@ def profile_decode(server, vocab, card, ticks=8):
     }), flush=True)
 
 
-def main() -> int:
+# Fused vs unfused bf16 step from the same weights and batch: the limits
+# (derived in fused_vs_unfused_step's docstring).
+AGREE_LOSS_REL = 1e-3
+AGREE_UPDATE_REL = 0.35
+AGREE_STATS_REL = 1e-2
+
+
+def _train_setup(fused, *, depth=50, image_size=224, batch=64, num_classes=1000,
+                 num_physical_batches=4, state_dict=None, device="cuda"):
+    """The port's entry points as a user calls them: config, synthetic
+    data, model, optimizer, seeded train state and step, on the card
+    (``device="cpu"`` rehearses the flow at a small size)."""
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+    from distributeddeeplearning_tpu_torch.data import SyntheticImageDataset
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.training import (
+        create_optimizer,
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = TrainConfig(model=f"resnet{depth}", image_size=image_size,
+                      batch_size_per_device=batch, num_classes=num_classes)
+    ds = SyntheticImageDataset(global_batch_size=cfg.global_batch_size,
+                               image_size=cfg.image_size, num_classes=cfg.num_classes,
+                               num_physical_batches=num_physical_batches, seed=cfg.seed)
+    model = get_model(cfg.model, num_classes=cfg.num_classes, dtype=cfg.compute_dtype,
+                      fused=fused, device=device)
+    tx, _ = create_optimizer(cfg, ds.steps_per_epoch)
+    state = create_train_state(model, cfg, tx, device=device, state_dict=state_dict)
+    return cfg, ds, model, state, make_train_step(model, tx, cfg, device=device)
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_phase(fb, card, fused, warmup=3, timed=20, device="cuda", **size):
+    """ResNet-50 at 224 px, batch 64, bf16, on the port's synthetic data:
+    ``warmup`` steps, then ``timed`` steps closed by a host readback of
+    the loss (the bench.py protocol). Checks finite losses and, fused,
+    ``launches == 32 x forwards`` (16 of each op), unfused none."""
+    from distributeddeeplearning_tpu_torch.data import prefetch_to_device
+
+    t0 = time.perf_counter()
+    cfg, ds, model, state, step = _train_setup(fused, device=device, **size)
+    batches = prefetch_to_device(ds.epoch(0), device)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    losses = []
+    for _ in range(warmup):
+        state, m = step(state, next(batches))
+        losses.append(m["loss"])
+    _sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    fb.launches = 0
+    for k in fb.launches_by_op:
+        fb.launches_by_op[k] = 0
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, m = step(state, next(batches))
+        losses.append(m["loss"])
+    float(m["loss"])  # host readback closes the timed window
+    wall = time.perf_counter() - t0
+    launches, by_op = fb.launches, dict(fb.launches_by_op)
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    want = {k: (16 * timed if fused and device == "cuda" else 0) for k in by_op}
+    if by_op != want or launches != sum(want.values()):
+        raise AssertionError(f"fused={fused}: launches {by_op} over {timed} forwards, want {want}")
+    line = {
+        "path": "fused" if fused else "unfused (cuDNN 1x1 convs)",
+        "model": cfg.model, "image_size": cfg.image_size, "batch": cfg.global_batch_size,
+        "dtype": cfg.compute_dtype, "images_per_s": timed * cfg.global_batch_size / wall,
+        "step_ms": wall / timed * 1e3, "loss_first": losses[0], "loss_last": losses[-1],
+        "launches": launches, "launches_by_op": by_op, "forwards": timed,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+                        else "not measured"), "setup_s": setup_s,
+        "card": card,
+    }
+    print("train " + json.dumps(line), flush=True)
+    return line, state, step, batches
+
+
+def profile_train(state, step, batches, card, step_ms, steps=5):
+    """Where a fused training step's time goes: ``steps`` steady steps
+    under ``torch.profiler`` (device activity only, to keep the tracer
+    off the host's critical path). Reports the step's wall under the
+    profiler, the device time summed over kernels and copies, the busy
+    share against that wall and against ``step_ms`` (the same step
+    timed without the profiler), the top kernels by device time and the
+    fused-block kernels' own share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, next(batches))
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    batches.close()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.device_time_total for e in events) / 1e3 / steps
+    top = sorted(events, key=lambda e: -e.device_time_total)[:10]
+    ours = [e for e in events if "matmul_stats_kernel" in e.key or "reduce_partials" in e.key]
+    measured = device_ms > 0
+    print("profile " + json.dumps({
+        "what": "fused resnet50 train step, batch 64, 224 px, bf16",
+        "step_wall_ms_profiled": wall_ms, "step_wall_ms_unprofiled": step_ms,
+        "step_device_ms": device_ms if measured else "not measured",
+        "device_busy_share": device_ms / wall_ms if measured else "not measured",
+        "device_busy_share_vs_unprofiled": device_ms / step_ms if measured else "not measured",
+        "top_kernels_ms_per_step": {
+            e.key[:90]: e.device_time_total / 1e3 / steps for e in top},
+        "top_kernels_launches_per_step": {e.key[:90]: e.count / steps for e in top},
+        "fused_block_kernels": {
+            e.key[:90]: {"ms_per_step": e.device_time_total / 1e3 / steps,
+                         "launches_per_step": e.count / steps} for e in ours},
+        "device_kernel_launches_per_step": sum(e.count for e in events) / steps,
+        "card": card,
+    }), flush=True)
+
+
+def _agree_group(name: str) -> str:
+    if ".Conv_0." in name or ".Conv_2." in name:
+        return "fused_1x1_kernels"
+    if name.endswith(("BatchNorm_0.weight", "BatchNorm_1.weight", "BatchNorm_2.weight",
+                      "_bn.weight", "BatchNorm_0.bias", "BatchNorm_1.bias",
+                      "BatchNorm_2.bias", "_bn.bias")):
+        return "bn_scale_bias"
+    return "other"
+
+
+def fused_vs_unfused_step(depth=50, image_size=224, batch=64, num_classes=1000,
+                          device="cuda"):
+    """One fused and one unfused bf16 step from the same weights on the
+    same batch, and whether they agree.
+
+    Weights: the seeded init with every BN γ drawn as 1 ± 0.2 (sd), and
+    0.1 ± 0.02 on each branch's last BN (0 at init, which would hide the
+    branches from the forward). Limits:
+
+    * loss: |L_fused - L_unfused| / |L_unfused| <= 1e-3;
+    * updates, per group (the fused ops' 1x1 kernels; the BN scales and
+      biases; the other parameters): ||Δ_fused - Δ_unfused|| /
+      ||Δ_unfused|| <= 0.35;
+    * running statistics: max |fused - unfused| / max |unfused| per
+      buffer <= 1e-2.
+
+    Derivation, written before the first run on the card: the two paths
+    round to bf16 in other places (the kernel's accumulation order, the
+    folded BN affine, z rounded after the ReLU), so they differ by bf16
+    noise. A CPU rehearsal of this function (plain versions in bf16;
+    resnet50, batch 16, at 112 and 224 px) read: loss 1.8e-4 and 8.1e-5,
+    updates per group 0.09-0.15, running statistics 2.0e-3 and 1.2e-3;
+    the unfused bf16 step against itself in f32 read loss 1.5e-4 and
+    4.6e-5, updates 0.16-0.23, running statistics 4.4e-3 and 4.8e-3.
+    The limits are 2.3-6x those readings. The same rehearsal with the
+    backward's 2·y·dΣ² term dropped moves the 1x1 kernels' update gap
+    to 0.71, and fails. Predicted on the card: loss ~1e-4, update gaps
+    0.05-0.15, running statistics ~2e-3."""
+    from distributeddeeplearning_tpu_torch.models import convert
+
+    sd = convert.init_resnet_params(depth, num_classes,
+                                    torch.Generator(device=device).manual_seed(42))
+    g = torch.Generator(device=device).manual_seed(7)
+    for k, v in sd.items():
+        if k.endswith(".weight") and v.dim() == 1:
+            base = 0.1 if bool((v == 0).all()) else 1.0
+            sd[k] = base * (1.0 + 0.2 * torch.randn(v.shape, device=device, generator=g))
+    out = {}
+    for fused in (False, True):
+        cfg, ds, model, state, step = _train_setup(
+            fused, depth=depth, image_size=image_size, batch=batch,
+            num_classes=num_classes, num_physical_batches=1, state_dict=sd, device=device)
+        state, m = step(state, next(iter(ds.epoch(0))))
+        out[fused] = (float(m["loss"]),
+                      {k: v.detach().clone() for k, v in model.state_dict().items()})
+        del cfg, ds, model, state, step
+    (lu, pu), (lf, pf) = out[False], out[True]
+    sums = {}
+    stats = 0.0
+    for k, ref in sd.items():
+        if "running" in k:
+            stats = max(stats, ((pf[k] - pu[k]).abs().max() / pu[k].abs().max()).item())
+            continue
+        du, df = pu[k].double() - ref.double(), pf[k].double() - ref.double()
+        n, d = sums.get(_agree_group(k), (0.0, 0.0))
+        sums[_agree_group(k)] = (n + (df - du).pow(2).sum().item(), d + du.pow(2).sum().item())
+    gaps = {grp: (n / d) ** 0.5 for grp, (n, d) in sums.items()}
+    res = {"loss_fused": lf, "loss_unfused": lu, "loss_rel": abs(lf - lu) / abs(lu),
+           "update_rel_by_group": gaps, "running_stats_rel": stats,
+           "limits": {"loss_rel": AGREE_LOSS_REL, "update_rel": AGREE_UPDATE_REL,
+                      "running_stats_rel": AGREE_STATS_REL}}
+    res["within_limits"] = (res["loss_rel"] <= AGREE_LOSS_REL
+                            and max(gaps.values()) <= AGREE_UPDATE_REL
+                            and stats <= AGREE_STATS_REL)
+    return res
+
+
+def _fb_entry(name, cases, timed_case, launches):
+    main_case = next(c for c in cases if c["case"] == timed_case)
+    return {
+        "name": name, "route": "cuda",
+        "source": "distributeddeeplearning_tpu_torch/csrc/fused_block.cu",
+        "replaces": ("distributeddeeplearning_tpu/ops/pallas/fused_block.py:160"
+                     if name == "matmul_stats"
+                     else "distributeddeeplearning_tpu/ops/pallas/fused_block.py:194"),
+        "launches": launches,
+        "max_abs_err": max(c["max_abs_err"] for c in cases if c["op"] == name),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"], "timed_case": timed_case,
+    }
+
+
+PHASES = ("kernels", "serve", "train")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of %s (default: all)" % ",".join(PHASES))
+    phases = set(ap.parse_args(argv).phases.split(","))
+    if not phases <= set(PHASES):
+        ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
     if not torch.cuda.is_available():
         _die("CUDA is not available; this smoke runs the port on an NVIDIA GPU")
     try:
         from distributeddeeplearning_tpu_torch.ops import _build
+        from distributeddeeplearning_tpu_torch.ops import fused_block as fb
         from distributeddeeplearning_tpu_torch.ops import paged_decode as pd
     except ImportError as e:
         _die(f"the port is not importable from here ({e}); run from the repo root")
@@ -383,37 +813,76 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
 
-    t0 = time.perf_counter()
-    _build.build("paged_decode")
-    print(f"build paged_decode {time.perf_counter() - t0:.1f}s", flush=True)
-    for line in _build.build_log("paged_decode").splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas", line.strip(), flush=True)
+    # One nvcc per source, all started together.
+    from concurrent.futures import ThreadPoolExecutor
 
-    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
-    cases = kernel_phase(pd, flush)
-    for c in cases:
-        print("case " + json.dumps(c), flush=True)
-    del flush
+    def timed_build(name):
+        t0 = time.perf_counter()
+        _build.build(name)
+        return time.perf_counter() - t0
 
-    launches = serving_phase(pd, card)
+    names = ("paged_decode", "fused_block")
+    with ThreadPoolExecutor(len(names)) as pool:
+        secs = list(pool.map(timed_build, names))
+    for name, sec in zip(names, secs):
+        print(f"build {name} {sec:.1f}s", flush=True)
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"ptxas {name}:", line.strip(), flush=True)
 
-    main_case = next(c for c in cases if c["case"] == "paged_decode_full")
-    entry = {
-        "name": "paged_decode_attention",
-        "route": "cuda",
-        "source": "distributeddeeplearning_tpu_torch/csrc/paged_decode.cu",
-        "replaces": "distributeddeeplearning_tpu/ops/pallas/paged_decode.py:175",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "timed_case": main_case["case"],
-    }
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    entries = []
+    pd_cases = fb_cases = None
+    if "kernels" in phases:
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+        pd_cases = kernel_phase(pd, flush)
+        fb_cases = fused_block_phase(fb, flush)
+        for c in pd_cases + fb_cases:
+            print("case " + json.dumps(c), flush=True)
+        del flush
+        torch.cuda.empty_cache()
+
+    if "serve" in phases:
+        launches = serving_phase(pd, card)
+        if pd_cases is not None:
+            main_case = next(c for c in pd_cases if c["case"] == "paged_decode_full")
+            entries.append({
+                "name": "paged_decode_attention",
+                "route": "cuda",
+                "source": "distributeddeeplearning_tpu_torch/csrc/paged_decode.cu",
+                "replaces": "distributeddeeplearning_tpu/ops/pallas/paged_decode.py:175",
+                "launches": launches,
+                "max_abs_err": max(c["max_abs_err"] for c in pd_cases),
+                "ms": main_case["ms"],
+                "plain_ms": main_case["plain_ms"],
+                "bound_ms": main_case["bound_ms"],
+                "bound_by": main_case["bound_by"],
+                "library_ms": main_case["library_ms"],
+                "timed_case": main_case["case"],
+            })
+
+    if "train" in phases:
+        fused_line, state, step, batches = train_phase(fb, card, fused=True)
+        by_op = fused_line["launches_by_op"]
+        profile_train(state, step, batches, card, fused_line["step_ms"])
+        del state, step, batches
+        torch.cuda.empty_cache()
+        _, state, step, batches = train_phase(fb, card, fused=False)
+        batches.close()
+        del state, step, batches
+        torch.cuda.empty_cache()
+        agree = fused_vs_unfused_step()
+        print("agree " + json.dumps(dict(agree, card=card)), flush=True)
+        if not agree["within_limits"]:
+            raise AssertionError(f"fused and unfused steps disagree: {agree}")
+        if fb_cases is not None:
+            entries += [
+                _fb_entry("matmul_stats", fb_cases, "matmul_stats/stage1_conv1",
+                          by_op["matmul_stats"]),
+                _fb_entry("bn_relu_matmul_stats", fb_cases,
+                          "bn_relu_matmul_stats/stage1_conv3", by_op["bn_relu_matmul_stats"]),
+            ]
+
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

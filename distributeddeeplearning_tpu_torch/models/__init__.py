@@ -1,10 +1,13 @@
-"""Model registry of the port (the LM family so far).
+"""Model registry of the port: the LM family and ResNet v1.
 
-``get_model("lm_base")`` builds the same architecture as the JAX
-package's ``get_model("lm_base")``; ``num_classes`` is the vocab size.
-Models are built with uninitialised parameters on ``device`` (``None``
-means CUDA, and raises without it; pass ``device="cpu"`` for the CPU):
-load ``convert.params_from_flax`` or ``convert.init_params`` into them.
+``get_model("lm_base")`` and ``get_model("resnet50")`` build the same
+architectures as the JAX package's ``get_model``; for an LM
+``num_classes`` is the vocab size, and ``fused`` reaches the ResNet
+through ``**kw`` as in JAX. Models are built with uninitialised
+parameters on ``device`` (``None`` means CUDA, and raises without it;
+pass ``device="cpu"`` for the CPU): load ``convert.params_from_flax`` /
+``convert.init_params`` (LM) or ``convert.resnet_params_from_flax`` /
+``convert.init_resnet_params`` (ResNet) into them.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
+from distributeddeeplearning_tpu_torch.models.resnet import ResNet
 from distributeddeeplearning_tpu_torch.models.transformer_lm import TransformerLM
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {}
@@ -24,10 +28,18 @@ for _v in ("tiny", "small", "base", "large"):
         )
     )(_v)
 
+for _depth in (18, 34, 50, 101, 152, 200):
+    _REGISTRY[f"resnet{_depth}"] = (
+        lambda d: lambda num_classes=1000, dtype=torch.bfloat16, **kw: (
+            ResNet(depth=d, num_classes=num_classes, dtype=dtype, **kw)
+        )
+    )(_depth)
+
 
 def get_model(name: str, *, num_classes: int = None, dtype=torch.bfloat16,
               device=None, **kw):
-    """Instantiate a model by name (``lm_tiny`` … ``lm_large``) on
+    """Instantiate a model by name (``lm_tiny`` … ``lm_large``,
+    ``resnet18`` … ``resnet200``) on
     ``device`` (``None`` means CUDA, and raises without it). ``dtype``
     may be a torch dtype or its name (``"bfloat16"``)."""
     key = name.lower()
@@ -40,4 +52,8 @@ def get_model(name: str, *, num_classes: int = None, dtype=torch.bfloat16,
     return _REGISTRY[key](dtype=dtype, device=device, **kw)
 
 
-__all__ = ["TransformerLM", "get_model"]
+def available_models():
+    return sorted(_REGISTRY)
+
+
+__all__ = ["ResNet", "TransformerLM", "available_models", "get_model"]

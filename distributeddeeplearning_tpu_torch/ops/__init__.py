@@ -1,2 +1,3 @@
 """Tensor ops of the port: plain attention and the hand-written CUDA
-kernels with their wrappers (``paged_decode``) and build (``_build``)."""
+kernels with their wrappers (``paged_decode``, ``fused_block``) and
+build (``_build``)."""

@@ -10,12 +10,16 @@ descending sort otherwise); the nucleus keep-rule on the *unfiltered*
 sorted distribution; greedy is ``argmax`` of the raw logits (first index
 on ties).
 
-The random draw is Gumbel-max, as ``jax.random.categorical`` draws, with
-the uniforms taken from a ``torch.Generator`` seeded from the slot's
-ladder key. It cannot reproduce ``jax.random``'s bits: sampled streams
-differ from the JAX package's (same distribution, other draws), while
-each slot's draw still depends only on its own key and logits, never on
-the batch it rides in.
+The random draw is Gumbel-max with ``jax.random.categorical``'s own
+bits: under the partitionable threefry this repo pins, the uniform of
+vocab entry ``i`` is the threefry-2x32 cipher of the 64-bit counter
+``i`` under the slot's ladder key, its two output words XORed, the top
+23 bits made the mantissa of a float in ``[1, 2)``, minus 1, floored at
+``finfo(f32).tiny`` (:func:`gumbel_uniforms`, bitwise ``jax.random.
+uniform``'s). The Gumbel noise ``-log(-log(u))`` agrees with JAX's to
+the last bits of the two libraries' ``log``, so sampled streams equal
+the JAX package's except on a near-tie of two noisy logits. All sampled
+slots of a call draw in one batched ``[S, vocab]`` pass.
 """
 
 from __future__ import annotations
@@ -59,20 +63,52 @@ def _filter_full(scaled: torch.Tensor, top_k: int, top_p: float) -> torch.Tensor
     return out
 
 
-def seed_from_key(key) -> int:
-    """The 64-bit generator seed of a ``[2]`` uint32 ladder key."""
-    k = np.asarray(key, np.uint32).reshape(2)
-    return (int(k[0]) << 32) | int(k[1])
+_MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
 
 
-def _draw(filtered: torch.Tensor, key) -> torch.Tensor:
-    """Gumbel-max draw from ``filtered`` logits under ``key``."""
-    gen = torch.Generator(device=filtered.device)
-    gen.manual_seed(seed_from_key(key))
-    u = torch.rand(
-        filtered.shape, generator=gen, device=filtered.device, dtype=torch.float32
-    ).clamp_(min=torch.finfo(torch.float32).tiny)
-    return torch.argmax(filtered - torch.log(-torch.log(u)))
+def gumbel_uniforms(keys, vocab: int, device) -> torch.Tensor:
+    """``jax.random.uniform(key, (1, vocab), minval=tiny, maxval=1.)``
+    for each ``[2]`` uint32 row of ``keys``, bitwise: ``[S, vocab]`` f32
+    on ``device``. The threefry-2x32 rounds of ``keys._threefry2x32_core``
+    run on the device in int64 words masked to 32 bits (``>>`` on int64
+    is arithmetic, so every word is masked before it shifts)."""
+    k = torch.as_tensor(np.asarray(keys, np.uint32).reshape(-1, 2).astype(np.int64),
+                        device=device)
+    ks = (k[:, :1], k[:, 1:], k[:, :1] ^ k[:, 1:] ^ _PARITY)
+    idx = torch.arange(vocab, dtype=torch.int64, device=device)[None, :]
+    x0 = (idx >> 32) + ks[0]  # the counter's hi word (0 below 2**32)
+    x1 = ((idx & _MASK32) + ks[1]) & _MASK32
+    x0 = x0 & _MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) ^ x0) & _MASK32
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK32
+    bits = x0 ^ x1
+    f = (((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0)
+    tiny = torch.finfo(torch.float32).tiny
+    # jax computes f * (maxval - minval) + minval; (1 - tiny) rounds to
+    # 1.0 in f32, so that is f + tiny.
+    return torch.clamp(f + tiny, min=tiny)
+
+
+def _draw(filtered: torch.Tensor, keys) -> torch.Tensor:
+    """Gumbel-max draws from ``[S, vocab]`` filtered logits, row ``s``
+    under ``keys[s]`` (``argmax(gumbel + logits)``, as jax's
+    ``categorical`` computes it). Returns ``[S]`` int64."""
+    u = gumbel_uniforms(keys, filtered.shape[-1], filtered.device)
+    return torch.argmax(-torch.log(-torch.log(u)) + filtered, dim=-1)
+
+
+def _filter(logits: torch.Tensor, temperature: float, top_k: int,
+            top_p: float, top_k_cap: int) -> torch.Tensor:
+    scaled = _scale(logits, temperature)
+    if top_p > 0:
+        return _filter_full(scaled, int(top_k), float(top_p))
+    return _filter_topk(scaled, int(top_k), top_k_cap)
 
 
 def sample_slot(logits: torch.Tensor, key, temperature: float, top_k: int,
@@ -82,24 +118,24 @@ def sample_slot(logits: torch.Tensor, key, temperature: float, top_k: int,
     row (unused when greedy)."""
     if temperature <= 0:
         return torch.argmax(logits)
-    scaled = _scale(logits, temperature)
-    if top_p > 0:
-        filtered = _filter_full(scaled, int(top_k), float(top_p))
-    else:
-        filtered = _filter_topk(scaled, int(top_k), top_k_cap)
-    return _draw(filtered, key)
+    filtered = _filter(logits, temperature, top_k, top_p, top_k_cap)
+    return _draw(filtered[None], np.asarray(key)[None])[0]
 
 
 def sample_slots(logits: torch.Tensor, keys: np.ndarray, temperatures: np.ndarray,
                  top_ks: np.ndarray, top_ps: np.ndarray,
                  top_k_cap: int = DEFAULT_TOP_K_CAP) -> torch.Tensor:
     """``[S, vocab]`` logits + per-slot host configs -> ``[S]`` tokens on
-    the logits' device. Greedy slots share one batched ``argmax``; each
-    sampled slot draws from its own generator."""
+    the logits' device. Greedy slots share one batched ``argmax``; the
+    sampled slots are filtered row by row and draw in one batched pass."""
     out = torch.argmax(logits, dim=-1)
-    for i in np.flatnonzero(np.asarray(temperatures) > 0):
-        out[i] = sample_slot(
-            logits[i], keys[i], float(temperatures[i]), int(top_ks[i]),
-            float(top_ps[i]), top_k_cap,
-        )
+    sampled = np.flatnonzero(np.asarray(temperatures) > 0)
+    if sampled.size:
+        filtered = torch.stack([
+            _filter(logits[i], float(temperatures[i]), int(top_ks[i]),
+                    float(top_ps[i]), top_k_cap)
+            for i in sampled
+        ])
+        rows = torch.as_tensor(sampled, device=logits.device)
+        out[rows] = _draw(filtered, np.asarray(keys)[sampled])
     return out

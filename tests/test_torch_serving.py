@@ -9,9 +9,9 @@
   agree to f32 round-off (``test_torch_transformer_lm.py``), far inside
   the gap between a tiny random model's top two logits.
 * The key ladder, the sampling rules and ``ServeConfig.from_env`` are
-  held to the JAX package's directly. Sampled draws use torch
-  generators and so differ from ``jax.random`` (ROADMAP C): they are
-  held to their support and to per-seed determinism instead.
+  held to the JAX package's directly. Sampled draws are JAX's own
+  (``test_torch_sampling.py``); here they are also held to their
+  support, to per-seed determinism and to batching invariance.
 """
 
 import dataclasses
