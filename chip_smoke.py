@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--phases kernels,serve,train]
+    python3 chip_smoke.py [--phases kernels,serve,train,lmtrain]
 
 (all phases by default). Any failure raises and the script exits
 non-zero.
@@ -19,7 +19,11 @@ non-zero.
    call (a yardstick only) beside the byte/operation bound:
    decode attention at lm_base shapes; ``matmul_stats`` and
    ``bn_relu_matmul_stats`` at the four ResNet-50 training shapes, a
-   ragged M and a prologue channel with σ ≪ |μ|.
+   ragged M and a prologue channel with σ ≪ |μ|; the three flash
+   kernels (forward, dq, dk/dv) at lm_base training, its longest
+   sequence, lm_large's head dim 96, ViT-B/16's ragged 197 tokens, a
+   ragged cross-attention and a near one-hot softmax, with a negative
+   control (a variant that drops each row's last key tile must fail).
 4. ``serve``: full-width ``lm_base`` with seeded random weights behind
    ``Server.build`` (paged KV, fused kernel, 8 slots) answers 16
    requests. Checks: lengths and vocab range, the kernel ran exactly
@@ -34,7 +38,15 @@ non-zero.
    the same protocol with ``fused=False`` (cuDNN 1x1 convs) as the
    yardstick of the whole step; and one fused against one unfused step
    from the same weights and batch, within stated limits.
-6. The ``kernels`` JSON line (every kernel whose phases ran), then the
+6. ``lmtrain``: full-width ``lm_base`` (vocab 32,000, T = 1024, batch 8,
+   bf16) through the same entry points on seeded synthetic tokens with
+   ``attn_impl="pallas"``: 3 warm-up and 20 timed steps, finite losses,
+   each flash kernel launched 12 times per forward (``flash_fwd``) or
+   backward (``flash_bwd_dq``, ``flash_bwd_dkv``); a profile of 5 steady
+   steps; the same protocol with ``attn_impl="xla"`` (plain masked
+   softmax) as the yardstick of the whole step; and one pallas against
+   one xla step from the same weights and batch, within stated limits.
+7. The ``kernels`` JSON line (every kernel whose phases ran), then the
    contract's last line ``{"ok": true, "device": {...}}``.
 
 Exits with code 2 and prints no result when CUDA is absent or the port
@@ -48,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -413,6 +426,244 @@ def fused_block_phase(fb, flush):
     return cases
 
 
+# Flash-attention cases: (name, B, H, Tq, Tk, d, causal, q multiplier).
+FLASH_CASES = (
+    ("lm_base_train", 8, 12, 1024, 1024, 64, True, 1.0),
+    ("lm_base_maxlen", 4, 12, 2048, 2048, 64, True, 1.0),
+    ("lm_large_d96", 4, 16, 1024, 1024, 96, True, 1.0),
+    ("vit_b16_ragged", 32, 12, 197, 197, 64, False, 1.0),
+    ("cross_ragged", 2, 4, 100, 300, 64, False, 1.0),
+    ("peaky", 8, 12, 1024, 1024, 64, True, 8.0),  # softmax near one-hot
+)
+FLASH_OPS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def flash_limit(ref: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
+    """Per-element limit on |kernel - f32 plain| for O, dQ, dK and dV,
+    given bf16 inputs (for the backward: the same q, k, v, dO, LSE and
+    Δ). ``terms`` is Σ|x_j·y_j| of the element's sum Σ x_j·y_j (O: Σ
+    p̂·|v| over keys, p̂ = exp(s - lse); dQ: Σ|ds|·|k|; dK: Σ|ds|·|q|;
+    dV: Σ p·|dO|).
+
+    The kernel rounds one factor of every term to bf16 where the plain
+    version (f32) does not: p before p·V and dV, ds before dQ and dK
+    (the TPU kernels' rounding points). bf16's unit roundoff is 2**-8,
+    so under round-to-nearest each factor moves by at most 2**-8 of
+    itself and the sum by at most 2**-8·terms (signs cancel in practice;
+    this is the worst case). It then rounds the result to bf16: at most
+    2**-8·|ref|. Summing in another order in f32 adds at most
+    n·2**-24·terms (n <= 2,048 terms: 2**-13·terms), and exp2f against
+    exp a few f32 ulps of p. In all below 2**-8·|ref| + (2**-8 +
+    2**-13)·terms, so the limit is 2**-7·(|ref| + terms), about twice
+    the worst case. (ds itself can cancel to nothing where dp ≈ Δ, so
+    dQ's and dK's terms also carry ds's f32 error: see
+    :func:`flash_terms`.) Written before the first timed run on the card: the
+    plain version in bf16 (p and O rounded; ds and p rounded before the
+    gradient products) against itself in f32 on the CPU (B = 2, H = 4,
+    T = 256, d = 64, causal) reads 0.36-0.39 of it for O, dQ, dK and dV,
+    0.38-0.47 with q × 8. Dropping each 64-row tile's last key tile (the
+    negative control) reads 87-177,000 times the O limit in the same
+    rehearsal."""
+    return 2 ** -7 * (ref.abs() + terms)
+
+
+def flash_lse_limit(q, k, lse, scale: float) -> torch.Tensor:
+    """Per-row limit on |kernel LSE - f32 plain LSE| ([B·H, Tq]).
+
+    A score is scale·Σ_d q_i·k_i, d exact products of bf16 values (exact
+    in f32) summed in another order: it moves by at most
+    d·2**-24·scale·Σ|q_i·k_i| <= d·2**-24·scale·‖q‖·max‖k‖
+    (Cauchy-Schwarz), and LSE by at most its row's largest score error.
+    l sums at most Tk terms <= 1 in another order (relative error
+    Tk·2**-24, which the log makes absolute); exp2f, logf and the final
+    rounding add a few 2**-24 and 2**-24·|lse|. Limit:
+    2**-24·(d·scale·‖q‖·max‖k‖ + Tk + 4 + |lse|)."""
+    b, tq, h, d = q.shape
+    qn = q.float().norm(dim=-1).permute(0, 2, 1).reshape(b * h, tq)
+    kn = k.float().norm(dim=-1).amax(dim=1).reshape(b * h, 1)
+    return 2 ** -24 * (d * scale * qn * kn + k.shape[1] + 4 + lse.abs())
+
+
+def flash_terms(q, k, v, o, do, lse, delta, causal: bool, scale: float):
+    """Σ|terms| of each element of (O, dQ, dK, dV), f32 (see
+    :func:`flash_limit`). For dQ and dK each |ds| carries 2**8 times
+    its f32 cancellation bound: ds = p·(dp − Δ)·scale, where dp (the
+    kernel's MMA) and Δ (a torch sum) are d-term f32 sums taken in
+    other orders than the plain version's, each off by at most
+    d·2**-24·Σ|do_i·v_i| (Σ|do_i·o_i| for Δ); where dp ≈ Δ that is all
+    of ds. Under the 2**-7 of the limit that allows twice the bound."""
+    b, tq, h, d = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    keep = torch.ones(tq, k.shape[1], dtype=torch.bool, device=q.device)
+    if causal:
+        keep = keep.tril()
+    p = torch.where(keep, torch.exp(s - lse.reshape(b, h, tq, 1)), 0.0)
+    del s
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ads = (p * (dp - delta.reshape(b, h, tq, 1)) * scale).abs()
+    del dp
+    dof = do.float().abs()
+    cancel = torch.einsum("bqhd,bkhd->bhqk", dof, v.float().abs())
+    cancel += (dof * o.float().abs()).sum(-1).permute(0, 2, 1)[..., None]
+    ads += p * (2 ** 8 * scale * d * 2 ** -24) * cancel
+    del cancel
+    return (torch.einsum("bhqk,bkhd->bqhd", p, v.float().abs()),
+            torch.einsum("bhqk,bkhd->bqhd", ads, k.float().abs()),
+            torch.einsum("bhqk,bqhd->bkhd", ads, q.float().abs()),
+            torch.einsum("bhqk,bqhd->bkhd", p, dof))
+
+
+def _ratio(got, ref, lim) -> Tuple[float, float]:
+    diff = (got.float() - ref.float()).abs()
+    return diff.max().item(), (diff / lim.clamp(min=torch.finfo(torch.float32).tiny)).max().item()
+
+
+def flash_bounds(b, h, tq, tk, d, causal):
+    """Per kernel (bound_ms, bound_by, bytes, flops): bytes of each input
+    read once and each output written once; 4/6/8 flops per (q, k) pair
+    per head dim (QKᵀ and PV; + dOVᵀ and dS·K; + dSᵀQ and PᵀdO)."""
+    pairs = tq * (tq + 1) // 2 if causal else tq * tk
+    nq, nk = b * tq * h * d, b * tk * h * d
+    rows = b * h * tq
+    work = {
+        "flash_fwd": (2 * (2 * nq + 2 * nk) + 4 * rows, 4.0 * b * h * pairs * d),
+        "flash_bwd_dq": (2 * (3 * nq + 2 * nk) + 8 * rows, 6.0 * b * h * pairs * d),
+        "flash_bwd_dkv": (2 * (2 * nq + 4 * nk) + 8 * rows, 8.0 * b * h * pairs * d),
+    }
+    out = {}
+    for op, (nbytes, flops) in work.items():
+        tb, to = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOP_S * 1e3
+        out[op] = (max(tb, to), "bytes" if tb >= to else "operations", int(nbytes), flops)
+    return out
+
+
+def flash_case(fl, name, b, h, tq, tk, d, causal, q_mul, flush, g):
+    """Forward and both backward kernels against their plain versions
+    (f32, same bf16 inputs; the backward's plain version gets the
+    kernel's own O and LSE, so it holds the backward kernels alone),
+    the limits above, and CUDA-event times of each kernel, its plain
+    version (bf16 operands, f32 inside), the library yardstick
+    (scaled_dot_product_attention forward; its backward, timed as
+    forward+backward minus forward, for both backward kernels) and the
+    bound."""
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+
+    def randn(*shape, mul=1.0):
+        return (torch.randn(*shape, device="cuda", generator=g) * mul).to(bf)
+
+    q = randn(b, tq, h, d, mul=q_mul)
+    k, v = randn(b, tk, h, d), randn(b, tk, h, d)
+    do = randn(b, tq, h, d)
+    sc = d ** -0.5
+    out, lse = fl.flash_forward(q, k, v, causal, sc)
+    delta = fl.flash_delta(out, do)
+    dq = fl.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc)
+    dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, causal, sc)
+    torch.cuda.synchronize()
+    for x, what in ((out, "O"), (lse, "LSE"), (dq, "dQ"), (dk, "dK"), (dv, "dV")):
+        if not torch.isfinite(x.float()).all():
+            raise AssertionError(f"{name}: non-finite kernel {what}")
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    ref_o, ref_lse = fl.flash_forward_plain(qf, kf, vf, causal, sc)
+    ref_dq = fl.flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, causal, sc)
+    ref_dk, ref_dv = fl.flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, causal, sc)
+    t_o, t_dq, t_dk, t_dv = flash_terms(q, k, v, out, do, lse, delta, causal, sc)
+    errs = {}
+    for what, got, ref, lim in (
+        ("O", out, ref_o, flash_limit(ref_o, t_o)),
+        ("LSE", lse, ref_lse, flash_lse_limit(q, k, ref_lse, sc)),
+        ("dQ", dq, ref_dq, flash_limit(ref_dq, t_dq)),
+        ("dK", dk, ref_dk, flash_limit(ref_dk, t_dk)),
+        ("dV", dv, ref_dv, flash_limit(ref_dv, t_dv)),
+    ):
+        errs[what] = _ratio(got, ref, lim)
+        if errs[what][1] > 1.0:
+            raise AssertionError(
+                f"{name}: |kernel {what} - plain| exceeds its limit "
+                f"{errs[what][1]:.2f}x (max abs error {errs[what][0]})")
+    control = None
+    if name == "lm_base_train":
+        # Negative control: the kernel with each row's last key tile
+        # dropped must fail the O limit.
+        bad, _ = fl.flash_forward(q, k, v, causal, sc, drop_last_tile=True)
+        control = _ratio(bad, ref_o, flash_limit(ref_o, t_o))[1]
+        if not control > 1.0:
+            raise AssertionError(f"{name}: the dropped-tile variant passes ({control:.2f}x)")
+        del bad
+    del ref_o, ref_dq, ref_dk, ref_dv, t_o, t_dq, t_dk, t_dv
+
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, scale=sc)
+
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, scale=sc)
+        return torch.autograd.grad(o, (qg, kg, vg), doh)
+
+    with torch.no_grad():
+        times = {
+            "flash_fwd": time_ms(lambda: fl.flash_forward(q, k, v, causal, sc), flush),
+            "flash_bwd_dq": time_ms(
+                lambda: fl.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc), flush),
+            "flash_bwd_dkv": time_ms(
+                lambda: fl.flash_bwd_dkv(q, k, v, do, lse, delta, causal, sc), flush),
+        }
+        plain = {
+            "flash_fwd": time_ms(lambda: fl.flash_forward_plain(q, k, v, causal, sc), flush),
+            "flash_bwd_dq": time_ms(
+                lambda: fl.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, sc), flush),
+            "flash_bwd_dkv": time_ms(
+                lambda: fl.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, sc), flush),
+        }
+        sdpa_fwd = time_ms(sdpa, flush)
+    sdpa_fb = time_ms(sdpa_fwd_bwd, flush)
+    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_fb - sdpa_fwd,
+               "flash_bwd_dkv": sdpa_fb - sdpa_fwd}
+    bounds = flash_bounds(b, h, tq, tk, d, causal)
+    return {
+        "case": name, "shape": {"B": b, "H": h, "Tq": tq, "Tk": tk, "d": d,
+                                "causal": causal, "q_mul": q_mul},
+        "max_abs_err": {w: e[0] for w, e in errs.items()},
+        "err_over_limit": {w: e[1] for w, e in errs.items()},
+        "negative_control_O_err_over_limit": control,
+        "kernels": {op: {"ms": times[op], "plain_ms": plain[op], "library_ms": library[op],
+                         "bound_ms": bounds[op][0], "bound_by": bounds[op][1],
+                         "bytes": bounds[op][2], "flops": bounds[op][3]}
+                    for op in FLASH_OPS},
+        "sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_fb,
+    }
+
+
+def flash_phase(fl, flush):
+    g = torch.Generator(device="cuda").manual_seed(2468)
+    cases = []
+    for case in FLASH_CASES:
+        cases.append(flash_case(fl, *case, flush, g))
+        torch.cuda.empty_cache()
+    return cases
+
+
+def _flash_entry(op, cases, launches):
+    main_case = next(c for c in cases if c["case"] == "lm_base_train")["kernels"][op]
+    outputs = {"flash_fwd": ("O",), "flash_bwd_dq": ("dQ",), "flash_bwd_dkv": ("dK", "dV")}[op]
+    return {
+        "name": op, "route": "cuda",
+        "source": "distributeddeeplearning_tpu_torch/csrc/flash.cu",
+        "replaces": "distributeddeeplearning_tpu/ops/pallas/flash.py:"
+                    + {"flash_fwd": "179", "flash_bwd_dq": "371", "flash_bwd_dkv": "394"}[op],
+        "launches": launches,
+        "max_abs_err": max(c["max_abs_err"][w] for c in cases for w in outputs),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"], "timed_case": "lm_base_train",
+    }
+
+
 def serving_phase(pd, card):
     from distributeddeeplearning_tpu_torch.models import convert, get_model
     from distributeddeeplearning_tpu_torch.serving import Request, ServeConfig, Server
@@ -651,14 +902,30 @@ def train_phase(fb, card, fused, warmup=3, timed=20, device="cuda", **size):
     return line, state, step, batches
 
 
-def profile_train(state, step, batches, card, step_ms, steps=5):
-    """Where a fused training step's time goes: ``steps`` steady steps
-    under ``torch.profiler`` (device activity only, to keep the tracer
-    off the host's critical path). Reports the step's wall under the
-    profiler, the device time summed over kernels and copies, the busy
-    share against that wall and against ``step_ms`` (the same step
-    timed without the profiler), the top kernels by device time and the
-    fused-block kernels' own share."""
+def _family(key: str) -> str:
+    """A device kernel's family, by name."""
+    k = key.lower()
+    for fam, marks in (("flash (ours)", ("flash_",)),
+                       ("fused_block (ours)", ("matmul_stats", "reduce_partials")),
+                       ("gemm (library)", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
+                       ("conv (library)", ("conv", "cudnn")),
+                       ("copy/set", ("memcpy", "memset")),
+                       ("reduce/softmax/norm", ("reduce", "softmax", "norm", "logsumexp")),
+                       ("elementwise", ("elementwise", "vectorized", "foreach"))):
+        if any(m in k for m in marks):
+            return fam
+    return "other"
+
+
+def profile_train(state, step, batches, card, step_ms, what, ours, steps=5):
+    """Where a training step's time goes: ``steps`` steady steps under
+    ``torch.profiler`` (device activity only, to keep the tracer off the
+    host's critical path). Reports the step's wall under the profiler,
+    the device time summed over kernels and copies, the busy share
+    against that wall and against ``step_ms`` (the same step timed
+    without the profiler), device ms by kernel family, the top kernels
+    by device time and the port's own kernels (names containing one of
+    ``ours``) with their share of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -674,20 +941,27 @@ def profile_train(state, step, batches, card, step_ms, steps=5):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.device_time_total for e in events) / 1e3 / steps
     top = sorted(events, key=lambda e: -e.device_time_total)[:10]
-    ours = [e for e in events if "matmul_stats_kernel" in e.key or "reduce_partials" in e.key]
+    mine = [e for e in events if any(o in e.key for o in ours)]
+    families = {}
+    for e in events:
+        fam = _family(e.key)
+        families[fam] = families.get(fam, 0.0) + e.device_time_total / 1e3 / steps
+    mine_ms = sum(e.device_time_total for e in mine) / 1e3 / steps
     measured = device_ms > 0
     print("profile " + json.dumps({
-        "what": "fused resnet50 train step, batch 64, 224 px, bf16",
+        "what": what,
         "step_wall_ms_profiled": wall_ms, "step_wall_ms_unprofiled": step_ms,
         "step_device_ms": device_ms if measured else "not measured",
         "device_busy_share": device_ms / wall_ms if measured else "not measured",
         "device_busy_share_vs_unprofiled": device_ms / step_ms if measured else "not measured",
+        "device_ms_per_step_by_family": families,
         "top_kernels_ms_per_step": {
             e.key[:90]: e.device_time_total / 1e3 / steps for e in top},
         "top_kernels_launches_per_step": {e.key[:90]: e.count / steps for e in top},
-        "fused_block_kernels": {
+        "our_kernels": {
             e.key[:90]: {"ms_per_step": e.device_time_total / 1e3 / steps,
-                         "launches_per_step": e.count / steps} for e in ours},
+                         "launches_per_step": e.count / steps} for e in mine},
+        "our_kernels_share_of_device": mine_ms / device_ms if measured else "not measured",
         "device_kernel_launches_per_step": sum(e.count for e in events) / steps,
         "card": card,
     }), flush=True)
@@ -770,6 +1044,163 @@ def fused_vs_unfused_step(depth=50, image_size=224, batch=64, num_classes=1000,
     return res
 
 
+# The pallas and xla lm_base steps from the same weights and batch: the
+# limits (derived in lm_pallas_vs_xla_step's docstring).
+LM_AGREE_LOSS_REL = 1e-3
+LM_AGREE_UPDATE_REL = 0.1
+LM_AGREE_LOGITS_REL = 2 ** -4
+
+
+def _lm_setup(attn_impl, *, variant="base", batch=8, seq=1024, vocab=32_000,
+              num_physical_batches=4, state_dict=None, device="cuda"):
+    """The port's entry points as a user calls them for LM training
+    (bench.py's LM protocol): config, synthetic tokens, model, optimizer,
+    seeded train state and step, on the card (``device="cpu"``
+    rehearses the flow at a small size)."""
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+    from distributeddeeplearning_tpu_torch.data import SyntheticTokenDataset
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.training import (
+        create_optimizer,
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = TrainConfig(model=f"lm_{variant}", batch_size_per_device=batch, num_classes=vocab,
+                      attn_impl=attn_impl)
+    ds = SyntheticTokenDataset(global_batch_size=cfg.global_batch_size, seq_len=seq,
+                               vocab_size=vocab, num_physical_batches=num_physical_batches,
+                               seed=cfg.seed)
+    model = get_model(cfg.model, **cfg.model_kwargs(), max_seq_len=seq, device=device)
+    tx, _ = create_optimizer(cfg, ds.steps_per_epoch)
+    state = create_train_state(model, cfg, tx, device=device, state_dict=state_dict)
+    return cfg, ds, model, state, make_train_step(model, tx, cfg, device=device)
+
+
+def lm_train_phase(fl, card, attn_impl, warmup=3, timed=20, device="cuda", **size):
+    """lm_base (vocab 32,000, T = 1024, batch 8, bf16) on the port's
+    synthetic tokens: ``warmup`` steps, then ``timed`` steps closed by a
+    host readback of the loss. Checks finite losses and, with
+    ``attn_impl="pallas"`` on the card, each flash kernel launched once
+    per layer per forward (``flash_fwd``) or backward (``flash_bwd_dq``,
+    ``flash_bwd_dkv``); with ``"xla"`` none."""
+    from distributeddeeplearning_tpu_torch.data import prefetch_to_device
+
+    t0 = time.perf_counter()
+    cfg, ds, model, state, step = _lm_setup(attn_impl, device=device, **size)
+    batches = prefetch_to_device(ds.epoch(0), device)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    losses = []
+    for _ in range(warmup):
+        state, m = step(state, next(batches))
+        losses.append(m["loss"])
+    _sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    fl.launches = 0
+    for k in fl.launches_by_op:
+        fl.launches_by_op[k] = 0
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, m = step(state, next(batches))
+        losses.append(m["loss"])
+    float(m["loss"])  # host readback closes the timed window
+    wall = time.perf_counter() - t0
+    launches, by_op = fl.launches, dict(fl.launches_by_op)
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    on_card = attn_impl == "pallas" and device == "cuda"
+    want = {k: (model.depth * timed if on_card else 0) for k in by_op}
+    if by_op != want or launches != sum(want.values()):
+        raise AssertionError(
+            f"{attn_impl}: launches {by_op} over {timed} forwards and backwards, want {want}")
+    tokens = timed * cfg.global_batch_size * ds.seq_len
+    line = {
+        "path": attn_impl, "model": cfg.model, "seq_len": ds.seq_len,
+        "batch": cfg.global_batch_size, "vocab": cfg.num_classes, "dtype": cfg.compute_dtype,
+        "tokens_per_s": tokens / wall, "step_ms": wall / timed * 1e3,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "launches": launches, "launches_by_op": by_op, "forwards": timed, "backwards": timed,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+                        else "not measured"), "setup_s": setup_s, "card": card,
+    }
+    print("lmtrain " + json.dumps(line), flush=True)
+    return line, state, step, batches
+
+
+def _lm_group(name: str) -> str:
+    if ".attn." in name:
+        return "attention"
+    if ".mlp." in name:
+        return "mlp"
+    if "embed" in name:
+        return "embeddings"
+    return "layernorm"
+
+
+def lm_pallas_vs_xla_step(variant="base", batch=8, seq=1024, vocab=32_000, device="cuda"):
+    """One ``pallas`` and one ``xla`` bf16 step from the same seeded
+    weights on the same batch, and whether they agree. Limits:
+
+    * loss: |L_pallas - L_xla| / |L_xla| <= 1e-3;
+    * updates, per group (attention, MLP, embeddings, LayerNorm):
+      ||Δ_pallas - Δ_xla|| / ||Δ_xla|| <= 0.1;
+    * logits at the initial weights: max |pallas - xla| <= 2**-4 of the
+      largest |logit|.
+
+    Derivation, written before the first run on the card: the two
+    attentions round at other places. The xla path rounds its scores to
+    bf16 before the softmax (ops/attention.py, as the JAX package's
+    ``_xla_attention``), an error of up to 2**-9 of each score, which
+    moves each probability by about that times the score's size, and it
+    rounds p·V's weights; the kernels keep f32 scores and round p (and
+    ds in the backward) to bf16. So the two steps differ by bf16 noise
+    in every attention output, carried through 12 layers. A CPU
+    rehearsal of this function (plain versions in bf16; lm_small at
+    batch 2 and lm_base at batch 1, T = 256) read: loss 3.1e-5 and
+    4.2e-6, update gaps 0.008-0.014 per group, logits 0.011 and 0.012 of
+    the largest; the limits are 5-30x those, for the longer sequences
+    and larger batch on the card. The same rehearsal with the causal
+    mask dropped from the pallas path read update gaps 1.0-1.5 and
+    logits 1.3 (and fails); an O 1 % too large read 0.02-0.03, which
+    only the kernel cases catch. Predicted on the card: loss ~1e-4,
+    update gaps 0.01-0.05, logits 0.01-0.03."""
+    from distributeddeeplearning_tpu_torch.models import convert
+
+    sd = convert.init_params(variant, vocab, torch.Generator(device=device).manual_seed(42),
+                             seq)
+    out = {}
+    for impl in ("xla", "pallas"):
+        cfg, ds, model, state, step = _lm_setup(
+            impl, variant=variant, batch=batch, seq=seq, vocab=vocab,
+            num_physical_batches=1, state_dict=sd, device=device)
+        tokens, labels = next(iter(ds.epoch(0)))
+        with torch.no_grad():
+            logits = model(torch.from_numpy(tokens).to(device)).float()
+        state, m = step(state, (tokens, labels))
+        out[impl] = (float(m["loss"]), logits,
+                     {k: v.detach().clone() for k, v in model.state_dict().items()})
+        del cfg, ds, model, state, step
+    (lx, gx, px), (lp, gp, pp) = out["xla"], out["pallas"]
+    logits_rel = ((gp - gx).abs().max() / gx.abs().max()).item()
+    sums = {}
+    for k, ref in sd.items():
+        dx, dp = px[k].double() - ref.double(), pp[k].double() - ref.double()
+        n, d = sums.get(_lm_group(k), (0.0, 0.0))
+        sums[_lm_group(k)] = (n + (dp - dx).pow(2).sum().item(), d + dx.pow(2).sum().item())
+    gaps = {grp: (n / d) ** 0.5 for grp, (n, d) in sums.items()}
+    res = {"loss_pallas": lp, "loss_xla": lx, "loss_rel": abs(lp - lx) / abs(lx),
+           "update_rel_by_group": gaps, "logits_rel": logits_rel,
+           "limits": {"loss_rel": LM_AGREE_LOSS_REL, "update_rel": LM_AGREE_UPDATE_REL,
+                      "logits_rel": LM_AGREE_LOGITS_REL}}
+    res["within_limits"] = (res["loss_rel"] <= LM_AGREE_LOSS_REL
+                            and max(gaps.values()) <= LM_AGREE_UPDATE_REL
+                            and logits_rel <= LM_AGREE_LOGITS_REL)
+    return res
+
+
 def _fb_entry(name, cases, timed_case, launches):
     main_case = next(c for c in cases if c["case"] == timed_case)
     return {
@@ -786,7 +1217,7 @@ def _fb_entry(name, cases, timed_case, launches):
     }
 
 
-PHASES = ("kernels", "serve", "train")
+PHASES = ("kernels", "serve", "train", "lmtrain")
 
 
 def main(argv=None) -> int:
@@ -802,6 +1233,7 @@ def main(argv=None) -> int:
         _die("CUDA is not available; this smoke runs the port on an NVIDIA GPU")
     try:
         from distributeddeeplearning_tpu_torch.ops import _build
+        from distributeddeeplearning_tpu_torch.ops import flash as fl
         from distributeddeeplearning_tpu_torch.ops import fused_block as fb
         from distributeddeeplearning_tpu_torch.ops import paged_decode as pd
     except ImportError as e:
@@ -821,7 +1253,7 @@ def main(argv=None) -> int:
         _build.build(name)
         return time.perf_counter() - t0
 
-    names = ("paged_decode", "fused_block")
+    names = ("paged_decode", "fused_block", "flash")
     with ThreadPoolExecutor(len(names)) as pool:
         secs = list(pool.map(timed_build, names))
     for name, sec in zip(names, secs):
@@ -831,12 +1263,13 @@ def main(argv=None) -> int:
                 print(f"ptxas {name}:", line.strip(), flush=True)
 
     entries = []
-    pd_cases = fb_cases = None
+    pd_cases = fb_cases = flash_cases = None
     if "kernels" in phases:
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
         pd_cases = kernel_phase(pd, flush)
         fb_cases = fused_block_phase(fb, flush)
-        for c in pd_cases + fb_cases:
+        flash_cases = flash_phase(fl, flush)
+        for c in pd_cases + fb_cases + flash_cases:
             print("case " + json.dumps(c), flush=True)
         del flush
         torch.cuda.empty_cache()
@@ -863,7 +1296,9 @@ def main(argv=None) -> int:
     if "train" in phases:
         fused_line, state, step, batches = train_phase(fb, card, fused=True)
         by_op = fused_line["launches_by_op"]
-        profile_train(state, step, batches, card, fused_line["step_ms"])
+        profile_train(state, step, batches, card, fused_line["step_ms"],
+                      "fused resnet50 train step, batch 64, 224 px, bf16",
+                      ("matmul_stats_kernel", "reduce_partials"))
         del state, step, batches
         torch.cuda.empty_cache()
         _, state, step, batches = train_phase(fb, card, fused=False)
@@ -881,6 +1316,25 @@ def main(argv=None) -> int:
                 _fb_entry("bn_relu_matmul_stats", fb_cases,
                           "bn_relu_matmul_stats/stage1_conv3", by_op["bn_relu_matmul_stats"]),
             ]
+
+    if "lmtrain" in phases:
+        line, state, step, batches = lm_train_phase(fl, card, "pallas")
+        by_op = line["launches_by_op"]
+        profile_train(state, step, batches, card, line["step_ms"],
+                      "lm_base train step (attn_impl=pallas), batch 8, T 1024, bf16",
+                      ("flash_",))
+        del state, step, batches
+        torch.cuda.empty_cache()
+        _, state, step, batches = lm_train_phase(fl, card, "xla")
+        batches.close()
+        del state, step, batches
+        torch.cuda.empty_cache()
+        agree = lm_pallas_vs_xla_step()
+        print("lmagree " + json.dumps(dict(agree, card=card)), flush=True)
+        if not agree["within_limits"]:
+            raise AssertionError(f"pallas and xla LM steps disagree: {agree}")
+        if flash_cases is not None:
+            entries += [_flash_entry(op, flash_cases, by_op[op]) for op in FLASH_OPS]
 
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,11 @@ Ported so far:
 * LM serving: ``models`` (decoder-only LM in decode mode),
   ``inference``, ``serving`` (slot engine, paged KV pool, prefix cache,
   scheduler) and the paged-decode attention kernel
-  (``ops/paged_decode.py`` + ``csrc/paged_decode.cu``).
+  (``ops/paged_decode.py`` + ``csrc/paged_decode.cu``);
+* data-parallel LM training: ``data`` (synthetic tokens), the LM with
+  ``attn_impl="pallas"`` through the flash-attention kernels
+  (``ops/flash.py`` + ``csrc/flash.cu``: forward, dq, dk/dv) and the
+  same train step.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (the CPU tier's parity tests do). Importing the package

@@ -1,5 +1,6 @@
 """Typed training configuration: the port's twin of the JAX package's
-``config.TrainConfig`` for the fields the data-parallel ResNet slice reads.
+``config.TrainConfig`` for the fields the data-parallel ResNet and LM
+training slices read.
 
 Field names, defaults and ``from_env`` parsing are the JAX package's. A
 field of a later slice that the dataclass carries (``engine``,
@@ -28,7 +29,7 @@ IMAGENET_TRAIN_LENGTH = 1_281_167  # FAKE_DATA_LENGTH default
 # Fields of later slices: (default, the slice that implements the rest).
 _GATED = {
     "engine": ("dp", "the mesh/engine slice (pjit, pp, sp)"),
-    "optimizer": ("sgd", "the adamw optimizer of the LM-training slice"),
+    "optimizer": ("sgd", "the adamw optimizer (a later slice)"),
     "accum_steps": (1, "in-step accumulation (training/accum.py)"),
     "grad_accum_steps": (1, "multi-step accumulation (training/accum.py)"),
     "fake": (True, "the real-data pipeline (data/imagenet.py, data/stream/)"),
@@ -44,9 +45,9 @@ _LATER_ENV = {
     "PREFETCH_HOST_BATCHES": "the real-data pipeline",
     "AZ_BATCHAI_INPUT_TRAIN": "the real-data pipeline", "DATA_DIR": "the real-data pipeline",
     "AZ_BATCHAI_INPUT_TEST": "the real-data pipeline", "VAL_DATA_DIR": "the real-data pipeline",
-    "ATTN_IMPL": "the ViT and LM-training slices", "MOE_EXPERTS": "the LM-training slice",
-    "REMAT": "the ViT and LM-training slices",
-    "DECOUPLED_WEIGHT_DECAY": "the adamw optimizer of the LM-training slice",
+    "MOE_EXPERTS": "the MoE slice (models/moe.py)",
+    "REMAT": "the gradient-checkpointing slice",
+    "DECOUPLED_WEIGHT_DECAY": "the adamw optimizer (a later slice)",
     "PP_STAGES": "the mesh/engine slice", "PP_MICROBATCHES": "the mesh/engine slice",
     "PP_SCHEDULE": "the mesh/engine slice", "PARAM_SHARDING": "the mesh/engine slice",
     "ALLOW_SYNC_BN": "the mesh/engine slice", "MESH_AXES": "the mesh/engine slice",
@@ -63,6 +64,14 @@ _LATER_ENV = {
     "ASYNC_COLLECTIVES": "the mesh/engine slice",
     "NONFINITE_ACTION": "the training loop (training/loop.py)",
     "ELASTIC": "the process tier", "LR_WORLD_SIZE": "the process tier",
+}
+
+
+# Attention implementations of later slices.
+_LATER_ATTN = {
+    "ring": "the sp engine (parallel/ring_attention.py)",
+    "fused": "the ViT slice (ops/pallas/flash_packed.py)",
+    "auto": "the ViT slice (ops/pallas/flash_packed.py)",
 }
 
 
@@ -83,6 +92,9 @@ class TrainConfig:
     # Host->device image staging: "auto" (the compute dtype) | "uint8"
     # (raw RGB bytes, normalised on the device) | "float32" | "bfloat16".
     input_staging: str = "auto"
+    # Attention of the attention models (the LM): "xla" plain masked
+    # softmax | "pallas" the flash kernels (ops/flash.py).
+    attn_impl: str = "xla"
 
     # Optimization: LR 0.001 x world size, momentum 0.9, L2 5e-5 on
     # kernels, 5-epoch warmup, x0.1 at 30/60/80.
@@ -121,6 +133,13 @@ class TrainConfig:
                     f"{name}={getattr(self, name)!r}: the port supports only "
                     f"{default!r} so far; the rest comes with {later}"
                 )
+        if self.attn_impl in _LATER_ATTN:
+            raise NotImplementedError(
+                f"attn_impl={self.attn_impl!r}: the port has 'xla' and 'pallas' so "
+                f"far; {self.attn_impl!r} comes with {_LATER_ATTN[self.attn_impl]}"
+            )
+        if self.attn_impl not in ("xla", "pallas"):
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -139,6 +158,13 @@ class TrainConfig:
     @property
     def global_batch_size(self) -> int:
         return self.batch_size_per_device * self.data_parallel_width
+
+    def model_kwargs(self) -> dict:
+        """The ``get_model`` kwargs this config implies, as the JAX
+        package's ``model_kwargs`` (``attn_impl`` reaches the LM family
+        only)."""
+        return dict(num_classes=self.num_classes, dtype=self.compute_dtype,
+                    attn_impl=self.attn_impl)
 
     def steps_per_epoch(self, data_length: Optional[int] = None) -> int:
         n = data_length if data_length is not None else self.fake_data_length
@@ -164,6 +190,7 @@ class TrainConfig:
             "LR": ("base_lr", float),
             "MODEL": ("model", str),
             "COMPUTE_DTYPE": ("compute_dtype", str),
+            "ATTN_IMPL": ("attn_impl", str),
             "OPTIMIZER": ("optimizer", str),
             "LR_SCHEDULE": ("lr_schedule", str),
             "INPUT_STAGING": ("input_staging", str),

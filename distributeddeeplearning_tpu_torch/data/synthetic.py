@@ -1,13 +1,14 @@
-"""Seeded synthetic images with a virtual length: the port of the JAX
-package's ``data/synthetic.SyntheticImageDataset``, batch for batch.
+"""Seeded synthetic images and tokens with a virtual length: the port of
+the JAX package's ``data/synthetic.SyntheticImageDataset`` and
+``SyntheticTokenDataset``, batch for batch.
 
 A small physical pool of seeded random images is indexed through a
 seeded translation index of virtual length N, so an epoch has realistic
 size without disk. The pool comes from the splitmix64 fill
 (``native.fill_uniform``), the labels, the translation index and the
 per-epoch permutation from ``numpy.random.RandomState``, exactly as in
-the JAX package, so both yield the same numpy NHWC batches bit for bit.
-``SyntheticTokenDataset`` comes with the LM-training slice.
+the JAX package, so both yield the same numpy NHWC batches bit for bit;
+the token pool is the JAX package's ``RandomState`` draw too.
 """
 
 from __future__ import annotations
@@ -136,6 +137,60 @@ class SyntheticImageDataset:
                 yield images, labels, (slots < self._local_len).astype(np.float32)
             else:
                 yield images, labels
+
+    def __iter__(self):
+        return self.epoch(0)
+
+
+class SyntheticTokenDataset:
+    """Seeded random token stream for LM training (the ``FAKE=True``
+    contract, token edition): a physical pool of ``[seq_len + 1]`` token
+    rows indexed through the seeded translation index, yielding
+    ``(tokens[:, :-1], tokens[:, 1:])`` int32 next-token pairs, this
+    process's share of each global batch. ``topology`` as in
+    :class:`SyntheticImageDataset`."""
+
+    def __init__(self, *, length: int = 100_000, global_batch_size: int,
+                 seq_len: int = 128, vocab_size: int = 32_000,
+                 num_physical_batches: int = 20, seed: int = 42, process_index: int = 0,
+                 process_count: int = 1, topology: str = "process"):
+        _check_divisible(global_batch_size, process_count)
+        self.length = length
+        self.global_batch_size = global_batch_size
+        self.local_batch_size = global_batch_size // process_count
+        self.seq_len = seq_len
+        self.vocab_size = vocab_size
+        self.process_index = process_index
+        self.process_count = process_count
+        self.topology = _check_topology(topology)
+
+        rng = np.random.RandomState(seed)
+        if self.topology == "global":
+            pool_n = num_physical_batches * global_batch_size
+            idx_args = (seed, 0, pool_n, length)
+        else:
+            pool_n = num_physical_batches * self.local_batch_size
+            idx_args = (seed, process_index, pool_n, length // process_count)
+        self._rows = rng.randint(0, vocab_size, size=(pool_n, seq_len + 1)).astype(np.int32)
+        self._idx_seed, self._translation_index = _virtual_translation(*idx_args)
+        self.steps_per_epoch = max(length // global_batch_size, 1)
+
+    def __len__(self) -> int:
+        return self.length
+
+    def epoch(self, epoch_index: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Yield ``steps_per_epoch`` local batches ``(tokens, labels)``
+        ``[b, seq_len]`` int32, deterministic in ``(seed, epoch_index,
+        process_index)``."""
+        b = self.local_batch_size
+        index = _epoch_permutation(self._idx_seed, self._translation_index, epoch_index)
+        for step in range(self.steps_per_epoch):
+            if self.topology == "global":
+                start = step * self.global_batch_size + self.process_index * b
+            else:
+                start = step * b
+            rows = self._rows[index[np.arange(start, start + b) % len(index)]]
+            yield rows[:, :-1], rows[:, 1:]
 
     def __iter__(self):
         return self.epoch(0)

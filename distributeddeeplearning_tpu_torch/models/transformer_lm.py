@@ -7,7 +7,9 @@ one-pass variance, its output cast to the compute dtype; a residual
 stream in the compute dtype; a tied output head computed with f32
 accumulation and stored in the compute dtype.
 
-``forward(tokens)`` is the full causal forward. ``forward(tokens,
+``forward(tokens)`` is the full causal forward, its attention through
+``attn_impl`` (``"xla"``, the default, serving's plain masked softmax;
+``"pallas"``, the flash kernels of training). ``forward(tokens,
 cache)`` is decode mode: the tokens sit at positions ``cache.index ..
 +t`` (a scalar start or per-row starts), their K/V are written into
 ``cache`` in place, and attention runs over the cache. Per-row position
@@ -18,7 +20,7 @@ callers keep ``start + t <= max_seq_len`` (the serving engine's
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -61,11 +63,11 @@ class LayerNorm(nn.Module):
 
 class DecoderBlock(nn.Module):
     def __init__(self, hidden: int, num_heads: int, mlp_dim: int,
-                 dtype: torch.dtype, device=None) -> None:
+                 dtype: torch.dtype, device=None, attn_impl: str = "xla") -> None:
         super().__init__()
         self.dtype = dtype
         self.ln1 = LayerNorm(hidden, device=device)
-        self.attn = Attention(hidden, num_heads, dtype, device)
+        self.attn = Attention(hidden, num_heads, dtype, device, attn_impl)
         self.ln2 = LayerNorm(hidden, device=device)
         self.mlp = MlpBlock(hidden, mlp_dim, dtype, device)
 
@@ -82,7 +84,7 @@ class TransformerLM(nn.Module):
 
     def __init__(self, variant: str = "tiny", vocab_size: int = 32_000,
                  max_seq_len: int = 2048, dtype: torch.dtype = torch.bfloat16,
-                 device=None) -> None:
+                 device=None, attn_impl: str = "xla") -> None:
         super().__init__()
         if variant not in _VARIANTS:
             raise ValueError(f"variant must be one of {sorted(_VARIANTS)}")
@@ -96,15 +98,22 @@ class TransformerLM(nn.Module):
         self.num_heads = heads
         self.head_dim = hidden // heads
         self.depth = depth
+        self.attn_impl = attn_impl
         self.tok_embed = nn.Parameter(torch.empty(vocab_size, hidden, device=device))
         self.pos_embed = nn.Parameter(
             torch.empty(1, max_seq_len, hidden, device=device)
         )
         self.blocks = nn.ModuleList(
-            DecoderBlock(hidden, heads, mlp_dim, dtype, device)
+            DecoderBlock(hidden, heads, mlp_dim, dtype, device, attn_impl)
             for _ in range(depth)
         )
         self.ln_final = LayerNorm(hidden, device=device)
+
+    def kernel_parameters(self) -> Tuple[torch.Tensor, ...]:
+        """The Dense weights of every block (``qkv``, ``proj``, ``fc1``,
+        ``fc2``: the flax ``kernel`` leaves), what the L2 penalty covers;
+        the embeddings, biases and LayerNorm are exempt, as in JAX."""
+        return tuple(m.weight for m in self.modules() if isinstance(m, Dense))
 
     def cast_matmul_weights_(self) -> "TransformerLM":
         """Store every Dense weight/bias and the embeddings in the

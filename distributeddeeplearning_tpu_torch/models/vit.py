@@ -170,13 +170,16 @@ def _paged_decode(q, k, v, cache: KVCache, layer: int):
 class Attention(nn.Module):
     """Causal multi-head self-attention with a packed qkv projection
     (output laid out ``[..., 3, heads, head_dim]``). Without a cache it
-    attends over the whole input (plain masked softmax); with a
-    :class:`KVCache` it runs the decode paths."""
+    attends over the whole input through ``dot_product_attention`` with
+    ``attn_impl`` (``"xla"``: plain masked softmax; ``"pallas"``: the
+    flash kernels, which read q, k and v as views of the packed
+    projection); with a :class:`KVCache` it runs the decode paths."""
 
     def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype,
-                 device=None) -> None:
+                 device=None, attn_impl: str = "xla") -> None:
         super().__init__()
         self.num_heads = num_heads
+        self.attn_impl = attn_impl
         self.qkv = Dense(hidden, 3 * hidden, dtype, device)
         self.proj = Dense(hidden, hidden, dtype, device)
 
@@ -186,7 +189,7 @@ class Attention(nn.Module):
         qkv = self.qkv(x).view(b, t, 3, self.num_heads, d // self.num_heads)
         q, k, v = qkv.unbind(2)
         if cache is None:
-            out = dot_product_attention(q, k, v, causal=True)
+            out = dot_product_attention(q, k, v, causal=True, impl=self.attn_impl)
         elif cache.block_size:
             out = _paged_decode(q, k, v, cache, layer)
         else:

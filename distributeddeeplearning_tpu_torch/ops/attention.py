@@ -1,8 +1,14 @@
-"""Full-sequence attention (the port of ``ops/attention.py``'s ``xla``
-implementation): plain masked softmax attention over BTHD tensors, used
-by the LM's full forward (the re-forward reference of the serving
-path). The ``pallas`` (flash) and ``ring`` implementations are not
-ported yet.
+"""Full-sequence attention (the port of ``ops/attention.py``) over BTHD
+tensors, one signature, two implementations:
+
+* ``xla`` — plain masked softmax attention, step for step the JAX
+  package's ``_xla_attention`` (the LM's full forward in serving, and the
+  yardstick of the flash path in training);
+* ``pallas`` — flash attention (``ops/flash.flash_attention``): the
+  hand-written CUDA kernels on the card, their plain versions on the
+  CPU. The port keeps the JAX package's value name.
+
+The ``ring`` implementation (sequence parallelism) is not ported yet.
 """
 
 from __future__ import annotations
@@ -10,6 +16,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from distributeddeeplearning_tpu_torch.ops.flash import flash_attention
 
 
 def _xla_attention(
@@ -42,9 +50,12 @@ def dot_product_attention(
     scale: Optional[float] = None,
     impl: str = "xla",
 ) -> torch.Tensor:
-    """Multi-head attention over BTHD tensors (``impl="xla"`` only)."""
-    if impl != "xla":
-        raise NotImplementedError(
-            f"attention impl {impl!r} is not ported yet (have: 'xla')"
-        )
-    return _xla_attention(q, k, v, causal=causal, scale=scale)
+    """Multi-head attention over BTHD tensors (``impl`` ``"xla"`` or
+    ``"pallas"``)."""
+    if impl == "xla":
+        return _xla_attention(q, k, v, causal=causal, scale=scale)
+    if impl == "pallas":
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+    raise NotImplementedError(
+        f"attention impl {impl!r} is not ported yet (have: 'xla', 'pallas')"
+    )

@@ -1,5 +1,6 @@
 """Training state of the port: the step count, the model (parameters
-and BatchNorm running statistics) and the optimizer state.
+and, for a ResNet, BatchNorm running statistics) and the optimizer
+state.
 
 The JAX package's ``TrainState`` is an immutable pytree; here the model
 holds the parameters and buffers, the step updates them in place, and
@@ -16,6 +17,7 @@ import torch
 
 from distributeddeeplearning_tpu_torch.config import TrainConfig
 from distributeddeeplearning_tpu_torch.models import convert
+from distributeddeeplearning_tpu_torch.models.transformer_lm import TransformerLM
 from distributeddeeplearning_tpu_torch.utils.device import resolve_device
 
 
@@ -31,13 +33,19 @@ def create_train_state(model, config: TrainConfig, tx, device=None,
     """Deterministic seeded init on ``device`` (``None`` means CUDA, and
     raises without it): every rank that builds the same model from the
     same ``config.seed`` on the same kind of device holds the same
-    parameters, which is the broadcast (as in the JAX package). A given
-    ``state_dict`` (e.g. converted from flax) is loaded instead."""
+    parameters, which is the broadcast (as in the JAX package): an LM
+    from ``convert.init_params``, a ResNet from
+    ``convert.init_resnet_params``. A given ``state_dict`` (e.g.
+    converted from flax) is loaded instead."""
     dev = resolve_device(device)
     model.to(dev)
     if state_dict is None:
         gen = torch.Generator(device=dev).manual_seed(config.seed)
-        state_dict = convert.init_resnet_params(model.depth, model.num_classes, gen)
+        if isinstance(model, TransformerLM):
+            state_dict = convert.init_params(model.variant, model.vocab_size, gen,
+                                             model.max_seq_len)
+        else:
+            state_dict = convert.init_resnet_params(model.depth, model.num_classes, gen)
     model.load_state_dict(state_dict)
     return TrainState(step=0, model=model,
                       opt_state=tx.init(list(model.parameters())))

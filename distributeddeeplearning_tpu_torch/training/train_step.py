@@ -2,14 +2,19 @@
 ``training/train_step.make_train_step`` (dp engine) on one process per
 GPU.
 
-Per step, on this rank's slice of the global batch:
+Per step, on this rank's slice of the global batch (images and labels
+for a ResNet; tokens ``[B, T]`` and next-token labels ``[B, T]`` for an
+LM):
 
 * forward in train mode, with per-replica BatchNorm (each rank
-  normalises with its own batch statistics and moves its running stats);
-* loss = f32 sparse softmax cross-entropy, label smoothing as the JAX
+  normalises with its own batch statistics and moves its running stats;
+  the LM has none);
+* loss = f32 sparse softmax cross-entropy, the mean over examples (over
+  the ``B·T`` tokens of an LM), label smoothing as the JAX
   package smooths (``on = 1 - ls``, ``off = ls / (V - 1)``, not
   ``F.cross_entropy``'s ``ls / V``), plus ``weight_decay · Σw²`` over
-  the conv and Dense kernels only;
+  the model's ``kernel_parameters()`` (conv and Dense kernels) only;
+  accuracy is top-1 per example (per token);
 * with a process group of more than one rank: one all-reduce **mean** of
   the gradients, the BatchNorm running statistics and the metrics
   ``{loss, accuracy}`` (``grad_norm`` is taken from the reduced
@@ -68,9 +73,10 @@ def _bn_buffers(model):
 
 def make_train_step(model, optimizer, config: Optional[TrainConfig] = None,
                     process_group=None, device=None) -> Callable:
-    """``step(state, (images, labels)) -> (state, metrics)``: ``images``
-    NHWC and ``labels`` int, this rank's slice, as tensors on the
-    model's device or numpy (staged with ``data.to_device``).
+    """``step(state, (inputs, labels)) -> (state, metrics)``: ``inputs``
+    NHWC images (or ``[B, T]`` int tokens) and ``labels`` int, this
+    rank's slice, as tensors on the model's device or numpy (staged with
+    ``data.to_device``).
     ``metrics`` are 0-dim f32 tensors on the device: ``loss``,
     ``accuracy``, ``grad_norm``, means over the ranks.
 
@@ -90,11 +96,11 @@ def make_train_step(model, optimizer, config: Optional[TrainConfig] = None,
     buffers = _bn_buffers(model)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        images, labels = (to_device(batch, device) if not torch.is_tensor(batch[0])
+        inputs, labels = (to_device(batch, device) if not torch.is_tensor(batch[0])
                           else batch)
-        images = normalize_staged_images(images)
+        inputs = normalize_staged_images(inputs)
         model.train()
-        logits = model(images)
+        logits = model(inputs)
         loss = cross_entropy_loss(logits, labels, cfg.label_smoothing)
         loss = loss + l2_kernel_penalty(model, cfg.weight_decay)
         grads = list(torch.autograd.grad(loss, params))

@@ -3,9 +3,10 @@ CPU (driven by ``test_torch_train_step_dp.py``; imports no JAX).
 
     python _torch_dp_worker.py RANK WORLD PORT FUSED IN.npz OUT.npz
 
-``IN.npz`` holds the initial state dict (``sd/<name>``) and the global
-batches (``images<i>``, ``labels<i>``); rank 0 writes the metrics of
-every step and the final state dict to ``OUT.npz``.
+``IN.npz`` holds the initial state dict (``sd/<name>``), the config
+(``cfg/<field>``) and the global batches (``images<i>``, ``labels<i>``:
+images, or ``[B, T]`` tokens for an ``lm_*`` model); rank 0 writes the
+metrics of every step and the final state dict to ``OUT.npz``.
 """
 
 import sys
@@ -31,8 +32,12 @@ def main(rank, world, port, fused, path_in, path_out):
     data = np.load(path_in)
     cfg = TrainConfig(**{k[4:]: v.item() for k, v in data.items() if k.startswith("cfg/")})
     sd = {k[3:]: torch.from_numpy(v) for k, v in data.items() if k.startswith("sd/")}
+    if cfg.model.startswith("lm_"):
+        kw = dict(attn_impl=cfg.attn_impl, max_seq_len=int(data["images0"].shape[1]))
+    else:
+        kw = dict(fused=fused)
     model = get_model(cfg.model, num_classes=cfg.num_classes, dtype=cfg.compute_dtype,
-                      fused=fused, device="cpu")
+                      device="cpu", **kw)
     tx, _ = create_optimizer(cfg, int(data["steps_per_epoch"]))  # world from the group
     state = create_train_state(model, cfg, tx, device="cpu", state_dict=sd)
     step = make_train_step(model, tx, cfg, device="cpu")

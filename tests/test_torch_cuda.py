@@ -11,7 +11,11 @@ machine that has only PyTorch for CUDA:
   with the limits ``chip_smoke.py`` derives (``fb_y_limit``,
   ``fb_stats_limit``);
 * one fused and one unfused bf16 ResNet-50 step at full width from the
-  same weights and batch (``chip_smoke.fused_vs_unfused_step``).
+  same weights and batch (``chip_smoke.fused_vs_unfused_step``);
+* the three flash-attention kernels against their plain versions at
+  ``chip_smoke``'s ``cross_ragged`` and ``lm_base_train`` cases, with
+  its limits (``flash_limit``, ``flash_lse_limit``) and the launch
+  counters, and once through autograd on views of a packed qkv.
 """
 
 import sys
@@ -68,3 +72,63 @@ def test_cuda_fused_step_agrees_with_unfused_step():
 
     out = chip_smoke.fused_vs_unfused_step()  # full width, as its limits are derived
     assert out["within_limits"], out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cross_ragged", "lm_base_train"])
+def test_cuda_flash_kernels_match_plain(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the flash kernels are CUDA C++ for sm_90a")
+    import chip_smoke as cs
+    from distributeddeeplearning_tpu_torch.ops import flash as fl
+
+    _, b, h, tq, tk, d, causal, _ = next(c for c in cs.FLASH_CASES if c[0] == case)
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).to(torch.bfloat16)
+
+    q, k, v, do = randn(b, tq, h, d), randn(b, tk, h, d), randn(b, tk, h, d), randn(b, tq, h, d)
+    sc = d ** -0.5
+    before = dict(fl.launches_by_op)
+    out, lse = fl.flash_forward(q, k, v, causal, sc)
+    delta = fl.flash_delta(out, do)
+    dq = fl.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc)
+    dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, causal, sc)
+    torch.cuda.synchronize()
+    assert {op: fl.launches_by_op[op] - before[op] for op in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    ref_o, ref_lse = fl.flash_forward_plain(qf, kf, vf, causal, sc)
+    ref_dq = fl.flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, causal, sc)
+    ref_dk, ref_dv = fl.flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, causal, sc)
+    t_o, t_dq, t_dk, t_dv = cs.flash_terms(q, k, v, out, do, lse, delta, causal, sc)
+    assert ((lse - ref_lse).abs() <= cs.flash_lse_limit(q, k, ref_lse, sc)).all()
+    for got, ref, terms in ((out, ref_o, t_o), (dq, ref_dq, t_dq), (dk, ref_dk, t_dk),
+                            (dv, ref_dv, t_dv)):
+        assert ((got.float() - ref.float()).abs() <= cs.flash_limit(ref, terms)).all()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_autograd_on_packed_qkv_views():
+    """The LM's call: q, k, v as views of a packed [B, T, 3, H, d]
+    projection, through autograd: one launch of each kernel, and the
+    gradients of the same call on contiguous copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the flash kernels are CUDA C++ for sm_90a")
+    from distributeddeeplearning_tpu_torch.ops import flash as fl
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    qkv = torch.randn(2, 300, 3, 4, 64, device="cuda", generator=g).to(torch.bfloat16)
+    do = torch.randn(2, 300, 4, 64, device="cuda", generator=g).to(torch.bfloat16)
+    packed = qkv.clone().requires_grad_()
+    before = dict(fl.launches_by_op)
+    out = fl.flash_attention(*packed.unbind(2), causal=True)
+    (grad,) = torch.autograd.grad(out, packed, do)
+    assert {op: fl.launches_by_op[op] - before[op] for op in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    parts = [x.contiguous().requires_grad_() for x in qkv.unbind(2)]
+    ref = fl.flash_attention(*parts, causal=True)
+    grads = torch.autograd.grad(ref, parts, do)
+    assert torch.equal(out, ref)
+    assert torch.equal(grad, torch.stack(grads, dim=2))

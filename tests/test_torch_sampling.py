@@ -5,11 +5,12 @@ from JAX's own threefry bits (``serving/sampling.py``):
 
 * the uniforms are **bitwise** ``jax.random.uniform(key, (1, V),
   minval=tiny, maxval=1.)``;
-* the Gumbel noise ``-log(-log(u))`` is within ``2**-22·max(1, |g|)``
-  of ``jax.random.gumbel``'s: the two libraries' ``log`` differ in the
-  last bits (about 5e-7 absolute at V = 32,000 on the CPU), so a token
-  can flip only on a near-tie of two noisy logits, which these seeded
-  cases do not hit;
+* the Gumbel noise ``-log(-log(u))`` of the port and of
+  ``jax.random.gumbel`` each lies within ``4·2**-23·max(1, |g|)`` of the
+  f64 truth computed from the same (bitwise equal) uniforms: the two
+  libraries' ``log`` differ in the last bits, so a token can flip only
+  on a near-tie of two noisy logits, which these seeded cases do not
+  hit;
 * so ``sample_slot`` / ``sample_slots`` return the JAX sampler's token,
   and sampled ``lm_tiny`` streams served by the port equal the JAX
   ``Server``'s on the same f32 weights.
@@ -55,13 +56,28 @@ def test_uniforms_batched_rows_equal_each_key_alone():
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_gumbel_noise_within_log_roundoff_of_jax(seed):
+    """Each library's noise against the f64 truth ``-log(-log(u))`` of
+    the same f32 uniforms, not one library against the other. With
+    ``w = -log(u)``: an error of at most 2 ulps in ``w`` (``w`` near 1,
+    where g is near 0, has ulps of 2**-23) moves ``g = -log(w)`` by at
+    most 2·2**-23 absolute; the outer log adds at most 2 ulps of ``|g|``;
+    the f32 roundings sit inside those ulps. So each library's g lies
+    within 4·2**-23·max(1, |g|) of the truth. Measured on the CPU at
+    V = 32,000: the port 0.20-0.21 and JAX 0.29-0.32 of that limit.
+    (torch's CPU ``log`` goes through MKL's vector math, whose code path
+    depends on the CPU and the process; XLA's CPU ``log`` is its own
+    polynomial: an earlier test held the two to 2**-22·max(1, |g|) of
+    each other, which the sum of their errors can exceed.)"""
     v = 32_000
     key = keys.key_from_seed(seed)
     u = sampling.gumbel_uniforms(key[None], v, "cpu")[0]
     got = (-torch.log(-torch.log(u))).numpy()
     ref = np.asarray(jax.random.gumbel(jnp.asarray(key), (1, v)))[0]
-    limit = 2.0 ** -22 * np.maximum(1.0, np.abs(ref))
-    assert np.all(np.abs(got - ref) <= limit), np.max(np.abs(got - ref) / limit)
+    truth = -np.log(-np.log(u.numpy().astype(np.float64)))
+    limit = 4 * 2.0 ** -23 * np.maximum(1.0, np.abs(truth))
+    for name, g in (("port", got), ("jax", ref)):
+        err = np.abs(g.astype(np.float64) - truth)
+        assert np.all(err <= limit), (name, np.max(err / limit))
 
 
 CONFIGS = [(0.8, 5, 0.0), (0.8, 0, 0.7), (1.3, 6, 0.5), (0.8, 200, 0.9), (1.0, 0, 0.0)]
