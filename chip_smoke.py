@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--phases kernels,serve,train,lmtrain]
+    python3 chip_smoke.py [--phases kernels,serve,train,lmtrain,vittrain]
 
 (all phases by default). Any failure raises and the script exits
 non-zero.
@@ -23,7 +23,12 @@ non-zero.
    kernels (forward, dq, dk/dv) at lm_base training, its longest
    sequence, lm_large's head dim 96, ViT-B/16's ragged 197 tokens, a
    ragged cross-attention and a near one-hot softmax, with a negative
-   control (a variant that drops each row's last key tile must fail).
+   control (a variant that drops each row's last key tile must fail);
+   the two packed-QKV attention kernels (forward, packed backward) at
+   ViT-B/16 and ViT-L/16 training, T = 512, head dim 128 and a ragged
+   causal case, with the same negative control at ViT-B/16; and the
+   dW+db kernel at the four ViT-B/16 Dense shapes, the f32 head and a
+   ragged N.
 4. ``serve``: full-width ``lm_base`` with seeded random weights behind
    ``Server.build`` (paged KV, fused kernel, 8 slots) answers 16
    requests. Checks: lengths and vocab range, the kernel ran exactly
@@ -46,7 +51,16 @@ non-zero.
    steps; the same protocol with ``attn_impl="xla"`` (plain masked
    softmax) as the yardstick of the whole step; and one pallas against
    one xla step from the same weights and batch, within stated limits.
-7. The ``kernels`` JSON line (every kernel whose phases ran), then the
+7. ``vittrain``: ViT-B/16 (224 px, 1000 classes, batch 64, bf16)
+   through the same entry points on seeded synthetic images with
+   ``attn_impl="fused"`` and fused dense grads: 3 warm-up and 20 timed
+   steps, finite losses, exactly 12 launches per step of each packed
+   attention kernel and 49 of ``matmul_dw_db``; a profile of 5 steady
+   steps; the same protocol, and profile, with ``attn_impl="xla"`` and
+   stock Dense layers as the yardstick; one flagged against one yardstick step from
+   the same weights and batch, within stated limits; and ``"auto"``
+   taking the packed kernel once per layer of a forward on the card.
+8. The ``kernels`` JSON line (every kernel whose phases ran), then the
    contract's last line ``{"ok": true, "device": {...}}``.
 
 Exits with code 2 and prints no result when CUDA is absent or the port
@@ -906,6 +920,8 @@ def _family(key: str) -> str:
     """A device kernel's family, by name."""
     k = key.lower()
     for fam, marks in (("flash (ours)", ("flash_",)),
+                       ("packed attention (ours)", ("packed_",)),
+                       ("dw_db (ours)", ("dw_db_",)),
                        ("fused_block (ours)", ("matmul_stats", "reduce_partials")),
                        ("gemm (library)", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
                        ("conv (library)", ("conv", "cudnn")),
@@ -1201,6 +1217,422 @@ def lm_pallas_vs_xla_step(variant="base", batch=8, seq=1024, vocab=32_000, devic
     return res
 
 
+# Packed-QKV attention cases: (name, B, T, H, d, causal).
+FP_CASES = (
+    ("vit_b16", 64, 197, 12, 64, False),
+    ("vit_l16", 32, 197, 16, 64, False),
+    ("maxlen", 8, 512, 12, 64, False),
+    ("d128", 4, 257, 4, 128, False),
+    ("ragged_causal", 2, 100, 2, 64, True),
+)
+FP_OPS = ("fused_qkv_fwd", "fused_qkv_bwd")
+
+
+def fp_bounds(b, t, h, d, causal):
+    """Per kernel (bound_ms, bound_by, bytes, flops): qkv in and O out
+    (forward); qkv, O and dO in and dqkv out (backward); 4 and 10 flops
+    per (query, key) pair per head dim (QKᵀ and PV; QKᵀ again, dOVᵀ, dS·K,
+    dSᵀQ and PᵀdO)."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    row = b * t * h * d * 2  # bytes of one [B, T, H·d] bf16 tensor
+    work = {"fused_qkv_fwd": (4 * row, 4.0 * b * h * pairs * d),
+            "fused_qkv_bwd": (8 * row, 10.0 * b * h * pairs * d)}
+    out = {}
+    for op, (nbytes, flops) in work.items():
+        tb, to = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOP_S * 1e3
+        out[op] = (max(tb, to), "bytes" if tb >= to else "operations", int(nbytes), flops)
+    return out
+
+
+def fp_case(fp, fl, name, b, t, h, d, causal, flush, g):
+    """Both packed-attention kernels against their plain versions (f32,
+    the same bf16 inputs; the backward's plain version gets the kernel's
+    own O, so it holds the backward kernel alone), with the flash limits
+    (``flash_limit`` on the same rounding points: p rounded before P·V
+    and dV, ds before dQ and dK, each result once; ``flash_terms`` with
+    p̂ = exp(s − lse) = p/l), and CUDA-event times of each kernel, its
+    plain version (bf16 operands, f32 inside), the library yardstick
+    (scaled_dot_product_attention on the q, k, v views of the packed
+    projection; its backward timed as forward+backward minus forward)
+    and the bound. At ``vit_b16`` a forward that drops each query tile's
+    last key tile must fail the O limit."""
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    qkv = torch.randn(b, t, 3 * h * d, device="cuda", generator=g).to(bf)
+    do = torch.randn(b, t, h * d, device="cuda", generator=g).to(bf)
+    sc = d ** -0.5
+    out = fp.fused_qkv_forward(qkv, h, causal, sc)
+    dqkv = fp.fused_qkv_backward(qkv, out, do, h, causal, sc)
+    torch.cuda.synchronize()
+    for x, what in ((out, "O"), (dqkv, "dQKV")):
+        if not torch.isfinite(x.float()).all():
+            raise AssertionError(f"{name}: non-finite kernel {what}")
+    ref_o = fp.fused_qkv_attention_plain(qkv.float(), h, causal, sc)
+    ref_d = fp.fused_qkv_attention_backward_plain(qkv.float(), out.float(), do.float(), h,
+                                                  causal, sc)
+    q, k, v = qkv.view(b, t, 3, h, d).unbind(2)
+    o4, do4 = out.view(b, t, h, d), do.view(b, t, h, d)
+    lse = fl.flash_forward_plain(q.float(), k.float(), v.float(), causal, sc)[1]
+    t_o, t_dq, t_dk, t_dv = flash_terms(q, k, v, o4, do4, lse, fl.flash_delta(o4, do4),
+                                        causal, sc)
+    del lse
+    ref_o4 = ref_o.view(b, t, h, d)
+    errs = {"O": _ratio(o4, ref_o4, flash_limit(ref_o4, t_o))}
+    got_parts, ref_parts = dqkv.view(b, t, 3, h, d), ref_d.view(b, t, 3, h, d)
+    for i, (what, terms) in enumerate((("dQ", t_dq), ("dK", t_dk), ("dV", t_dv))):
+        errs[what] = _ratio(got_parts[:, :, i], ref_parts[:, :, i],
+                            flash_limit(ref_parts[:, :, i], terms))
+    for what, (err, ratio) in errs.items():
+        if ratio > 1.0:
+            raise AssertionError(
+                f"{name}: |kernel {what} - plain| exceeds its limit {ratio:.2f}x "
+                f"(max abs error {err})")
+    control = None
+    if name == "vit_b16":
+        bad = fp.fused_qkv_forward(qkv, h, causal, sc, drop_last_tile=True)
+        control = _ratio(bad.view(b, t, h, d), ref_o4, flash_limit(ref_o4, t_o))[1]
+        if not control > 1.0:
+            raise AssertionError(f"{name}: the dropped-tile variant passes ({control:.2f}x)")
+        del bad
+    del ref_o, ref_d, ref_o4, t_o, t_dq, t_dk, t_dv
+
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do4))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, scale=sc)
+
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, scale=sc)
+        return torch.autograd.grad(o, (qg, kg, vg), doh)
+
+    with torch.no_grad():
+        times = {
+            "fused_qkv_fwd": time_ms(lambda: fp.fused_qkv_forward(qkv, h, causal, sc), flush),
+            "fused_qkv_bwd": time_ms(
+                lambda: fp.fused_qkv_backward(qkv, out, do, h, causal, sc), flush),
+        }
+        plain = {
+            "fused_qkv_fwd": time_ms(
+                lambda: fp.fused_qkv_attention_plain(qkv, h, causal, sc), flush),
+            "fused_qkv_bwd": time_ms(
+                lambda: fp.fused_qkv_attention_backward_plain(qkv, out, do, h, causal, sc),
+                flush),
+        }
+        sdpa_fwd = time_ms(sdpa, flush)
+    sdpa_fb = time_ms(sdpa_fwd_bwd, flush)
+    library = {"fused_qkv_fwd": sdpa_fwd, "fused_qkv_bwd": sdpa_fb - sdpa_fwd}
+    bounds = fp_bounds(b, t, h, d, causal)
+    return {
+        "case": name, "shape": {"B": b, "T": t, "H": h, "d": d, "causal": causal},
+        "max_abs_err": {w: e[0] for w, e in errs.items()},
+        "err_over_limit": {w: e[1] for w, e in errs.items()},
+        "negative_control_O_err_over_limit": control,
+        "kernels": {op: {"ms": times[op], "plain_ms": plain[op], "library_ms": library[op],
+                         "bound_ms": bounds[op][0], "bound_by": bounds[op][1],
+                         "bytes": bounds[op][2], "flops": bounds[op][3]}
+                    for op in FP_OPS},
+    }
+
+
+def fp_phase(fp, fl, flush):
+    g = torch.Generator(device="cuda").manual_seed(1357)
+    cases = []
+    for case in FP_CASES:
+        cases.append(fp_case(fp, fl, *case, flush, g))
+        torch.cuda.empty_cache()
+    return cases
+
+
+def _fp_entry(op, cases, launches):
+    main_case = next(c for c in cases if c["case"] == "vit_b16")["kernels"][op]
+    outputs = {"fused_qkv_fwd": ("O",), "fused_qkv_bwd": ("dQ", "dK", "dV")}[op]
+    return {
+        "name": op, "route": "cuda",
+        "source": "distributeddeeplearning_tpu_torch/csrc/flash_packed.cu",
+        "replaces": "distributeddeeplearning_tpu/ops/pallas/flash_packed.py:"
+                    + {"fused_qkv_fwd": "259", "fused_qkv_bwd": "285"}[op],
+        "launches": launches,
+        "max_abs_err": max(c["max_abs_err"][w] for c in cases for w in outputs),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"], "timed_case": "vit_b16",
+    }
+
+
+H100_F32_FLOP_S = 67e12  # float32 outside the tensor cores
+
+# dW+db cases: (name, N, K, M, dtype). ViT-B/16 at batch 64: N = 64·197.
+FG_CASES = (
+    ("vit_b16_qkv", 12_608, 768, 2304, torch.bfloat16),
+    ("vit_b16_proj", 12_608, 768, 768, torch.bfloat16),
+    ("vit_b16_fc1", 12_608, 768, 3072, torch.bfloat16),
+    ("vit_b16_fc2", 12_608, 3072, 768, torch.bfloat16),
+    ("vit_b16_head_f32", 64, 768, 1000, torch.float32),
+    ("ragged_n", 1000, 256, 384, torch.bfloat16),
+)
+
+
+def fg_limit(terms: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-element limit on |kernel - f32 plain| for dW and db: each is a
+    sum of n products that are exact in f32 (bf16 inputs) or rounded once
+    (f32 FMA), taken in another order on each side. Recursive f32
+    summation errs by at most n·2**-24·Σ|terms|, and a tensor-core
+    accumulation that truncates instead of rounding by n·2**-23·Σ|terms|,
+    so the two sides differ by less than n·(2**-23 + 2**-24)·Σ|terms| <
+    n·2**-22·Σ|terms|, the limit. Real sums err far less (like √n). It
+    still catches a lost row chunk: in the ragged case (N = 1,000, a last
+    chunk of 8 rows of unit normals) dropping it moves a dW element by
+    about √8 = 2.8 against a limit of about 0.15; and any indexing error
+    (order 1 of the result)."""
+    return n * 2 ** -22 * terms
+
+
+def fg_case(fg, name, n, k, m, dtype, flush, g):
+    """``matmul_dw_db`` against its plain version run in f32 on the same
+    inputs, the limit above, CUDA-event times of the kernel, the plain
+    version, the library yardstick (``torch.matmul(g.T, x)`` and
+    ``g.float().sum(0)``) and the bound."""
+    x = torch.randn(n, k, device="cuda", generator=g).to(dtype)
+    gr = torch.randn(n, m, device="cuda", generator=g).to(dtype)
+    dw, db = fg.matmul_dw_db_cuda(x, gr)
+    torch.cuda.synchronize()
+    if dw.shape != (m, k) or db.shape != (m,) or dw.dtype != torch.float32:
+        raise AssertionError(f"{name}: dW {tuple(dw.shape)} {dw.dtype}, db {tuple(db.shape)}")
+    if not (torch.isfinite(dw).all() and torch.isfinite(db).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    ref_dw, ref_db = fg.matmul_dw_db_plain(x, gr)
+    xa, ga = x.float().abs(), gr.float().abs()
+    errs = {"dW": _ratio(dw, ref_dw, fg_limit(ga.t() @ xa, n)),
+            "db": _ratio(db, ref_db, fg_limit(ga.sum(0), n))}
+    del xa, ga, ref_dw, ref_db
+    for what, (err, ratio) in errs.items():
+        if ratio > 1.0:
+            raise AssertionError(
+                f"{name}: |kernel {what} - plain| exceeds its limit {ratio:.2f}x "
+                f"(max abs error {err})")
+
+    def library():
+        return torch.matmul(gr.t(), x), gr.float().sum(0)
+
+    nbytes = x.element_size() * (n * k + n * m) + 4 * (m * k + m)
+    flops = 2.0 * n * k * m
+    rate = H100_BF16_FLOP_S if dtype == torch.bfloat16 else H100_F32_FLOP_S
+    bound_bytes, bound_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / rate * 1e3
+    return {
+        "case": name, "shape": {"N": n, "K": k, "M": m, "dtype": str(dtype).split(".")[-1]},
+        "max_abs_err": {w: e[0] for w, e in errs.items()},
+        "err_over_limit": {w: e[1] for w, e in errs.items()},
+        "ms": time_ms(lambda: fg.matmul_dw_db_cuda(x, gr), flush),
+        "plain_ms": time_ms(lambda: fg.matmul_dw_db_plain(x, gr), flush),
+        "library_ms": time_ms(library, flush),
+        "bound_ms": max(bound_bytes, bound_ops),
+        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "bytes": int(nbytes), "flops": flops,
+    }
+
+
+def fg_phase(fg, flush):
+    g = torch.Generator(device="cuda").manual_seed(9753)
+    cases = []
+    for case in FG_CASES:
+        cases.append(fg_case(fg, *case, flush, g))
+        torch.cuda.empty_cache()
+    return cases
+
+
+def _fg_entry(cases, launches):
+    main_case = next(c for c in cases if c["case"] == "vit_b16_qkv")
+    return {
+        "name": "matmul_dw_db", "route": "cuda",
+        "source": "distributeddeeplearning_tpu_torch/csrc/fused_grads.cu",
+        "replaces": "distributeddeeplearning_tpu/ops/pallas/fused_grads.py:160",
+        "launches": launches,
+        "max_abs_err": max(e for c in cases for e in c["max_abs_err"].values()),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"], "timed_case": "vit_b16_qkv",
+    }
+
+
+def _vit_setup(attn_impl, fused_dense_grad, *, variant="b", image_size=224, batch=64,
+               num_classes=1000, num_physical_batches=4, state_dict=None, device="cuda"):
+    """The port's entry points as a user calls them for ViT training:
+    config, synthetic images, model (``fused_dense_grad`` as
+    ``FUSED_DENSE_GRAD=1`` sets it), optimizer, seeded train state and
+    step, on the card (``device="cpu"`` rehearses the flow at a small
+    size)."""
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+    from distributeddeeplearning_tpu_torch.data import SyntheticImageDataset
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.training import (
+        create_optimizer,
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = TrainConfig(model=f"vit_{variant}16", image_size=image_size,
+                      batch_size_per_device=batch, num_classes=num_classes, attn_impl=attn_impl)
+    ds = SyntheticImageDataset(global_batch_size=cfg.global_batch_size,
+                               image_size=cfg.image_size, num_classes=cfg.num_classes,
+                               num_physical_batches=num_physical_batches, seed=cfg.seed)
+    model = get_model(cfg.model, **cfg.model_kwargs(), fused_dense_grad=fused_dense_grad,
+                      device=device)
+    tx, _ = create_optimizer(cfg, ds.steps_per_epoch)
+    state = create_train_state(model, cfg, tx, device=device, state_dict=state_dict)
+    return cfg, ds, model, state, make_train_step(model, tx, cfg, device=device)
+
+
+def vit_train_phase(fp, fg, card, attn_impl, fused_dense_grad, warmup=3, timed=20,
+                    device="cuda", **size):
+    """ViT-B/16 (224 px, 1000 classes, batch 64, bf16) on the port's
+    synthetic images: ``warmup`` steps, then ``timed`` steps closed by a
+    host readback of the loss. Checks finite losses and the launches per
+    step: with ``attn_impl="fused"`` on the card each packed-attention
+    kernel once per layer (forward, backward), and with fused dense
+    grads ``matmul_dw_db`` once per Dense (4 a layer and the head);
+    otherwise none."""
+    from distributeddeeplearning_tpu_torch.data import prefetch_to_device
+
+    t0 = time.perf_counter()
+    cfg, ds, model, state, step = _vit_setup(attn_impl, fused_dense_grad, device=device,
+                                             **size)
+    batches = prefetch_to_device(ds.epoch(0), device)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    losses = []
+    for _ in range(warmup):
+        state, m = step(state, next(batches))
+        losses.append(m["loss"])
+    _sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    fp.launches = fg.launches = 0
+    for k in fp.launches_by_op:
+        fp.launches_by_op[k] = 0
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, m = step(state, next(batches))
+        losses.append(m["loss"])
+    float(m["loss"])  # host readback closes the timed window
+    wall = time.perf_counter() - t0
+    by_op = dict(fp.launches_by_op, matmul_dw_db=fg.launches)
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    on_card = device == "cuda"
+    attn = model.depth * timed if on_card and attn_impl == "fused" else 0
+    dense = (4 * model.depth + 1) * timed if on_card and fused_dense_grad else 0
+    want = {"fused_qkv_fwd": attn, "fused_qkv_bwd": attn, "matmul_dw_db": dense}
+    if by_op != want:
+        raise AssertionError(f"{attn_impl}: launches {by_op} over {timed} steps, want {want}")
+    line = {
+        "path": f"{attn_impl}{' + fused dense grads' if fused_dense_grad else ''}",
+        "model": cfg.model, "image_size": cfg.image_size, "batch": cfg.global_batch_size,
+        "dtype": cfg.compute_dtype, "images_per_s": timed * cfg.global_batch_size / wall,
+        "step_ms": wall / timed * 1e3, "loss_first": losses[0], "loss_last": losses[-1],
+        "launches_by_op": by_op, "steps": timed,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+                        else "not measured"), "setup_s": setup_s, "card": card,
+    }
+    print("vittrain " + json.dumps(line), flush=True)
+    return line, state, step, batches
+
+
+# The flagged (fused attention + fused dense grads) and yardstick ViT
+# steps from the same weights and batch: the limits (derived in
+# vit_fused_vs_xla_step's docstring).
+VIT_AGREE_LOSS_REL = 1e-3
+VIT_AGREE_UPDATE_REL = 0.1
+VIT_AGREE_LOGITS_REL = 2 ** -4
+
+
+def _vit_group(name: str) -> str:
+    for grp, marks in (("attention", (".attn.",)), ("mlp", (".mlp.",)), ("head", ("head.",)),
+                       ("embeddings", ("patch_embed", "cls_token", "pos_embed"))):
+        if any(mk in name for mk in marks):
+            return grp
+    return "layernorm"
+
+
+def vit_fused_vs_xla_step(variant="b", image_size=224, batch=64, num_classes=1000,
+                          device="cuda"):
+    """One flagged step (``attn_impl="fused"``, ``FUSED_DENSE_GRAD=1``) and
+    one yardstick step (``"xla"``, stock Dense) in bf16 from the same
+    seeded weights on the same batch, and whether they agree. Limits:
+
+    * loss: |L_fused - L_xla| / |L_xla| <= 1e-3;
+    * updates, per group (attention, MLP, head, embeddings, LayerNorm):
+      ||Δ_fused - Δ_xla|| / ||Δ_xla|| <= 0.1;
+    * logits at the initial weights: max |fused - xla| <= 2**-4 of the
+      largest |logit|.
+
+    Derivation, written before the first run on the card: the two paths
+    round at other places. The xla attention rounds its scores to bf16
+    before the softmax (as the JAX package's ``_xla_attention``) and p
+    before P·V; the packed kernels keep f32 scores and round p (and ds)
+    to bf16. Stock autograd returns each Dense's dW and db in bf16 (the
+    product's dtype) before the f32 parameter sees them; the flagged
+    path keeps them in f32, a 2**-9 relative difference per element on
+    top. So the steps differ by bf16 noise carried through 12 layers,
+    as the LM's pallas and xla steps do (``lm_pallas_vs_xla_step``).
+    Rehearsed on the CPU with the plain versions in bf16 (``vit_s16``
+    and ``vit_b16`` at 64 px, batch 4): loss 1.2e-4 and 3.2e-4, update
+    gaps 0.009-0.011, logits 0.008 and 0.011 of the largest; the limits
+    are those of the LM comparison, 3-10x those readings."""
+    from distributeddeeplearning_tpu_torch.models import convert
+
+    sd = convert.init_vit_params(variant, 16, num_classes,
+                                 torch.Generator(device=device).manual_seed(42), image_size)
+    out = {}
+    for impl, flag in (("xla", False), ("fused", True)):
+        cfg, ds, model, state, step = _vit_setup(
+            impl, flag, variant=variant, image_size=image_size, batch=batch,
+            num_classes=num_classes, num_physical_batches=1, state_dict=sd, device=device)
+        images, labels = next(iter(ds.epoch(0)))
+        with torch.no_grad():
+            logits = model(torch.from_numpy(images).to(device)).float()
+        state, m = step(state, (images, labels))
+        out[impl] = (float(m["loss"]), logits,
+                     {k: v.detach().clone() for k, v in model.state_dict().items()})
+        del cfg, ds, model, state, step
+    (lx, gx, px), (lf, gf, pf) = out["xla"], out["fused"]
+    logits_rel = ((gf - gx).abs().max() / gx.abs().max()).item()
+    sums = {}
+    for k, ref in sd.items():
+        dx, df = px[k].double() - ref.double(), pf[k].double() - ref.double()
+        n, d = sums.get(_vit_group(k), (0.0, 0.0))
+        sums[_vit_group(k)] = (n + (df - dx).pow(2).sum().item(), d + dx.pow(2).sum().item())
+    gaps = {grp: (n / d) ** 0.5 for grp, (n, d) in sums.items()}
+    res = {"loss_fused": lf, "loss_xla": lx, "loss_rel": abs(lf - lx) / abs(lx),
+           "update_rel_by_group": gaps, "logits_rel": logits_rel,
+           "limits": {"loss_rel": VIT_AGREE_LOSS_REL, "update_rel": VIT_AGREE_UPDATE_REL,
+                      "logits_rel": VIT_AGREE_LOGITS_REL}}
+    res["within_limits"] = (res["loss_rel"] <= VIT_AGREE_LOSS_REL
+                            and max(gaps.values()) <= VIT_AGREE_UPDATE_REL
+                            and logits_rel <= VIT_AGREE_LOGITS_REL)
+    return res
+
+
+def vit_auto_launches(fp, batch=64, image_size=224, device="cuda"):
+    """``attn_impl="auto"`` on the card: launches of ``fused_qkv_fwd`` in
+    one forward of ViT-B/16 (T = 197 fits the packed kernel: one a
+    layer)."""
+    from distributeddeeplearning_tpu_torch.models import convert, get_model
+
+    model = get_model("vit_b16", attn_impl="auto", image_size=image_size, device=device)
+    model.load_state_dict(convert.init_vit_params(
+        "b", 16, 1000, torch.Generator(device=device).manual_seed(0), image_size))
+    images = torch.randn(batch, image_size, image_size, 3, device=device)
+    before = fp.launches_by_op["fused_qkv_fwd"]
+    with torch.no_grad():
+        model(images)
+    _sync(device)
+    return fp.launches_by_op["fused_qkv_fwd"] - before
+
+
 def _fb_entry(name, cases, timed_case, launches):
     main_case = next(c for c in cases if c["case"] == timed_case)
     return {
@@ -1217,7 +1649,7 @@ def _fb_entry(name, cases, timed_case, launches):
     }
 
 
-PHASES = ("kernels", "serve", "train", "lmtrain")
+PHASES = ("kernels", "serve", "train", "lmtrain", "vittrain")
 
 
 def main(argv=None) -> int:
@@ -1234,7 +1666,9 @@ def main(argv=None) -> int:
     try:
         from distributeddeeplearning_tpu_torch.ops import _build
         from distributeddeeplearning_tpu_torch.ops import flash as fl
+        from distributeddeeplearning_tpu_torch.ops import flash_packed as fp
         from distributeddeeplearning_tpu_torch.ops import fused_block as fb
+        from distributeddeeplearning_tpu_torch.ops import fused_grads as fg
         from distributeddeeplearning_tpu_torch.ops import paged_decode as pd
     except ImportError as e:
         _die(f"the port is not importable from here ({e}); run from the repo root")
@@ -1253,7 +1687,7 @@ def main(argv=None) -> int:
         _build.build(name)
         return time.perf_counter() - t0
 
-    names = ("paged_decode", "fused_block", "flash")
+    names = ("paged_decode", "fused_block", "flash", "flash_packed", "fused_grads")
     with ThreadPoolExecutor(len(names)) as pool:
         secs = list(pool.map(timed_build, names))
     for name, sec in zip(names, secs):
@@ -1263,13 +1697,15 @@ def main(argv=None) -> int:
                 print(f"ptxas {name}:", line.strip(), flush=True)
 
     entries = []
-    pd_cases = fb_cases = flash_cases = None
+    pd_cases = fb_cases = flash_cases = fp_cases = fg_cases = None
     if "kernels" in phases:
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
         pd_cases = kernel_phase(pd, flush)
         fb_cases = fused_block_phase(fb, flush)
         flash_cases = flash_phase(fl, flush)
-        for c in pd_cases + fb_cases + flash_cases:
+        fp_cases = fp_phase(fp, fl, flush)
+        fg_cases = fg_phase(fg, flush)
+        for c in pd_cases + fb_cases + flash_cases + fp_cases + fg_cases:
             print("case " + json.dumps(c), flush=True)
         del flush
         torch.cuda.empty_cache()
@@ -1335,6 +1771,33 @@ def main(argv=None) -> int:
             raise AssertionError(f"pallas and xla LM steps disagree: {agree}")
         if flash_cases is not None:
             entries += [_flash_entry(op, flash_cases, by_op[op]) for op in FLASH_OPS]
+
+    if "vittrain" in phases:
+        line, state, step, batches = vit_train_phase(fp, fg, card, "fused", True)
+        by_op = line["launches_by_op"]
+        profile_train(state, step, batches, card, line["step_ms"],
+                      "vit_b16 train step (attn_impl=fused, FUSED_DENSE_GRAD=1), batch 64, "
+                      "224 px, bf16", ("packed_", "dw_db_"))
+        del state, step, batches
+        torch.cuda.empty_cache()
+        line, state, step, batches = vit_train_phase(fp, fg, card, "xla", False)
+        profile_train(state, step, batches, card, line["step_ms"],
+                      "vit_b16 train step (attn_impl=xla, stock Dense), batch 64, 224 px, bf16",
+                      ("packed_", "dw_db_"))
+        del state, step, batches
+        torch.cuda.empty_cache()
+        agree = vit_fused_vs_xla_step()
+        print("vitagree " + json.dumps(dict(agree, card=card)), flush=True)
+        if not agree["within_limits"]:
+            raise AssertionError(f"fused and xla ViT steps disagree: {agree}")
+        auto = vit_auto_launches(fp)
+        print("vitauto " + json.dumps({"fused_qkv_fwd_launches_per_forward": auto}), flush=True)
+        if auto != 12:
+            raise AssertionError(f"attn_impl='auto' launched fused_qkv_fwd {auto} times, want 12")
+        torch.cuda.empty_cache()
+        if fp_cases is not None:
+            entries += [_fp_entry(op, fp_cases, by_op[op]) for op in FP_OPS]
+            entries.append(_fg_entry(fg_cases, by_op["matmul_dw_db"]))
 
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Typed training configuration: the port's twin of the JAX package's
-``config.TrainConfig`` for the fields the data-parallel ResNet and LM
-training slices read.
+``config.TrainConfig`` for the fields the data-parallel ResNet, LM and
+ViT training slices read.
 
 Field names, defaults and ``from_env`` parsing are the JAX package's. A
 field of a later slice that the dataclass carries (``engine``,
@@ -8,7 +8,9 @@ field of a later slice that the dataclass carries (``engine``,
 keep its default; any other value raises ``NotImplementedError`` naming
 the slice that brings it. An env var of the JAX contract whose field the
 port does not carry yet raises the same way from :meth:`from_env`: no
-setting is silently ignored.
+setting is silently ignored. ``FUSED_DENSE_GRAD`` is no field in either
+package: ``models/vit._dense`` reads it whenever a Dense is built, as the
+JAX package's ``_dense`` does.
 """
 
 from __future__ import annotations
@@ -67,12 +69,9 @@ _LATER_ENV = {
 }
 
 
-# Attention implementations of later slices.
-_LATER_ATTN = {
-    "ring": "the sp engine (parallel/ring_attention.py)",
-    "fused": "the ViT slice (ops/pallas/flash_packed.py)",
-    "auto": "the ViT slice (ops/pallas/flash_packed.py)",
-}
+# Attention implementations: the port's, and those of later slices.
+_ATTN = ("xla", "pallas", "fused", "auto")
+_LATER_ATTN = {"ring": "the sp engine (parallel/ring_attention.py)"}
 
 
 def _str_to_bool(value: str) -> bool:
@@ -92,8 +91,10 @@ class TrainConfig:
     # Host->device image staging: "auto" (the compute dtype) | "uint8"
     # (raw RGB bytes, normalised on the device) | "float32" | "bfloat16".
     input_staging: str = "auto"
-    # Attention of the attention models (the LM): "xla" plain masked
-    # softmax | "pallas" the flash kernels (ops/flash.py).
+    # Attention of the attention models (LM, ViT): "xla" plain masked
+    # softmax | "pallas" the flash kernels (ops/flash.py) | "fused" the
+    # packed-QKV kernels (ops/flash_packed.py) | "auto" fused where it
+    # applies on the card, else xla.
     attn_impl: str = "xla"
 
     # Optimization: LR 0.001 x world size, momentum 0.9, L2 5e-5 on
@@ -135,10 +136,10 @@ class TrainConfig:
                 )
         if self.attn_impl in _LATER_ATTN:
             raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r}: the port has 'xla' and 'pallas' so "
-                f"far; {self.attn_impl!r} comes with {_LATER_ATTN[self.attn_impl]}"
+                f"attn_impl={self.attn_impl!r}: the port has {_ATTN} so far; "
+                f"{self.attn_impl!r} comes with {_LATER_ATTN[self.attn_impl]}"
             )
-        if self.attn_impl not in ("xla", "pallas"):
+        if self.attn_impl not in _ATTN:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
 
     @property
@@ -161,10 +162,12 @@ class TrainConfig:
 
     def model_kwargs(self) -> dict:
         """The ``get_model`` kwargs this config implies, as the JAX
-        package's ``model_kwargs`` (``attn_impl`` reaches the LM family
-        only)."""
+        package's ``model_kwargs`` (``get_model`` hands ``attn_impl`` to
+        the attention models only), plus ``image_size``, which sizes
+        ViT's ``pos_embed`` (flax infers it from the first input) and
+        which ``get_model`` hands to ViT only."""
         return dict(num_classes=self.num_classes, dtype=self.compute_dtype,
-                    attn_impl=self.attn_impl)
+                    attn_impl=self.attn_impl, image_size=self.image_size)
 
     def steps_per_epoch(self, data_length: Optional[int] = None) -> int:
         n = data_length if data_length is not None else self.fake_data_length

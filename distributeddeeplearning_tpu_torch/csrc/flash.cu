@@ -48,19 +48,15 @@
 // mma.sync reaches a part of the card's wgmma rate and there is no
 // multi-stage pipeline; PERF.md holds the measured times.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace mma;
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kRows = 64;      // rows a block owns: 16 per warp
 constexpr int kCols = 64;      // the forward's and dq's key tile
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct View {  // element strides of a [B, T, H, D] view
   long long b, t, h;
@@ -80,133 +76,6 @@ struct Params {
   int H, Tq, Tk, causal, drop_last;
   float scale;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-__device__ __forceinline__ void ldsm_x4(const bf16* p, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(const bf16* p, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float exp_f32(float x) { return exp2f(x * kLog2e); }
-
-// Rows r0 .. r0+ROWS-1 of one head's [T, D] view into a [ROWS][D+8] tile
-// (8 elements of padding: ldmatrix's 8 row addresses fall in distinct
-// banks). Rows >= T are zero filled.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* base, long long st, int r0,
-                                          int T) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool ok = r0 + r < T;
-    cp_async16(tile + r * (D + 8) + col, ok ? base + (long long)(r0 + r) * st + col : base, ok);
-  }
-}
-
-// acc[NT][4] (+)= A (the warp's 16 rows of `a`, [16][D+8] at row a_row0)
-// times B^T, where B is `b` [NT*8][D+8] (rows = the product's columns):
-// a row-by-row dot product over D.
-template <int D, int NT>
-__device__ __forceinline__ void gemm_abt(float (*acc)[4], const bf16* a, int a_row0, const bf16* b) {
-  constexpr int P = D + 8;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    uint32_t af[4];
-    ldsm_x4(a + (a_row0 + (lane & 15)) * P + kk + (lane >> 4) * 8, af[0], af[1], af[2], af[3]);
-#pragma unroll
-    for (int ni = 0; ni < NT; ni += 2) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4(b + (ni * 8 + (lane & 7) + (lane >> 4) * 8) * P + kk + ((lane >> 3) & 1) * 8, b0,
-              b1, b2, b3);
-      mma(acc[ni], af, b0, b1);
-      mma(acc[ni + 1], af, b2, b3);
-    }
-  }
-}
-
-// acc[D/8][4] += X . B, where X [16][KT*8] is held in registers as
-// score-shaped accumulators x[KT][4] (rounded to bf16 here) and B is `b`
-// [KT*8][D+8] (rows = the contraction index).
-template <int D, int KT>
-__device__ __forceinline__ void gemm_xb(float (*acc)[4], const float (*x)[4], const bf16* b) {
-  constexpr int P = D + 8;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kc = 0; kc < KT / 2; ++kc) {
-    // Two n8 accumulator tiles are one k16 A fragment.
-    const uint32_t af[4] = {pack_bf16(x[2 * kc][0], x[2 * kc][1]),
-                            pack_bf16(x[2 * kc][2], x[2 * kc][3]),
-                            pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]),
-                            pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3])};
-#pragma unroll
-    for (int di = 0; di < D / 8; di += 2) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4_t(b + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + di * 8 + (lane >> 4) * 8,
-                b0, b1, b2, b3);
-      mma(acc[di], af, b0, b1);
-      mma(acc[di + 1], af, b2, b3);
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (*acc)[4]) {
-#pragma unroll
-  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-}
-
-// The warp's 16 rows of acc [16][D] as bf16 into rows row0 (lane/4) and
-// row0 + 8 of a [T, D] view, rows < T only.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* base, long long st, int row0, int T,
-                                          const float (*acc)[4], float mul0, float mul1) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + half * 8;
-    if (row >= T) continue;
-    const float mul = half ? mul1 : mul0;
-#pragma unroll
-    for (int di = 0; di < D / 8; ++di) {
-      const int col = di * 8 + (lane & 3) * 2;
-      *reinterpret_cast<__nv_bfloat162*>(base + (long long)row * st + col) =
-          __floats2bfloat162_rn(acc[di][2 * half] * mul, acc[di][2 * half + 1] * mul);
-    }
-  }
-}
 
 // ---------------------------------------------------------------- forward
 

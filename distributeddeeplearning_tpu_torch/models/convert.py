@@ -1,10 +1,12 @@
 """Parameters between the JAX package's flax trees and the port's
 state dicts, and seeded initialisation.
 
-``TransformerLM``: ``block{i}/…`` becomes ``blocks.{i}.…``, LayerNorm
-``scale`` becomes ``weight``, and a Dense ``kernel`` ``[in, out]``
-becomes a ``weight`` ``[out, in]``. Embeddings (``tok_embed`` ``[V,
-H]``, ``pos_embed`` ``[1, L, H]``) and biases carry across unchanged.
+``TransformerLM`` and ``ViT``: ``block{i}/…`` becomes ``blocks.{i}.…``,
+LayerNorm ``scale`` becomes ``weight``, a Dense ``kernel`` ``[in, out]``
+becomes a ``weight`` ``[out, in]`` and ViT's patch conv ``kernel`` HWIO
+an OIHW ``weight``. Embeddings (``tok_embed`` ``[V, H]``, ``pos_embed``
+``[1, L, H]``, ``cls_token`` ``[1, 1, H]``) and biases carry across
+unchanged.
 
 ``ResNet``: module paths are the flax ones joined by dots. A conv
 ``kernel`` HWIO ``[kh, kw, in, out]`` becomes an OIHW ``weight`` (the
@@ -24,6 +26,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from distributeddeeplearning_tpu_torch.models import vit
 from distributeddeeplearning_tpu_torch.models.resnet import ResNet
 from distributeddeeplearning_tpu_torch.models.transformer_lm import _VARIANTS
 
@@ -42,8 +45,8 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, Any]:
 
 
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A flax ``TransformerLM`` param tree (nested mapping of arrays,
-    unboxed) -> the port's state dict of f32 CPU tensors."""
+    """A flax ``TransformerLM`` or ``ViT`` param tree (nested mapping of
+    arrays, unboxed) -> the port's state dict of f32 CPU tensors."""
     out: Dict[str, torch.Tensor] = {}
     for path, val in _flatten(tree).items():
         arr = np.array(val, np.float32)  # a writable copy
@@ -55,7 +58,7 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             names[-1] = "weight"
         elif names[-1] == "kernel":
             names[-1] = "weight"
-            arr = arr.T
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         out[".".join(names)] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
 
@@ -71,6 +74,8 @@ def params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         if parts[-1] == "weight":
             if arr.ndim == 2:
                 parts[-1], arr = "kernel", arr.T
+            elif arr.ndim == 4:
+                parts[-1], arr = "kernel", arr.transpose(2, 3, 1, 0)
             else:
                 parts[-1] = "scale"
         node = tree
@@ -80,33 +85,27 @@ def params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     return tree
 
 
-def init_params(variant: str, vocab_size: int, generator: torch.Generator,
-                max_seq_len: int = 2048) -> Dict[str, torch.Tensor]:
-    """Seeded parameters with the JAX model's initialisers: normal(0.02)
-    embeddings, xavier-uniform Dense kernels, zero biases, LayerNorm
-    ones/zeros. Tensors are f32 on ``generator``'s device. (The draws
-    differ from ``jax.random``'s: same distributions, other numbers.)"""
-    hidden, depth, _, mlp_dim = _VARIANTS[variant]
+def _xavier(shape, fan_in: int, fan_out: int, generator: torch.Generator) -> torch.Tensor:
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    return torch.empty(*shape, device=generator.device).uniform_(-bound, bound,
+                                                                 generator=generator)
+
+
+def _init_blocks(out: Dict[str, torch.Tensor], hidden: int, depth: int, mlp_dim: int,
+                 generator: torch.Generator) -> None:
+    """The transformer blocks and the final LayerNorm shared by the LM and
+    ViT, in order: xavier-uniform Dense kernels, zero biases, LayerNorm
+    ones/zeros."""
     dev = generator.device
 
-    def normal(*shape):
-        return torch.empty(*shape, device=dev).normal_(0.0, 0.02, generator=generator)
-
     def dense(prefix, n_in, n_out):
-        bound = math.sqrt(6.0 / (n_in + n_out))
-        out[f"{prefix}.weight"] = torch.empty(n_out, n_in, device=dev).uniform_(
-            -bound, bound, generator=generator
-        )
+        out[f"{prefix}.weight"] = _xavier((n_out, n_in), n_in, n_out, generator)
         out[f"{prefix}.bias"] = torch.zeros(n_out, device=dev)
 
     def layer_norm(prefix):
         out[f"{prefix}.weight"] = torch.ones(hidden, device=dev)
         out[f"{prefix}.bias"] = torch.zeros(hidden, device=dev)
 
-    out: Dict[str, torch.Tensor] = {
-        "tok_embed": normal(vocab_size, hidden),
-        "pos_embed": normal(1, max_seq_len, hidden),
-    }
     for i in range(depth):
         p = f"blocks.{i}"
         layer_norm(f"{p}.ln1")
@@ -116,6 +115,56 @@ def init_params(variant: str, vocab_size: int, generator: torch.Generator,
         dense(f"{p}.mlp.fc1", hidden, mlp_dim)
         dense(f"{p}.mlp.fc2", mlp_dim, hidden)
     layer_norm("ln_final")
+
+
+def init_params(variant: str, vocab_size: int, generator: torch.Generator,
+                max_seq_len: int = 2048) -> Dict[str, torch.Tensor]:
+    """Seeded parameters with the JAX model's initialisers: normal(0.02)
+    embeddings, xavier-uniform Dense kernels, zero biases, LayerNorm
+    ones/zeros. Tensors are f32 on ``generator``'s device. (The draws
+    differ from ``jax.random``'s: same distributions, other numbers.)"""
+    hidden, depth, _, mlp_dim = _VARIANTS[variant]
+
+    def normal(*shape):
+        return torch.empty(*shape, device=generator.device).normal_(0.0, 0.02,
+                                                                    generator=generator)
+
+    out: Dict[str, torch.Tensor] = {
+        "tok_embed": normal(vocab_size, hidden),
+        "pos_embed": normal(1, max_seq_len, hidden),
+    }
+    _init_blocks(out, hidden, depth, mlp_dim, generator)
+    return out
+
+
+# ViT's trees follow the LM's rules (the patch conv is its only 4-D kernel).
+vit_params_from_flax = params_from_flax
+vit_params_to_flax = params_to_flax
+
+
+def init_vit_params(variant: str, patch_size: int, num_classes: int,
+                    generator: torch.Generator, image_size: int = 224) -> Dict[str, torch.Tensor]:
+    """Seeded ``ViT`` state with the JAX model's initialisers:
+    xavier-uniform Dense kernels and patch conv (fans over the receptive
+    field), zero biases and ``cls_token``, normal(0.02) ``pos_embed``,
+    LayerNorm ones/zeros. f32 on ``generator``'s device; the draws
+    differ from ``jax.random``'s (same distributions, other numbers).
+    Every rank that passes the same seed gets the same tensors."""
+    hidden, depth, _, mlp_dim = vit._VARIANTS[variant]
+    dev = generator.device
+    tokens = (image_size // patch_size) ** 2 + 1
+    field = patch_size * patch_size
+    out: Dict[str, torch.Tensor] = {
+        "patch_embed.weight": _xavier((hidden, 3, patch_size, patch_size), 3 * field,
+                                      hidden * field, generator),
+        "patch_embed.bias": torch.zeros(hidden, device=dev),
+        "cls_token": torch.zeros(1, 1, hidden, device=dev),
+        "pos_embed": torch.empty(1, tokens, hidden, device=dev).normal_(0.0, 0.02,
+                                                                        generator=generator),
+    }
+    _init_blocks(out, hidden, depth, mlp_dim, generator)
+    out["head.weight"] = _xavier((num_classes, hidden), hidden, num_classes, generator)
+    out["head.bias"] = torch.zeros(num_classes, device=dev)
     return out
 
 

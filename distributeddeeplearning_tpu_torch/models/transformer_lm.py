@@ -9,9 +9,13 @@ accumulation and stored in the compute dtype.
 
 ``forward(tokens)`` is the full causal forward, its attention through
 ``attn_impl`` (``"xla"``, the default, serving's plain masked softmax;
-``"pallas"``, the flash kernels of training). ``forward(tokens,
-cache)`` is decode mode: the tokens sit at positions ``cache.index ..
-+t`` (a scalar start or per-row starts), their K/V are written into
+``"pallas"``, the flash kernels of training; ``"fused"`` and ``"auto"``
+as ``models/vit.Attention`` takes them, for T ≤ 512).
+``fused_dense_grad`` (``None``: ``FUSED_DENSE_GRAD=1`` in the
+environment) builds the blocks' Dense layers as ``FusedGradDense``.
+``forward(tokens, cache)`` is decode mode: the tokens sit at positions
+``cache.index .. +t`` (a scalar start or per-row starts), their K/V are
+written into
 ``cache`` in place, and attention runs over the cache. Per-row position
 gathers raise on an out-of-range position where JAX would fill NaN, so
 callers keep ``start + t <= max_seq_len`` (the serving engine's
@@ -29,6 +33,7 @@ from distributeddeeplearning_tpu_torch.models.vit import (
     Attention,
     Dense,
     KVCache,
+    LayerNorm,
     MlpBlock,
 )
 from distributeddeeplearning_tpu_torch.utils.device import resolve_device
@@ -42,34 +47,17 @@ _VARIANTS = {
 }
 
 
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm(dtype=float32)``: f32 statistics with
-    ``var = max(0, E[x²] - E[x]²)``, epsilon 1e-6, f32 output."""
-
-    def __init__(self, features: int, eps: float = 1e-6, device=None) -> None:
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(features, device=device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        mu = x.mean(-1, keepdim=True)
-        mu2 = (x * x).mean(-1, keepdim=True)
-        var = torch.clamp(mu2 - mu * mu, min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mu) * mul + self.bias
-
-
 class DecoderBlock(nn.Module):
     def __init__(self, hidden: int, num_heads: int, mlp_dim: int,
-                 dtype: torch.dtype, device=None, attn_impl: str = "xla") -> None:
+                 dtype: torch.dtype, device=None, attn_impl: str = "xla",
+                 fused_dense_grad: Optional[bool] = None) -> None:
         super().__init__()
         self.dtype = dtype
         self.ln1 = LayerNorm(hidden, device=device)
-        self.attn = Attention(hidden, num_heads, dtype, device, attn_impl)
+        self.attn = Attention(hidden, num_heads, dtype, device, attn_impl, causal=True,
+                              fused_dense_grad=fused_dense_grad)
         self.ln2 = LayerNorm(hidden, device=device)
-        self.mlp = MlpBlock(hidden, mlp_dim, dtype, device)
+        self.mlp = MlpBlock(hidden, mlp_dim, dtype, device, fused_dense_grad)
 
     def forward(self, x, cache: Optional[KVCache] = None, layer: int = 0):
         x = x + self.attn(self.ln1(x).to(self.dtype), cache, layer)
@@ -84,7 +72,8 @@ class TransformerLM(nn.Module):
 
     def __init__(self, variant: str = "tiny", vocab_size: int = 32_000,
                  max_seq_len: int = 2048, dtype: torch.dtype = torch.bfloat16,
-                 device=None, attn_impl: str = "xla") -> None:
+                 device=None, attn_impl: str = "xla",
+                 fused_dense_grad: Optional[bool] = None) -> None:
         super().__init__()
         if variant not in _VARIANTS:
             raise ValueError(f"variant must be one of {sorted(_VARIANTS)}")
@@ -104,7 +93,7 @@ class TransformerLM(nn.Module):
             torch.empty(1, max_seq_len, hidden, device=device)
         )
         self.blocks = nn.ModuleList(
-            DecoderBlock(hidden, heads, mlp_dim, dtype, device, attn_impl)
+            DecoderBlock(hidden, heads, mlp_dim, dtype, device, attn_impl, fused_dense_grad)
             for _ in range(depth)
         )
         self.ln_final = LayerNorm(hidden, device=device)

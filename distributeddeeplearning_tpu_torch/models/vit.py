@@ -1,7 +1,15 @@
-"""Transformer building blocks shared by the LM (port of the parts of
-``models/vit.py`` the LM uses): the flax-numerics ``Dense``, ``MlpBlock``
-and ``Attention`` with its two KV-cache decode paths. ``ViT`` itself is
-not ported yet.
+"""Vision Transformer and the transformer blocks it shares with the LM
+(port of ``models/vit.py``): the flax-numerics ``Dense`` and
+``LayerNorm``, ``FusedGradDense``, ``MlpBlock``, ``Attention`` with its
+two KV-cache decode paths, ``EncoderBlock`` and ``ViT``.
+
+Numerics follow the flax model: parameters in f32, compute in ``dtype``
+(bf16 by default), LayerNorm in f32, the head an f32 Dense.
+
+``FUSED_DENSE_GRAD=1`` (read when a Dense is built, as JAX's ``_dense``
+reads it) makes every Dense a ``FusedGradDense``: the same parameters,
+with the backward's dW and db from one pass over the upstream gradient
+(``ops/fused_grads.bias_dense``). It reaches the LM's blocks too.
 
 The flax "cache" collection becomes an explicit :class:`KVCache` the
 caller owns and passes in. Attention writes the window's K/V into it IN
@@ -13,14 +21,27 @@ engine does anyway.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Union
+import os
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from distributeddeeplearning_tpu_torch.ops import flash_packed
 from distributeddeeplearning_tpu_torch.ops.attention import dot_product_attention
+from distributeddeeplearning_tpu_torch.ops.fused_grads import bias_dense
 from distributeddeeplearning_tpu_torch.ops.paged_decode import fused_decode_attention
+from distributeddeeplearning_tpu_torch.utils.device import resolve_device
+
+# name -> (hidden, depth, heads, mlp_dim)
+_VARIANTS = {
+    "ti": (192, 12, 3, 768),
+    "s": (384, 12, 6, 1536),
+    "b": (768, 12, 12, 3072),
+    "l": (1024, 24, 16, 4096),
+    "h": (1280, 32, 16, 5120),
+}
 
 
 class Dense(nn.Module):
@@ -43,12 +64,51 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
+class FusedGradDense(Dense):
+    """``Dense`` whose backward computes dW and db in one pass over the
+    upstream gradient (``ops/fused_grads.bias_dense``; JAX's
+    ``_FusedGradDense``). The same parameters and forward."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return bias_dense(x, self.weight, self.bias, self.dtype)
+
+
+def _dense(in_features: int, out_features: int, dtype: torch.dtype, device=None,
+           fused_dense_grad: Optional[bool] = None) -> Dense:
+    """A ``Dense``, or a ``FusedGradDense`` when ``fused_dense_grad``
+    (``None``: ``FUSED_DENSE_GRAD=1`` in the environment now, as JAX's
+    ``_dense`` reads it when a layer is built)."""
+    if fused_dense_grad is None:
+        fused_dense_grad = os.environ.get("FUSED_DENSE_GRAD", "") == "1"
+    cls = FusedGradDense if fused_dense_grad else Dense
+    return cls(in_features, out_features, dtype, device)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=float32)``: f32 statistics with
+    ``var = max(0, E[x²] - E[x]²)``, epsilon 1e-6, f32 output."""
+
+    def __init__(self, features: int, eps: float = 1e-6, device=None) -> None:
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mu = x.mean(-1, keepdim=True)
+        mu2 = (x * x).mean(-1, keepdim=True)
+        var = torch.clamp(mu2 - mu * mu, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mu) * mul + self.bias
+
+
 class MlpBlock(nn.Module):
     def __init__(self, hidden: int, mlp_dim: int, dtype: torch.dtype,
-                 device=None) -> None:
+                 device=None, fused_dense_grad: Optional[bool] = None) -> None:
         super().__init__()
-        self.fc1 = Dense(hidden, mlp_dim, dtype, device)
-        self.fc2 = Dense(mlp_dim, hidden, dtype, device)
+        self.fc1 = _dense(hidden, mlp_dim, dtype, device, fused_dense_grad)
+        self.fc2 = _dense(mlp_dim, hidden, dtype, device, fused_dense_grad)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # flax nn.gelu defaults to the tanh approximation.
@@ -168,30 +228,158 @@ def _paged_decode(q, k, v, cache: KVCache, layer: int):
 
 
 class Attention(nn.Module):
-    """Causal multi-head self-attention with a packed qkv projection
-    (output laid out ``[..., 3, heads, head_dim]``). Without a cache it
-    attends over the whole input through ``dot_product_attention`` with
-    ``attn_impl`` (``"xla"``: plain masked softmax; ``"pallas"``: the
-    flash kernels, which read q, k and v as views of the packed
-    projection); with a :class:`KVCache` it runs the decode paths."""
+    """Multi-head self-attention with a packed qkv projection (output
+    laid out ``[..., 3, heads, head_dim]``), non-causal unless
+    ``causal`` (the LM's). Without a cache it attends over the whole
+    input by ``attn_impl``: ``"xla"`` (plain masked softmax) and
+    ``"pallas"`` (the flash kernels, which read q, k and v as views of
+    the packed projection) through ``dot_product_attention``; ``"fused"``
+    hands the flat ``[B, T, 3·H·d]`` projection to
+    ``flash_packed.fused_qkv_attention``; ``"auto"`` picks ``"fused"``
+    on a CUDA tensor where ``flash_packed.supports`` holds and
+    ``"xla"`` otherwise (JAX's rule, with "on a TPU" read as "on the
+    card"). With a :class:`KVCache` (causal only) it runs the decode
+    paths."""
 
     def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype,
-                 device=None, attn_impl: str = "xla") -> None:
+                 device=None, attn_impl: str = "xla", causal: bool = False,
+                 fused_dense_grad: Optional[bool] = None) -> None:
         super().__init__()
         self.num_heads = num_heads
         self.attn_impl = attn_impl
-        self.qkv = Dense(hidden, 3 * hidden, dtype, device)
-        self.proj = Dense(hidden, hidden, dtype, device)
+        self.causal = causal
+        self.qkv = _dense(hidden, 3 * hidden, dtype, device, fused_dense_grad)
+        self.proj = _dense(hidden, hidden, dtype, device, fused_dense_grad)
+
+    def _resolve_impl(self, x: torch.Tensor, head_dim: int) -> str:
+        if self.attn_impl != "auto":
+            return self.attn_impl
+        if x.dim() == 3 and x.is_cuda and flash_packed.supports(
+                x.shape[1], self.num_heads, head_dim):
+            return "fused"
+        return "xla"
 
     def forward(self, x: torch.Tensor, cache: Optional[KVCache] = None,
                 layer: int = 0) -> torch.Tensor:
         b, t, d = x.shape
-        qkv = self.qkv(x).view(b, t, 3, self.num_heads, d // self.num_heads)
-        q, k, v = qkv.unbind(2)
+        head_dim = d // self.num_heads
+        qkv_flat = self.qkv(x)
+        impl = self._resolve_impl(x, head_dim) if cache is None else None
+        if impl == "fused":
+            # The kernel reads head columns from the packed projection.
+            return self.proj(flash_packed.fused_qkv_attention(
+                qkv_flat, self.num_heads, causal=self.causal))
+        q, k, v = qkv_flat.view(b, t, 3, self.num_heads, head_dim).unbind(2)
         if cache is None:
-            out = dot_product_attention(q, k, v, causal=True, impl=self.attn_impl)
+            out = dot_product_attention(q, k, v, causal=self.causal, impl=impl)
+        elif not self.causal:
+            raise ValueError("decode with a KV cache requires causal attention")
         elif cache.block_size:
             out = _paged_decode(q, k, v, cache, layer)
         else:
             out = _dense_decode(q, k, v, cache, layer)
         return self.proj(out.reshape(b, t, d))
+
+
+class EncoderBlock(nn.Module):
+    """Pre-norm: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``; the
+    LayerNorms in f32, their outputs cast to the compute dtype."""
+
+    def __init__(self, hidden: int, num_heads: int, mlp_dim: int, dtype: torch.dtype,
+                 device=None, attn_impl: str = "xla",
+                 fused_dense_grad: Optional[bool] = None) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.ln1 = LayerNorm(hidden, device=device)
+        self.attn = Attention(hidden, num_heads, dtype, device, attn_impl,
+                              fused_dense_grad=fused_dense_grad)
+        self.ln2 = LayerNorm(hidden, device=device)
+        self.mlp = MlpBlock(hidden, mlp_dim, dtype, device, fused_dense_grad)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x).to(self.dtype))
+        return x + self.mlp(self.ln2(x).to(self.dtype))
+
+
+class PatchEmbed(nn.Module):
+    """flax ``nn.Conv(hidden, (p, p), strides=p, padding="VALID")`` in the
+    compute dtype: OIHW ``weight``, the bias added after the product (two
+    roundings in bf16, as in flax)."""
+
+    def __init__(self, hidden: int, patch_size: int, dtype: torch.dtype, device=None) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.patch_size = patch_size
+        self.weight = nn.Parameter(
+            torch.empty(hidden, 3, patch_size, patch_size, device=device))
+        self.bias = nn.Parameter(torch.empty(hidden, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC images -> ``[B, tokens, hidden]`` (row-major patches)."""
+        dt = self.dtype
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt), stride=self.patch_size)
+        return y.flatten(2).transpose(1, 2) + self.bias.to(dt)
+
+
+class ViT(nn.Module):
+    """ViT with a classification head (cls-token pooling) over NHWC
+    images; returns f32 ``[B, num_classes]`` logits. ``attn_impl``
+    defaults to ``"auto"``, as JAX's. flax sizes ``pos_embed`` from the
+    first input; here ``image_size`` does, at construction. Built with
+    uninitialised parameters on ``device`` (``None`` means CUDA, and
+    raises without it): load ``convert.init_vit_params`` or
+    ``convert.vit_params_from_flax`` into it."""
+
+    def __init__(self, variant: str = "b", patch_size: int = 16, num_classes: int = 1000,
+                 dtype: torch.dtype = torch.bfloat16, device=None, attn_impl: str = "auto",
+                 dropout: float = 0.0, remat: bool = False, image_size: int = 224,
+                 fused_dense_grad: Optional[bool] = None) -> None:
+        super().__init__()
+        if variant not in _VARIANTS:
+            raise ValueError(f"variant must be one of {sorted(_VARIANTS)}")
+        if dropout > 0:
+            raise NotImplementedError(
+                "ViT dropout comes with the training-loop slice (training/loop.py), "
+                "which threads the dropout rng")
+        if remat:
+            raise NotImplementedError("remat comes with the gradient-checkpointing slice")
+        if image_size % patch_size:
+            raise ValueError(f"image size {image_size} not divisible by patch {patch_size}")
+        device = resolve_device(device)
+        hidden, depth, heads, mlp_dim = _VARIANTS[variant]
+        self.variant = variant
+        self.patch_size = patch_size
+        self.num_classes = num_classes
+        self.image_size = image_size
+        self.dtype = dtype
+        self.attn_impl = attn_impl
+        self.depth = depth
+        self.patch_embed = PatchEmbed(hidden, patch_size, dtype, device)
+        tokens = (image_size // patch_size) ** 2 + 1
+        self.cls_token = nn.Parameter(torch.empty(1, 1, hidden, device=device))
+        self.pos_embed = nn.Parameter(torch.empty(1, tokens, hidden, device=device))
+        self.blocks = nn.ModuleList(
+            EncoderBlock(hidden, heads, mlp_dim, dtype, device, attn_impl, fused_dense_grad)
+            for _ in range(depth)
+        )
+        self.ln_final = LayerNorm(hidden, device=device)
+        self.head = _dense(hidden, num_classes, torch.float32, device, fused_dense_grad)
+
+    def kernel_parameters(self) -> Tuple[torch.Tensor, ...]:
+        """The Dense weights and the patch-embed conv weight (the flax
+        ``kernel`` leaves), what the L2 penalty covers; ``cls_token``,
+        ``pos_embed``, biases and LayerNorm are exempt, as in JAX."""
+        return (self.patch_embed.weight,) + tuple(
+            m.weight for m in self.modules() if isinstance(m, Dense))
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        b, h, w, _ = images.shape
+        if (h, w) != (self.image_size, self.image_size):
+            raise ValueError(f"images {h}x{w}, but the model was built for {self.image_size}")
+        x = self.patch_embed(images)
+        cls = self.cls_token.to(self.dtype).expand(b, 1, x.shape[-1])
+        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
+        for block in self.blocks:
+            x = block(x)
+        x = self.ln_final(x)[:, 0]  # cls token
+        return self.head(x).float()

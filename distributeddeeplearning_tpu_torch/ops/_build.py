@@ -5,8 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 (a directory ``.gitignore`` lists), then loaded with ``ctypes``. Nothing
 includes PyTorch's headers, so a build takes seconds. The build runs at
 first use, never at import: importing this module needs no CUDA
-toolkit. A rebuilt source gets a new hash, so a stale library is never
-loaded.
+toolkit. The hash covers the source and the shared headers
+(``csrc/*.cuh``), so a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -51,12 +51,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (keyed by source and flags)."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to (keyed by source, headers and
+    flags)."""
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -18,6 +18,7 @@ import torch
 from distributeddeeplearning_tpu_torch.config import TrainConfig
 from distributeddeeplearning_tpu_torch.models import convert
 from distributeddeeplearning_tpu_torch.models.transformer_lm import TransformerLM
+from distributeddeeplearning_tpu_torch.models.vit import ViT
 from distributeddeeplearning_tpu_torch.utils.device import resolve_device
 
 
@@ -34,9 +35,9 @@ def create_train_state(model, config: TrainConfig, tx, device=None,
     raises without it): every rank that builds the same model from the
     same ``config.seed`` on the same kind of device holds the same
     parameters, which is the broadcast (as in the JAX package): an LM
-    from ``convert.init_params``, a ResNet from
-    ``convert.init_resnet_params``. A given ``state_dict`` (e.g.
-    converted from flax) is loaded instead."""
+    from ``convert.init_params``, a ViT from ``convert.init_vit_params``,
+    a ResNet from ``convert.init_resnet_params``. A given ``state_dict``
+    (e.g. converted from flax) is loaded instead."""
     dev = resolve_device(device)
     model.to(dev)
     if state_dict is None:
@@ -44,6 +45,9 @@ def create_train_state(model, config: TrainConfig, tx, device=None,
         if isinstance(model, TransformerLM):
             state_dict = convert.init_params(model.variant, model.vocab_size, gen,
                                              model.max_seq_len)
+        elif isinstance(model, ViT):
+            state_dict = convert.init_vit_params(model.variant, model.patch_size,
+                                                 model.num_classes, gen, model.image_size)
         else:
             state_dict = convert.init_resnet_params(model.depth, model.num_classes, gen)
     model.load_state_dict(state_dict)

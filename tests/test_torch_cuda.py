@@ -15,7 +15,12 @@ machine that has only PyTorch for CUDA:
 * the three flash-attention kernels against their plain versions at
   ``chip_smoke``'s ``cross_ragged`` and ``lm_base_train`` cases, with
   its limits (``flash_limit``, ``flash_lse_limit``) and the launch
-  counters, and once through autograd on views of a packed qkv.
+  counters, and once through autograd on views of a packed qkv;
+* both packed-QKV attention kernels against their plain versions at
+  ``chip_smoke``'s ``ragged_causal`` and ``d128`` cases, once through
+  autograd, and ``attn_impl="auto"`` taking the kernel on the card;
+* the dW+db kernel (bf16 at a ragged N, f32 at ViT's head) against its
+  plain version, and once through ``bias_dense``'s backward.
 """
 
 import sys
@@ -132,3 +137,83 @@ def test_cuda_flash_autograd_on_packed_qkv_views():
     grads = torch.autograd.grad(ref, parts, do)
     assert torch.equal(out, ref)
     assert torch.equal(grad, torch.stack(grads, dim=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_causal", "d128"])
+def test_cuda_packed_attention_kernels_match_plain(case):
+    """Both packed-attention kernels against their plain versions at
+    chip_smoke's cases, with its limits, and one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the packed attention kernels are CUDA C++ for sm_90a")
+    import chip_smoke as cs
+    from distributeddeeplearning_tpu_torch.ops import flash as fl
+    from distributeddeeplearning_tpu_torch.ops import flash_packed as fp
+
+    flush = torch.empty(1024, device="cuda")
+    before = dict(fp.launches_by_op)
+    case_line = cs.fp_case(fp, fl, *next(c for c in cs.FP_CASES if c[0] == case), flush,
+                           torch.Generator(device="cuda").manual_seed(0))
+    assert max(case_line["err_over_limit"].values()) <= 1.0
+    # the case's own checks, then the timed launches (3 warm-up + 25 each)
+    assert {op: fp.launches_by_op[op] - before[op] for op in before} == {
+        "fused_qkv_fwd": 1 + 28, "fused_qkv_bwd": 1 + 28}
+
+
+@pytest.mark.cuda
+def test_cuda_packed_attention_autograd_and_auto():
+    """ViT's call: ``fused_qkv_attention`` through autograd launches each
+    kernel once and equals the two launchers; ``attn_impl="auto"`` on
+    the card takes the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the packed attention kernels are CUDA C++ for sm_90a")
+    from distributeddeeplearning_tpu_torch.models.vit import Attention
+    from distributeddeeplearning_tpu_torch.ops import flash_packed as fp
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    qkv = torch.randn(2, 197, 3 * 4 * 64, device="cuda", generator=g).to(torch.bfloat16)
+    do = torch.randn(2, 197, 4 * 64, device="cuda", generator=g).to(torch.bfloat16)
+    x = qkv.clone().requires_grad_()
+    before = dict(fp.launches_by_op)
+    out = fp.fused_qkv_attention(x, 4)
+    (grad,) = torch.autograd.grad(out, x, do)
+    assert {op: fp.launches_by_op[op] - before[op] for op in before} == {
+        "fused_qkv_fwd": 1, "fused_qkv_bwd": 1}
+    ref = fp.fused_qkv_forward(qkv, 4, False, 64 ** -0.5)
+    assert torch.equal(out, ref)
+    assert torch.equal(grad, fp.fused_qkv_backward(qkv, ref, do, 4, False, 64 ** -0.5))
+    attn = Attention(256, 4, torch.bfloat16, device="cuda", attn_impl="auto")
+    for p in attn.parameters():
+        torch.nn.init.normal_(p, std=0.05)
+    before = fp.launches_by_op["fused_qkv_fwd"]
+    with torch.no_grad():
+        attn(torch.randn(2, 197, 256, device="cuda", generator=g).to(torch.bfloat16))
+    assert fp.launches_by_op["fused_qkv_fwd"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_n", "vit_b16_head_f32"])
+def test_cuda_dw_db_kernel_matches_plain(case):
+    """``matmul_dw_db`` (bf16 at a ragged N; f32 at ViT's head) against
+    its plain version with chip_smoke's limit, and through
+    ``bias_dense``'s backward: one launch, dW and db as the launcher's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the dW+db kernel is CUDA C++ for sm_90a")
+    import chip_smoke as cs
+    from distributeddeeplearning_tpu_torch.ops import fused_grads as fg
+
+    _, n, k, m, dtype = next(c for c in cs.FG_CASES if c[0] == case)
+    line = cs.fg_case(fg, case, n, k, m, dtype, torch.empty(1024, device="cuda"),
+                      torch.Generator(device="cuda").manual_seed(0))
+    assert max(line["err_over_limit"].values()) <= 1.0
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(n, k, device="cuda", generator=g).requires_grad_()
+    w = torch.randn(m, k, device="cuda", generator=g).requires_grad_()
+    b = torch.randn(m, device="cuda", generator=g).requires_grad_()
+    gy = torch.randn(n, m, device="cuda", generator=g)
+    before = fg.launches
+    y = fg.bias_dense(x, w, b, dtype)
+    _, dw, db = torch.autograd.grad(y, (x, w, b), gy.to(y.dtype))
+    assert fg.launches == before + 1
+    want_dw, want_db = fg.matmul_dw_db_cuda(x.detach().to(dtype), gy.to(dtype))
+    assert torch.equal(dw, want_dw) and torch.equal(db, want_db)
