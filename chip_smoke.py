@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--phases kernels,serve,train,lmtrain,vittrain]
+    python3 chip_smoke.py [--phases kernels,serve,servequant,servespec,train,lmtrain,vittrain]
 
 (all phases by default). Any failure raises and the script exits
 non-zero.
@@ -17,7 +17,11 @@ non-zero.
    version on the card (run in f32 on the same bf16 inputs), with
    CUDA-event times of the kernel, the plain version and one library
    call (a yardstick only) beside the byte/operation bound:
-   decode attention at lm_base shapes; ``matmul_stats`` and
+   decode attention at lm_base shapes, on bf16 caches and on int8 and
+   fp8 codes with f32 scales (``QUANT_CASES``; the yardstick then
+   dequantizes the gathered K/V and runs SDPA, timed together), with a
+   negative control (the int8 kernel given scales of 1 must fail);
+   ``matmul_stats`` and
    ``bn_relu_matmul_stats`` at the four ResNet-50 training shapes, a
    ragged M and a prologue channel with σ ≪ |μ|; the three flash
    kernels (forward, dq, dk/dv) at lm_base training, its longest
@@ -36,14 +40,24 @@ non-zero.
    decode_steps)``), each greedy stream equals the same request served
    alone, and the first request's first-token logits agree with a
    full-sequence plain re-forward; then a decode-tick profile.
-5. ``train``: ResNet-50 (224 px, 1000 classes, batch 64, bf16) through
+5. ``servequant``: the same mix with int8 KV and weights, then fp8
+   (``SERVE_KV_DTYPE``/``SERVE_WEIGHT_DTYPE``): the same checks, the
+   kernel counted under the storage dtype, the pools in that dtype (no
+   fall-back), ``byte_accounting()`` (12 x 2 x 12 x (64 + 4) KV bytes a
+   token; parameter bytes = the resident tensors', under 0.55 of bf16's),
+   the first-token logit gap to the bf16 model; a decode-tick profile.
+6. ``servespec``: the mix with ``SERVE_SPEC_K=4``, int8 self-draft and
+   prompt-lookup drafts: the kernel launched 12 times per prefill and
+   per verify tick, drafts accepted, greedy streams equal to the
+   non-speculative engine's but at a bf16 near-tie (printed).
+7. ``train``: ResNet-50 (224 px, 1000 classes, batch 64, bf16) through
    the port's entry points on seeded synthetic data, ``fused=True``:
    3 warm-up and 20 timed steps, finite losses, and the fused kernels
    launched exactly 32 times per forward; a profile of 5 steady steps;
    the same protocol with ``fused=False`` (cuDNN 1x1 convs) as the
    yardstick of the whole step; and one fused against one unfused step
    from the same weights and batch, within stated limits.
-6. ``lmtrain``: full-width ``lm_base`` (vocab 32,000, T = 1024, batch 8,
+8. ``lmtrain``: full-width ``lm_base`` (vocab 32,000, T = 1024, batch 8,
    bf16) through the same entry points on seeded synthetic tokens with
    ``attn_impl="pallas"``: 3 warm-up and 20 timed steps, finite losses,
    each flash kernel launched 12 times per forward (``flash_fwd``) or
@@ -51,7 +65,7 @@ non-zero.
    steps; the same protocol with ``attn_impl="xla"`` (plain masked
    softmax) as the yardstick of the whole step; and one pallas against
    one xla step from the same weights and batch, within stated limits.
-7. ``vittrain``: ViT-B/16 (224 px, 1000 classes, batch 64, bf16)
+9. ``vittrain``: ViT-B/16 (224 px, 1000 classes, batch 64, bf16)
    through the same entry points on seeded synthetic images with
    ``attn_impl="fused"`` and fused dense grads: 3 warm-up and 20 timed
    steps, finite losses, exactly 12 launches per step of each packed
@@ -60,7 +74,7 @@ non-zero.
    stock Dense layers as the yardstick; one flagged against one yardstick step from
    the same weights and batch, within stated limits; and ``"auto"``
    taking the packed kernel once per layer of a forward on the card.
-8. The ``kernels`` JSON line (every kernel whose phases ran), then the
+10. The ``kernels`` JSON line (every kernel whose phases ran), then the
    contract's last line ``{"ok": true, "device": {...}}``.
 
 Exits with code 2 and prints no result when CUDA is absent or the port
@@ -133,11 +147,21 @@ def bf16_tolerance(ref: torch.Tensor) -> torch.Tensor:
     return 2 ** -8 * ref.abs() + 2 ** -6 * row_max
 
 
-def kernel_case(name, pd, q, k, v, q_pos, flush, *, table=None, bs=0):
-    """Kernel vs plain (f32) on the same inputs; times and bound."""
+def kernel_case(name, pd, q, k, v, q_pos, flush, *, table=None, bs=0, k_scale=None,
+                v_scale=None):
+    """Kernel vs plain (f32) on the same inputs; times and bound. With
+    ``k_scale``/``v_scale``, ``k`` and ``v`` hold int8 or fp8 codes and
+    both sides read the same codes and scales (the plain version then
+    dequantizes to f32, the kernel to bf16 as the TPU kernel does)."""
     kw = dict(block_table=table, block_size=bs) if table is not None else {}
+    quantized = k_scale is not None
+    if quantized:
+        kw.update(k_scale=k_scale, v_scale=v_scale)
     out = pd.fused_decode_attention(q, k, v, q_pos, **kw)
-    ref = pd.fused_decode_attention_plain(q.float(), k.float(), v.float(), q_pos, **kw)
+    if quantized:
+        ref = pd.fused_decode_attention_plain(q.float(), k, v, q_pos, **kw)
+    else:
+        ref = pd.fused_decode_attention_plain(q.float(), k.float(), v.float(), q_pos, **kw)
     torch.cuda.synchronize()
     if not torch.isfinite(out.float()).all():
         raise AssertionError(f"{name}: non-finite kernel output")
@@ -152,50 +176,83 @@ def kernel_case(name, pd, q, k, v, q_pos, flush, *, table=None, bs=0):
 
     b, t, h, d = q.shape
     # Bytes the function must move: q, the K/V rows its queries can
-    # reach (up to each row's max position, as the kernel reads them),
-    # q_pos, the table, the output. Operations: QK and PV over the keys
-    # each query attends (k_idx <= q_pos).
+    # reach (up to each row's max position, as the kernel reads them;
+    # codes and their f32 scales when quantized), q_pos, the table, the
+    # output. Operations: QK and PV over the keys each query attends
+    # (k_idx <= q_pos).
     pos = q_pos.long().cpu().numpy()
     reach = (pos.max(axis=1) + 1).sum()
     elem = q.element_size()
-    nbytes = (2 * q.numel() * elem + 2 * reach * h * d * elem
+    row_bytes = h * d * k.element_size() + (h * 4 if quantized else 0)
+    nbytes = (2 * q.numel() * elem + 2 * reach * row_bytes
               + q_pos.numel() * 4 + (table.numel() * 4 if table is not None else 0))
     flops = 4.0 * (pos + 1).sum() * h * d
     bound_bytes = nbytes / H100_BYTES_PER_S * 1e3
     bound_ops = flops / H100_BF16_FLOP_S * 1e3
 
-    # Library yardstick: SDPA over the pre-gathered [B, H, L, d] K/V
-    # with the same boolean mask (gather and layout not timed).
+    # Library yardstick: SDPA over the [B, H, L, d] K/V with the same
+    # boolean mask. In the compute dtype the gathered view is made
+    # before timing; quantized, the stitched path is timed whole: gather
+    # the codes and scales, dequantize to bf16, then SDPA.
     length = (table.shape[1] * bs) if table is not None else k.shape[1]
-    if table is not None:
-        k_all = k[table.long()].reshape(b, length, h, d)
-        v_all = v[table.long()].reshape(b, length, h, d)
-    else:
-        k_all, v_all = k, v
-    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k_all, v_all))
     mask = (torch.arange(length, device=q.device)[None, None, :]
             <= q_pos.long()[:, :, None])[:, None]
     scale = d ** -0.5
+    qh = q.transpose(1, 2).contiguous()
 
-    def sdpa():
+    def logical(x):
+        if table is None:
+            return x
+        return x[table.long()].reshape(b, length, h, x.shape[-1])
+
+    def sdpa(kh, vh):
         return torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=mask, scale=scale)
 
+    if quantized:
+        def library():
+            kd = (logical(k).float() * logical(k_scale)).to(q.dtype)
+            vd = (logical(v).float() * logical(v_scale)).to(q.dtype)
+            return sdpa(kd.transpose(1, 2), vd.transpose(1, 2))
+    else:
+        kh, vh = (logical(x).transpose(1, 2).contiguous() for x in (k, v))
+
+        def library():
+            return sdpa(kh, vh)
+
     return {
         "case": name, "shape": {"B": b, "t": t, "H": h, "d": d, "L": length,
-                                "paged": table is not None},
+                                "paged": table is not None,
+                                "store": str(k.dtype).replace("torch.", "")},
         "max_abs_err": err, "err_over_tol": tol_ratio,
         "ms": time_ms(lambda: pd.fused_decode_attention(q, k, v, q_pos, **kw), flush),
         "plain_ms": time_ms(
             lambda: pd.fused_decode_attention_plain(q, k, v, q_pos, **kw), flush),
-        "library_ms": time_ms(sdpa, flush),
+        "library_ms": time_ms(library, flush),
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         "bytes": int(nbytes), "flops": float(flops),
     }
 
 
+# Quantized decode-attention cases: (storage, case names). The bf16
+# cases' shapes, on pools quantized by ops/quant.quantize_kv.
+QUANT_CASES = {
+    "int8": ("dense_decode", "paged_decode", "paged_decode_full", "paged_verify_t5",
+             "paged_decode_d32", "paged_decode_d128"),
+    "fp8": ("dense_decode", "paged_decode", "paged_decode_full", "paged_verify_t5"),
+}
+
+
 def kernel_phase(pd, flush):
+    """The decode kernel's cases: in bf16 at lm_base shapes (dense and
+    paged decode, the full-depth paged decode, a 512-row paged prefill,
+    the speculative verify window, head dims 32 and 128), then the
+    quantized storage's (``QUANT_CASES``), and one negative control:
+    the int8 kernel given scales of 1 in place of the true ones must
+    miss the tolerance by a large factor (the scales are read)."""
+    from distributeddeeplearning_tpu_torch.ops import quant
+
     dev, bf = "cuda", torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(1234)
     rng = np.random.RandomState(1234)
@@ -219,39 +276,62 @@ def kernel_phase(pd, flush):
             table[r, :n] = perm[r * mb:r * mb + n]
         return k, v, torch.from_numpy(table).to(dev)
 
-    cases = []
     b, h, d, length = 8, 12, 64, 2048
     pos = rng.randint(0, length, size=b)
     pos[0] = length - 1
     q_pos = torch.from_numpy(pos[:, None].astype(np.int32)).to(dev)
-    cases.append(kernel_case("dense_decode", pd, randn(b, 1, h, d),
-                             randn(b, length, h, d), randn(b, length, h, d),
-                             q_pos, flush))
+    full = torch.full((b, 1), length - 1, dtype=torch.int32, device=dev)
+    start = 256
+    # name -> (q, k, v, q_pos, table, block size)
+    inputs = {"dense_decode": (randn(b, 1, h, d), randn(b, length, h, d),
+                               randn(b, length, h, d), q_pos, None, 0)}
     k, v, table = pool_and_table(b, length, h, d, 16, pos + 1)
-    cases.append(kernel_case("paged_decode", pd, randn(b, 1, h, d), k, v, q_pos,
-                             flush, table=table, bs=16))
+    inputs["paged_decode"] = (randn(b, 1, h, d), k, v, q_pos, table, 16)
     # Full-depth paged decode: every row at the last position (the
     # bound the source note estimates).
-    full = torch.full((b, 1), length - 1, dtype=torch.int32, device=dev)
     kf, vf, tf = pool_and_table(b, length, h, d, 16, np.full(b, length))
-    cases.append(kernel_case("paged_decode_full", pd, randn(b, 1, h, d), kf, vf,
-                             full, flush, table=tf, bs=16))
-    start = 256
+    inputs["paged_decode_full"] = (randn(b, 1, h, d), kf, vf, full, tf, 16)
     wpos = torch.arange(start, start + 512, dtype=torch.int32, device=dev)[None]
     k1, v1, t1 = pool_and_table(1, length, h, d, 16, [start + 512])
-    cases.append(kernel_case("paged_prefill_t512", pd, randn(1, 512, h, d), k1, v1,
-                             wpos, flush, table=t1, bs=16))
+    inputs["paged_prefill_t512"] = (randn(1, 512, h, d), k1, v1, wpos, t1, 16)
     starts = rng.randint(0, length - 5, size=b)
-    vpos = torch.from_numpy(
-        (starts[:, None] + np.arange(5)).astype(np.int32)).to(dev)
+    vpos = torch.from_numpy((starts[:, None] + np.arange(5)).astype(np.int32)).to(dev)
     kv, vv, tv = pool_and_table(b, length, h, d, 16, starts + 5)
-    cases.append(kernel_case("paged_verify_t5", pd, randn(b, 5, h, d), kv, vv,
-                             vpos, flush, table=tv, bs=16))
+    inputs["paged_verify_t5"] = (randn(b, 5, h, d), kv, vv, vpos, tv, 16)
     for dd in (32, 128):
         hh = 768 // dd
         kd, vd, td = pool_and_table(b, length, hh, dd, 16, pos + 1)
-        cases.append(kernel_case(f"paged_decode_d{dd}", pd, randn(b, 1, hh, dd),
-                                 kd, vd, q_pos, flush, table=td, bs=16))
+        inputs[f"paged_decode_d{dd}"] = (randn(b, 1, hh, dd), kd, vd, q_pos, td, 16)
+
+    cases = []
+    for name, (q, k, v, qp, table, bs) in inputs.items():
+        cases.append(kernel_case(name, pd, q, k, v, qp, flush, table=table, bs=bs))
+    for kind, names in QUANT_CASES.items():
+        trash = 127.0 if kind == "int8" else 448.0  # large, finite codes
+        for name in names:
+            q, k, v, qp, table, bs = inputs[name]
+            (kq, ks), (vq, vs) = quant.quantize_kv(k, kind), quant.quantize_kv(v, kind)
+            if table is not None:
+                for c, sc in ((kq, ks), (vq, vs)):
+                    c[0] = trash
+                    sc[0] = 1e2
+            cases.append(kernel_case(f"{name}_{kind}", pd, q, kq, vq, qp, flush, table=table,
+                                     bs=bs, k_scale=ks, v_scale=vs))
+
+    # Negative control: the int8 paged decode with scales of 1.
+    q, k, v, qp, table, bs = inputs["paged_decode"]
+    (kq, ks), (vq, vs) = quant.quantize_kv(k, "int8"), quant.quantize_kv(v, "int8")
+    kw = dict(block_table=table, block_size=bs)
+    ones = torch.ones_like(ks)
+    ref = pd.fused_decode_attention_plain(q.float(), kq, vq, qp, k_scale=ks, v_scale=vs, **kw)
+    wrong = pd.fused_decode_attention(q, kq, vq, qp, k_scale=ones, v_scale=ones, **kw)
+    factor = ((wrong.float() - ref).abs() / bf16_tolerance(ref)).max().item()
+    print("control " + json.dumps({"case": "paged_decode_int8_scales_of_1",
+                                   "err_over_tol": factor}), flush=True)
+    if not factor > 10:
+        raise AssertionError(
+            f"the int8 kernel with scales of 1 stays within {factor:.2f}x of the "
+            f"tolerance: the scales are not read")
     return cases
 
 
@@ -678,101 +758,99 @@ def _flash_entry(op, cases, launches):
     }
 
 
-def serving_phase(pd, card):
-    from distributeddeeplearning_tpu_torch.models import convert, get_model
-    from distributeddeeplearning_tpu_torch.serving import Request, ServeConfig, Server
+VOCAB, NEW_TOKENS = 32_000, 64
+SERVE_ENV = {"SERVE_KV_LAYOUT": "paged", "SERVE_DECODE_KERNEL": "fused", "SERVE_SLOTS": "8"}
 
-    vocab, new = 32_000, 64
-    params = convert.init_params(
-        "base", vocab, torch.Generator(device="cuda").manual_seed(0))
-    model = get_model("lm_base", num_classes=vocab, device="cuda")
-    cfg = ServeConfig.from_env({
-        "SERVE_KV_LAYOUT": "paged", "SERVE_DECODE_KERNEL": "fused",
-        "SERVE_SLOTS": "8",
-    })
-    t0 = time.perf_counter()
-    server = Server.build(model, params, cfg)
-    engine = server.engine
-    engine.warmup()
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+
+def _lm_params(variant="base", device="cuda"):
+    """Seeded random lm weights (f32, on ``device``; full-width lm_base
+    on the card)."""
+    from distributeddeeplearning_tpu_torch.models import convert
+
+    return convert.init_params(variant, VOCAB, torch.Generator(device=device).manual_seed(0))
+
+
+def _request_mix():
+    """16 requests: prompts of 32–1024 tokens, 64 new tokens each, the
+    odd ones sampled (temperature 0.8, top-k 40), two sharing a
+    256-token prefix (a prefix-cache hit)."""
+    from distributeddeeplearning_tpu_torch.serving import Request
 
     rng = np.random.RandomState(0)
-    shared = rng.randint(0, vocab, size=256).astype(np.int32)
+    shared = rng.randint(0, VOCAB, size=256).astype(np.int32)
     reqs = []
     for i in range(16):
-        if i in (1, 9):  # share a 256-token prefix (prefix-cache hit)
-            tail = rng.randint(0, vocab, size=rng.randint(16, 512)).astype(np.int32)
+        if i in (1, 9):
+            tail = rng.randint(0, VOCAB, size=rng.randint(16, 512)).astype(np.int32)
             prompt = np.concatenate([shared, tail])
         else:
-            prompt = rng.randint(0, vocab, size=rng.randint(32, 1025)).astype(np.int32)
+            prompt = rng.randint(0, VOCAB, size=rng.randint(32, 1025)).astype(np.int32)
         sampled = i % 2 == 1
         reqs.append(Request(
-            prompt=prompt, max_new_tokens=new,
+            prompt=prompt, max_new_tokens=NEW_TOKENS,
             temperature=0.8 if sampled else 0.0,
             top_k=40 if sampled else None, rng=i,
         ))
+    return reqs
 
+
+def _reset_launches(pd):
     pd.launches = 0
+    for key in pd.launches_by_store:
+        pd.launches_by_store[key] = 0
+
+
+def serve_mix(pd, card, env, label, params, solo=True, variant="base", device="cuda"):
+    """Full-width lm_base behind ``Server.build`` (the ``SERVE_*`` env
+    ``env``) answers the 16-request mix. Checks: lengths and vocab
+    range; the kernel ran exactly once per layer per forward (``launches
+    == 12 × (prefills + decode ticks)``, a speculative engine's verify
+    ticks counted as decode ticks); the prefix-cache hit. With ``solo``,
+    also: each greedy stream equals the same request served alone, and
+    the first request's first-token logits agree with a full-sequence
+    plain re-forward of the same model (through a quantized dense cache
+    when the KV tier is quantized). Prints the ``label`` line and
+    returns ``(summary, server, requests, handles)``. ``variant`` and
+    ``device`` let the CPU rehearse it (``variant="tiny", device="cpu"``)."""
+    from distributeddeeplearning_tpu_torch import inference
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.serving import ServeConfig, Server
+
+    model = get_model(f"lm_{variant}", num_classes=VOCAB, device=device)
+    t0 = time.perf_counter()
+    server = Server.build(model, params, ServeConfig.from_env(env), device=device)
+    engine = server.engine
+    engine.warmup()
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+
+    reqs = _request_mix()
+    _reset_launches(pd)
     prefills0, steps0 = engine.prefill_execs, engine.decode_steps
     t0 = time.perf_counter()
     handles = [server.submit(r) for r in reqs]
     server.drain()
-    torch.cuda.synchronize()
+    _sync(device)
     wall = time.perf_counter() - t0
-    launches = pd.launches
+    launches, by_store = pd.launches, dict(pd.launches_by_store)
     prefills = engine.prefill_execs - prefills0
     steps = engine.decode_steps - steps0
 
     for i, h in enumerate(handles):
         toks = np.asarray(h.new_tokens)
-        if h.status != "done" or toks.shape != (new,):
-            raise AssertionError(f"request {i}: {h.status}, {toks.shape[0]} tokens")
-        if toks.min() < 0 or toks.max() >= vocab:
-            raise AssertionError(f"request {i}: token outside the vocab")
+        if h.status != "done" or toks.shape != (NEW_TOKENS,):
+            raise AssertionError(f"{label} request {i}: {h.status}, {toks.shape[0]} tokens")
+        if toks.min() < 0 or toks.max() >= VOCAB:
+            raise AssertionError(f"{label} request {i}: token outside the vocab")
     depth = len(engine.model.blocks)
-    if launches != depth * (prefills + steps) or launches == 0:
+    want = depth * (prefills + steps) if device == "cuda" else 0  # the CPU runs plain
+    if launches != want or (device == "cuda" and launches == 0):
         raise AssertionError(
-            f"launches {launches} != {depth} x ({prefills} prefills + "
-            f"{steps} decode steps)")
+            f"{label}: launches {launches} != {depth} x ({prefills} prefills + "
+            f"{steps} decode ticks)")
     hits = engine.allocator.stats["prefix_hit_requests"]
     if hits < 1:
-        raise AssertionError("the shared-prefix request did not hit the prefix cache")
-
-    # Each greedy stream against the same request served alone. The
-    # prefix cache is switched off for the solo runs: it now holds each
-    # prompt's own blocks, and a hit would change the prefill's shapes,
-    # which the batched run (no hit for these prompts) did not have.
-    engine.prefix_cache = False
-    first_logits = None
-    for i, (r, h) in enumerate(zip(reqs, handles)):
-        if r.temperature > 0:
-            continue
-        solo = Server(engine)
-        hs = solo.submit(r)
-        solo.drain()
-        if i == 0:
-            first_logits = engine.last_prefill["logits"].float()
-        if hs.new_tokens != h.new_tokens:
-            raise AssertionError(f"greedy request {i}: batched stream != alone")
-    engine.prefix_cache = True
-
-    # First-token logits vs a full-sequence plain re-forward (no cache,
-    # plain attention) on the card.
-    with torch.no_grad():
-        prompt = torch.as_tensor(reqs[0].prompt, dtype=torch.long, device="cuda")
-        ref = engine.model(prompt[None])[0, -1].float()
-    if not (torch.isfinite(first_logits).all() and first_logits.shape == (vocab,)):
-        raise AssertionError("first-token logits not finite / wrong shape")
-    logit_err = (first_logits - ref).abs().max().item()
-    logit_scale = ref.abs().max().item()
-    # bf16 stack, two attention lowerings (f32-score kernel vs
-    # bf16-score plain softmax). The card read 0.026 against a largest
-    # logit of 2.34 (0.011 of it): the limit is 2**-6 (0.0156) of it.
-    if not logit_err <= 2 ** -6 * logit_scale:
-        raise AssertionError(
-            f"first-token logits differ from the re-forward by {logit_err} "
-            f"(max |logit| {logit_scale})")
+        raise AssertionError(f"{label}: the shared-prefix request did not hit the prefix cache")
 
     ttft = sorted(h.ttft_s for h in handles)
     gen = sum(len(h.new_tokens) for h in handles)
@@ -780,13 +858,184 @@ def serving_phase(pd, card):
         "tokens_per_s": gen / wall, "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
         "ttft_p99_ms": 1e3 * float(np.percentile(ttft, 99)), "wall_s": wall,
         "requests": len(handles), "generated_tokens": gen, "prefills": prefills,
-        "decode_steps": steps, "launches": launches, "prefix_hit_requests": hits,
-        "first_logit_max_abs_err": logit_err, "first_logit_max_abs": logit_scale,
-        "setup_s": setup_s, "card": card,
+        "decode_steps": steps, "launches": launches,
+        "launches_by_store": {k: n for k, n in by_store.items() if n},
+        "prefix_hit_requests": hits, "kv_dtype": engine.kv_dtype,
+        "weight_dtype": engine.weight_dtype, "setup_s": setup_s, "card": card,
     }
-    print("serve " + json.dumps(summary), flush=True)
-    profile_decode(server, vocab, card)
+    if solo:
+        # Each greedy stream against the same request served alone. The
+        # prefix cache is switched off for the solo runs: it now holds
+        # each prompt's own blocks, and a hit would change the prefill's
+        # shapes, which the batched run (no hit for these prompts) did
+        # not have.
+        engine.prefix_cache = False
+        first_logits = None
+        for i, (r, h) in enumerate(zip(reqs, handles)):
+            if r.temperature > 0:
+                continue
+            alone = Server(engine)
+            hs = alone.submit(r)
+            alone.drain()
+            if i == 0:
+                first_logits = engine.last_prefill["logits"].float()
+            if hs.new_tokens != h.new_tokens:
+                raise AssertionError(f"{label} greedy request {i}: batched stream != alone")
+        engine.prefix_cache = True
+
+        # First-token logits vs a full-sequence plain re-forward on the
+        # card (no cache, plain attention; through a dense cache of the
+        # engine's KV tier when it is quantized, so both read the same
+        # quantized K/V).
+        with torch.no_grad():
+            prompt = torch.as_tensor(reqs[0].prompt, dtype=torch.long, device=device)
+            cache = None
+            if engine.kv_dtype != "bf16":
+                cache = inference.dense_cache(engine.model, 1, prompt.shape[0], device,
+                                              engine.kv_dtype)
+            ref = engine.model(prompt[None], cache)[0, -1].float()
+        if not (torch.isfinite(first_logits).all() and first_logits.shape == (VOCAB,)):
+            raise AssertionError(f"{label}: first-token logits not finite / wrong shape")
+        logit_err = (first_logits - ref).abs().max().item()
+        logit_scale = ref.abs().max().item()
+        # bf16 stack, two attention lowerings (f32-score kernel vs
+        # bf16-score plain softmax). The card read 0.026 against a
+        # largest logit of 2.34 (0.011 of it): the limit is 2**-6
+        # (0.0156) of it.
+        if not logit_err <= 2 ** -6 * logit_scale:
+            raise AssertionError(
+                f"{label}: first-token logits differ from the re-forward by {logit_err} "
+                f"(max |logit| {logit_scale})")
+        summary.update(first_logit_max_abs_err=logit_err, first_logit_max_abs=logit_scale)
+        summary["first_logits"] = first_logits
+    return summary, server, reqs, handles
+
+
+def _print_line(label, summary):
+    print(label + " " + json.dumps({k: v for k, v in summary.items()
+                                    if not isinstance(v, torch.Tensor)}), flush=True)
+
+
+def serving_phase(pd, card):
+    summary, server, _, _ = serve_mix(pd, card, SERVE_ENV, "serve", _lm_params())
+    _print_line("serve", summary)
+    profile_decode(server, VOCAB, card)
+    return summary["launches"]
+
+
+def quant_serving_phase(pd, card, variant="base", device="cuda"):
+    """``servequant``: the ``serve`` mix with ``SERVE_KV_DTYPE`` and
+    ``SERVE_WEIGHT_DTYPE`` int8, then fp8 (``serve_mix``'s checks, the
+    kernel counted under the storage dtype), the pools really in that
+    dtype, ``byte_accounting()`` (``kv_bytes_per_token`` = 12 x 2 x 12 x
+    (64 + 4) bytes; ``param_bytes`` = the resident tensors' bytes and
+    below 0.55 of the bf16 engine's), the first-token logit gap to the
+    bf16 model, and a decode-tick profile (on the card). Returns the
+    launches by storage dtype."""
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.serving import SlotEngine
+
+    params = _lm_params(variant, device)
+    bf16 = SlotEngine(get_model(f"lm_{variant}", num_classes=VOCAB, device=device), params,
+                      device=device)
+    bf16_param_bytes = bf16.byte_accounting()["param_bytes"]
+    m = bf16.model  # layers x (K, V) x heads x (a code per dim + an f32 scale)
+    kv_bytes_per_token = len(m.blocks) * 2 * m.num_heads * (m.head_dim * 1 + 4)
+    prompt0 = torch.as_tensor(_request_mix()[0].prompt, dtype=torch.long, device=device)
+    with torch.no_grad():
+        bf16_logits = bf16.model(prompt0[None])[0, -1].float()
+    del bf16
+    torch.cuda.empty_cache()
+    launches = {}
+    for kind in ("int8", "fp8"):
+        env = dict(SERVE_ENV, SERVE_KV_DTYPE=kind, SERVE_WEIGHT_DTYPE=kind)
+        label = f"servequant_{kind}"
+        summary, server, _, _ = serve_mix(pd, card, env, label, params, variant=variant,
+                                          device=device)
+        engine = server.engine
+        n = summary["launches_by_store"].get(kind, 0)
+        if n != summary["launches"]:
+            raise AssertionError(f"{label}: {n} of {summary['launches']} launches on {kind} pools")
+        store = torch.int8 if kind == "int8" else torch.float8_e4m3fn
+        if engine.kv_dtype != kind or any(x.dtype != store for x in engine._stores[0]):
+            raise AssertionError(f"{label}: the pools are not {store} (fell back?)")
+        acct = engine.byte_accounting()
+        resident = float(sum(t.numel() * t.element_size()
+                             for t in engine.model.state_dict().values()))
+        if acct["kv_bytes_per_token"] != kv_bytes_per_token:
+            raise AssertionError(f"{label}: kv_bytes_per_token {acct['kv_bytes_per_token']}")
+        if acct["param_bytes"] != resident or not acct["param_bytes"] < 0.55 * bf16_param_bytes:
+            raise AssertionError(
+                f"{label}: param_bytes {acct['param_bytes']} (resident {resident}, "
+                f"bf16 engine {bf16_param_bytes})")
+        gap = (summary.pop("first_logits") - bf16_logits).abs().max().item()
+        summary.update(
+            kv_bytes_per_token=acct["kv_bytes_per_token"], param_bytes=acct["param_bytes"],
+            bf16_param_bytes=bf16_param_bytes,
+            param_bytes_over_bf16=acct["param_bytes"] / bf16_param_bytes,
+            first_logit_gap_to_bf16=gap,
+            first_logit_gap_to_bf16_over_max=gap / bf16_logits.abs().max().item())
+        _print_line(label, summary)
+        if device == "cuda":
+            profile_decode(server, VOCAB, card)
+        launches[kind] = n
+        del server, engine
+        torch.cuda.empty_cache()
     return launches
+
+
+def spec_serving_phase(pd, card, k=4, variant="base", device="cuda"):
+    """``servespec``: the ``serve`` mix with ``SERVE_SPEC_K=4``, drafts
+    from the int8 self-draft (its own dense bf16 pool, the plain decode
+    path) and from prompt lookup, both paged through the fused kernel.
+    Checks: the kernel launched 12 times per prefill and per verify tick
+    (the draft launches none), at least one draft accepted, and every
+    greedy stream equal to the non-speculative engine's. A flip is
+    allowed only at a bf16 near-tie of the plain run: the top-2 gap of
+    its logits there at most 2**-7 of the largest logit (a [S, K+1]
+    forward may take other cuBLAS algorithms than a [S, 1] one)."""
+    params = _lm_params(variant, device)
+    base, base_server, reqs, base_handles = serve_mix(
+        pd, card, SERVE_ENV, "servespec_base", params, solo=False, variant=variant,
+        device=device)
+    base_model = base_server.engine.model
+    for draft in ("int8", "ngram"):
+        label = f"servespec_{draft}"
+        env = dict(SERVE_ENV, SERVE_SPEC_K=str(k), SERVE_SPEC_DRAFT=draft)
+        summary, server, _, handles = serve_mix(pd, card, env, label, params, solo=False,
+                                                variant=variant, device=device)
+        st = server.engine.spec_stats
+        if st["tokens_accepted"] < 1:
+            raise AssertionError(f"{label}: no draft was accepted")
+        flips = []
+        for i, (r, h, hb) in enumerate(zip(reqs, handles, base_handles)):
+            if r.temperature > 0 or h.new_tokens == hb.new_tokens:
+                continue
+            j = next(n for n, (a, b) in enumerate(zip(h.new_tokens, hb.new_tokens)) if a != b)
+            seq = np.concatenate([r.prompt, np.asarray(hb.new_tokens[:j], np.int32)])
+            with torch.no_grad():
+                logits = base_model(torch.as_tensor(seq, device=device)[None])[0, -1].float()
+            top2 = torch.topk(logits, 2).values
+            gap = ((top2[0] - top2[1]) / logits.abs().max()).item()
+            flips.append({"request": i, "position": j, "top2_gap_over_max": gap})
+            if gap > 2 ** -7:
+                raise AssertionError(
+                    f"{label} greedy request {i}: differs from the non-speculative stream "
+                    f"at {j}, where the plain run's top-2 gap is {gap:.4f} of its largest "
+                    f"logit (> 2**-7: not a near-tie)")
+        summary.update(
+            spec_k=k, draft=draft, verify_ticks=st["verify_ticks"],
+            accept_rate=st["tokens_accepted"] / max(st["tokens_accepted"]
+                                                    + st["tokens_rejected"], 1),
+            tokens_per_tick=st["tokens_committed"] / max(st["verify_ticks"], 1),
+            tokens_per_slot_tick=st["tokens_committed"] * k / max(
+                st["tokens_accepted"] + st["tokens_rejected"], 1),
+            draft_s=st["draft_s"], verify_s=st["verify_s"], greedy_flips=flips,
+            base_tokens_per_s=base["tokens_per_s"])
+        _print_line(label, summary)
+        del server
+        torch.cuda.empty_cache()
+    _print_line("servespec_base", base)
 
 
 def profile_decode(server, vocab, card, ticks=8):
@@ -823,6 +1072,7 @@ def profile_decode(server, vocab, card, ticks=8):
         "tick_wall_ms": wall_ms,
         "tick_device_ms": device_ms if device_ms > 0 else "not measured",
         "device_busy_share": device_ms / wall_ms if device_ms > 0 else "not measured",
+        "device_ops_per_tick": sum(e.count for e in kernels) / ticks,
         "top_kernels_ms_per_tick": {
             e.key[:80]: e.device_time_total / 1e3 / ticks for e in top},
         "slots": server.engine.num_slots, "context": 512, "card": card,
@@ -1649,7 +1899,25 @@ def _fb_entry(name, cases, timed_case, launches):
     }
 
 
-PHASES = ("kernels", "serve", "train", "lmtrain", "vittrain")
+PHASES = ("kernels", "serve", "servequant", "servespec", "train", "lmtrain", "vittrain")
+
+
+def _pd_entry(name, cases, store, launches):
+    """A ``kernels`` line entry of the decode kernel for one storage
+    dtype: its cases' largest error, the times and bound of its
+    ``paged_decode_full`` case."""
+    mine = [c for c in cases if c["shape"]["store"] == store]
+    main_case = next(c for c in mine if c["case"].startswith("paged_decode_full"))
+    return {
+        "name": name, "route": "cuda",
+        "source": "distributeddeeplearning_tpu_torch/csrc/paged_decode.cu",
+        "replaces": "distributeddeeplearning_tpu/ops/pallas/paged_decode.py:175",
+        "launches": launches,
+        "max_abs_err": max(c["max_abs_err"] for c in mine),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"], "timed_case": "paged_decode_full",
+    }
 
 
 def main(argv=None) -> int:
@@ -1712,22 +1980,23 @@ def main(argv=None) -> int:
 
     if "serve" in phases:
         launches = serving_phase(pd, card)
+        torch.cuda.empty_cache()
         if pd_cases is not None:
-            main_case = next(c for c in pd_cases if c["case"] == "paged_decode_full")
-            entries.append({
-                "name": "paged_decode_attention",
-                "route": "cuda",
-                "source": "distributeddeeplearning_tpu_torch/csrc/paged_decode.cu",
-                "replaces": "distributeddeeplearning_tpu/ops/pallas/paged_decode.py:175",
-                "launches": launches,
-                "max_abs_err": max(c["max_abs_err"] for c in pd_cases),
-                "ms": main_case["ms"],
-                "plain_ms": main_case["plain_ms"],
-                "bound_ms": main_case["bound_ms"],
-                "bound_by": main_case["bound_by"],
-                "library_ms": main_case["library_ms"],
-                "timed_case": main_case["case"],
-            })
+            entries.append(_pd_entry("paged_decode_attention", pd_cases, "bfloat16", launches))
+
+    if "servequant" in phases:
+        by_store = quant_serving_phase(pd, card)
+        torch.cuda.empty_cache()
+        if pd_cases is not None:
+            entries += [
+                _pd_entry("paged_decode_attention_int8", pd_cases, "int8", by_store["int8"]),
+                _pd_entry("paged_decode_attention_fp8", pd_cases, "float8_e4m3fn",
+                          by_store["fp8"]),
+            ]
+
+    if "servespec" in phases:
+        spec_serving_phase(pd, card)
+        torch.cuda.empty_cache()
 
     if "train" in phases:
         fused_line, state, step, batches = train_phase(fb, card, fused=True)

@@ -15,11 +15,20 @@ Ported so far:
 * LM serving: ``models`` (decoder-only LM in decode mode),
   ``inference``, ``serving`` (slot engine, paged KV pool, prefix cache,
   scheduler) and the paged-decode attention kernel
-  (``ops/paged_decode.py`` + ``csrc/paged_decode.cu``);
+  (``ops/paged_decode.py`` + ``csrc/paged_decode.cu``), with the
+  quantized tiers (``ops/quant.py``: int8 / fp8 KV pools, dequantized in
+  the kernel's registers, and int8 / fp8 weights) and speculative
+  decoding (``serving/spec.py``: int8 self-draft or n-gram drafts, one
+  ``[slots, K+1]`` verify through the kernel);
 * data-parallel LM training: ``data`` (synthetic tokens), the LM with
   ``attn_impl="pallas"`` through the flash-attention kernels
   (``ops/flash.py`` + ``csrc/flash.cu``: forward, dq, dk/dv) and the
-  same train step.
+  same train step;
+* data-parallel ViT training: ``models`` (ViT with ``attn_impl="fused"``
+  through the packed-QKV attention kernels, ``ops/flash_packed.py`` +
+  ``csrc/flash_packed.cu``, and ``FUSED_DENSE_GRAD=1`` through the
+  dW+db kernel, ``ops/fused_grads.py`` + ``csrc/fused_grads.cu``) and
+  the same train step.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (the CPU tier's parity tests do). Importing the package

@@ -7,38 +7,56 @@ forward over a fresh dense cache sized to the request (prompt +
 ``b`` samples under its own key ladder (row 0 the request ``rng``, row
 ``b > 0`` ``fold_key(rng, b)``), so each row's stream equals the same
 request served alone by the slot engine (``serving.SlotEngine``), greedy
-or sampled. Sampled streams differ from the JAX package's
-(``serving/sampling.py`` explains why); greedy streams agree.
+or sampled. Its draws are the JAX package's own threefry bits
+(``serving/sampling.py``), so sampled streams equal the JAX package's
+except on a near-tie of two noisy logits, and greedy streams agree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from distributeddeeplearning_tpu_torch.models.vit import KVCache
+from distributeddeeplearning_tpu_torch.ops import quant
+
+Stores = Tuple[List[torch.Tensor], List[torch.Tensor],
+               Optional[List[torch.Tensor]], Optional[List[torch.Tensor]]]
 
 
-def dense_cache(model, batch: int, length: int, device) -> KVCache:
-    """Zeroed dense rows ``[batch, length, H, d]`` per layer, in the
-    model's compute dtype (index 0)."""
-    shape = (batch, length, model.num_heads, model.head_dim)
-    return KVCache(
-        k=[torch.zeros(shape, dtype=model.dtype, device=device) for _ in model.blocks],
-        v=[torch.zeros(shape, dtype=model.dtype, device=device) for _ in model.blocks],
-    )
+def kv_stores(model, rows: Tuple[int, int], device, kv_dtype: str = "bf16") -> Stores:
+    """Zeroed per-layer K/V stores ``[*rows, H, d]`` (dense ``(batch,
+    length)`` or paged ``(num_blocks, block_size)``): ``(k, v, k_scale,
+    v_scale)``. Native (``"bf16"``) stores hold the model's compute dtype
+    and no scales; ``"int8"``/``"fp8"`` hold codes plus f32 scales
+    ``[*rows, H, 1]``, zeroed too, so that an unwritten slot dequantizes
+    to an exact zero (JAX's ``jnp.zeros`` scale init)."""
+    store = quant.kv_store_dtype(kv_dtype)
+    shape = tuple(rows) + (model.num_heads, model.head_dim)
+
+    def zeros(shape, dtype):
+        return [torch.zeros(shape, dtype=dtype, device=device) for _ in model.blocks]
+
+    if store is None:
+        return zeros(shape, model.dtype), zeros(shape, model.dtype), None, None
+    tail = shape[:-1] + (1,)
+    return (zeros(shape, store), zeros(shape, store),
+            zeros(tail, torch.float32), zeros(tail, torch.float32))
+
+
+def dense_cache(model, batch: int, length: int, device, kv_dtype: str = "bf16") -> KVCache:
+    """Zeroed dense rows ``[batch, length, H, d]`` per layer (index 0),
+    in the compute dtype or quantized (:func:`kv_stores`)."""
+    k, v, ks, vs = kv_stores(model, (batch, length), device, kv_dtype)
+    return KVCache(k=k, v=v, kv_dtype=kv_dtype, k_scale=ks, v_scale=vs)
 
 
 def paged_pools(model, num_blocks: int, block_size: int, device):
-    """Zeroed block pools ``[num_blocks, block_size, H, d]`` per layer
-    (K list, V list)."""
-    shape = (num_blocks, block_size, model.num_heads, model.head_dim)
-    return (
-        [torch.zeros(shape, dtype=model.dtype, device=device) for _ in model.blocks],
-        [torch.zeros(shape, dtype=model.dtype, device=device) for _ in model.blocks],
-    )
+    """Zeroed block pools ``[num_blocks, block_size, H, d]`` per layer in
+    the compute dtype (K list, V list)."""
+    return kv_stores(model, (num_blocks, block_size), device)[:2]
 
 
 def key_data(rng: Any) -> np.ndarray:

@@ -6,7 +6,12 @@ LayerNorm ``scale`` becomes ``weight``, a Dense ``kernel`` ``[in, out]``
 becomes a ``weight`` ``[out, in]`` and ViT's patch conv ``kernel`` HWIO
 an OIHW ``weight``. Embeddings (``tok_embed`` ``[V, H]``, ``pos_embed``
 ``[1, L, H]``, ``cls_token`` ``[1, 1, H]``) and biases carry across
-unchanged.
+unchanged. A tree quantized by the JAX package's ``quant.quantize_params``
+carries across too: a ``kernel`` ``{_q8: [in, out] int8, _q8_scale:
+[1, out]}`` (or ``_qf8``/``_qf8_scale`` with float8_e4m3fn codes) becomes
+``weight_q`` ``[out, in]`` and ``weight_scale`` ``[out, 1]``, and
+``tok_embed``'s pair ``tok_embed_q`` ``[V, H]`` / ``tok_embed_scale``
+``[V, 1]`` (the port's ``ops/quant.py`` layout).
 
 ``ResNet``: module paths are the flax ones joined by dots. A conv
 ``kernel`` HWIO ``[kh, kw, in, out]`` becomes an OIHW ``weight`` (the
@@ -31,6 +36,8 @@ from distributeddeeplearning_tpu_torch.models.resnet import ResNet
 from distributeddeeplearning_tpu_torch.models.transformer_lm import _VARIANTS
 
 _BLOCK = re.compile(r"^block(\d+)$")
+# The JAX package's quantized-leaf markers -> the port's name suffixes.
+_QUANT_MARKERS = {"_q8": "_q", "_qf8": "_q", "_q8_scale": "_scale", "_qf8_scale": "_scale"}
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, Any]:
@@ -44,12 +51,29 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, Any]:
     return out
 
 
+def _codes_to_torch(arr: np.ndarray) -> torch.Tensor:
+    """int8 or float8_e4m3fn codes (numpy, the latter as ml_dtypes
+    stores them) -> a torch tensor of the same bits."""
+    if arr.dtype == np.int8:
+        return torch.from_numpy(np.ascontiguousarray(arr))
+    bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint8))
+    return bits.view(torch.float8_e4m3fn)
+
+
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A flax ``TransformerLM`` or ``ViT`` param tree (nested mapping of
-    arrays, unboxed) -> the port's state dict of f32 CPU tensors."""
+    arrays, unboxed; quantized or not) -> the port's state dict of CPU
+    tensors: f32, with quantized codes in their own dtype."""
     out: Dict[str, torch.Tensor] = {}
     for path, val in _flatten(tree).items():
-        arr = np.array(val, np.float32)  # a writable copy
+        marker = _QUANT_MARKERS.get(path[-1])
+        if marker is not None:
+            path = path[:-1]
+            arr = np.array(val)
+            if marker == "_scale":
+                arr = arr.astype(np.float32)
+        else:
+            arr = np.array(val, np.float32)  # a writable copy
         names = []
         for part in path:
             m = _BLOCK.match(part)
@@ -59,16 +83,37 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         elif names[-1] == "kernel":
             names[-1] = "weight"
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-        out[".".join(names)] = torch.from_numpy(np.ascontiguousarray(arr))
+        if marker == "_q":
+            tensor = _codes_to_torch(arr)
+        else:
+            tensor = torch.from_numpy(np.ascontiguousarray(arr))
+        out[".".join(names) + (marker or "")] = tensor
     return out
+
+
+def _codes_to_numpy(tensor: torch.Tensor) -> np.ndarray:
+    t = tensor.detach().cpu()
+    if t.dtype == torch.int8:
+        return t.numpy()
+    import ml_dtypes  # numpy's float8 dtypes, as JAX stores them
+
+    return t.view(torch.uint8).numpy().view(ml_dtypes.float8_e4m3fn)
 
 
 def params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse of :func:`params_from_flax` (numpy leaves)."""
     tree: Dict[str, Any] = {}
     for name, tensor in state.items():
-        arr = tensor.detach().float().cpu().numpy()
         parts = name.split(".")
+        marker = None
+        for suffix in ("_q", "_scale"):
+            if parts[-1] in (f"weight{suffix}", f"tok_embed{suffix}"):
+                parts[-1] = parts[-1][:-len(suffix)]
+                marker = suffix
+        if marker == "_q":
+            arr = _codes_to_numpy(tensor)
+        else:
+            arr = tensor.detach().float().cpu().numpy()
         if parts[0] == "blocks":
             parts = [f"block{parts[1]}"] + parts[2:]
         if parts[-1] == "weight":
@@ -78,6 +123,9 @@ def params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
                 parts[-1], arr = "kernel", arr.transpose(2, 3, 1, 0)
             else:
                 parts[-1] = "scale"
+        if marker is not None:
+            fp8 = state[name[:-len(marker)] + "_q"].dtype != torch.int8
+            parts.append(("_qf8" if fp8 else "_q8") + ("_scale" if marker == "_scale" else ""))
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})

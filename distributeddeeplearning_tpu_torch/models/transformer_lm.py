@@ -20,6 +20,13 @@ written into
 gathers raise on an out-of-range position where JAX would fill NaN, so
 callers keep ``start + t <= max_seq_len`` (the serving engine's
 ``_prefix_fit``).
+
+``quantize_weights_("int8" | "fp8")`` is the serving tier's weight
+quantization (``ops/quant.py``): every Dense weight and the tied
+``tok_embed`` become codes plus per-row f32 scales, dequantized to the
+compute dtype where they are used (the embedding only at the looked-up
+rows, the head over the whole table), as JAX's engine dequantizes its
+quantized tree at the top of each program.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from distributeddeeplearning_tpu_torch.models.vit import (
     LayerNorm,
     MlpBlock,
 )
+from distributeddeeplearning_tpu_torch.ops import quant
 from distributeddeeplearning_tpu_torch.utils.device import resolve_device
 
 # name -> (hidden, depth, heads, mlp_dim)
@@ -108,15 +116,40 @@ class TransformerLM(nn.Module):
         """Store every Dense weight/bias and the embeddings in the
         compute dtype, in place. The forward casts them at use anyway,
         so the results are bitwise the same; serving then streams half
-        the weight bytes per step. LayerNorm parameters stay f32."""
+        the weight bytes per step. LayerNorm parameters and quantized
+        weights (codes and scales) stay as they are."""
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, Dense):
-                    m.weight.data = m.weight.data.to(self.dtype)
+                    if not quant.is_quantized_module(m, "weight"):
+                        m.weight.data = m.weight.data.to(self.dtype)
                     m.bias.data = m.bias.data.to(self.dtype)
-            self.tok_embed.data = self.tok_embed.data.to(self.dtype)
+            if not quant.is_quantized_module(self, "tok_embed"):
+                self.tok_embed.data = self.tok_embed.data.to(self.dtype)
             self.pos_embed.data = self.pos_embed.data.to(self.dtype)
         return self
+
+    def quantize_weights_(self, dtype: str) -> "TransformerLM":
+        """Quantize every Dense weight and ``tok_embed`` in place
+        (``"int8"`` or ``"fp8"``, one f32 scale per output row) from
+        their current values: call it on the f32 parameters, before
+        :meth:`cast_matmul_weights_`, since rounding to bf16 first moves
+        each row's amax and so every code."""
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, Dense):
+                    quant.quantize_module_(m, "weight", dtype)
+            quant.quantize_module_(self, "tok_embed", dtype)
+        return self
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        if quant.is_quantized_module(self, "tok_embed"):
+            copies = quant.held(self)
+            if copies:
+                return copies["tok_embed"][tokens]
+            return quant.dequantize_store(
+                self.tok_embed_q[tokens], self.tok_embed_scale[tokens], self.dtype)
+        return self.tok_embed[tokens].to(self.dtype)
 
     def forward(self, tokens: torch.Tensor,
                 cache: Optional[KVCache] = None) -> torch.Tensor:
@@ -125,7 +158,7 @@ class TransformerLM(nn.Module):
             raise ValueError(
                 f"sequence {t} exceeds max_seq_len {self.max_seq_len}"
             )
-        x = self.tok_embed[tokens].to(self.dtype)
+        x = self._embed(tokens)
         if cache is None:
             pos_t = self.pos_embed[:, :t]
         elif cache.vector_index:
@@ -142,4 +175,4 @@ class TransformerLM(nn.Module):
         x = self.ln_final(x)
         # Tied head: compute-dtype operands, f32 accumulation, logits
         # stored in the compute dtype.
-        return torch.matmul(x.to(self.dtype), self.tok_embed.to(self.dtype).t())
+        return torch.matmul(x.to(self.dtype), quant.weight(self, "tok_embed", self.dtype).t())

@@ -4,7 +4,9 @@
 two KV-cache decode paths, ``EncoderBlock`` and ``ViT``.
 
 Numerics follow the flax model: parameters in f32, compute in ``dtype``
-(bf16 by default), LayerNorm in f32, the head an f32 Dense.
+(bf16 by default), LayerNorm in f32, the head an f32 Dense. A Dense
+whose weight went through ``ops/quant.quantize_module_`` holds int8 or
+fp8 codes and f32 scales instead, and dequantizes them at each use.
 
 ``FUSED_DENSE_GRAD=1`` (read when a Dense is built, as JAX's ``_dense``
 reads it) makes every Dense a ``FusedGradDense``: the same parameters,
@@ -15,7 +17,8 @@ The flax "cache" collection becomes an explicit :class:`KVCache` the
 caller owns and passes in. Attention writes the window's K/V into it IN
 PLACE (the JAX package returns a new cache instead) and never advances
 its positions: the caller re-feeds them every call, as the serving
-engine does anyway.
+engine does anyway. A quantized cache (``kv_dtype`` int8 or fp8) holds
+codes and per-head f32 scales; writes quantize, reads dequantize.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distributeddeeplearning_tpu_torch.ops import flash_packed
+from distributeddeeplearning_tpu_torch.ops import quant
 from distributeddeeplearning_tpu_torch.ops.attention import dot_product_attention
 from distributeddeeplearning_tpu_torch.ops.fused_grads import bias_dense
 from distributeddeeplearning_tpu_torch.ops.paged_decode import fused_decode_attention
@@ -48,7 +52,9 @@ class Dense(nn.Module):
     """flax ``nn.Dense(dtype=dtype, param_dtype=float32)``: input, kernel
     and bias are cast to the compute dtype, and the bias is added after
     the product (in bf16 that is two roundings, as in flax). Weights are
-    ``[out, in]`` (``nn.Linear``'s layout; flax keeps ``[in, out]``)."""
+    ``[out, in]`` (``nn.Linear``'s layout; flax keeps ``[in, out]``).
+    Quantized (``quant.quantize_module_(dense, "weight", ...)``), the
+    weight is dequantized to the compute dtype at each use."""
 
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
                  device=None) -> None:
@@ -61,15 +67,18 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        return F.linear(x.to(dt), quant.weight(self, "weight", dt)) + self.bias.to(dt)
 
 
 class FusedGradDense(Dense):
     """``Dense`` whose backward computes dW and db in one pass over the
     upstream gradient (``ops/fused_grads.bias_dense``; JAX's
-    ``_FusedGradDense``). The same parameters and forward."""
+    ``_FusedGradDense``). The same parameters and forward; quantized for
+    serving (no backward), it is a plain ``Dense``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quant.is_quantized_module(self, "weight"):
+            return super().forward(x)
         return bias_dense(x, self.weight, self.bias, self.dtype)
 
 
@@ -126,7 +135,10 @@ class KVCache:
     int (lockstep batch, dense only) or a ``[B]`` integer tensor of
     per-row positions. ``decode_kernel`` picks the attention lowering of
     the per-row paths: ``"fused"`` runs :func:`fused_decode_attention`,
-    ``"xla"`` the plain masked path."""
+    ``"xla"`` the plain masked path. ``kv_dtype`` ``"int8"`` or ``"fp8"``
+    (``ops/quant.py``'s registry) means ``k``/``v`` hold codes and
+    ``k_scale``/``v_scale`` one f32 scale per head per position (the
+    K/V shape with a last axis of 1)."""
 
     k: List[torch.Tensor]
     v: List[torch.Tensor]
@@ -134,6 +146,9 @@ class KVCache:
     block_table: Optional[torch.Tensor] = None
     block_size: int = 0
     decode_kernel: str = "xla"
+    kv_dtype: str = "bf16"
+    k_scale: Optional[List[torch.Tensor]] = None
+    v_scale: Optional[List[torch.Tensor]] = None
 
     def __post_init__(self) -> None:
         if self.decode_kernel not in ("xla", "fused"):
@@ -143,6 +158,13 @@ class KVCache:
             )
         if self.block_size and self.block_table is None:
             raise ValueError("a paged KVCache needs a block_table")
+        quant.validate_store_dtype("kv_dtype", self.kv_dtype)
+        if self.quantized and (self.k_scale is None or self.v_scale is None):
+            raise ValueError(f"a {self.kv_dtype} KVCache needs k_scale and v_scale")
+
+    @property
+    def quantized(self) -> bool:
+        return self.kv_dtype != "bf16"
 
     @property
     def vector_index(self) -> bool:
@@ -169,29 +191,58 @@ def masked_decode_scores(q, k_all, v_all, q_pos):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v_all.to(dtype))
 
 
+def _writes(k, v, cache: KVCache, layer: int):
+    """(store, update) pairs of one window: K/V, or, quantized, their
+    codes and scales (``quantize_kv`` over the head dim: ``[B, t, H,
+    1]`` scales), written through the same indices."""
+    if not cache.quantized:
+        return [(cache.k[layer], k), (cache.v[layer], v)]
+    kq, ks = quant.quantize_kv(k, cache.kv_dtype, axis=-1)
+    vq, vs = quant.quantize_kv(v, cache.kv_dtype, axis=-1)
+    return [(cache.k[layer], kq), (cache.v[layer], vq),
+            (cache.k_scale[layer], ks), (cache.v_scale[layer], vs)]
+
+
+def _attend(q, q_pos, cache: KVCache, layer: int, view=None, **paged):
+    """Attention of the window over the cache, after its writes: the
+    kernel wrapper on the ``fused`` path for per-row positions
+    (quantized stores go to it with their scales), else the plain masked
+    path over the logical view (``view`` of a store; dense rows are
+    their own), dequantized to the compute dtype first."""
+    ck, cv = cache.k[layer], cache.v[layer]
+    scales = dict(k_scale=cache.k_scale[layer], v_scale=cache.v_scale[layer]) \
+        if cache.quantized else {}
+    if cache.decode_kernel == "fused" and q_pos.dim() == 2:
+        return fused_decode_attention(q.contiguous(), ck, cv, q_pos, **scales, **paged)
+    view = view or (lambda x: x)
+    k_all, v_all = view(ck), view(cv)
+    if cache.quantized:
+        k_all = quant.dequantize_store(k_all, view(scales["k_scale"]), q.dtype)
+        v_all = quant.dequantize_store(v_all, view(scales["v_scale"]), q.dtype)
+    return masked_decode_scores(q, k_all, v_all, q_pos)
+
+
 def _dense_decode(q, k, v, cache: KVCache, layer: int):
     """Dense row cache: write the window at each row's start, then
     attend. A start past ``L - t`` is clamped back, as JAX's
     ``dynamic_update_slice`` clamps (callers keep ``start + t <= L``)."""
-    ck, cv = cache.k[layer], cache.v[layer]
     b, t = q.shape[0], q.shape[1]
-    length = ck.shape[1]
+    length = cache.k[layer].shape[1]
     steps = torch.arange(t, device=q.device)
     if not cache.vector_index:
         idx = int(cache.index)
         start = min(max(idx, 0), length - t)
-        ck[:, start:start + t] = k
-        cv[:, start:start + t] = v
-        return masked_decode_scores(q, ck, cv, idx + steps)
-    idx = cache.index.long()
-    rows = torch.arange(b, device=q.device)[:, None]
-    cols = idx.clamp(0, length - t)[:, None] + steps
-    ck[rows, cols] = k
-    cv[rows, cols] = v
-    q_pos = idx[:, None] + steps
-    if cache.decode_kernel == "fused":
-        return fused_decode_attention(q.contiguous(), ck, cv, q_pos)
-    return masked_decode_scores(q, ck, cv, q_pos)
+        for store, upd in _writes(k, v, cache, layer):
+            store[:, start:start + t] = upd
+        q_pos = idx + steps
+    else:
+        idx = cache.index.long()
+        rows = torch.arange(b, device=q.device)[:, None]
+        cols = idx.clamp(0, length - t)[:, None] + steps
+        for store, upd in _writes(k, v, cache, layer):
+            store[rows, cols] = upd
+        q_pos = idx[:, None] + steps
+    return _attend(q, q_pos, cache, layer)
 
 
 def _paged_decode(q, k, v, cache: KVCache, layer: int):
@@ -204,8 +255,7 @@ def _paged_decode(q, k, v, cache: KVCache, layer: int):
             "serving engine's path; inference.generate stays on the dense "
             "cache"
         )
-    ck, cv = cache.k[layer], cache.v[layer]
-    nb, bs, heads, dh = ck.shape
+    nb, bs, heads, _ = cache.k[layer].shape
     b, t = q.shape[0], q.shape[1]
     table = cache.block_table
     mb = table.shape[1]
@@ -215,16 +265,15 @@ def _paged_decode(q, k, v, cache: KVCache, layer: int):
         lb < mb, table.long().gather(1, lb.clamp(0, mb - 1)), 0
     )
     flat = (pb * bs + pos % bs).reshape(-1)
-    ck.view(nb * bs, heads, dh)[flat] = k.reshape(-1, heads, dh)
-    cv.view(nb * bs, heads, dh)[flat] = v.reshape(-1, heads, dh)
-    if cache.decode_kernel == "fused":
-        return fused_decode_attention(
-            q.contiguous(), ck, cv, pos, block_table=table, block_size=bs
-        )
+    for store, upd in _writes(k, v, cache, layer):
+        tail = store.shape[-1]
+        store.view(nb * bs, heads, tail)[flat] = upd.reshape(-1, heads, tail)
     idx = table.long()
-    k_all = ck[idx].reshape(b, mb * bs, heads, dh)
-    v_all = cv[idx].reshape(b, mb * bs, heads, dh)
-    return masked_decode_scores(q, k_all, v_all, pos)
+
+    def view(x):  # the rows' logical [B, mb * bs, H, .] view
+        return x[idx].reshape(b, mb * bs, heads, x.shape[-1])
+
+    return _attend(q, pos, cache, layer, view, block_table=table, block_size=bs)
 
 
 class Attention(nn.Module):

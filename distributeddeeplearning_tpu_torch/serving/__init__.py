@@ -1,6 +1,7 @@
 """Continuous-batching serving tier of the port: slot engine over a
-dense or paged KV store, prefix cache, per-slot sampling and the
-request scheduler.
+dense or paged KV store (compute dtype, int8 or fp8), prefix cache,
+per-slot sampling, the speculative tier (int8 self-draft or n-gram
+proposals, batched verify) and the request scheduler.
 
     from distributeddeeplearning_tpu_torch.serving import Request, Server
     server = Server.build(model, params)   # SERVE_* env, device "cuda"
@@ -24,7 +25,9 @@ from distributeddeeplearning_tpu_torch.serving.sampling import (
     DEFAULT_TOP_K_CAP,
     sample_slot,
     sample_slots,
+    spec_verify_slots,
 )
+from distributeddeeplearning_tpu_torch.serving.spec import NgramDrafter
 from distributeddeeplearning_tpu_torch.serving.scheduler import (
     QueueFull,
     Request,
@@ -37,6 +40,7 @@ __all__ = [
     "BlockAllocator",
     "BlockPoolExhausted",
     "DEFAULT_TOP_K_CAP",
+    "NgramDrafter",
     "QueueFull",
     "ReqSpec",
     "Request",
@@ -50,4 +54,5 @@ __all__ = [
     "request_key_ladder",
     "sample_slot",
     "sample_slots",
+    "spec_verify_slots",
 ]

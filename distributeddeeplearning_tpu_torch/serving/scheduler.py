@@ -1,7 +1,8 @@
 """Request scheduler over the slot engine (port of
 ``serving/scheduler.py``): a bounded FIFO admission queue with
 backpressure, iteration-level scheduling (admit into free slots between
-decode steps, at most ``prefills_per_step`` prefills per tick),
+decode steps, at most ``prefills_per_step`` prefills per tick; a
+speculative engine's tick commits 1 .. ``spec_k + 1`` tokens per slot),
 per-request deadlines and cancellation, and graceful drain. Instrumented
 through the port's obs bus with the JAX package's event names:
 
@@ -14,9 +15,12 @@ counters ``serve.admitted``, ``serve.completed``, ``serve.tokens``,
 points  ``serve.request_done`` (req, reason, ttft_ms, tokens)
 
 ``ServeConfig.from_env`` reads the same ``SERVE_*`` variables with the
-same defaults. Not ported yet: admission policies (adaptive
-derating), the brownout ladder, speculative ticks, prefill handoff,
-push callbacks and the fleet hooks (a config asking for them raises).
+same defaults, the quantized (``SERVE_KV_DTYPE``, ``SERVE_WEIGHT_DTYPE``)
+and speculative (``SERVE_SPEC_K``, ``SERVE_SPEC_DRAFT``,
+``SERVE_SPEC_NGRAM_N``) tiers included. Not ported yet: adaptive
+admission (``SERVE_ADMISSION_POLICY=adaptive`` raises), and the brownout
+ladder (``spec_off`` and the rest), prefill handoff, push callbacks and
+the fleet hooks, which ``Server`` takes no argument for.
 """
 
 from __future__ import annotations
@@ -32,11 +36,8 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 
 from distributeddeeplearning_tpu_torch import obs
-from distributeddeeplearning_tpu_torch.serving.engine import (
-    ReqSpec,
-    SlotEngine,
-    check_store_dtype,
-)
+from distributeddeeplearning_tpu_torch.ops import quant
+from distributeddeeplearning_tpu_torch.serving.engine import ReqSpec, SlotEngine
 
 
 class QueueFull(RuntimeError):
@@ -59,11 +60,15 @@ class ServeConfig:
     # block_size) + the trash block).
     num_blocks: int = 0
     prefix_cache: bool = True
+    # "bf16" = the compute dtype; "int8"/"fp8" = codes plus f32 scales
+    # (ops/quant.py), for the KV pool and the inference weights.
     kv_dtype: str = "bf16"
     weight_dtype: str = "bf16"
     # "xla" = the plain masked path; "fused" = the hand-written decode
     # kernel (ops/paged_decode.py).
     decode_kernel: str = "xla"
+    # spec_k > 0: draft-K-then-verify ticks; spec_draft "int8" (the
+    # quantized self-draft) or "ngram" (prompt lookup, spec_ngram_n).
     spec_k: int = 0
     spec_draft: str = "int8"
     spec_ngram_n: int = 3
@@ -120,10 +125,10 @@ class ServeConfig:
         )
 
     def engine_kwargs(self) -> dict:
-        # Reject unknown or unported dtypes/kernels here, before an
-        # engine is built.
-        check_store_dtype("kv_dtype", self.kv_dtype)
-        check_store_dtype("weight_dtype", self.weight_dtype)
+        # Reject unknown dtypes/kernels here, naming the supported list,
+        # before an engine is built.
+        quant.validate_store_dtype("kv_dtype", self.kv_dtype)
+        quant.validate_store_dtype("weight_dtype", self.weight_dtype)
         if self.decode_kernel not in ("xla", "fused"):
             raise ValueError(
                 f"decode_kernel must be one of ('xla', 'fused'), got "
@@ -133,13 +138,18 @@ class ServeConfig:
             num_slots=self.num_slots, buckets=self.buckets,
             top_k_cap=self.top_k_cap, kv_layout=self.kv_layout,
             kv_dtype=self.kv_dtype, weight_dtype=self.weight_dtype,
-            decode_kernel=self.decode_kernel, spec_k=self.spec_k,
+            decode_kernel=self.decode_kernel,
         )
         if self.kv_layout == "paged":
             kw.update(
                 block_size=self.block_size,
                 num_blocks=self.num_blocks or None,
                 prefix_cache=self.prefix_cache,
+            )
+        if self.spec_k:
+            kw.update(
+                spec_k=self.spec_k, spec_draft=self.spec_draft,
+                spec_ngram_n=self.spec_ngram_n,
             )
         return kw
 
@@ -256,7 +266,8 @@ class Server:
     :meth:`drain` / :meth:`serve_forever`); ``submit``/``cancel`` are
     safe from any thread. Each tick: reap deadlines/cancels → admit up
     to ``prefills_per_step`` queued requests into free slots → one
-    batched decode step → deliver tokens and evict finished slots.
+    batched decode step (a speculative tick on a ``spec_k > 0`` engine)
+    → deliver tokens and evict finished slots.
     """
 
     def __init__(
@@ -452,11 +463,17 @@ class Server:
             tick_t0 = time.monotonic()
             with obs.trace_ctx(self._tick_trace):
                 with obs.span("serve.decode_step", active=active):
-                    emitted = self.engine.decode_step()
+                    # A speculative tick commits 1 .. spec_k + 1 tokens
+                    # per slot; the plain step is its one-token case.
+                    if self.engine.spec_enabled:
+                        emitted = self.engine.spec_step()
+                    else:
+                        emitted = [(slot, [token], eos_hit) for slot, token, eos_hit
+                                   in self.engine.decode_step()]
             share_s = (time.monotonic() - tick_t0) / active
             self.stats["decode_steps"] += 1
             n_tokens = 0
-            for slot, token, eos_hit in emitted:
+            for slot, toks, eos_hit in emitted:
                 h = self._by_slot.get(slot)
                 if h is None:
                     continue
@@ -465,9 +482,9 @@ class Server:
                         "serve.decode_share", share_s, t=tick_t0,
                         req=h.id, slot=slot, active=active,
                     )
-                    h._deliver([token])
-                    self.stats["tokens"] += 1
-                    n_tokens += 1
+                    h._deliver(toks)
+                    self.stats["tokens"] += len(toks)
+                    n_tokens += len(toks)
                     if eos_hit or len(h.new_tokens) >= h.request.max_new_tokens:
                         self.engine.release(slot)
                         del self._by_slot[slot]

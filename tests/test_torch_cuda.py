@@ -20,7 +20,15 @@ machine that has only PyTorch for CUDA:
   ``chip_smoke``'s ``ragged_causal`` and ``d128`` cases, once through
   autograd, and ``attn_impl="auto"`` taking the kernel on the card;
 * the dW+db kernel (bf16 at a ragged N, f32 at ViT's head) against its
-  plain version, and once through ``bias_dense``'s backward.
+  plain version, and once through ``bias_dense``'s backward;
+* the decode-attention kernel on int8 and fp8 caches (dense, paged with
+  a trash block of large finite codes) against its plain version, with
+  chip_smoke's ``bf16_tolerance``, and a scales-of-1 control that must
+  miss it;
+* quantized serving (int8 and fp8 KV and weights, paged, fused kernel)
+  of a small f32 LM on the card: the kernel launched once per layer per
+  forward, under its storage dtype, and the greedy streams of the plain
+  masked path.
 """
 
 import sys
@@ -217,3 +225,91 @@ def test_cuda_dw_db_kernel_matches_plain(case):
     assert fg.launches == before + 1
     want_dw, want_db = fg.matmul_dw_db_cuda(x.detach().to(dtype), gy.to(dtype))
     assert torch.equal(dw, want_dw) and torch.equal(db, want_db)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_cuda_quantized_decode_kernel_matches_plain(kind, paged):
+    """The kernel on int8 / fp8 codes with f32 scales against its plain
+    version in f32 on the same codes (a 5-wide verify window, ragged
+    positions), within chip_smoke's bf16 tolerance; the same codes with
+    scales of 1 must miss it (the scales are read)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the decode kernel is CUDA C++ for sm_90a")
+    import chip_smoke
+    from distributeddeeplearning_tpu_torch.ops import paged_decode as pd
+    from distributeddeeplearning_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, h, d, length, bs = 4, 8, 64, 96, 16
+    q = torch.randn(b, 5, h, d, device="cuda", generator=g).to(torch.bfloat16)
+    pos = (torch.tensor([0, 17, 50, 91], device="cuda")[:, None]
+           + torch.arange(5, device="cuda")).int()
+    if paged:
+        rows = (b * length // bs + 1, bs)
+        table = torch.arange(1, rows[0], device="cuda", dtype=torch.int32).view(b, -1)
+        table = table.flip(1).contiguous()  # shuffled: logical j -> a late block
+        table[0, 2:] = 0  # row 0 owns 2 blocks: its tail reads the trash block
+        kw = dict(block_table=table, block_size=bs)
+    else:
+        rows, kw = (b, length), {}
+    kx = torch.randn(*rows, h, d, device="cuda", generator=g)
+    vx = torch.randn(*rows, h, d, device="cuda", generator=g)
+    (k, ks), (v, vs) = quant.quantize_kv(kx, kind), quant.quantize_kv(vx, kind)
+    if paged:
+        for c, sc in ((k, ks), (v, vs)):
+            c[0] = 127 if kind == "int8" else 448  # finite garbage
+            sc[0] = 1e2
+    before = dict(pd.launches_by_store)
+    out = pd.fused_decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs, **kw)
+    ref = pd.fused_decode_attention_plain(q.float(), k, v, pos, k_scale=ks, v_scale=vs, **kw)
+    ones = torch.ones_like(ks)
+    wrong = pd.fused_decode_attention(q, k, v, pos, k_scale=ones, v_scale=ones, **kw)
+    torch.cuda.synchronize()
+    assert pd.launches_by_store[kind] == before[kind] + 2
+    tol = chip_smoke.bf16_tolerance(ref)
+    assert torch.isfinite(out.float()).all()
+    assert ((out.float() - ref).abs() <= tol).all()
+    assert ((wrong.float() - ref).abs() / tol).max().item() > 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_cuda_quantized_served_streams(kind):
+    """A small f32 LM served on the card with int8 / fp8 KV and weights,
+    paged: through the fused kernel (once per layer per forward, counted
+    under the storage dtype) it emits the plain masked path's greedy
+    streams, and its pools hold the storage dtype (no fall-back)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the decode kernel is CUDA C++ for sm_90a")
+    import numpy as np
+
+    from distributeddeeplearning_tpu_torch.models import convert
+    from distributeddeeplearning_tpu_torch.models.transformer_lm import TransformerLM
+    from distributeddeeplearning_tpu_torch.ops import paged_decode as pd
+    from distributeddeeplearning_tpu_torch.serving import Request, Server, SlotEngine
+
+    vocab, max_len = 256, 128
+    params = convert.init_params("tiny", vocab, torch.Generator().manual_seed(0), max_len)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, vocab, size=n).astype(np.int32) for n in (5, 40, 17, 64)]
+    streams, counts = {}, {}
+    for kernel in ("xla", "fused"):
+        model = TransformerLM("tiny", vocab_size=vocab, max_seq_len=max_len,
+                              dtype=torch.float32, device="cuda")
+        engine = SlotEngine(model, params, num_slots=3, kv_layout="paged", block_size=16,
+                            kv_dtype=kind, weight_dtype=kind, decode_kernel=kernel,
+                            device="cuda")
+        server = Server(engine)
+        before = pd.launches_by_store[kind]
+        handles = [server.submit(Request(prompt=p, max_new_tokens=12)) for p in prompts]
+        server.drain()
+        counts[kernel] = (pd.launches_by_store[kind] - before,
+                          len(model.blocks) * (engine.prefill_execs + engine.decode_steps))
+        streams[kernel] = [h.new_tokens for h in handles]
+        assert engine._stores[0][0].dtype == (torch.int8 if kind == "int8"
+                                              else torch.float8_e4m3fn)
+    assert counts["xla"][0] == 0
+    assert counts["fused"][0] == counts["fused"][1] > 0
+    assert streams["fused"] == streams["xla"]

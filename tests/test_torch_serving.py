@@ -216,8 +216,9 @@ def test_serve_config_from_env_resolves_like_jax():
         )
     kw = ServeConfig.from_env(env).engine_kwargs()
     assert kw["kv_layout"] == "paged" and kw["decode_kernel"] == "fused"
-    with pytest.raises(NotImplementedError):
-        ServeConfig.from_env({"SERVE_KV_DTYPE": "int8"}).engine_kwargs()
+    quant_env = {"SERVE_KV_DTYPE": "int8", "SERVE_WEIGHT_DTYPE": "int8"}
+    assert ServeConfig.from_env(quant_env).engine_kwargs() == (
+        JaxServeConfig.from_env(quant_env).engine_kwargs())
     with pytest.raises(ValueError):
         ServeConfig.from_env({"SERVE_KV_DTYPE": "int4"}).engine_kwargs()
 
