@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--phases kernels,serve,servequant,servespec,train,lmtrain,vittrain]
+    python3 chip_smoke.py [--phases kernels,serve,servequant,servespec,train,lmtrain,
+                                    vittrain,effnettrain]
 
 (all phases by default). Any failure raises and the script exits
 non-zero.
@@ -32,7 +33,11 @@ non-zero.
    ViT-B/16 and ViT-L/16 training, T = 512, head dim 128 and a ragged
    causal case, with the same negative control at ViT-B/16; and the
    dW+db kernel at the four ViT-B/16 Dense shapes, the f32 head and a
-   ragged N.
+   ragged N; the depthwise stencil (forward, dgrad) and wgrad at
+   EfficientNet-B4's ten stride-1 layer shapes (batch 64, bf16), an f32
+   case, ragged H, W and C, k = 7 and k = 9, against the plain version
+   (f32; the wgrad f64) and cuDNN's grouped conv, with a negative
+   control (the dgrad with unflipped taps must fail).
 4. ``serve``: full-width ``lm_base`` with seeded random weights behind
    ``Server.build`` (paged KV, fused kernel, 8 slots) answers 16
    requests. Checks: lengths and vocab range, the kernel ran exactly
@@ -74,7 +79,18 @@ non-zero.
    stock Dense layers as the yardstick; one flagged against one yardstick step from
    the same weights and batch, within stated limits; and ``"auto"``
    taking the packed kernel once per layer of a forward on the card.
-10. The ``kernels`` JSON line (every kernel whose phases ran), then the
+10. ``effnettrain``: EfficientNet-B4 (380 px, 1000 classes, batch 64,
+   bf16, drop-path and head dropout on) through the same entry points
+   on seeded synthetic images: 3 warm-up and 20 timed steps, finite
+   losses, no depthwise kernel launched by the model (its depthwise
+   convs are cuDNN's, as JAX's are XLA's); a profile of 5 steady steps;
+   then the hook pass: one training forward and backward with the 28
+   stride-1 depthwise layers handed to the kernels by forward hooks
+   (28 launches of each of forward, dgrad and wgrad), each layer's
+   kernels held to the plain version and to cuDNN on its real x, weight
+   and dy, and timed beside cuDNN (the ``effnetdw`` line). Batch 64 is
+   halved, and the cut printed, if it does not fit the card.
+11. The ``kernels`` JSON line (every kernel whose phases ran), then the
    contract's last line ``{"ok": true, "device": {...}}``.
 
 Exits with code 2 and prints no result when CUDA is absent or the port
@@ -83,6 +99,7 @@ is not importable (the script on its own, outside the repository).
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -1883,6 +1900,464 @@ def vit_auto_launches(fp, batch=64, image_size=224, device="cuda"):
     return fp.launches_by_op["fused_qkv_fwd"] - before
 
 
+# Depthwise conv (csrc/depthwise.cu): a block's output tile (rows,
+# columns) and channel tile, as the source sets them; the wgrad's
+# summation depth follows from them.
+DW_TILE_H, DW_TILE_W, DW_TILE_C = 8, 12, 32
+
+# EfficientNet-B4's stride-1 depthwise layers at 380 px
+# (models/efficientnet.py, width 1.4, depth 1.8): (C, H = W, k, layers),
+# 28 layers in all.
+B4_DW_LAYERS = (
+    (48, 190, 3, 1), (24, 190, 3, 1), (192, 95, 3, 3), (336, 48, 5, 3), (672, 24, 3, 5),
+    (672, 24, 5, 1), (960, 24, 5, 5), (1632, 12, 5, 7), (1632, 12, 3, 1), (2688, 12, 3, 1),
+)
+
+# dw cases: (name, batch, H, W, C, k, dtype). The B4 layers at batch 64
+# in bf16 (16-byte loads), an f32 one, ragged H and W with C = 130 and
+# C = 40 (element loads, the last channel tile part-filled), k = 7, and
+# k = 9 (the direct kernels).
+DW_CASES = tuple((f"b4_{c}x{h}_k{k}", 64, h, h, c, k, torch.bfloat16)
+                 for c, h, k, _ in B4_DW_LAYERS) + (
+    ("f32_672x24_k5", 8, 24, 24, 672, 5, torch.float32),
+    ("ragged_13x11_c130_k7", 4, 13, 11, 130, 7, torch.bfloat16),
+    ("ragged_13x11_c130_k3_f32", 4, 13, 11, 130, 3, torch.float32),
+    ("ragged_17x9_c40_k7", 3, 17, 9, 40, 7, torch.bfloat16),
+    ("direct_13x11_c130_k9", 2, 13, 11, 130, 9, torch.bfloat16),
+)
+DW_OPS = ("conv", "dgrad", "wgrad")
+
+
+def dw_limit(ref: torch.Tensor, terms: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """Per-element limit on |kernel - plain| for the stencil (forward and
+    dgrad), against the plain version in f32 on the same inputs.
+
+    Both sides sum the same n = k² products of exact inputs in f32, the
+    kernel with one rounding per fused multiply-add, the plain version
+    with one per product and one per sum: each errs by at most
+    n·2**-24·Σ|x·w| (first order), so they differ by less than
+    n·2**-22·Σ|x·w|. A bf16 output then rounds once more, by at most
+    2**-8 of |y|. Derived before the kernel first ran; on the card the
+    bf16 cases then read 0.96-0.996 of it (the output rounding, which
+    the limit sizes exactly) and the f32 ones 0.04-0.11, while the dgrad
+    run with unflipped taps exceeded it 7e4-fold."""
+    u = 2 ** -8 if dtype == torch.bfloat16 else 0.0
+    return u * ref.abs() + n * 2 ** -22 * terms
+
+
+def dw_wgrad_depth(b: int, h: int, w: int, k: int) -> int:
+    """The longest chain of f32 additions behind one dw element in the
+    wgrad kernels: for k in {3, 5, 7}, a thread's 12 columns over each
+    row tile, then the block's 8 thread rows, then a strided share of the
+    partial rows and the 32 shares; the direct kernel (other k) walks a
+    thread row's positions, then the 8 rows."""
+    if k in (3, 5, 7):
+        parts = b * -(-w // DW_TILE_W)
+        return DW_TILE_W * -(-h // DW_TILE_H) + DW_TILE_H + -(-parts // 32) + 32
+    return -(-b * h * w // DW_TILE_H) + DW_TILE_H
+
+
+def dw_wgrad_limit(terms: torch.Tensor, depth: int) -> torch.Tensor:
+    """Limit on |kernel dw - exact dw| (the plain version in f64 on the
+    same inputs): a sum along chains of ``depth`` f32 additions errs by
+    at most depth·2**-24·Σ|x·dy| to first order; twice that covers the
+    second order. (An f32 sum of B·H·W = 2.3M products has no useful
+    worst-case bound, so the reference is f64.) A lost partial row (one
+    image's column strip of 64·16 at 190²) moves dw by about 1e-3 of
+    Σ|x·dy| against a limit of 4e-5 of it."""
+    return 2 * depth * 2 ** -24 * terms
+
+
+def dw_cudnn_wgrad_limit(ref: torch.Tensor, terms: torch.Tensor, dtype) -> torch.Tensor:
+    """cuDNN's wgrad against the exact one (its share when the kernel's
+    f32 dw is held to cuDNN's): cuDNN's output rounds to the weight's
+    dtype (2**-8 of |dw| in bf16), and its f32 sum of B·H·W products
+    runs in an order it does not publish: 2**-12·Σ|x·dy| for that. On
+    the card cuDNN's bf16 wgrad then read 0.03 of the summed limit at
+    B4's 190² × 48 layer and up to 0.8 at the small ragged cases, where
+    its output rounding fills it."""
+    u = 2 ** -8 if dtype == torch.bfloat16 else 2 ** -24
+    return u * ref.abs() + 2 ** -12 * terms
+
+
+def cudnn_dw_backward(dy, x, weight, mask):
+    """cuDNN's grouped-conv backward (``aten.convolution_backward``): dx
+    and/or dw, as ``mask`` asks."""
+    c, _, k, _ = weight.shape
+    return torch.ops.aten.convolution_backward(
+        dy, x, weight, None, [1, 1], [k // 2, k // 2], [1, 1], False, [0, 0], c, mask)
+
+
+def dw_bounds(b, h, w, c, k, elem):
+    """(bound_ms, bound_by, bytes, flops) of each op: an activation read
+    and one written (the wgrad: x and dy read, dw written), the taps, and
+    2·k² f32 operations per output element at the card's f32 FMA rate."""
+    act = b * h * w * c
+    nbytes = 2 * elem * act + 4 * k * k * c
+    flops = 2.0 * k * k * act
+    tb, to = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOP_S * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations", int(nbytes), flops
+
+
+def dw_check(dwm, name, x, dy, taps, got, cudnn):
+    """Hold the kernels' ``got = (y, dx, dw)`` to the plain version on
+    the same inputs (f32 for the stencil, f64 for the wgrad), and to
+    cuDNN's ``cudnn = (y, dx, dw [C, 1, k, k])`` on the same inputs and
+    weight within both sides' limits: cuDNN's grouped conv and dgrad
+    carry the kernel's own bound (they sum the same products in f32 and
+    round once: on the card they gave the kernel's bits on all of B4's
+    layers), so twice :func:`dw_limit`; its wgrad adds
+    :func:`dw_cudnn_wgrad_limit`. Raises past a limit; returns the
+    errors and their ratios."""
+    k = int(round(taps.shape[0] ** 0.5))
+    b, c, h, w = x.shape
+    dt = x.dtype
+    xa, dya, ta = x.float().abs(), dy.float().abs(), taps.abs()
+    refs = {
+        "y": (dwm.stencil_plain(x.float(), taps), dwm.stencil_plain(xa, ta)),
+        "dx": (dwm.stencil_plain(dy.float(), taps, flip=True),
+               dwm.stencil_plain(dya, ta, flip=True)),
+    }
+    out = {"max_abs_err": {}, "err_over_limit": {}, "cudnn_err_over_limit": {}}
+    for (what, (ref, terms)), mine, lib in zip(refs.items(), got[:2], cudnn[:2]):
+        lim = dw_limit(ref, terms, k * k, dt)
+        err, ratio = _ratio(mine, ref, lim)
+        _, lib_ratio = _ratio(mine, lib, 2 * lim)
+        out["max_abs_err"][what], out["err_over_limit"][what] = err, ratio
+        out["cudnn_err_over_limit"][what] = lib_ratio
+    del refs, xa, dya
+    ref = dwm.wgrad_plain(x.double(), dy.double(), k)
+    terms = dwm.wgrad_plain(x.double().abs(), dy.double().abs(), k)
+    lim = dw_wgrad_limit(terms, dw_wgrad_depth(b, h, w, k))
+    err = (got[2].double() - ref).abs().max().item()
+    ratio = ((got[2].double() - ref).abs() / lim.clamp(min=1e-300)).max().item()
+    lib_ratio = ((got[2].double() - dwm.weight_taps(cudnn[2]).double()).abs()
+                 / (lim + dw_cudnn_wgrad_limit(ref, terms, dt)).clamp(min=1e-300)).max().item()
+    out["max_abs_err"]["dw"], out["err_over_limit"]["dw"] = err, ratio
+    out["cudnn_err_over_limit"]["dw"] = lib_ratio
+    for key in ("err_over_limit", "cudnn_err_over_limit"):
+        for what, r in out[key].items():
+            if not r <= 1.0:  # NaN fails too
+                against = "plain" if key == "err_over_limit" else "cuDNN"
+                raise AssertionError(f"{name}: |kernel {what} - {against}| exceeds its limit "
+                                     f"{r:.2f}x (max abs error {out['max_abs_err'][what]})")
+    return out
+
+
+def dw_times(dwm, x, dy, taps, flush, plain=True):
+    """CUDA-event times of the three kernels, cuDNN's forward, dgrad and
+    wgrad (``F.conv2d(groups=C)`` and ``aten.convolution_backward``,
+    each output alone) and, with ``plain``, the plain versions (the same
+    bf16 inputs, f32 inside)."""
+    k = int(round(taps.shape[0] ** 0.5))
+    weight = taps.t().reshape(-1, 1, k, k).to(x.dtype)
+    c = weight.shape[0]
+    with torch.no_grad():
+        out = {
+            "ms": {"conv": time_ms(lambda: dwm.stencil_cuda(x, taps), flush),
+                   "dgrad": time_ms(lambda: dwm.stencil_cuda(dy, taps, flip=True), flush),
+                   "wgrad": time_ms(lambda: dwm.wgrad_cuda(x, dy, k), flush)},
+            "library_ms": {
+                "conv": time_ms(lambda: torch.nn.functional.conv2d(
+                    x, weight, padding=k // 2, groups=c), flush),
+                "dgrad": time_ms(lambda: cudnn_dw_backward(dy, x, weight,
+                                                           [True, False, False]), flush),
+                "wgrad": time_ms(lambda: cudnn_dw_backward(dy, x, weight,
+                                                           [False, True, False]), flush)},
+        }
+        if plain:
+            out["plain_ms"] = {
+                "conv": time_ms(lambda: dwm.stencil_plain(x, taps), flush),
+                "dgrad": time_ms(lambda: dwm.stencil_plain(dy, taps, flip=True), flush),
+                "wgrad": time_ms(lambda: dwm.wgrad_plain(x, dy, k), flush)}
+    return out
+
+
+def dw_case(dwm, name, b, h, w, c, k, dtype, flush, g):
+    """The three kernels against their plain versions and cuDNN
+    (:func:`dw_check`), with the times of :func:`dw_times` and the
+    bound."""
+    def randn():
+        return torch.randn(b, c, h, w, device="cuda", generator=g).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+
+    x, dy = randn(), randn()
+    # taps that the dtype holds exactly, so cuDNN's weight is the same
+    taps = (torch.randn(k * k, c, device="cuda", generator=g) / k).to(dtype).float()
+    weight = taps.t().reshape(c, 1, k, k).to(dtype)
+    with torch.no_grad():
+        got = (dwm.stencil_cuda(x, taps), dwm.stencil_cuda(dy, taps, flip=True),
+               dwm.wgrad_cuda(x, dy, k))
+        lib_y = torch.nn.functional.conv2d(x, weight, padding=k // 2, groups=c)
+        lib_dx, lib_dw, _ = cudnn_dw_backward(dy, x, weight, [True, True, False])
+    torch.cuda.synchronize()
+    for t, shape, dt in zip(got, ((b, c, h, w),) * 2 + ((k * k, c),),
+                            (dtype, dtype, torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dt or not torch.isfinite(t.float()).all():
+            raise AssertionError(f"{name}: kernel output {tuple(t.shape)} {t.dtype}, "
+                                 f"want {shape} {dt}, finite")
+    line = {"case": name, "shape": {"B": b, "H": h, "W": w, "C": c, "k": k,
+                                    "dtype": str(dtype).split(".")[-1]}}
+    line.update(dw_check(dwm, name, x, dy, taps, got, (lib_y, lib_dx, lib_dw)))
+    del got, lib_y, lib_dx, lib_dw
+    line.update(dw_times(dwm, x, dy, taps, flush))
+    bound_ms, bound_by, nbytes, flops = dw_bounds(b, h, w, c, k, x.element_size())
+    line.update(bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+    return line
+
+
+def dw_phase(dwm, flush):
+    """Every ``DW_CASES`` case, then the negative control: the dgrad run
+    with unflipped taps on an asymmetric tap table must exceed its limit
+    (the taps are reversed where they must be)."""
+    g = torch.Generator(device="cuda").manual_seed(2468)
+    cases = []
+    for case in DW_CASES:
+        cases.append(dw_case(dwm, *case, flush, g))
+        torch.cuda.empty_cache()
+    _, b, h, w, c, k, dtype = next(cs for cs in DW_CASES if cs[0] == "ragged_13x11_c130_k7")
+    dy = torch.randn(b, c, h, w, device="cuda", generator=g).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    taps = torch.randn(k * k, c, device="cuda", generator=g) / k
+    if torch.equal(taps, taps.flip(0)):
+        raise AssertionError("the control's tap table is symmetric")
+    ref = dwm.stencil_plain(dy.float(), taps, flip=True)
+    lim = dw_limit(ref, dwm.stencil_plain(dy.float().abs(), taps.abs(), flip=True), k * k, dtype)
+    _, factor = _ratio(dwm.stencil_cuda(dy, taps, flip=False), ref, lim)
+    print("control " + json.dumps({"case": "dgrad_unflipped_taps_13x11_c130_k7",
+                                   "err_over_limit": factor}), flush=True)
+    if not factor > 10:
+        raise AssertionError(f"the dgrad with unflipped taps stays within {factor:.2f}x of "
+                             f"its limit: the taps are not reversed")
+    return cases
+
+
+def _dw_entry(op, cases, launches, by_op, model_launches):
+    """A ``kernels`` line entry of the stencil (``depthwise_conv``: the
+    forward, with the dgrad's numbers beside) or the wgrad
+    (``depthwise_wgrad``), timed at B4's 190² x 48 k3 layer; the B4
+    24² x 960 k5 layer's times beside. ``launches`` counts the hook
+    pass, the training pass ``chip_smoke`` drives through the kernels;
+    ``model_launches`` the model's own timed steps, where the port's
+    EfficientNet (as JAX's) runs cuDNN's grouped conv."""
+    timed, second = "b4_48x190_k3", "b4_960x24_k5"
+    main_case = next(c for c in cases if c["case"] == timed)
+    other = next(c for c in cases if c["case"] == second)
+    ops = ("conv", "dgrad") if op == "depthwise_conv" else ("wgrad",)
+    outputs = ("y", "dx") if op == "depthwise_conv" else ("dw",)
+    entry = {
+        "name": op, "route": "cuda",
+        "source": "distributeddeeplearning_tpu_torch/csrc/depthwise.cu",
+        "replaces": "distributeddeeplearning_tpu/ops/pallas/depthwise.py:"
+                    + ("178" if op == "depthwise_conv" else "208"),
+        "launches": launches, "launches_by_op": by_op, "model_path_launches": model_launches,
+        "max_abs_err": max(c["max_abs_err"][o] for c in cases for o in outputs),
+        "ms": main_case["ms"][ops[0]], "plain_ms": main_case["plain_ms"][ops[0]],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"][ops[0]], "timed_case": timed,
+        second: {key: other[key][ops[0]] for key in ("ms", "plain_ms", "library_ms")},
+    }
+    if op == "depthwise_conv":
+        entry["dgrad"] = {case["case"]: {key: case[key]["dgrad"]
+                                         for key in ("ms", "plain_ms", "library_ms")}
+                          for case in (main_case, other)}
+    entry[second]["bound_ms"] = other["bound_ms"]
+    return entry
+
+
+def _effnet_setup(*, variant="b4", image_size=None, batch=64, num_classes=1000,
+                  num_physical_batches=4, device="cuda"):
+    """The port's entry points as a user calls them for EfficientNet
+    training: config, synthetic images, model, optimizer, seeded train
+    state and step, on the card (``device="cpu"`` rehearses the flow at a
+    small size). ``image_size`` defaults to the variant's resolution."""
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+    from distributeddeeplearning_tpu_torch.data import SyntheticImageDataset
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.models.efficientnet import SCALING
+    from distributeddeeplearning_tpu_torch.training import (
+        create_optimizer,
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = TrainConfig(model=f"efficientnet_{variant}",
+                      image_size=image_size or SCALING[variant][2],
+                      batch_size_per_device=batch, num_classes=num_classes)
+    ds = SyntheticImageDataset(global_batch_size=cfg.global_batch_size,
+                               image_size=cfg.image_size, num_classes=cfg.num_classes,
+                               num_physical_batches=num_physical_batches, seed=cfg.seed)
+    model = get_model(cfg.model, **cfg.model_kwargs(), device=device)
+    tx, _ = create_optimizer(cfg, ds.steps_per_epoch)
+    state = create_train_state(model, cfg, tx, device=device)
+    return cfg, ds, model, state, make_train_step(model, tx, cfg, device=device)
+
+
+def effnet_train_phase(dwm, card, warmup=3, timed=20, device="cuda", **size):
+    """EfficientNet-B4 (380 px, 1000 classes, batch 64, bf16, drop-path
+    and head dropout on) on the port's synthetic images: ``warmup``
+    steps, then ``timed`` steps closed by a host readback of the loss.
+    Checks finite losses and that the model path launched no depthwise
+    kernel (its depthwise convs are cuDNN's, as JAX's are XLA's)."""
+    from distributeddeeplearning_tpu_torch.data import prefetch_to_device
+
+    t0 = time.perf_counter()
+    cfg, ds, model, state, step = _effnet_setup(device=device, **size)
+    batches = prefetch_to_device(ds.epoch(0), device)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    losses = []
+    for _ in range(warmup):
+        state, m = step(state, next(batches))
+        losses.append(m["loss"])
+    _sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _reset_dw(dwm)
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, m = step(state, next(batches))
+        losses.append(m["loss"])
+    float(m["loss"])  # host readback closes the timed window
+    wall = time.perf_counter() - t0
+    launches = dwm.launches
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if launches:
+        raise AssertionError(f"the model path launched the depthwise kernels {launches} times")
+    line = {
+        "model": cfg.model, "image_size": cfg.image_size, "batch": cfg.global_batch_size,
+        "dtype": cfg.compute_dtype, "dropout": model.dropout_rate, "survival_prob": 0.8,
+        "images_per_s": timed * cfg.global_batch_size / wall,
+        "step_ms": wall / timed * 1e3, "loss_first": losses[0], "loss_last": losses[-1],
+        "steps": warmup + timed, "depthwise_launches": launches,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+                        else "not measured"), "setup_s": setup_s,
+        "card": card,
+    }
+    print("effnettrain " + json.dumps(line), flush=True)
+    return line, state, step, batches, ds, cfg
+
+
+def effnet_train_fit(dwm, card, batch=64, min_batch=8, **kw):
+    """:func:`effnet_train_phase` at ``batch``, halved while it runs out
+    of the card's memory (the resolution stays), each cut printed."""
+    while True:
+        try:
+            return effnet_train_phase(dwm, card, batch=batch, **kw)
+        except torch.cuda.OutOfMemoryError:
+            if batch // 2 < min_batch:
+                raise
+        gc.collect()  # the failed attempt's tensors, now unreferenced
+        torch.cuda.empty_cache()
+        print("effnettrain_cut " + json.dumps({"batch": batch, "to": batch // 2,
+                                               "reason": "out of device memory"}), flush=True)
+        batch //= 2
+
+
+def _reset_dw(dwm):
+    dwm.launches = 0
+    for k in dwm.launches_by_op:
+        dwm.launches_by_op[k] = 0
+
+
+def effnet_hook_pass(dwm, model, cfg, batch, flush, device="cuda"):
+    """One training forward and backward of the model with a forward hook
+    on each depthwise conv where ``supports`` holds (the 28 stride-1
+    layers of B4): the hook runs the port's ``depthwise_conv2d`` on the
+    layer's real input and weight and hands its output on in place of
+    cuDNN's, so the rest of the forward and the whole backward go through
+    the kernels (forward, dgrad, wgrad); a hook on that output keeps the
+    layer's real dy. The counters are zeroed before and read after.
+    Then, per layer, the kernels on the layer's x, weight and dy are held
+    to the plain version and to cuDNN's forward, dgrad and wgrad
+    (:func:`dw_check`) and timed beside them. No model flag: the hooks
+    are this function's own. On the CPU (a rehearsal) it stops after the
+    pass."""
+    from distributeddeeplearning_tpu_torch.data.pipeline import normalize_staged_images, to_device
+    from distributeddeeplearning_tpu_torch.training.train_step import (
+        cross_entropy_loss,
+        dropout_seed,
+    )
+
+    layers, handles = [], []
+
+    def hook(name):
+        def forward_hook(mod, inputs, output):
+            x = inputs[0].to(mod.dtype)
+            _, c, h, w = x.shape
+            if mod.stride != 1 or not dwm.supports(h, w, c, mod.kernel, 1):
+                return None
+            weight = mod.weight.to(mod.dtype)
+            y = dwm.depthwise_conv2d(x, weight)
+            rec = {"name": name, "x": x.detach(), "weight": weight.detach(),
+                   "y": y.detach(), "y_cudnn": output.detach()}
+            y.register_hook(lambda g: rec.__setitem__("dy", g.detach()))
+            layers.append(rec)
+            return y
+        return forward_hook
+
+    for name in model.block_names:
+        handles.append(getattr(model, name).dw_conv.register_forward_hook(hook(name)))
+    images, labels = to_device(batch, device)
+    images = normalize_staged_images(images)
+    gen = torch.Generator(device=device).manual_seed(dropout_seed(cfg.seed, 0, 0))
+    params = list(model.parameters())
+    model.train()
+    _sync(device)
+    _reset_dw(dwm)
+    try:
+        loss = cross_entropy_loss(model(images, generator=gen), labels)
+        torch.autograd.grad(loss, params)
+        _sync(device)
+    finally:
+        for h in handles:
+            h.remove()
+    by_op = dict(dwm.launches_by_op)
+    n = len(layers)
+    want = n if device == "cuda" else 0  # on the CPU the plain versions run
+    loss = float(loss.detach())
+    if by_op != {k: want for k in by_op} or not np.isfinite(loss):
+        raise AssertionError(f"hook pass over {n} layers launched {by_op}, loss {loss}")
+    if device != "cuda":
+        return {"layers": n, "launches_by_op": by_op, "loss": loss}
+
+    totals = {"ms": dict.fromkeys(DW_OPS, 0.0), "library_ms": dict.fromkeys(DW_OPS, 0.0)}
+    bound = 0.0
+    worst = {"err_over_limit": {}, "cudnn_err_over_limit": {}}
+    per_layer = []
+    for rec in layers:
+        x, weight, dy = rec.pop("x"), rec.pop("weight"), rec.pop("dy")
+        taps = dwm.weight_taps(weight)
+        k = weight.shape[-1]
+        with torch.no_grad():
+            lib_dx, lib_dw, _ = cudnn_dw_backward(dy, x, weight, [True, True, False])
+            got = (rec.pop("y"), dwm.stencil_cuda(dy, taps, flip=True),
+                   dwm.wgrad_cuda(x, dy, k))
+        res = dw_check(dwm, rec["name"], x, dy, taps, got, (rec.pop("y_cudnn"), lib_dx, lib_dw))
+        del got, lib_dx, lib_dw
+        for key in worst:
+            for what, r in res[key].items():
+                worst[key][what] = max(worst[key].get(what, 0.0), r)
+        b, c, h, w = x.shape
+        t = dw_times(dwm, x, dy, taps, flush, plain=False)
+        for key in totals:
+            for op in DW_OPS:
+                totals[key][op] += t[key][op]
+        bound += dw_bounds(b, h, w, c, k, x.element_size())[0]
+        per_layer.append({"name": rec["name"], "C": c, "H": h, "k": k, "ms": t["ms"],
+                          "library_ms": t["library_ms"]})
+        del x, weight, dy
+    return {"layers": n, "launches_by_op": by_op, "loss": loss,
+            "max_err_over_limit": worst["err_over_limit"],
+            "max_cudnn_err_over_limit": worst["cudnn_err_over_limit"],
+            "kernel_ms_sum": totals["ms"], "cudnn_ms_sum": totals["library_ms"],
+            "kernel_ms_total": sum(totals["ms"].values()),
+            "cudnn_ms_total": sum(totals["library_ms"].values()),
+            "bound_ms_sum_per_op": bound, "per_layer": per_layer}
+
+
 def _fb_entry(name, cases, timed_case, launches):
     main_case = next(c for c in cases if c["case"] == timed_case)
     return {
@@ -1899,7 +2374,8 @@ def _fb_entry(name, cases, timed_case, launches):
     }
 
 
-PHASES = ("kernels", "serve", "servequant", "servespec", "train", "lmtrain", "vittrain")
+PHASES = ("kernels", "serve", "servequant", "servespec", "train", "lmtrain", "vittrain",
+          "effnettrain")
 
 
 def _pd_entry(name, cases, store, launches):
@@ -1933,6 +2409,7 @@ def main(argv=None) -> int:
         _die("CUDA is not available; this smoke runs the port on an NVIDIA GPU")
     try:
         from distributeddeeplearning_tpu_torch.ops import _build
+        from distributeddeeplearning_tpu_torch.ops import depthwise as dwm
         from distributeddeeplearning_tpu_torch.ops import flash as fl
         from distributeddeeplearning_tpu_torch.ops import flash_packed as fp
         from distributeddeeplearning_tpu_torch.ops import fused_block as fb
@@ -1955,7 +2432,7 @@ def main(argv=None) -> int:
         _build.build(name)
         return time.perf_counter() - t0
 
-    names = ("paged_decode", "fused_block", "flash", "flash_packed", "fused_grads")
+    names = ("paged_decode", "fused_block", "flash", "flash_packed", "fused_grads", "depthwise")
     with ThreadPoolExecutor(len(names)) as pool:
         secs = list(pool.map(timed_build, names))
     for name, sec in zip(names, secs):
@@ -1965,7 +2442,7 @@ def main(argv=None) -> int:
                 print(f"ptxas {name}:", line.strip(), flush=True)
 
     entries = []
-    pd_cases = fb_cases = flash_cases = fp_cases = fg_cases = None
+    pd_cases = fb_cases = flash_cases = fp_cases = fg_cases = dw_cases = None
     if "kernels" in phases:
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
         pd_cases = kernel_phase(pd, flush)
@@ -1973,7 +2450,8 @@ def main(argv=None) -> int:
         flash_cases = flash_phase(fl, flush)
         fp_cases = fp_phase(fp, fl, flush)
         fg_cases = fg_phase(fg, flush)
-        for c in pd_cases + fb_cases + flash_cases + fp_cases + fg_cases:
+        dw_cases = dw_phase(dwm, flush)
+        for c in pd_cases + fb_cases + flash_cases + fp_cases + fg_cases + dw_cases:
             print("case " + json.dumps(c), flush=True)
         del flush
         torch.cuda.empty_cache()
@@ -2067,6 +2545,33 @@ def main(argv=None) -> int:
         if fp_cases is not None:
             entries += [_fp_entry(op, fp_cases, by_op[op]) for op in FP_OPS]
             entries.append(_fg_entry(fg_cases, by_op["matmul_dw_db"]))
+
+    if "effnettrain" in phases:
+        line, state, step, batches, ds, cfg = effnet_train_fit(dwm, card)
+        profile_train(state, step, batches, card, line["step_ms"],
+                      f"efficientnet_b4 train step, batch {line['batch']}, 380 px, bf16",
+                      ("dwconv_",))
+        del step, batches
+        torch.cuda.empty_cache()
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+        hooked = effnet_hook_pass(dwm, state.model, cfg, next(iter(ds.epoch(1))), flush)
+        del state, ds, flush
+        torch.cuda.empty_cache()
+        print("effnetdw " + json.dumps(dict(hooked, card=card)), flush=True)
+        if hooked["layers"] != 28:
+            raise AssertionError(f"the hook pass found {hooked['layers']} depthwise layers "
+                                 f"that the kernels support, want 28")
+        if dw_cases is not None:
+            by_op = hooked["launches_by_op"]
+            entries += [
+                _dw_entry("depthwise_conv", dw_cases,
+                          by_op["depthwise_conv"] + by_op["depthwise_dgrad"],
+                          {k: by_op[k] for k in ("depthwise_conv", "depthwise_dgrad")},
+                          line["depthwise_launches"]),
+                _dw_entry("depthwise_wgrad", dw_cases, by_op["depthwise_wgrad"],
+                          {"depthwise_wgrad": by_op["depthwise_wgrad"]},
+                          line["depthwise_launches"]),
+            ]
 
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

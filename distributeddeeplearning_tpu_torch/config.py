@@ -1,6 +1,7 @@
 """Typed training configuration: the port's twin of the JAX package's
-``config.TrainConfig`` for the fields the data-parallel ResNet, LM and
-ViT training slices read.
+``config.TrainConfig`` for the fields the data-parallel ResNet, LM, ViT
+and EfficientNet training slices read (``MODEL`` names any model of
+``models.get_model``, ``efficientnet_b0`` … ``efficientnet_b7`` too).
 
 Field names, defaults and ``from_env`` parsing are the JAX package's. A
 field of a later slice that the dataclass carries (``engine``,

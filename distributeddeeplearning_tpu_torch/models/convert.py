@@ -20,6 +20,10 @@ view is the kernels' ``w``), the Dense head's ``[in, out]`` a ``[out,
 in]`` weight, and BN ``scale``/``bias`` (params) and ``mean``/``var``
 (batch_stats) ``weight``/``bias``/``running_mean``/``running_var``.
 The fused and unfused models share one tree, as in JAX.
+
+``EfficientNet``: ResNet's rules; a depthwise ``kernel`` ``[k, k, 1, C]``
+becomes ``[C, 1, k, k]`` and the squeeze-excite convs' ``bias`` carries
+across.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from distributeddeeplearning_tpu_torch.models import vit
+from distributeddeeplearning_tpu_torch.models.efficientnet import EfficientNet
 from distributeddeeplearning_tpu_torch.models.resnet import ResNet
 from distributeddeeplearning_tpu_torch.models.transformer_lm import _VARIANTS
 
@@ -266,17 +271,14 @@ def resnet_params_to_flax(state: Mapping[str, torch.Tensor]):
     return params, stats
 
 
-def init_resnet_params(depth: int, num_classes: int,
-                       generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    """Seeded ``ResNet`` state with the JAX model's initialisers: conv
-    kernels ``variance_scaling(2, fan_out, truncated_normal)``, the head
-    lecun-normal with a zero bias, BN γ = 1 (0 on each branch's last
-    BN), β = 0, running mean 0 and variance 1. f32 on ``generator``'s
-    device; the draws differ from ``jax.random``'s (same
-    distributions, other numbers). Every rank that passes the same seed
-    gets the same tensors."""
+def _init_conv_net(model: torch.nn.Module, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Seeded state of a conv net built on the meta device, with the JAX
+    models' initialisers: conv kernels ``variance_scaling(2, fan_out,
+    truncated_normal)`` (``fan_out = out·kh·kw``; a depthwise kernel's
+    ``out`` is its channel count, as flax's ``[k, k, 1, C]``), the Dense
+    head lecun-normal, every bias 0, BN γ = 1 (0 where the module sets
+    ``zero_init``), β = 0, running mean 0 and variance 1."""
     dev = generator.device
-    model = ResNet(depth=depth, num_classes=num_classes, dtype=torch.float32, device="meta")
     zero_init = {name for name, mod in model.named_modules() if getattr(mod, "zero_init", False)}
     out: Dict[str, torch.Tensor] = {}
     for name, ref in model.state_dict().items():
@@ -294,3 +296,38 @@ def init_resnet_params(depth: int, num_classes: int,
         out[name] = torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                                 generator=generator)
     return out
+
+
+def init_resnet_params(depth: int, num_classes: int,
+                       generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Seeded ``ResNet`` state with the JAX model's initialisers: conv
+    kernels ``variance_scaling(2, fan_out, truncated_normal)``, the head
+    lecun-normal with a zero bias, BN γ = 1 (0 on each branch's last
+    BN), β = 0, running mean 0 and variance 1. f32 on ``generator``'s
+    device; the draws differ from ``jax.random``'s (same
+    distributions, other numbers). Every rank that passes the same seed
+    gets the same tensors."""
+    model = ResNet(depth=depth, num_classes=num_classes, dtype=torch.float32, device="meta")
+    return _init_conv_net(model, generator)
+
+
+# EfficientNet's trees follow ResNet's rules: a depthwise kernel
+# ``[k, k, 1, C]`` becomes ``[C, 1, k, k]`` by the same HWIO -> OIHW
+# transpose, and the squeeze-excite convs keep their biases.
+efficientnet_params_from_flax = resnet_params_from_flax
+efficientnet_params_to_flax = resnet_params_to_flax
+
+
+def init_efficientnet_params(variant: str, num_classes: int,
+                             generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Seeded ``EfficientNet`` state with the JAX model's initialisers:
+    every conv kernel (depthwise and squeeze-excite included)
+    ``variance_scaling(2, fan_out, truncated_normal)``, the squeeze-excite
+    biases 0, the head lecun-normal with a zero bias, BN γ = 1, β = 0,
+    running mean 0 and variance 1. f32 on ``generator``'s device; the
+    draws differ from ``jax.random``'s (same distributions, other
+    numbers). Every rank that passes the same seed gets the same
+    tensors."""
+    model = EfficientNet(variant=variant, num_classes=num_classes, dtype=torch.float32,
+                         device="meta")
+    return _init_conv_net(model, generator)

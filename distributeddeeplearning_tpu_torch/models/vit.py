@@ -388,8 +388,9 @@ class ViT(nn.Module):
             raise ValueError(f"variant must be one of {sorted(_VARIANTS)}")
         if dropout > 0:
             raise NotImplementedError(
-                "ViT dropout comes with the training-loop slice (training/loop.py), "
-                "which threads the dropout rng")
+                "ViT dropout is not ported yet: it is the next user of the train "
+                "step's dropout generator (training/train_step.py passes generator= to "
+                "a model that sets `stochastic`; ROADMAP.md queue A)")
         if remat:
             raise NotImplementedError("remat comes with the gradient-checkpointing slice")
         if image_size % patch_size:

@@ -76,8 +76,9 @@ def build(name: str) -> Path:
     )
     log.write_text(res.stdout)
     if res.returncode != 0:
+        tail = "\n".join(res.stdout.splitlines()[-20:])
         raise RuntimeError(
-            f"kernel build failed: {name} (nvcc rc={res.returncode}, see {log})"
+            f"kernel build failed: {name} (nvcc rc={res.returncode}, see {log}):\n{tail}"
         )
     os.replace(tmp, path)  # atomic: a reader never sees half a file
     return path

@@ -1,0 +1,233 @@
+"""Stride-1 SAME depthwise convolution: the port of
+``distributeddeeplearning_tpu/ops/pallas/depthwise.py``.
+
+:func:`depthwise_conv2d` takes ``x`` ``[N, C, H, W]`` (kept in
+``channels_last`` memory, so it is NHWC like the JAX input) and the
+grouped-conv weight ``[C, 1, k, k]``, the arguments of
+``F.conv2d(x, weight, padding=k // 2, groups=C)``, and returns the same
+function with f32 accumulation, in ``x.dtype``. Inside, the weight
+becomes JAX's ``[k², C]`` f32 tap table (``depthwise.py:247``). It is a
+``torch.autograd.Function`` whose backward is JAX's custom VJP: ``dx``
+is the same stencil on ``dy`` with the taps reversed, ``dw`` the sum
+over images and positions of ``xpad·dy`` per tap, accumulated in f32 and
+returned in the weight's dtype.
+
+On a CUDA tensor each of the three launches the hand-written Hopper
+kernels of ``csrc/depthwise.cu`` (bf16 or f32; counted in
+:data:`launches` and :data:`launches_by_op`); on a CPU tensor it runs
+the plain version (:func:`stencil_plain`, :func:`wgrad_plain`); any
+other device raises. An unsupported shape raises ``ValueError``, as
+JAX's does: the function never hands a shape to ``F.conv2d``.
+
+:func:`supports` keeps JAX's shape rule (stride 1, odd ``k > 1``,
+``h, w >= k``) without its VMEM-fit term, which is the TPU's: the
+kernels tile any image.
+
+The JAX package keeps its kernel flag-off, and so does the port: no
+model calls this function (EfficientNet's depthwise convs are cuDNN's
+grouped convs, as they are XLA's in JAX). ``chip_smoke.py`` drives it
+on EfficientNet-B4's own layers.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from distributeddeeplearning_tpu_torch.ops import _build
+
+# Kernel launches since the last reset, in all and by op; the forward
+# and the dgrad are one stencil kernel (chip_smoke.py zeroes these
+# before the pass it drives and reads them after).
+launches = 0
+launches_by_op: Dict[str, int] = {"depthwise_conv": 0, "depthwise_dgrad": 0,
+                                  "depthwise_wgrad": 0}
+
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}  # csrc/depthwise.cu's `dtype`
+
+
+def supports(h: int, w: int, c: int, k: int, stride: int) -> bool:
+    """Stride-1 SAME odd-k depthwise layers (``depthwise.py:85-98``
+    without the VMEM term)."""
+    return stride == 1 and k % 2 == 1 and k > 1 and h >= k and w >= k and c >= 1
+
+
+def weight_taps(weight: torch.Tensor) -> torch.Tensor:
+    """``[C, 1, k, k]`` -> the ``[k², C]`` f32 tap table, tap ``di·k + dj``."""
+    c, _, k, _ = weight.shape
+    return weight.reshape(c, k * k).t().float().contiguous()
+
+
+def _check(x: torch.Tensor, k: int, c: int) -> None:
+    if x.dim() != 4 or x.shape[1] != c:
+        raise ValueError(f"expected [N, C={c}, H, W], got {tuple(x.shape)}")
+    if not supports(x.shape[2], x.shape[3], c, k, 1):
+        raise ValueError(f"unsupported depthwise shape {tuple(x.shape)} k={k}")
+
+
+def stencil_plain(x: torch.Tensor, taps: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """``Σ_t xpad[:, :, i+di, j+dj]·taps[t]`` over the ``k²`` taps, the
+    padded input and the sum in f32 (f64 for f64 inputs), in
+    ``x.dtype``: ``_stencil_strip``'s arithmetic, any device. ``flip``
+    reverses the taps (the dgrad)."""
+    k = int(round(taps.shape[0] ** 0.5))
+    _check(x, k, taps.shape[1])
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    p, (h, w) = k // 2, x.shape[2:]
+    xp = F.pad(x.to(acc_dtype), (p, p, p, p))
+    wt = (taps.flip(0) if flip else taps).to(acc_dtype)
+    acc = torch.zeros(x.shape, dtype=acc_dtype, device=x.device)
+    for di in range(k):
+        for dj in range(k):
+            acc = acc + xp[:, :, di:di + h, dj:dj + w] * wt[di * k + dj][None, :, None, None]
+    return acc.to(x.dtype)
+
+
+def wgrad_plain(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    """``dw[di·k + dj, c] = Σ_{n,i,j} xpad[n, c, i+di, j+dj]·dy[n, c, i, j]``,
+    ``[k², C]`` in f32 (f64 for f64 inputs), any device."""
+    _check(x, k, x.shape[1])
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} != x {tuple(x.shape)}")
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    p, (h, w) = k // 2, x.shape[2:]
+    xp = F.pad(x.to(acc_dtype), (p, p, p, p))
+    g = dy.to(acc_dtype)
+    return torch.stack([(xp[:, :, di:di + h, dj:dj + w] * g).sum((0, 2, 3))
+                        for di in range(k) for dj in range(k)])
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("depthwise")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # Pointers as c_void_p: without argtypes ctypes would pass 32 bits.
+    lib.depthwise_stencil.argtypes = [p] * 3 + [i] * 7 + [p]
+    lib.depthwise_stencil.restype = i
+    lib.depthwise_wgrad.argtypes = [p] * 4 + [i] * 6 + [p]
+    lib.depthwise_wgrad.restype = i
+    lib.depthwise_wgrad_partials.argtypes = [i] * 3
+    lib.depthwise_wgrad_partials.restype = i
+    return lib
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def _cuda_args(x: torch.Tensor):
+    if x.dtype not in _DTYPES:
+        raise NotImplementedError(f"the depthwise kernels take bf16 or f32, got {x.dtype}")
+    n, c, h, w = x.shape
+    return n, h, w, c, _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream
+
+
+def stencil_cuda(x: torch.Tensor, taps: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """Launch the stencil kernel on a CUDA ``x`` (bf16 or f32): the
+    forward, or with ``flip`` the dgrad. Returns ``x.dtype``,
+    channels_last."""
+    global launches
+    k = int(round(taps.shape[0] ** 0.5))
+    _check(x, k, taps.shape[1])
+    if taps.device != x.device:
+        raise ValueError(f"tensors on {x.device} and {taps.device}")
+    x, taps = _nhwc(x), taps.float().contiguous()
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    n, h, w, c, dtype, stream = _cuda_args(x)
+    with torch.cuda.device(x.device):
+        rc = _library().depthwise_stencil(x.data_ptr(), taps.data_ptr(), y.data_ptr(),
+                                          n, h, w, c, k, dtype, int(flip), stream)
+    if rc != 0:
+        raise RuntimeError(f"depthwise stencil launch failed: CUDA error {rc}")
+    launches += 1
+    launches_by_op["depthwise_dgrad" if flip else "depthwise_conv"] += 1
+    return y
+
+
+def wgrad_cuda(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    """Launch the wgrad kernels (per-block partials, then their sum in a
+    fixed order) on CUDA ``x`` and ``dy`` of one dtype: ``[k², C]`` f32."""
+    global launches
+    _check(x, k, x.shape[1])
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    x, dy = _nhwc(x), _nhwc(dy)
+    n, h, w, c, dtype, stream = _cuda_args(x)
+    lib = _library()
+    rows = lib.depthwise_wgrad_partials(n, w, k)
+    part = torch.empty(max(rows, 1), k * k, c, dtype=torch.float32, device=x.device)
+    dw = torch.empty(k * k, c, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.depthwise_wgrad(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                                 n, h, w, c, k, dtype, stream)
+    if rc != 0:
+        raise RuntimeError(f"depthwise wgrad launch failed: CUDA error {rc}")
+    launches += 1
+    launches_by_op["depthwise_wgrad"] += 1
+    return dw
+
+
+def stencil(x: torch.Tensor, taps: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """The stencil: the kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if x.device.type == "cuda":
+        return stencil_cuda(x, taps, flip)
+    if x.device.type == "cpu":
+        return stencil_plain(x, taps, flip)
+    raise ValueError(f"depthwise: unsupported device {x.device}")
+
+
+def wgrad(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    """The wgrad: the kernels on CUDA tensors, the plain version on CPU
+    tensors."""
+    if x.device.type == "cuda":
+        return wgrad_cuda(x, dy, k)
+    if x.device.type == "cpu":
+        return wgrad_plain(x, dy, k)
+    raise ValueError(f"depthwise: unsupported device {x.device}")
+
+
+class _Depthwise(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight):
+        taps = weight_taps(weight)
+        ctx.save_for_backward(x, taps)
+        ctx.weight_dtype = weight.dtype
+        return stencil(x, taps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, taps = ctx.saved_tensors
+        c, k = taps.shape[1], int(round(taps.shape[0] ** 0.5))
+        dy = dy.to(x.dtype)
+        dx = stencil(dy, taps, flip=True) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = wgrad(x, dy, k).t().reshape(c, 1, k, k).to(ctx.weight_dtype)
+        return dx, dw
+
+
+def depthwise_conv2d(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Stride-1 SAME depthwise conv of ``x`` ``[N, C, H, W]`` with the
+    grouped-conv weight ``[C, 1, k, k]``; ``F.conv2d(x, weight,
+    padding=k // 2, groups=C)`` with f32 accumulation, in ``x.dtype``.
+    Raises ``ValueError`` where :func:`supports` does not hold."""
+    if weight.dim() != 4 or weight.shape[1] != 1 or weight.shape[2] != weight.shape[3]:
+        raise ValueError(f"expected a [C, 1, k, k] weight, got {tuple(weight.shape)}")
+    _check(x, weight.shape[2], weight.shape[0])
+    if weight.device != x.device:
+        raise ValueError(f"tensors on {x.device} and {weight.device}")
+    return _Depthwise.apply(x, weight)
+
+
+def depthwise_conv2d_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """:func:`depthwise_conv2d`'s forward in plain PyTorch, any device."""
+    return stencil_plain(x, weight_taps(weight))
+
+
+__all__ = ["depthwise_conv2d", "depthwise_conv2d_plain", "launches", "launches_by_op",
+           "stencil", "stencil_cuda", "stencil_plain", "supports", "weight_taps", "wgrad",
+           "wgrad_cuda", "wgrad_plain"]

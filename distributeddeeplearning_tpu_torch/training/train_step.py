@@ -8,7 +8,13 @@ LM):
 
 * forward in train mode, with per-replica BatchNorm (each rank
   normalises with its own batch statistics and moves its running stats;
-  the LM has none);
+  the LM has none); a model whose training forward draws dropout noise
+  (``model.stochastic``: EfficientNet's drop-path and head dropout) gets
+  ``generator=``, a ``torch.Generator`` on the device seeded from
+  ``(config.seed, state.step, rank)`` (:func:`dropout_seed`), so every
+  step and every rank draws its own noise, as the JAX step's
+  ``fold_in(fold_in(PRNGKey(seed), step), device)`` key does (the bits
+  differ: same distributions, other numbers);
 * loss = f32 sparse softmax cross-entropy, the mean over examples (over
   the ``B·T`` tokens of an LM), label smoothing as the JAX
   package smooths (``on = 1 - ls``, ``off = ls / (V - 1)``, not
@@ -29,6 +35,7 @@ Metrics stay on the device (no host sync in the step).
 
 from __future__ import annotations
 
+import hashlib
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -66,6 +73,14 @@ def l2_kernel_penalty(model, weight_decay: float) -> torch.Tensor:
     return weight_decay * torch.stack([(w.float() * w.float()).sum() for w in kernels]).sum()
 
 
+def dropout_seed(seed: int, step: int, rank: int) -> int:
+    """The seed of one step's dropout generator on one rank: a 63-bit
+    hash of ``(seed, step, rank)``, computed on the host (no device
+    sync)."""
+    digest = hashlib.blake2b(f"{seed}/{step}/{rank}".encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1
+
+
 def _bn_buffers(model):
     return [b for name, b in model.named_buffers()
             if name.endswith(("running_mean", "running_var"))]
@@ -89,18 +104,24 @@ def make_train_step(model, optimizer, config: Optional[TrainConfig] = None,
     if process_group is None and dist.is_available() and dist.is_initialized():
         process_group = dist.group.WORLD
     world = dist.get_world_size(process_group) if process_group is not None else 1
+    rank = dist.get_rank(process_group) if process_group is not None else 0
     params = [p for p in model.parameters()]
     if any(p.device.type != device.type or device.index not in (None, p.device.index)
            for p in params):
         raise ValueError(f"the model is not on {device}: create_train_state moves it there")
     buffers = _bn_buffers(model)
+    generator = torch.Generator(device=device) if getattr(model, "stochastic", False) else None
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         inputs, labels = (to_device(batch, device) if not torch.is_tensor(batch[0])
                           else batch)
         inputs = normalize_staged_images(inputs)
         model.train()
-        logits = model(inputs)
+        if generator is None:
+            logits = model(inputs)
+        else:
+            generator.manual_seed(dropout_seed(cfg.seed, state.step, rank))
+            logits = model(inputs, generator=generator)
         loss = cross_entropy_loss(logits, labels, cfg.label_smoothing)
         loss = loss + l2_kernel_penalty(model, cfg.weight_decay)
         grads = list(torch.autograd.grad(loss, params))

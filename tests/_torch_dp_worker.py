@@ -6,7 +6,10 @@ CPU (driven by ``test_torch_train_step_dp.py``; imports no JAX).
 ``IN.npz`` holds the initial state dict (``sd/<name>``), the config
 (``cfg/<field>``) and the global batches (``images<i>``, ``labels<i>``:
 images, or ``[B, T]`` tokens for an ``lm_*`` model); rank 0 writes the
-metrics of every step and the final state dict to ``OUT.npz``.
+metrics of every step and the final state dict to ``OUT.npz``. For an
+``efficientnet_*`` model every rank also writes its final state dict and
+the dropout keep masks it drew (``mask<i>``, in order) to
+``OUT_rank<r>.npz``.
 """
 
 import sys
@@ -17,7 +20,7 @@ import torch.distributed as dist
 
 from distributeddeeplearning_tpu_torch.config import TrainConfig
 from distributeddeeplearning_tpu_torch.data import shard_batch
-from distributeddeeplearning_tpu_torch.models import get_model
+from distributeddeeplearning_tpu_torch.models import efficientnet, get_model
 from distributeddeeplearning_tpu_torch.training import (
     create_optimizer,
     create_train_state,
@@ -32,8 +35,18 @@ def main(rank, world, port, fused, path_in, path_out):
     data = np.load(path_in)
     cfg = TrainConfig(**{k[4:]: v.item() for k, v in data.items() if k.startswith("cfg/")})
     sd = {k[3:]: torch.from_numpy(v) for k, v in data.items() if k.startswith("sd/")}
+    masks = []
     if cfg.model.startswith("lm_"):
         kw = dict(attn_impl=cfg.attn_impl, max_seq_len=int(data["images0"].shape[1]))
+    elif cfg.model.startswith("efficientnet_"):
+        kw = {}
+        draw = efficientnet.keep_mask
+
+        def record(*args):
+            masks.append(draw(*args))
+            return masks[-1]
+
+        efficientnet.keep_mask = record
     else:
         kw = dict(fused=fused)
     model = get_model(cfg.model, num_classes=cfg.num_classes, dtype=cfg.compute_dtype,
@@ -48,9 +61,12 @@ def main(rank, world, port, fused, path_in, path_out):
         state, metrics = step(state, batch)
         for k, v in metrics.items():
             out[f"metric{i}/{k}"] = np.float32(v)
+    out.update({f"sd/{k}": v.numpy() for k, v in model.state_dict().items()})
     if rank == 0:
-        out.update({f"sd/{k}": v.numpy() for k, v in model.state_dict().items()})
         np.savez(path_out, **out)
+    if masks:
+        out.update({f"mask{i:03d}": m.numpy() for i, m in enumerate(masks)})
+        np.savez(path_out[:-len(".npz")] + f"_rank{rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
 

@@ -25,6 +25,10 @@ machine that has only PyTorch for CUDA:
   a trash block of large finite codes) against its plain version, with
   chip_smoke's ``bf16_tolerance``, and a scales-of-1 control that must
   miss it;
+* the depthwise stencil (forward, dgrad) and wgrad kernels against
+  their plain version and cuDNN at chip_smoke's ragged, f32, k = 9 and
+  one B4 case with its limits, and once through ``depthwise_conv2d``'s
+  autograd (one launch of each; unsupported shapes raise);
 * quantized serving (int8 and fp8 KV and weights, paged, fused kernel)
   of a small f32 LM on the card: the kernel launched once per layer per
   forward, under its storage dtype, and the greedy streams of the plain
@@ -313,3 +317,50 @@ def test_cuda_quantized_served_streams(kind):
     assert counts["xla"][0] == 0
     assert counts["fused"][0] == counts["fused"][1] > 0
     assert streams["fused"] == streams["xla"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_13x11_c130_k7", "ragged_13x11_c130_k3_f32",
+                                  "direct_13x11_c130_k9", "b4_672x24_k3"])
+def test_cuda_depthwise_kernels_match_plain(case):
+    """The stencil (forward, dgrad) and the wgrad against the plain
+    version (f32; the wgrad f64) and cuDNN, with chip_smoke's limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the depthwise kernels are CUDA C++ for sm_90a")
+    import chip_smoke as cs
+    from distributeddeeplearning_tpu_torch.ops import depthwise as dwm
+
+    _, b, h, w, c, k, dtype = next(cs_ for cs_ in cs.DW_CASES if cs_[0] == case)
+    line = cs.dw_case(dwm, case, b, h, w, c, k, dtype, torch.empty(1024, device="cuda"),
+                      torch.Generator(device="cuda").manual_seed(0))
+    assert max(line["err_over_limit"].values()) <= 1.0
+    assert max(line["cudnn_err_over_limit"].values()) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_depthwise_autograd_launches_each_kernel_once():
+    """``depthwise_conv2d`` on the card: the forward, dgrad and wgrad
+    kernels once each, dx and dw as the raw launchers give them (dw in
+    the weight's dtype); an unsupported shape raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the depthwise kernels are CUDA C++ for sm_90a")
+    from distributeddeeplearning_tpu_torch.ops import depthwise as dwm
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(2, 48, 19, 23, device="cuda", generator=g).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+    weight = torch.randn(48, 1, 5, 5, device="cuda", generator=g).requires_grad_()
+    gy = torch.randn(2, 48, 19, 23, device="cuda", generator=g).to(torch.bfloat16)
+    before = dict(dwm.launches_by_op)
+    y = dwm.depthwise_conv2d(x, weight)
+    dx, dw = torch.autograd.grad(y, (x, weight), gy)
+    torch.cuda.synchronize()
+    assert {k: dwm.launches_by_op[k] - before[k] for k in before} == {
+        "depthwise_conv": 1, "depthwise_dgrad": 1, "depthwise_wgrad": 1}
+    taps = weight.detach().reshape(48, 25).t().contiguous()
+    assert torch.equal(y, dwm.stencil_cuda(x.detach(), taps))
+    assert torch.equal(dx, dwm.stencil_cuda(gy, taps, flip=True))
+    want = dwm.wgrad_cuda(x.detach(), gy, 5).t().reshape(48, 1, 5, 5)
+    assert dw.dtype == torch.float32 and torch.equal(dw, want)
+    with pytest.raises(ValueError):
+        dwm.depthwise_conv2d(x.detach(), weight.detach()[:, :, :4, :4])
