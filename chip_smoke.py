@@ -16,12 +16,16 @@ non-zero.
    shared memory and spills.
 3. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card (run in f32 on the same bf16 inputs), with
-   CUDA-event times of the kernel, the plain version and one library
-   call (a yardstick only) beside the byte/operation bound:
+   CUDA-event times (device time: the device spins before each timed
+   span, so the host's side of a call never sets it) of the kernel, the
+   plain version and one library call (a yardstick only) beside the
+   byte/operation bound:
    decode attention at lm_base shapes, on bf16 caches and on int8 and
-   fp8 codes with f32 scales (``QUANT_CASES``; the yardstick then
-   dequantizes the gathered K/V and runs SDPA, timed together), with a
-   negative control (the int8 kernel given scales of 1 must fail);
+   fp8 codes with f32 scales (``QUANT_CASES``; the yardstick gathers the
+   K/V out of the page pool, dequantizes the codes, and runs SDPA, all
+   timed together; bf16 cases also time SDPA on K/V gathered before the
+   timer, ``sdpa_pregathered_ms``), with a negative control (the int8
+   kernel given scales of 1 must fail);
    ``matmul_stats`` and
    ``bn_relu_matmul_stats`` at the four ResNet-50 training shapes, a
    ragged M and a prologue channel with σ ≪ |μ|; the three flash
@@ -31,7 +35,9 @@ non-zero.
    control (a variant that drops each row's last key tile must fail);
    the two packed-QKV attention kernels (forward, packed backward) at
    ViT-B/16 and ViT-L/16 training, T = 512, head dim 128 and a ragged
-   causal case, with the same negative control at ViT-B/16; and the
+   causal case, with the backward's statistics scratch held to its plain
+   version, the backward run twice with equal bits, and the same
+   negative control at ViT-B/16; and the
    dW+db kernel at the four ViT-B/16 Dense shapes, the f32 head and a
    ragged N; the depthwise stencil (forward, dgrad) and wgrad at
    EfficientNet-B4's ten stride-1 layer shapes (batch 64, bf16), an f32
@@ -113,6 +119,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_S = 989e12  # dense bf16 tensor-core peak
 N_TIMED = 25  # timed launches per measurement (median reported)
+SPIN_CYCLES = 4_000_000  # device spin before each timed span: about 2 ms
 
 
 def _die(msg: str) -> None:
@@ -131,12 +138,17 @@ def device_line() -> str:
 def time_ms(fn, flush: torch.Tensor) -> float:
     """Median device time of ``fn`` over N_TIMED launches, each with a
     cold L2 (a 256 MB write between launches, outside the timed span),
-    as a serving step finds the next layer's K/V."""
+    as a serving step finds the next layer's K/V. Before each span the
+    device spins for SPIN_CYCLES (``torch.cuda._sleep``), so the host has
+    queued ``fn``'s work before the device reaches the first event: the
+    span is device time even where the host's side of ``fn`` (autograd,
+    a wrapper's checks) takes longer than the device's."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(N_TIMED):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -208,9 +220,11 @@ def kernel_case(name, pd, q, k, v, q_pos, flush, *, table=None, bs=0, k_scale=No
     bound_ops = flops / H100_BF16_FLOP_S * 1e3
 
     # Library yardstick: SDPA over the [B, H, L, d] K/V with the same
-    # boolean mask. In the compute dtype the gathered view is made
-    # before timing; quantized, the stitched path is timed whole: gather
-    # the codes and scales, dequantize to bf16, then SDPA.
+    # boolean mask, timed with the gather out of the page pool that the
+    # kernel does in its own body (quantized: gather the codes and
+    # scales, dequantize to bf16, then SDPA). In the compute dtype the
+    # case also keeps SDPA alone on K/V gathered before the timer
+    # (`sdpa_pregathered_ms`, the yardstick before the gather was timed).
     length = (table.shape[1] * bs) if table is not None else k.shape[1]
     mask = (torch.arange(length, device=q.device)[None, None, :]
             <= q_pos.long()[:, :, None])[:, None]
@@ -234,8 +248,11 @@ def kernel_case(name, pd, q, k, v, q_pos, flush, *, table=None, bs=0, k_scale=No
     else:
         kh, vh = (logical(x).transpose(1, 2).contiguous() for x in (k, v))
 
-        def library():
+        def pregathered():
             return sdpa(kh, vh)
+
+        def library():
+            return sdpa(logical(k).transpose(1, 2), logical(v).transpose(1, 2))
 
     return {
         "case": name, "shape": {"B": b, "t": t, "H": h, "d": d, "L": length,
@@ -246,6 +263,7 @@ def kernel_case(name, pd, q, k, v, q_pos, flush, *, table=None, bs=0, k_scale=No
         "plain_ms": time_ms(
             lambda: pd.fused_decode_attention_plain(q, k, v, q_pos, **kw), flush),
         "library_ms": time_ms(library, flush),
+        "sdpa_pregathered_ms": None if quantized else time_ms(pregathered, flush),
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         "bytes": int(nbytes), "flops": float(flops),
@@ -1511,41 +1529,70 @@ def fp_bounds(b, t, h, d, causal):
     return out
 
 
-def fp_case(fp, fl, name, b, t, h, d, causal, flush, g):
+def fp_stats_limit(q, k, o, do, ref, scale: float) -> torch.Tensor:
+    """Per-row limits ``[3, B·H, T]`` on |kernel − f32 plain| for the
+    backward's statistics scratch (m, 1/l, Δ), given the same bf16 q, k,
+    o and dO.
+
+    A score is scale·Σ_d q_i·k_i, d exact products summed in another
+    order: off by at most e = d·2**-24·scale·‖q‖·max‖k‖ (as in
+    :func:`flash_lse_limit`); m, the row's largest score, by at most e
+    plus its own rounding, 2**-24·|m|. l = Σ exp(s − m) over at most T
+    terms: each term moves by at most 2e relative (s and m) and a few
+    ulps (exp2f), and their sum in another order by T·2**-24 relative,
+    so 1/l moves by at most (2e + (T + 4)·2**-24) of itself. Δ is a sum
+    of d exact products: d·2**-24·Σ|dO·o|. Each limit is twice that
+    worst case."""
+    b, t, h, d = q.shape
+    qn = q.float().norm(dim=-1).permute(0, 2, 1).reshape(b * h, t)
+    kn = k.float().norm(dim=-1).amax(dim=1).reshape(b * h, 1)
+    e = 2 ** -24 * d * scale * qn * kn
+    absdot = (do.float() * o.float()).abs().sum(-1).permute(0, 2, 1).reshape(b * h, t)
+    return 2 * torch.stack([e + 2 ** -24 * ref[0].abs(),
+                            ref[1] * (2 * e + (t + 4) * 2 ** -24),
+                            2 ** -24 * d * absdot])
+
+
+def fp_check(fp, fl, name, b, t, h, d, causal, g):
     """Both packed-attention kernels against their plain versions (f32,
     the same bf16 inputs; the backward's plain version gets the kernel's
     own O, so it holds the backward kernel alone), with the flash limits
     (``flash_limit`` on the same rounding points: p rounded before P·V
     and dV, ds before dQ and dK, each result once; ``flash_terms`` with
-    p̂ = exp(s − lse) = p/l), and CUDA-event times of each kernel, its
-    plain version (bf16 operands, f32 inside), the library yardstick
-    (scaled_dot_product_attention on the q, k, v views of the packed
-    projection; its backward timed as forward+backward minus forward)
-    and the bound. At ``vit_b16`` a forward that drops each query tile's
-    last key tile must fail the O limit."""
-    import torch.nn.functional as F
-
+    p̂ = exp(s − lse) = p/l). The backward runs twice and must repeat
+    bit for bit, and its statistics scratch (m, 1/l, Δ) is held to
+    ``fp.backward_row_stats_plain`` within :func:`fp_stats_limit`. At
+    ``vit_b16`` a forward that drops each query block's last key tile
+    must fail the O limit. Returns ``(errs, control, (qkv, do, out))``,
+    errs by output: ``(max abs error, error over limit)``."""
     bf = torch.bfloat16
     qkv = torch.randn(b, t, 3 * h * d, device="cuda", generator=g).to(bf)
     do = torch.randn(b, t, h * d, device="cuda", generator=g).to(bf)
     sc = d ** -0.5
     out = fp.fused_qkv_forward(qkv, h, causal, sc)
-    dqkv = fp.fused_qkv_backward(qkv, out, do, h, causal, sc)
+    dqkv, stats = fp.fused_qkv_backward(qkv, out, do, h, causal, sc, return_stats=True)
+    again = fp.fused_qkv_backward(qkv, out, do, h, causal, sc)
     torch.cuda.synchronize()
     for x, what in ((out, "O"), (dqkv, "dQKV")):
         if not torch.isfinite(x.float()).all():
             raise AssertionError(f"{name}: non-finite kernel {what}")
+    if not torch.equal(dqkv, again):
+        raise AssertionError(f"{name}: the backward does not repeat bit for bit")
+    del again
     ref_o = fp.fused_qkv_attention_plain(qkv.float(), h, causal, sc)
     ref_d = fp.fused_qkv_attention_backward_plain(qkv.float(), out.float(), do.float(), h,
                                                   causal, sc)
     q, k, v = qkv.view(b, t, 3, h, d).unbind(2)
     o4, do4 = out.view(b, t, h, d), do.view(b, t, h, d)
+    ref_s = fp.backward_row_stats_plain(qkv.float(), out.float(), do.float(), h, causal, sc)
+    errs = {"stats": _ratio(stats, ref_s, fp_stats_limit(q, k, o4, do4, ref_s, sc))}
     lse = fl.flash_forward_plain(q.float(), k.float(), v.float(), causal, sc)[1]
     t_o, t_dq, t_dk, t_dv = flash_terms(q, k, v, o4, do4, lse, fl.flash_delta(o4, do4),
                                         causal, sc)
-    del lse
+    del lse, ref_s
     ref_o4 = ref_o.view(b, t, h, d)
-    errs = {"O": _ratio(o4, ref_o4, flash_limit(ref_o4, t_o))}
+    o_limit = flash_limit(ref_o4, t_o)
+    errs["O"] = _ratio(o4, ref_o4, o_limit)
     got_parts, ref_parts = dqkv.view(b, t, 3, h, d), ref_d.view(b, t, 3, h, d)
     for i, (what, terms) in enumerate((("dQ", t_dq), ("dK", t_dk), ("dV", t_dv))):
         errs[what] = _ratio(got_parts[:, :, i], ref_parts[:, :, i],
@@ -1558,13 +1605,24 @@ def fp_case(fp, fl, name, b, t, h, d, causal, flush, g):
     control = None
     if name == "vit_b16":
         bad = fp.fused_qkv_forward(qkv, h, causal, sc, drop_last_tile=True)
-        control = _ratio(bad.view(b, t, h, d), ref_o4, flash_limit(ref_o4, t_o))[1]
+        control = _ratio(bad.view(b, t, h, d), ref_o4, o_limit)[1]
         if not control > 1.0:
             raise AssertionError(f"{name}: the dropped-tile variant passes ({control:.2f}x)")
-        del bad
-    del ref_o, ref_d, ref_o4, t_o, t_dq, t_dk, t_dv
+    return errs, control, (qkv, do, out)
 
-    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do4))
+
+def fp_case(fp, fl, name, b, t, h, d, causal, flush, g):
+    """:func:`fp_check`, then CUDA-event times of each kernel, its plain
+    version (bf16 operands, f32 inside), the library yardstick
+    (scaled_dot_product_attention on the q, k, v views of the packed
+    projection; its backward timed as forward+backward minus forward)
+    and the bound."""
+    import torch.nn.functional as F
+
+    errs, control, (qkv, do, out) = fp_check(fp, fl, name, b, t, h, d, causal, g)
+    sc = d ** -0.5
+    q, k, v = qkv.view(b, t, 3, h, d).unbind(2)
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do.view(b, t, h, d)))
 
     def sdpa():
         return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, scale=sc)

@@ -11,11 +11,14 @@ packed ``dqkv`` (the JAX custom VJP ``_packed_fwd_rule`` /
 ``_packed_bwd_rule``). ViT's ``attn_impl="fused"`` calls it, and
 ``"auto"`` does on the card where :func:`supports` holds.
 
-On a CUDA tensor each step launches a hand-written Hopper kernel of
+On a CUDA tensor each step launches hand-written Hopper kernels of
 ``csrc/flash_packed.cu`` (``fused_qkv_fwd``, ``fused_qkv_bwd``; each
-launch counted in :data:`launches` and :data:`launches_by_op`): bf16
+call counted once in :data:`launches` and :data:`launches_by_op`): bf16
 only, head dim 32, 64 or 128, T ≤ :data:`MAX_T`; anything else raises
-``NotImplementedError``. On a CPU tensor it runs the plain versions,
+``NotImplementedError``. The backward is two kernels on one stream:
+dq, which also writes each row's ``m``, ``1/l`` and ``Δ`` to an f32
+scratch (:func:`backward_row_stats_plain` is its plain version), then
+dk/dv, which reads them. On a CPU tensor it runs the plain versions,
 :func:`fused_qkv_attention_plain` and
 :func:`fused_qkv_attention_backward_plain`; any other device raises.
 
@@ -46,6 +49,7 @@ launches_by_op: Dict[str, int] = {"fused_qkv_fwd": 0, "fused_qkv_bwd": 0}
 MAX_T = 512  # the JAX kernel's whole-sequence limit (flash_packed.MAX_T)
 NEG_INF = -1e30  # the kernels' finite mask value
 HEAD_DIMS = (32, 64, 128)  # csrc/flash_packed.cu's instances
+STATS_TILE = 128  # the backward's scratch pads T to whole 128-row blocks
 _LANES = 128
 
 
@@ -69,6 +73,12 @@ def supports(seq_len: int, num_heads: int, head_dim: int) -> bool:
     )
 
 
+def stats_rows(seq_len: int) -> int:
+    """Rows per head of the backward's statistics scratch: T rounded up
+    to whole 128-row blocks."""
+    return -(-seq_len // STATS_TILE) * STATS_TILE
+
+
 def _split(qkv: torch.Tensor, num_heads: int):
     """``q, k, v`` as ``[B, T, H, d]`` views of the packed projection."""
     b, t, three_hd = qkv.shape
@@ -77,8 +87,9 @@ def _split(qkv: torch.Tensor, num_heads: int):
 
 
 def _probs(q, k, causal: bool, scale: float):
-    """``(p [B, H, T, T] f32, l [B, H, T, 1] f32)``: ``exp(s − m)`` on the
-    kept entries (0 elsewhere) and its row sums, 1 where 0."""
+    """``(p [B, H, T, T] f32, l [B, H, T, 1] f32, m [B, H, T, 1] f32)``:
+    ``exp(s − m)`` on the kept entries (0 elsewhere), its row sums (1
+    where 0) and the row max of the masked scores."""
     t = q.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     mask = torch.ones(t, t, dtype=torch.bool, device=q.device)
@@ -88,7 +99,7 @@ def _probs(q, k, causal: bool, scale: float):
     m = s.amax(-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True)
-    return p, torch.where(l == 0.0, 1.0, l)
+    return p, torch.where(l == 0.0, 1.0, l), m
 
 
 def fused_qkv_attention_plain(qkv: torch.Tensor, num_heads: int, causal: bool,
@@ -96,7 +107,7 @@ def fused_qkv_attention_plain(qkv: torch.Tensor, num_heads: int, causal: bool,
     """The forward kernel's math in plain PyTorch (any device):
     ``[B, T, H·d]`` in ``qkv.dtype``."""
     q, k, v = _split(qkv, num_heads)
-    p, l = _probs(q, k, causal, scale)
+    p, l, _ = _probs(q, k, causal, scale)
     acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
     b, t, _, _ = q.shape
     return (acc / l).to(qkv.dtype).permute(0, 2, 1, 3).reshape(b, t, -1)
@@ -110,15 +121,35 @@ def fused_qkv_attention_backward_plain(qkv: torch.Tensor, out: torch.Tensor,
     q, k, v = _split(qkv, num_heads)
     b, t, h, d = q.shape
     o4, do4 = out.reshape(b, t, h, d).float(), do.reshape(b, t, h, d).float()
-    p, l = _probs(q, k, causal, scale)
+    p, l, _ = _probs(q, k, causal, scale)
     pn = p / l
-    delta = (do4 * o4).sum(-1).permute(0, 2, 1)[..., None]  # [B, H, T, 1]
+    delta = _deltas(o4, do4)[..., None]
     dp = torch.einsum("bqhd,bkhd->bhqk", do4, v.float())
     ds = (pn * (dp - delta) * scale).to(qkv.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", pn.to(qkv.dtype).float(), do4)
     return torch.stack([dq, dk, dv], dim=2).to(qkv.dtype).reshape(b, t, 3 * h * d)
+
+
+def _deltas(o4: torch.Tensor, do4: torch.Tensor) -> torch.Tensor:
+    """``Δ = rowsum(f32(dO)·f32(o))`` of ``[B, T, H, d]`` views: ``[B, H, T]``."""
+    return (do4.float() * o4.float()).sum(-1).permute(0, 2, 1)
+
+
+def backward_row_stats_plain(qkv: torch.Tensor, out: torch.Tensor, do: torch.Tensor,
+                             num_heads: int, causal: bool, scale: float) -> torch.Tensor:
+    """The backward's per-row statistics in plain PyTorch (any device):
+    ``[3, B·H, T]`` f32 holding the row max ``m`` of the masked scores,
+    ``1/l`` (``l = Σ exp(s − m)`` over the kept keys, 1 where 0) and
+    ``Δ = rowsum(f32(dO)·f32(o))``. The dq kernel writes these to its
+    scratch (``[3, B·H, stats_rows(T)]``; rows past T hold m = −1e30,
+    1/l = 1, Δ = 0) and the dk/dv kernel reads them."""
+    q, k, _ = _split(qkv, num_heads)
+    b, t, h, d = q.shape
+    _, l, m = _probs(q, k, causal, scale)
+    delta = _deltas(out.reshape(b, t, h, d), do.reshape(b, t, h, d))
+    return torch.stack([m[..., 0], 1.0 / l[..., 0], delta]).reshape(3, b * h, t)
 
 
 def _geometry(qkv: torch.Tensor, num_heads: int):
@@ -160,11 +191,16 @@ def _packed(x: torch.Tensor) -> torch.Tensor:
 
 
 def _library() -> ctypes.CDLL:
-    lib = _build.load("flash_packed")
+    return bind(_build.load("flash_packed"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument and return types on ``lib``
+    (a build of ``csrc/flash_packed.cu``)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # Pointers as c_void_p: without argtypes ctypes would pass 32 bits.
     lib.fused_qkv_fwd.argtypes = [p, p] + [i] * 5 + [f, i, p]
-    lib.fused_qkv_bwd.argtypes = [p] * 4 + [i] * 5 + [f, p]
+    lib.fused_qkv_bwd.argtypes = [p] * 5 + [i] * 5 + [f, p]
     lib.fused_qkv_fwd.restype = lib.fused_qkv_bwd.restype = ctypes.c_int
     return lib
 
@@ -172,7 +208,7 @@ def _library() -> ctypes.CDLL:
 def _launch(op: str, device: torch.device, *args) -> None:
     """Call the C entry point ``op`` on ``device``'s current stream (the
     stream autograd runs the backward on), raise on a launch error and
-    count the launch."""
+    count the call (one, whatever kernels it launches)."""
     global launches
     fn = getattr(_library(), op)
     with torch.cuda.device(device):
@@ -186,8 +222,8 @@ def _launch(op: str, device: torch.device, *args) -> None:
 def fused_qkv_forward(qkv: torch.Tensor, num_heads: int, causal: bool, scale: float, *,
                       drop_last_tile: bool = False) -> torch.Tensor:
     """Launch ``fused_qkv_fwd`` on a CUDA bf16 ``[B, T, 3·H·d]``: ``out
-    [B, T, H·d]``. ``drop_last_tile`` skips each query tile's last key
-    tile: a wrong variant, only for a negative control."""
+    [B, T, H·d]``. ``drop_last_tile`` skips each 128-query block's last
+    key tile: a wrong variant, only for a negative control."""
     b, t, d = _check_cuda(qkv, num_heads)
     qkv = _packed(qkv)
     out = torch.empty(b, t, num_heads * d, dtype=qkv.dtype, device=qkv.device)
@@ -197,15 +233,17 @@ def fused_qkv_forward(qkv: torch.Tensor, num_heads: int, causal: bool, scale: fl
 
 
 def fused_qkv_backward(qkv: torch.Tensor, out: torch.Tensor, do: torch.Tensor, num_heads: int,
-                       causal: bool, scale: float) -> torch.Tensor:
+                       causal: bool, scale: float, *, return_stats: bool = False):
     """Launch ``fused_qkv_bwd`` on CUDA bf16 tensors: the packed ``dqkv
-    [B, T, 3·H·d]``."""
+    [B, T, 3·H·d]`` (and, with ``return_stats``, the rows < T of the
+    statistics scratch, ``[3, B·H, T]`` as :func:`backward_row_stats_plain`)."""
     b, t, d = _check_cuda(qkv, num_heads, out, do)
     qkv, out, do = _packed(qkv), _packed(out), _packed(do)
     dqkv = torch.empty_like(qkv)
+    stats = torch.empty(3, b * num_heads, stats_rows(t), dtype=torch.float32, device=qkv.device)
     _launch("fused_qkv_bwd", qkv.device, qkv.data_ptr(), out.data_ptr(), do.data_ptr(),
-            dqkv.data_ptr(), b, t, num_heads, d, int(causal), scale)
-    return dqkv
+            dqkv.data_ptr(), stats.data_ptr(), b, t, num_heads, d, int(causal), scale)
+    return (dqkv, stats[..., :t]) if return_stats else dqkv
 
 
 def _on_cpu(x: torch.Tensor) -> bool:
@@ -254,6 +292,7 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int, *, causal: bool = Fal
 __all__ = [
     "HEAD_DIMS",
     "MAX_T",
+    "backward_row_stats_plain",
     "fused_qkv_attention",
     "fused_qkv_attention_backward_plain",
     "fused_qkv_attention_plain",
@@ -261,5 +300,6 @@ __all__ = [
     "fused_qkv_forward",
     "launches",
     "launches_by_op",
+    "stats_rows",
     "supports",
 ]

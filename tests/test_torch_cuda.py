@@ -17,8 +17,13 @@ machine that has only PyTorch for CUDA:
   its limits (``flash_limit``, ``flash_lse_limit``) and the launch
   counters, and once through autograd on views of a packed qkv;
 * both packed-QKV attention kernels against their plain versions at
-  ``chip_smoke``'s ``ragged_causal`` and ``d128`` cases, once through
-  autograd, and ``attn_impl="auto"`` taking the kernel on the card;
+  ``chip_smoke``'s ``ragged_causal`` and ``d128`` cases, at T ∈ {64, 65,
+  197, 256, 257, 512} × d ∈ {32, 64, 128} and three ragged causal shapes
+  (``chip_smoke.fp_check``: the flash limits, the backward's statistics
+  scratch against its plain version, the backward run twice with equal
+  bits; one launch counted per call, though the backward is two
+  kernels), once through autograd, and ``attn_impl="auto"`` taking the
+  kernel on the card;
 * the dW+db kernel (bf16 at a ragged N, f32 at ViT's head) against its
   plain version, and once through ``bias_dense``'s backward;
 * the decode-attention kernel on int8 and fp8 caches (dense, paged with
@@ -167,9 +172,38 @@ def test_cuda_packed_attention_kernels_match_plain(case):
     case_line = cs.fp_case(fp, fl, *next(c for c in cs.FP_CASES if c[0] == case), flush,
                            torch.Generator(device="cuda").manual_seed(0))
     assert max(case_line["err_over_limit"].values()) <= 1.0
-    # the case's own checks, then the timed launches (3 warm-up + 25 each)
+    # the case's own checks (the backward twice), then the timed launches
+    # (3 warm-up + 25 each)
     assert {op: fp.launches_by_op[op] - before[op] for op in before} == {
-        "fused_qkv_fwd": 1 + 28, "fused_qkv_bwd": 1 + 28}
+        "fused_qkv_fwd": 1 + 28, "fused_qkv_bwd": 2 + 28}
+
+
+PACKED_SHAPES = ([(t, d, False) for t in (64, 65, 197, 256, 257, 512) for d in (32, 64, 128)]
+                 + [(100, 64, True), (197, 32, True), (257, 128, True)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,causal", PACKED_SHAPES,
+                         ids=[f"t{t}-d{d}" + ("-causal" if c else "") for t, d, c in PACKED_SHAPES])
+def test_cuda_packed_attention_shapes_match_plain(t, d, causal):
+    """Both kernels (the forward; the backward's dq and dk/dv kernels and
+    their statistics scratch) against their plain versions with
+    chip_smoke's limits at B = 2, H = 2; the backward repeats bit for bit
+    and each call counts one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the packed attention kernels are CUDA C++ for sm_90a")
+    import chip_smoke as cs
+    from distributeddeeplearning_tpu_torch.ops import flash as fl
+    from distributeddeeplearning_tpu_torch.ops import flash_packed as fp
+
+    before = dict(fp.launches_by_op)
+    errs, _, (qkv, do, out) = cs.fp_check(fp, fl, f"t{t}_d{d}", 2, t, 2, d, causal,
+                                          torch.Generator(device="cuda").manual_seed(t + d))
+    assert max(ratio for _, ratio in errs.values()) <= 1.0
+    assert {op: fp.launches_by_op[op] - before[op] for op in before} == {
+        "fused_qkv_fwd": 1, "fused_qkv_bwd": 2}
+    first = fp.fused_qkv_backward(qkv, out, do, 2, causal, d ** -0.5)
+    assert torch.equal(first, fp.fused_qkv_backward(qkv, out, do, 2, causal, d ** -0.5))
 
 
 @pytest.mark.cuda

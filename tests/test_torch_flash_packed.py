@@ -18,6 +18,16 @@ inputs.
     The limit is 2**-8·|ref| + 2**-7·(the largest |ref| of the tensor).
   Measured: f32 9.5e-7 (forward) and 2.4e-6 (backward); bf16 0.26 and
   0.11 of the limit.
+* ``backward_row_stats_plain`` (each row's m, 1/l and Δ: what the dq
+  kernel writes to its scratch and the dk/dv kernel reads) against the
+  row statistics of JAX's ``_masked_softmax`` on JAX's own f32 scores, at
+  the same shapes, causal and not: exp(s − m) on the kept keys against
+  its p (atol 1e-5: p ≤ 1, and the two sides' scores are f32 sums of d
+  products in another order, off by d·2**-24·Σ|q·k| ≈ 1e-6 here), 1/l
+  against 1/l (rtol 1e-5: l sums at most T terms ≤ 1, T·2**-24 relative,
+  plus the scores' 1e-6), Δ against rowsum(dO·o) in f64 (atol 1e-5 on
+  sums of magnitude ≤ 13). Measured: 1.7e-6, 1.3e-6 and 1.3e-6; and
+  ``stats_rows`` (T rounded up to 128);
 * ``supports`` equals JAX's over d ∈ {32, 64, 80, 128}, H ∈ {1, 2, 3, 6,
   12}, T ∈ {17, 197, 512, 513};
 * autograd through ``fused_qkv_attention`` on the CPU runs the plain
@@ -83,6 +93,31 @@ def test_plain_forward_and_backward_match_jax_interpret(b, t, h, d, causal, dtyp
     for part, name in enumerate(("dq", "dk", "dv")):
         cols = slice(part * h * d, (part + 1) * h * d)
         _close(got_d[..., cols], np.asarray(dqkv, np.float32)[..., cols], dtype, 1e-4, name)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("b,t,h,d", SHAPES, ids=[f"b{b}-t{t}-h{h}-d{d}" for b, t, h, d in SHAPES])
+def test_backward_row_stats_match_jax_masked_softmax(b, t, h, d, causal):
+    (jqkv, jdo), (qkv, do) = _inputs(b, t, h, d, "f32", seed=2)
+    scale = d ** -0.5
+    out = jfp.fused_qkv_attention(jqkv, h, causal=causal, interpret=True)
+    q, k = (jqkv.reshape(b, t, 3, h, d)[:, :, i].transpose(0, 2, 1, 3) for i in (0, 1))
+    s = jnp.einsum("bhqd,bhkd->bhqk", q, k, precision=jax.lax.Precision.HIGHEST) * scale
+    p, l = jax.vmap(jax.vmap(lambda x: jfp._masked_softmax(x, t, causal)))(s)
+    stats = fp.backward_row_stats_plain(
+        qkv, torch.from_numpy(np.array(out, np.float32)), do, h, causal, scale).numpy()
+    assert stats.shape == (3, b * h, t) and stats.dtype == np.float32
+    m, inv, delta = (x.reshape(b, h, t) for x in stats)
+    keep = np.tril(np.ones((t, t), bool)) if causal else np.ones((t, t), bool)
+    got_p = np.where(keep, np.exp(np.asarray(s, np.float64) - m[..., None]), 0.0)
+    np.testing.assert_allclose(got_p, np.asarray(p, np.float64), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(inv, 1.0 / np.asarray(l, np.float64)[..., 0], rtol=1e-5)
+    want = (np.asarray(jdo, np.float64) * np.asarray(out, np.float64)).reshape(b, t, h, d)
+    np.testing.assert_allclose(delta, want.sum(-1).transpose(0, 2, 1), atol=1e-5, rtol=0)
+
+
+def test_stats_rows_pad_to_whole_blocks():
+    assert [fp.stats_rows(t) for t in (1, 128, 129, 197, 512)] == [128, 128, 256, 256, 512]
 
 
 def test_supports_equals_jax():
