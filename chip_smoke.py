@@ -13,7 +13,7 @@ non-zero.
    float32 matmuls and convolutions to full precision (no TF32).
 2. Build every kernel from ``csrc/`` with ``nvcc`` for ``sm_90a``, one
    ``nvcc`` per source, all started together; print ptxas's registers,
-   shared memory and spills.
+   spills and any wgmma serialization it reports.
 3. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card (run in f32 on the same bf16 inputs), with
    CUDA-event times (device time: the device spins before each timed
@@ -31,8 +31,9 @@ non-zero.
    ragged M and a prologue channel with σ ≪ |μ|; the three flash
    kernels (forward, dq, dk/dv) at lm_base training, its longest
    sequence, lm_large's head dim 96, ViT-B/16's ragged 197 tokens, a
-   ragged cross-attention and a near one-hot softmax, with a negative
-   control (a variant that drops each row's last key tile must fail);
+   ragged cross-attention and a near one-hot softmax, the backward run
+   twice with equal bits, and a negative control (a variant that drops
+   each row's last key tile must fail);
    the two packed-QKV attention kernels (forward, packed backward) at
    ViT-B/16 and ViT-L/16 training, T = 512, head dim 128 and a ragged
    causal case, with the backward's statistics scratch held to its plain
@@ -73,8 +74,8 @@ non-zero.
    ``attn_impl="pallas"``: 3 warm-up and 20 timed steps, finite losses,
    each flash kernel launched 12 times per forward (``flash_fwd``) or
    backward (``flash_bwd_dq``, ``flash_bwd_dkv``); a profile of 5 steady
-   steps; the same protocol with ``attn_impl="xla"`` (plain masked
-   softmax) as the yardstick of the whole step; and one pallas against
+   steps; the same protocol, and profile, with ``attn_impl="xla"`` (plain
+   masked softmax) as the yardstick of the whole step; and one pallas against
    one xla step from the same weights and batch, within stated limits.
 9. ``vittrain``: ViT-B/16 (224 px, 1000 classes, batch 64, bf16)
    through the same entry points on seeded synthetic images with
@@ -670,7 +671,8 @@ def flash_case(fl, name, b, h, tq, tk, d, causal, q_mul, flush, g):
     """Forward and both backward kernels against their plain versions
     (f32, same bf16 inputs; the backward's plain version gets the
     kernel's own O and LSE, so it holds the backward kernels alone),
-    the limits above, and CUDA-event times of each kernel, its plain
+    the limits above, the backward run twice with equal bits, and
+    CUDA-event times of each kernel, its plain
     version (bf16 operands, f32 inside), the library yardstick
     (scaled_dot_product_attention forward; its backward, timed as
     forward+backward minus forward, for both backward kernels) and the
@@ -690,10 +692,15 @@ def flash_case(fl, name, b, h, tq, tk, d, causal, q_mul, flush, g):
     delta = fl.flash_delta(out, do)
     dq = fl.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc)
     dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, causal, sc)
+    again = (fl.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc),
+             *fl.flash_bwd_dkv(q, k, v, do, lse, delta, causal, sc))
     torch.cuda.synchronize()
     for x, what in ((out, "O"), (lse, "LSE"), (dq, "dQ"), (dk, "dK"), (dv, "dV")):
         if not torch.isfinite(x.float()).all():
             raise AssertionError(f"{name}: non-finite kernel {what}")
+    if not all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)):
+        raise AssertionError(f"{name}: the backward does not repeat bit for bit")
+    del again
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     ref_o, ref_lse = fl.flash_forward_plain(qf, kf, vf, causal, sc)
     ref_dq = fl.flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, causal, sc)
@@ -760,6 +767,7 @@ def flash_case(fl, name, b, h, tq, tk, d, causal, q_mul, flush, g):
         "max_abs_err": {w: e[0] for w, e in errs.items()},
         "err_over_limit": {w: e[1] for w, e in errs.items()},
         "negative_control_O_err_over_limit": control,
+        "backward_repeats_bitwise": True,
         "kernels": {op: {"ms": times[op], "plain_ms": plain[op], "library_ms": library[op],
                          "bound_ms": bounds[op][0], "bound_by": bounds[op][1],
                          "bytes": bounds[op][2], "flops": bounds[op][3]}
@@ -2496,7 +2504,8 @@ def main(argv=None) -> int:
     for name, sec in zip(names, secs):
         print(f"build {name} {sec:.1f}s", flush=True)
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if ("registers" in line or "spill" in line or "Compiling entry" in line
+                    or "Performance Loss" in line):
                 print(f"ptxas {name}:", line.strip(), flush=True)
 
     entries = []
@@ -2566,8 +2575,9 @@ def main(argv=None) -> int:
                       ("flash_",))
         del state, step, batches
         torch.cuda.empty_cache()
-        _, state, step, batches = lm_train_phase(fl, card, "xla")
-        batches.close()
+        line, state, step, batches = lm_train_phase(fl, card, "xla")
+        profile_train(state, step, batches, card, line["step_ms"],
+                      "lm_base train step (attn_impl=xla), batch 8, T 1024, bf16", ("flash_",))
         del state, step, batches
         torch.cuda.empty_cache()
         agree = lm_pallas_vs_xla_step()

@@ -78,7 +78,7 @@
 // scripts/packed_attention_ablation.py what each part of the kernels
 // costs.
 
-#include "mma.cuh"
+#include "wgmma.cuh"
 
 // PACKED_ABLATE (a compile-time bit mask, 0 in every build the package
 // makes) skips parts of the kernels so that a timing-only build shows
@@ -108,247 +108,18 @@ constexpr int kStatsPad = 128;      // statistics rows per head: T rounded up to
 template <int D>
 __host__ __device__ constexpr int bwd_min_blocks() { return D >= 128 ? 1 : 2; }
 
-// 2^x by the SFU alone (exp2f adds a rescaling for results below 2^-126,
-// which every use here rounds to nothing).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// ------------------------------------------------------ tiles and wgmma
-
-// Shared-memory tiles are row-major [rows][D] bf16 without padding, their
-// 16-byte chunks swizzled as wgmma's canonical layouts want (the XOR of a
-// chunk's index with its row's low bits): 64-byte rows (D = 32) take the
-// 64-byte swizzle, 128-byte rows (D = 64) the 128-byte one, and D = 128 is
-// two [rows][64] halves of 128-byte swizzle. Tiles start on 1024 bytes.
-template <int D>
-__device__ __forceinline__ int chunk_off(int r, int c, int rows) {
-  if constexpr (D == 32) return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
-  else if constexpr (D == 64) return r * 128 + ((c ^ (r & 7)) << 4);
-  else return (c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-template <int D, int ROWS>
-__host__ __device__ constexpr int tile_bytes() { return ROWS * D * 2; }
-
-// Rows r0 .. r0+ROWS-1 of one head's [T, D] view (row stride `st`
-// elements) into a tile, by the block's threads; rows >= T zero filled.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tile_sw(unsigned char* tile, const bf16* base, long long st,
-                                             int r0, int T) {
-  constexpr int C = D / 8;
-  for (int i = threadIdx.x; i < ROWS * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    const bool ok = r0 + r < T;
-    cp_async16(tile + chunk_off<D>(r, c, ROWS), ok ? base + (long long)(r0 + r) * st + c * 8 : base,
-               ok);
-  }
-}
-
-// wgmma descriptors: start address, leading and stride byte offsets (in
-// 16-byte units) and the swizzle mode (64-byte for D = 32, else 128-byte).
-template <int D>
-__device__ __forceinline__ uint64_t make_desc(const unsigned char* at, uint32_t lbo, uint32_t sbo) {
-  constexpr uint64_t kLayout = D == 32 ? 2 : 1;
-  return ((uint64_t)(smem_u32(at) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (kLayout << 62);
-}
-template <int D>
-__host__ __device__ constexpr int row_bytes() { return D == 32 ? 64 : 128; }
-
-// K-major operand (the contraction runs along the tile's columns): k-step
-// kk (16 columns) of rows row0 .. of a tile of `rows` rows. The leading
-// offset is unused by swizzled K-major layouts; 8-row groups are 8 rows
-// apart.
-template <int D>
-__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int rows, int row0, int kk) {
-  constexpr int kSteps = row_bytes<D>() / 32;
-  return make_desc<D>(tile + (kk / kSteps) * rows * row_bytes<D>() + row0 * row_bytes<D>() +
-                          (kk % kSteps) * 32,
-                      16, 8 * row_bytes<D>());
-}
-
-// MN-major B operand (the contraction runs along the tile's rows, the
-// product's columns along its D columns): k-step kk is rows 16kk .. 16kk+15.
-// Leading offset: from one 64-column half to the next (D = 128); stride:
-// from one 8-row group to the next.
-template <int D>
-__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int rows, int kk) {
-  return make_desc<D>(tile + kk * 16 * row_bytes<D>(), rows * 128, 8 * row_bytes<D>());
-}
-
-// wgmma.mma_async m64nNk16, bf16 -> f32, both operands from shared
-// memory (K-major descriptors), accumulating when `acc` is non-zero.
-template <int N>
-struct Wgmma;
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(float (*d)[4], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "l"(a), "l"(b), "r"(acc));
-  }
-};
-template <>
-struct Wgmma<32> {
-  static __device__ __forceinline__ void mma(float (*d)[4], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        : "l"(a), "l"(b), "r"(acc));
-  }
-};
-
-// wgmma in three parts, so that a warpgroup can issue several products
-// and wait for them once: wg_begin (before the first product: registers
-// written since are ordered before it), the products, wg_end (commit and
-// wait; then fence_acc on each result, so that no use of it is moved
-// above the wait).
-__device__ __forceinline__ void wg_begin() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_end() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-template <int NT>
-__device__ __forceinline__ void fence_acc(float (*acc)[4]) {
-#pragma unroll
-  for (int i = 0; i < NT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[i][e])::"memory");
-}
-
-// Issue the warpgroup's acc[N/8][4] = A (64 rows from a_row0 of tile `a`,
-// `a_rows` rows) . B^T (the N rows of tile `b`), over D, in the m16n8
-// accumulator layout (warp w of the group: rows 16w + lane/4 and + 8).
+// The shared wgmma products (wgmma.cuh) behind this file's ablation mask.
 template <int D, int N>
 __device__ __forceinline__ void wg_abt(float (*acc)[4], const unsigned char* a, int a_rows,
                                        int a_row0, const unsigned char* b) {
   if (PACKED_ABLATE & 1) return;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    Wgmma<N>::mma(acc, desc_k<D>(a, a_rows, a_row0, kk), desc_k<D>(b, N, 0, kk), kk > 0);
+  wg_abt_ss<D, N>(acc, a, a_rows, a_row0, b);
 }
-
-// cp.async writes (generic proxy) made visible to wgmma (async proxy),
-// then to the block.
-__device__ __forceinline__ void tiles_landed() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
-}
-
-// The same with A from registers (the m16n8k16 A-fragment layout, warp w
-// of the group holding rows 16w .. 16w+15) and B MN-major (transposed).
-template <int N>
-struct WgmmaRS;
-template <>
-struct WgmmaRS<32> {
-  static __device__ __forceinline__ void mma(float (*d)[4], const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-template <>
-struct WgmmaRS<64> {
-  static __device__ __forceinline__ void mma(float (*d)[4], const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-template <>
-struct WgmmaRS<128> {
-  static __device__ __forceinline__ void mma(float (*d)[4], const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-// X [16][KT*8] of this warp, score-shaped accumulators x[KT][4], as bf16
-// A fragments (two n8 accumulator tiles are one k16 fragment).
-template <int KT>
-__device__ __forceinline__ void a_frags(uint32_t (*af)[4], const float (*x)[4]) {
-#pragma unroll
-  for (int kc = 0; kc < KT / 2; ++kc) {
-    af[kc][0] = pack_bf16(x[2 * kc][0], x[2 * kc][1]);
-    af[kc][1] = pack_bf16(x[2 * kc][2], x[2 * kc][3]);
-    af[kc][2] = pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]);
-    af[kc][3] = pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3]);
-  }
-}
-
-// Issue the warpgroup's acc[D/8][4] += X . B: X [64][KT*8] from registers
-// (a_frags), B the first KT*8 rows of a tile of `rows` rows (rows = the
-// contraction index).
 template <int D, int KT>
 __device__ __forceinline__ void wg_xb(float (*acc)[4], const uint32_t (*af)[4],
                                       const unsigned char* b, int rows) {
   if (PACKED_ABLATE & 2) return;
-#pragma unroll
-  for (int kc = 0; kc < KT / 2; ++kc) WgmmaRS<D>::mma(acc, af[kc], desc_mn<D>(b, rows, kc));
+  wg_xb_rs<D, KT>(acc, af, b, rows);
 }
 
 // ------------------------------------------------------------ shared math
@@ -472,12 +243,6 @@ __device__ __forceinline__ void cp_async_wait_dyn(int n) {
   }
 }
 
-// Dynamic shared memory rounded up to the 1024-byte alignment of the tiles.
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
-                                          ~uintptr_t(1023));
-}
-
 // ---------------------------------------------------------------- forward
 
 // o of 128 query rows (two warpgroups of 64) in two passes over the key
@@ -503,12 +268,12 @@ __global__ void __launch_bounds__(kThreads, 2) packed_fwd_kernel(Params p) {
   const int tiles = key_tiles(p, q0) - p.drop_last;
 
   auto issue_v = [&](int i) {
-    if (i < tiles) load_tile_sw<kCols, D>(sv + (i % S) * TILE, hd.v, hd.ld, i * kCols, p.T);
+    if (i < tiles) load_tile_sw<kCols, D, kThreads>(sv + (i % S) * TILE, hd.v, hd.ld, i * kCols, p.T);
     cp_async_commit();
   };
-  load_tile_sw<kRows, D>(sq, hd.q, hd.ld, q0, p.T);
+  load_tile_sw<kRows, D, kThreads>(sq, hd.q, hd.ld, q0, p.T);
   for (int j = 0; j < tiles; ++j) {
-    load_tile_sw<kCols, D>(sk + j * TILE, hd.k, hd.ld, j * kCols, p.T);
+    load_tile_sw<kCols, D, kThreads>(sk + j * TILE, hd.k, hd.ld, j * kCols, p.T);
     cp_async_commit();
   }
 #pragma unroll
@@ -619,13 +384,13 @@ __global__ void __launch_bounds__(kThreads, bwd_min_blocks<D>()) packed_bwd_dq_k
 
   auto issue_v = [&](int i) {
     if (i < tiles)
-      load_tile_sw<kCols, D>(sv + (i % S) * TILE, hd.v, hd.ld, i * kCols, p.T);
+      load_tile_sw<kCols, D, kThreads>(sv + (i % S) * TILE, hd.v, hd.ld, i * kCols, p.T);
     cp_async_commit();
   };
-  load_tile_sw<kRows, D>(sq, hd.q, hd.ld, q0, p.T);
-  load_tile_sw<kRows, D>(sdo, dob, ldo, q0, p.T);
+  load_tile_sw<kRows, D, kThreads>(sq, hd.q, hd.ld, q0, p.T);
+  load_tile_sw<kRows, D, kThreads>(sdo, dob, ldo, q0, p.T);
   for (int j = 0; j < tiles; ++j) {
-    load_tile_sw<kCols, D>(sk + j * TILE, hd.k, hd.ld, j * kCols, p.T);
+    load_tile_sw<kCols, D, kThreads>(sk + j * TILE, hd.k, hd.ld, j * kCols, p.T);
     cp_async_commit();
   }
 #pragma unroll
@@ -742,8 +507,8 @@ __global__ void __launch_bounds__(kThreads, bwd_min_blocks<D>()) packed_bwd_dkv_
     if (j < steps) {
       unsigned char* st = ring + (j % S) * STAGE;
       const int q0 = (i0 + j) * BQ;
-      load_tile_sw<BQ, D>(st, hd.q, hd.ld, q0, p.T);
-      load_tile_sw<BQ, D>(st + QT, dob, ldo, q0, p.T);
+      load_tile_sw<BQ, D, kThreads>(st, hd.q, hd.ld, q0, p.T);
+      load_tile_sw<BQ, D, kThreads>(st + QT, dob, ldo, q0, p.T);
       float* ts = reinterpret_cast<float*>(st + 2 * QT);
       if (threadIdx.x < 3 * BQ / 4) {  // rows q0 .. q0+BQ-1 < Tpad of each statistic
         const int which = threadIdx.x / (BQ / 4), c = threadIdx.x % (BQ / 4);
@@ -752,8 +517,8 @@ __global__ void __launch_bounds__(kThreads, bwd_min_blocks<D>()) packed_bwd_dkv_
     }
     cp_async_commit();
   };
-  load_tile_sw<kRows, D>(sk, hd.k, hd.ld, k0, p.T);
-  load_tile_sw<kRows, D>(sv, hd.v, hd.ld, k0, p.T);
+  load_tile_sw<kRows, D, kThreads>(sk, hd.k, hd.ld, k0, p.T);
+  load_tile_sw<kRows, D, kThreads>(sv, hd.v, hd.ld, k0, p.T);
 #pragma unroll
   for (int j = 0; j < S - 1; ++j) issue(j);
 

@@ -1,12 +1,8 @@
-// Warp-level building blocks shared by the port's mma.sync kernels
-// (flash.cu, flash_packed.cu, fused_grads.cu): cp.async copies into
-// shared memory, ldmatrix fragment loads and the m16n8k16 bf16 -> f32
-// tensor-core product, plus the attention kernels' tile loader, the two
-// products they are built from and the row store.
-//
-// Tiles in shared memory are row-major with 8 elements of padding per row
-// (`P = D + 8`), so the 8 row addresses of an ldmatrix fall in distinct
-// banks.
+// Warp-level building blocks shared by the port's CUDA kernels
+// (fused_grads.cu, flash_packed.cu, and through wgmma.cuh flash.cu):
+// cp.async copies into shared memory, the transposing ldmatrix fragment
+// load and the m16n8k16 bf16 -> f32 tensor-core product, bf16 packing, the
+// attention kernels' row store and quad reductions.
 
 #pragma once
 
@@ -36,12 +32,6 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-__device__ __forceinline__ void ldsm_x4(const bf16* p, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_u32(p)));
-}
 __device__ __forceinline__ void ldsm_x4_t(const bf16* p, uint32_t& r0, uint32_t& r1, uint32_t& r2,
                                           uint32_t& r3) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -61,69 +51,6 @@ __device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float exp_f32(float x) { return exp2f(x * kLog2e); }
-
-// Rows r0 .. r0+ROWS-1 of one head's [T, D] view (row stride `st`
-// elements) into a [ROWS][D+8] tile, by THREADS threads. Rows >= T are
-// zero filled.
-template <int ROWS, int D, int THREADS = 128>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* base, long long st, int r0,
-                                          int T) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += THREADS) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool ok = r0 + r < T;
-    cp_async16(tile + r * (D + 8) + col, ok ? base + (long long)(r0 + r) * st + col : base, ok);
-  }
-}
-
-// acc[NT][4] (+)= A (the warp's 16 rows of `a`, [16][D+8] at row a_row0)
-// times B^T, where B is `b` [NT*8][D+8] (rows = the product's columns):
-// a row-by-row dot product over D.
-template <int D, int NT>
-__device__ __forceinline__ void gemm_abt(float (*acc)[4], const bf16* a, int a_row0, const bf16* b) {
-  constexpr int P = D + 8;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    uint32_t af[4];
-    ldsm_x4(a + (a_row0 + (lane & 15)) * P + kk + (lane >> 4) * 8, af[0], af[1], af[2], af[3]);
-#pragma unroll
-    for (int ni = 0; ni < NT; ni += 2) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4(b + (ni * 8 + (lane & 7) + (lane >> 4) * 8) * P + kk + ((lane >> 3) & 1) * 8, b0,
-              b1, b2, b3);
-      mma16816(acc[ni], af, b0, b1);
-      mma16816(acc[ni + 1], af, b2, b3);
-    }
-  }
-}
-
-// acc[D/8][4] += X . B, where X [16][KT*8] is held in registers as
-// score-shaped accumulators x[KT][4] (rounded to bf16 here) and B is `b`
-// [KT*8][D+8] (rows = the contraction index).
-template <int D, int KT>
-__device__ __forceinline__ void gemm_xb(float (*acc)[4], const float (*x)[4], const bf16* b) {
-  constexpr int P = D + 8;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kc = 0; kc < KT / 2; ++kc) {
-    // Two n8 accumulator tiles are one k16 A fragment.
-    const uint32_t af[4] = {pack_bf16(x[2 * kc][0], x[2 * kc][1]),
-                            pack_bf16(x[2 * kc][2], x[2 * kc][3]),
-                            pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]),
-                            pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3])};
-#pragma unroll
-    for (int di = 0; di < D / 8; di += 2) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4_t(b + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + di * 8 + (lane >> 4) * 8,
-                b0, b1, b2, b3);
-      mma16816(acc[di], af, b0, b1);
-      mma16816(acc[di + 1], af, b2, b3);
-    }
-  }
 }
 
 template <int NT>

@@ -12,9 +12,10 @@ On a CUDA tensor each step launches a hand-written Hopper kernel of
 ``csrc/flash.cu`` (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``;
 each launch counted in :data:`launches` and :data:`launches_by_op`):
 bf16 only, head dim 32, 64, 96 or 128; any other dtype or head dim
-raises ``NotImplementedError``. The kernels read q, k and v as strided
-views (the slices of the packed qkv projection need no copy) and write
-``out`` BTHD. On a CPU tensor it runs the plain versions,
+raises ``NotImplementedError``. The kernels read q, k and v by TMA
+through tensor maps over their strided views (the slices of the packed
+qkv projection need no copy; LSE and Δ must start 16-byte aligned) and
+write ``out`` BTHD. On a CPU tensor it runs the plain versions,
 :func:`flash_forward_plain` and :func:`flash_backward_plain`; any other
 device raises.
 
@@ -158,9 +159,10 @@ def _check_cuda(q, k, v, causal: bool, do=None, rows=()) -> None:
         raise NotImplementedError(
             f"the flash kernels take head dims {HEAD_DIMS}, got {d}")
     for r in rows:
-        if r.shape != (b * h, tq) or r.dtype != torch.float32 or not r.is_contiguous():
+        if (r.shape != (b * h, tq) or r.dtype != torch.float32 or not r.is_contiguous()
+                or r.data_ptr() % 16):
             raise ValueError(
-                f"LSE and delta must be contiguous f32 [{b * h}, {tq}], got "
+                f"LSE and delta must be contiguous 16-byte aligned f32 [{b * h}, {tq}], got "
                 f"{r.dtype} {tuple(r.shape)}")
 
 
@@ -170,7 +172,12 @@ def _strides(*xs: torch.Tensor):
 
 
 def _library() -> ctypes.CDLL:
-    lib = _build.load("flash")
+    return bind(_build.load("flash"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' signatures on a loaded ``flash.cu``
+    library (the package's build, or an ablation build)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.POINTER(ctypes.c_longlong)
     # Pointers as c_void_p: without argtypes ctypes would pass 32 bits.
@@ -289,6 +296,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 __all__ = [
+    "bind",
     "flash_attention",
     "flash_backward",
     "flash_backward_plain",

@@ -13,9 +13,12 @@ machine that has only PyTorch for CUDA:
 * one fused and one unfused bf16 ResNet-50 step at full width from the
   same weights and batch (``chip_smoke.fused_vs_unfused_step``);
 * the three flash-attention kernels against their plain versions at
-  ``chip_smoke``'s ``cross_ragged`` and ``lm_base_train`` cases, with
-  its limits (``flash_limit``, ``flash_lse_limit``) and the launch
-  counters, and once through autograd on views of a packed qkv;
+  ``chip_smoke``'s ``cross_ragged`` and ``lm_base_train`` cases and at
+  T ∈ {64, 65, 127, 128, 129, 1024, 2048} × d ∈ {32, 64, 96, 128}, causal
+  and not, and four cross-attention lengths, with its limits
+  (``flash_limit``, ``flash_lse_limit``), the backward run twice with
+  equal bits, packed-qkv views read without a copy and one launch
+  counted per call; and once through autograd on views of a packed qkv;
 * both packed-QKV attention kernels against their plain versions at
   ``chip_smoke``'s ``ragged_causal`` and ``d128`` cases, at T ∈ {64, 65,
   197, 256, 257, 512} × d ∈ {32, 64, 128} and three ragged causal shapes
@@ -96,39 +99,78 @@ def test_cuda_fused_step_agrees_with_unfused_step():
     assert out["within_limits"], out
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["cross_ragged", "lm_base_train"])
-def test_cuda_flash_kernels_match_plain(case):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the flash kernels are CUDA C++ for sm_90a")
+def _flash_check(b, h, tq, tk, d, causal, seed=0):
+    """The three flash kernels against their plain versions with
+    chip_smoke's limits (``flash_limit``, ``flash_lse_limit``): the
+    backward runs twice and must repeat bit for bit, each call counts one
+    launch, and where Tq == Tk q, k and v are the LM's views of a packed
+    [B, T, 3, H, d] projection, read in place (no copy)."""
     import chip_smoke as cs
     from distributeddeeplearning_tpu_torch.ops import flash as fl
 
-    _, b, h, tq, tk, d, causal, _ = next(c for c in cs.FLASH_CASES if c[0] == case)
-    g = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=g).to(torch.bfloat16)
 
-    q, k, v, do = randn(b, tq, h, d), randn(b, tk, h, d), randn(b, tk, h, d), randn(b, tq, h, d)
+    if tq == tk:
+        q, k, v = randn(b, tq, 3, h, d).unbind(2)
+        assert all(fl._rows(x) is x for x in (q, k, v))
+    else:
+        q, k, v = randn(b, tq, h, d), randn(b, tk, h, d), randn(b, tk, h, d)
+    do = randn(b, tq, h, d)
     sc = d ** -0.5
     before = dict(fl.launches_by_op)
     out, lse = fl.flash_forward(q, k, v, causal, sc)
     delta = fl.flash_delta(out, do)
     dq = fl.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc)
     dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, causal, sc)
+    dq2 = fl.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc)
+    dk2, dv2 = fl.flash_bwd_dkv(q, k, v, do, lse, delta, causal, sc)
     torch.cuda.synchronize()
     assert {op: fl.launches_by_op[op] - before[op] for op in before} == {
-        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        "flash_fwd": 1, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     ref_o, ref_lse = fl.flash_forward_plain(qf, kf, vf, causal, sc)
     ref_dq = fl.flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, causal, sc)
     ref_dk, ref_dv = fl.flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, causal, sc)
     t_o, t_dq, t_dk, t_dv = cs.flash_terms(q, k, v, out, do, lse, delta, causal, sc)
     assert ((lse - ref_lse).abs() <= cs.flash_lse_limit(q, k, ref_lse, sc)).all()
-    for got, ref, terms in ((out, ref_o, t_o), (dq, ref_dq, t_dq), (dk, ref_dk, t_dk),
-                            (dv, ref_dv, t_dv)):
-        assert ((got.float() - ref.float()).abs() <= cs.flash_limit(ref, terms)).all()
+    for what, got, ref, terms in (("O", out, ref_o, t_o), ("dQ", dq, ref_dq, t_dq),
+                                  ("dK", dk, ref_dk, t_dk), ("dV", dv, ref_dv, t_dv)):
+        assert ((got.float() - ref.float()).abs() <= cs.flash_limit(ref, terms)).all(), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cross_ragged", "lm_base_train"])
+def test_cuda_flash_kernels_match_plain(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the flash kernels are CUDA C++ for sm_90a")
+    import chip_smoke as cs
+
+    _, b, h, tq, tk, d, causal, _ = next(c for c in cs.FLASH_CASES if c[0] == case)
+    _flash_check(b, h, tq, tk, d, causal)
+
+
+# (Tq, Tk, d, causal): every T of the kernels' tile edges and the LM's
+# lengths, each head dim, causal and not; then cross-attention lengths.
+FLASH_SHAPES = ([(t, t, d, c) for t in (64, 65, 127, 128, 129, 1024, 2048)
+                 for d in (32, 64, 96, 128) for c in (False, True)]
+                + [(100, 300, 64, False), (300, 100, 32, False), (65, 1024, 128, False),
+                   (1024, 129, 96, False)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk,d,causal", FLASH_SHAPES,
+                         ids=[f"q{tq}-k{tk}-d{d}" + ("-causal" if c else "")
+                              for tq, tk, d, c in FLASH_SHAPES])
+def test_cuda_flash_shapes_match_plain(tq, tk, d, causal):
+    """The three kernels at every shape of FLASH_SHAPES (B 2, H 2; B 1 past
+    T 1000), on packed-qkv views where Tq == Tk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the flash kernels are CUDA C++ for sm_90a")
+    _flash_check(1 if max(tq, tk) > 1000 else 2, 2, tq, tk, d, causal, seed=tq + d)
 
 
 @pytest.mark.cuda

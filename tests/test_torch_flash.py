@@ -136,6 +136,20 @@ def test_validation():
         flash.flash_bwd_dkv(xb, xb, xb, xb[:, :4], rows, rows, False, 1.0)
 
 
+def test_launchers_reject_misaligned_rows():
+    """dk/dv reads LSE and Δ by TMA, which needs 16-byte aligned starts: a
+    contiguous view that starts 4 bytes in is refused before any launch."""
+    xb = torch.zeros(2, 8, 4, 32, dtype=torch.bfloat16)
+    good = torch.zeros(8, 8)
+    shifted = torch.zeros(8 * 8 + 1)[1:].view(8, 8)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    for lse, delta in ((shifted, good), (good, shifted)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash.flash_bwd_dkv(xb, xb, xb, xb, lse, delta, False, 1.0)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash.flash_bwd_dq(xb, xb, xb, xb, lse, delta, False, 1.0)
+
+
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float16, 64),
                                      (torch.bfloat16, 48), (torch.bfloat16, 256)])
 def test_card_path_raises_on_unsupported_dtype_or_head_dim(dtype, d):
