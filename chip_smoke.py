@@ -24,8 +24,10 @@ non-zero.
    fp8 codes with f32 scales (``QUANT_CASES``; the yardstick gathers the
    K/V out of the page pool, dequantizes the codes, and runs SDPA, all
    timed together; bf16 cases also time SDPA on K/V gathered before the
-   timer, ``sdpa_pregathered_ms``), with a negative control (the int8
-   kernel given scales of 1 must fail);
+   timer, ``sdpa_pregathered_ms``), each case run twice with equal bits
+   and its line naming the split plan, with two negative controls (the
+   kernel dropping each tile's last key split, and the int8 kernel given
+   scales of 1, must fail);
    ``matmul_stats`` and
    ``bn_relu_matmul_stats`` at the four ResNet-50 training shapes, a
    ragged M and a prologue channel with σ ≪ |μ|; the three flash
@@ -40,11 +42,13 @@ non-zero.
    version, the backward run twice with equal bits, and the same
    negative control at ViT-B/16; and the
    dW+db kernel at the four ViT-B/16 Dense shapes, the f32 head and a
-   ragged N; the depthwise stencil (forward, dgrad) and wgrad at
-   EfficientNet-B4's ten stride-1 layer shapes (batch 64, bf16), an f32
-   case, ragged H, W and C, k = 7 and k = 9, against the plain version
-   (f32; the wgrad f64) and cuDNN's grouped conv, with a negative
-   control (the dgrad with unflipped taps must fail).
+   ragged N; the depthwise stencil (forward, dgrad; each run twice with
+   equal bits, each line naming the stencil path) and wgrad at
+   EfficientNet-B4's ten stride-1 layer shapes (batch 64, bf16; all on
+   the TMA row ring), an f32 case, ragged H, W and C, k = 7 and k = 9,
+   against the plain version (f32; the wgrad f64) and cuDNN's grouped
+   conv, with negative controls (the dgrad with unflipped taps must
+   fail, on the staged-tile kernel and on the TMA stencil).
 4. ``serve``: full-width ``lm_base`` with seeded random weights behind
    ``Server.build`` (paged KV, fused kernel, 8 slots) answers 16
    requests. Checks: lengths and vocab range, the kernel ran exactly
@@ -188,6 +192,7 @@ def kernel_case(name, pd, q, k, v, q_pos, flush, *, table=None, bs=0, k_scale=No
     if quantized:
         kw.update(k_scale=k_scale, v_scale=v_scale)
     out = pd.fused_decode_attention(q, k, v, q_pos, **kw)
+    again = pd.fused_decode_attention(q, k, v, q_pos, **kw)
     if quantized:
         ref = pd.fused_decode_attention_plain(q.float(), k, v, q_pos, **kw)
     else:
@@ -195,6 +200,8 @@ def kernel_case(name, pd, q, k, v, q_pos, flush, *, table=None, bs=0, k_scale=No
     torch.cuda.synchronize()
     if not torch.isfinite(out.float()).all():
         raise AssertionError(f"{name}: non-finite kernel output")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: a second call did not repeat the first bit for bit")
     diff = (out.float() - ref).abs()
     tol = bf16_tolerance(ref)
     err = diff.max().item()
@@ -255,11 +262,14 @@ def kernel_case(name, pd, q, k, v, q_pos, flush, *, table=None, bs=0, k_scale=No
         def library():
             return sdpa(logical(k).transpose(1, 2), logical(v).transpose(1, 2))
 
+    plan = pd.plan_for(q, k, table, bs, quantized)
     return {
         "case": name, "shape": {"B": b, "t": t, "H": h, "d": d, "L": length,
                                 "paged": table is not None,
                                 "store": str(k.dtype).replace("torch.", "")},
-        "max_abs_err": err, "err_over_tol": tol_ratio,
+        "plan": {key: plan[key] for key in ("splits", "chunks_per_split", "groups", "blocks",
+                                            "stages", "combine")},
+        "max_abs_err": err, "err_over_tol": tol_ratio, "repeats_bitwise": True,
         "ms": time_ms(lambda: pd.fused_decode_attention(q, k, v, q_pos, **kw), flush),
         "plain_ms": time_ms(
             lambda: pd.fused_decode_attention_plain(q, k, v, q_pos, **kw), flush),
@@ -284,9 +294,11 @@ def kernel_phase(pd, flush):
     """The decode kernel's cases: in bf16 at lm_base shapes (dense and
     paged decode, the full-depth paged decode, a 512-row paged prefill,
     the speculative verify window, head dims 32 and 128), then the
-    quantized storage's (``QUANT_CASES``), and one negative control:
-    the int8 kernel given scales of 1 in place of the true ones must
-    miss the tolerance by a large factor (the scales are read)."""
+    quantized storage's (``QUANT_CASES``), each run twice with equal
+    bits, and two negative controls that must miss the tolerance by a
+    large factor: the bf16 full-depth decode with each tile's last live
+    key split dropped (every split is combined), and the int8 kernel
+    given scales of 1 in place of the true ones (the scales are read)."""
     from distributeddeeplearning_tpu_torch.ops import quant
 
     dev, bf = "cuda", torch.bfloat16
@@ -354,7 +366,19 @@ def kernel_phase(pd, flush):
             cases.append(kernel_case(f"{name}_{kind}", pd, q, kq, vq, qp, flush, table=table,
                                      bs=bs, k_scale=ks, v_scale=vs))
 
-    # Negative control: the int8 paged decode with scales of 1.
+    # Negative controls: the bf16 full-depth decode with each tile's last
+    # live split dropped, and the int8 paged decode with scales of 1.
+    q, k, v, qp, table, bs = inputs["paged_decode_full"]
+    kw = dict(block_table=table, block_size=bs)
+    ref = pd.fused_decode_attention_plain(q.float(), k.float(), v.float(), qp, **kw)
+    wrong = pd.fused_decode_attention(q, k, v, qp, drop_last_split=True, **kw)
+    factor = ((wrong.float() - ref).abs() / bf16_tolerance(ref)).max().item()
+    print("control " + json.dumps({"case": "paged_decode_full_drop_last_split",
+                                   "err_over_tol": factor}), flush=True)
+    if not factor > 10:
+        raise AssertionError(
+            f"the decode kernel without each tile's last split stays within {factor:.2f}x "
+            f"of the tolerance: the splits are not all combined")
     q, k, v, qp, table, bs = inputs["paged_decode"]
     (kq, ks), (vq, vs) = quant.quantize_kv(k, "int8"), quant.quantize_kv(v, "int8")
     kw = dict(block_table=table, block_size=bs)
@@ -1085,7 +1109,8 @@ def profile_decode(server, vocab, card, ticks=8):
     """Where a decode tick's time goes: 8 slots at 512-token contexts,
     ``ticks`` steady decode ticks under ``torch.profiler``. Reports the
     tick's host wall, the device time summed over kernels (busy share =
-    device / wall) and the top kernels by device time."""
+    device / wall), the decode kernel's family (its ``decode_attention``
+    instantiations) per tick and the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributeddeeplearning_tpu_torch.serving import Request
@@ -1111,8 +1136,11 @@ def profile_decode(server, vocab, card, ticks=8):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.device_time_total for e in kernels) / 1e3 / ticks
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:6]
+    family = sum(e.device_time_total for e in kernels
+                 if "decode_attention" in e.key) / 1e3 / ticks
     print("profile " + json.dumps({
         "tick_wall_ms": wall_ms,
+        "decode_attention_ms_per_tick": family if device_ms > 0 else "not measured",
         "tick_device_ms": device_ms if device_ms > 0 else "not measured",
         "device_busy_share": device_ms / wall_ms if device_ms > 0 else "not measured",
         "device_ops_per_tick": sum(e.count for e in kernels) / ticks,
@@ -1980,9 +2008,10 @@ B4_DW_LAYERS = (
 )
 
 # dw cases: (name, batch, H, W, C, k, dtype). The B4 layers at batch 64
-# in bf16 (16-byte loads), an f32 one, ragged H and W with C = 130 and
-# C = 40 (element loads, the last channel tile part-filled), k = 7, and
-# k = 9 (the direct kernels).
+# in bf16 and an f32 one (the TMA stencil), ragged H and W with C = 130
+# (the staged-tile kernel: element loads, the last channel tile
+# part-filled) and C = 40 (the TMA stencil), k = 7, and k = 9 (the direct
+# kernels); depthwise.stencil_path names each case's path.
 DW_CASES = tuple((f"b4_{c}x{h}_k{k}", 64, h, h, c, k, torch.bfloat16)
                  for c, h, k, _ in B4_DW_LAYERS) + (
     ("f32_672x24_k5", 8, 24, 24, 672, 5, torch.float32),
@@ -2154,16 +2183,22 @@ def dw_case(dwm, name, b, h, w, c, k, dtype, flush, g):
     with torch.no_grad():
         got = (dwm.stencil_cuda(x, taps), dwm.stencil_cuda(dy, taps, flip=True),
                dwm.wgrad_cuda(x, dy, k))
+        again = (dwm.stencil_cuda(x, taps), dwm.stencil_cuda(dy, taps, flip=True))
         lib_y = torch.nn.functional.conv2d(x, weight, padding=k // 2, groups=c)
         lib_dx, lib_dw, _ = cudnn_dw_backward(dy, x, weight, [True, True, False])
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+        raise AssertionError(f"{name}: a second forward or dgrad did not repeat the first "
+                             f"bit for bit")
+    del again
     for t, shape, dt in zip(got, ((b, c, h, w),) * 2 + ((k * k, c),),
                             (dtype, dtype, torch.float32)):
         if tuple(t.shape) != shape or t.dtype != dt or not torch.isfinite(t.float()).all():
             raise AssertionError(f"{name}: kernel output {tuple(t.shape)} {t.dtype}, "
                                  f"want {shape} {dt}, finite")
     line = {"case": name, "shape": {"B": b, "H": h, "W": w, "C": c, "k": k,
-                                    "dtype": str(dtype).split(".")[-1]}}
+                                    "dtype": str(dtype).split(".")[-1]},
+            "stencil_path": dwm.stencil_path(b, h, w, c, k, dtype), "repeats_bitwise": True}
     line.update(dw_check(dwm, name, x, dy, taps, got, (lib_y, lib_dx, lib_dw)))
     del got, lib_y, lib_dx, lib_dw
     line.update(dw_times(dwm, x, dy, taps, flush))
@@ -2173,28 +2208,39 @@ def dw_case(dwm, name, b, h, w, c, k, dtype, flush, g):
 
 
 def dw_phase(dwm, flush):
-    """Every ``DW_CASES`` case, then the negative control: the dgrad run
-    with unflipped taps on an asymmetric tap table must exceed its limit
-    (the taps are reversed where they must be)."""
+    """Every ``DW_CASES`` case (each line names the stencil path its shape
+    takes, ``depthwise.stencil_path``), then two negative controls: the
+    dgrad run with unflipped taps on an asymmetric tap table must exceed
+    its limit (the taps are reversed where they must be), on the tile
+    path (the ragged C = 130 case) and on the TMA path (B4's 190² × 48 k3
+    layer at batch 2)."""
     g = torch.Generator(device="cuda").manual_seed(2468)
     cases = []
     for case in DW_CASES:
         cases.append(dw_case(dwm, *case, flush, g))
         torch.cuda.empty_cache()
-    _, b, h, w, c, k, dtype = next(cs for cs in DW_CASES if cs[0] == "ragged_13x11_c130_k7")
-    dy = torch.randn(b, c, h, w, device="cuda", generator=g).to(dtype).contiguous(
-        memory_format=torch.channels_last)
-    taps = torch.randn(k * k, c, device="cuda", generator=g) / k
-    if torch.equal(taps, taps.flip(0)):
-        raise AssertionError("the control's tap table is symmetric")
-    ref = dwm.stencil_plain(dy.float(), taps, flip=True)
-    lim = dw_limit(ref, dwm.stencil_plain(dy.float().abs(), taps.abs(), flip=True), k * k, dtype)
-    _, factor = _ratio(dwm.stencil_cuda(dy, taps, flip=False), ref, lim)
-    print("control " + json.dumps({"case": "dgrad_unflipped_taps_13x11_c130_k7",
-                                   "err_over_limit": factor}), flush=True)
-    if not factor > 10:
-        raise AssertionError(f"the dgrad with unflipped taps stays within {factor:.2f}x of "
-                             f"its limit: the taps are not reversed")
+    off = [c["case"] for c in cases if c["case"].startswith("b4_") and c["stencil_path"] != "tma"]
+    if off:
+        raise AssertionError(f"B4 layers off the TMA stencil path: {off}")
+    for control, batch in (("ragged_13x11_c130_k7", None), ("b4_48x190_k3", 2)):
+        _, b, h, w, c, k, dtype = next(cs for cs in DW_CASES if cs[0] == control)
+        b = batch or b
+        dy = torch.randn(b, c, h, w, device="cuda", generator=g).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        taps = torch.randn(k * k, c, device="cuda", generator=g) / k
+        if torch.equal(taps, taps.flip(0)):
+            raise AssertionError("the control's tap table is symmetric")
+        ref = dwm.stencil_plain(dy.float(), taps, flip=True)
+        lim = dw_limit(ref, dwm.stencil_plain(dy.float().abs(), taps.abs(), flip=True), k * k,
+                       dtype)
+        _, factor = _ratio(dwm.stencil_cuda(dy, taps, flip=False), ref, lim)
+        path = dwm.stencil_path(b, h, w, c, k, dtype)
+        print("control " + json.dumps({"case": f"dgrad_unflipped_taps_{control}_b{b}",
+                                       "stencil_path": path, "err_over_limit": factor}),
+              flush=True)
+        if not factor > 10:
+            raise AssertionError(f"the dgrad with unflipped taps ({path} path) stays within "
+                                 f"{factor:.2f}x of its limit: the taps are not reversed")
     return cases
 
 
@@ -2412,8 +2458,9 @@ def effnet_hook_pass(dwm, model, cfg, batch, flush, device="cuda"):
             for op in DW_OPS:
                 totals[key][op] += t[key][op]
         bound += dw_bounds(b, h, w, c, k, x.element_size())[0]
-        per_layer.append({"name": rec["name"], "C": c, "H": h, "k": k, "ms": t["ms"],
-                          "library_ms": t["library_ms"]})
+        per_layer.append({"name": rec["name"], "C": c, "H": h, "k": k,
+                          "stencil_path": dwm.stencil_path(b, h, w, c, k, x.dtype),
+                          "ms": t["ms"], "library_ms": t["library_ms"]})
         del x, weight, dy
     return {"layers": n, "launches_by_op": by_op, "loss": loss,
             "max_err_over_limit": worst["err_over_limit"],

@@ -14,50 +14,82 @@
 // with xpad zero outside the image (P = K/2 on each side) and every sum
 // in f32; y and dx are rounded once to the input's dtype.
 //
-// Design. The TPU kernels hold whole images in VMEM and build a padded
-// window per 16-row strip; Mosaic could not keep the K*K accumulation in
-// registers, which is why they lost to XLA's grouped conv (PROFILE.md,
-// round 4). Here:
-// * One block owns a tile of 8 output rows x 12 output columns x 32
-//   channels of one image (the wgrad block walks all row tiles of a column
-//   strip). It stages the tile's input rows and columns plus the P-wide
-//   halo into shared memory as f32, zero-filled outside the image and past
-//   C. Channels are the fastest index: where C is a multiple of the 16-byte
-//   vector (8 bf16, 4 f32) a thread loads 16 bytes at once, else one
-//   element. All of a thread's loads are issued before any is stored, so
-//   each warp keeps several in flight. The channel tile is the fastest
-//   block index, so the blocks that share a pixel's cache lines run
-//   together.
-// * Thread (channel tx, row ty) keeps its 12 outputs of row ty in f32
-//   registers through all K*K taps: for each tap row it reads the 12+K-1
-//   inputs it needs from shared memory once and applies all K taps of that
-//   row to them. Its channel's taps sit in registers, read once.
-// * The dgrad is the same kernel reading the tap table reversed (the
-//   `flip` argument; the TPU code reverses the table, `wt[::-1]`).
-// * The wgrad thread keeps its K*K per-channel sums in f32 registers over
-//   its rows; the block then sums its 8 rows of threads in shared memory
-//   in a fixed order and writes one partial row per (image, column strip);
-//   a second kernel sums the partials in a fixed order. No atomics: dw
-//   repeats bit for bit, like the TPU's partials-then-sum.
-// * K in {3, 5, 7} is compiled with K fixed, so the loops unroll and the
-//   arrays stay in registers. Any other odd K takes a direct kernel (one
-//   thread per output, taps read from global memory) and a direct wgrad
-//   (one block per tap and 32 channels): right, not fast.
-//
 // What bounds it on an H100: bytes. EfficientNet-B4's stride-1 layers at
 // batch 64 do 2*K*K flops per output element against 4 bytes (bf16 in and
 // out): 190^2 x 48, K 3 moves 444 MB (133 us at 3.35 TB/s) for 2.0 GFLOP
-// (30 us at 67 TFLOP/s of f32 FMA). The halo is re-read from L2 (1.5x the
-// tile's inputs at K 3, 2x at K 5), the last channel tile of C = 48 or
-// C = 24 leaves lanes idle, each thread stores 2-byte outputs, and the
-// wgrad re-stages its halo rows for each row tile; PERF.md holds the
-// measured times.
+// (30 us at 67 TFLOP/s of f32 FMA); at K 5 the flops come within 2x of
+// the bytes (48^2 x 336: 59 us of bytes, 37 of flops), so the
+// instructions a thread issues per output matter as much as the bytes.
+//
+// Design. The TPU kernels hold whole images in VMEM and build a padded
+// window per 16-row strip; Mosaic could not keep the K*K accumulation in
+// registers, which is why they lost to XLA's grouped conv (PROFILE.md,
+// round 4). Here the forward and dgrad take one of three paths, by
+// ops/depthwise.stencil_path (shape, dtype and alignment alone):
+// * The TMA row ring (k in {3, 5, 7}, rows of C a multiple of 16 bytes,
+//   x 16-byte aligned: all of B4's layers). x is a 4-D tensor map [B, H,
+//   W, C]; TMA zero-fills every element outside it, negative coordinates
+//   included, which is the SAME padding, so a box of (1 image, 1 row, the
+//   tile's columns from w0 - P, a channel slice) brings a padded input
+//   row with no halo logic in the threads. A block owns an item (image,
+//   strip of rows, column tile, channel slice) and walks down its rows:
+//   one producer thread keeps the next rows in flight into an mbarrier
+//   ring and each input byte of the strip comes from device memory once
+//   (a tile's halo columns are re-read from L2). The strip length is
+//   chosen so the items fill the card's block slots (by the occupancy the
+//   kernel's registers and shared memory allow) at the least cost in
+//   waves x rows. Two kernels compute from the ring:
+//   - vector (k = 3 on rows wider than 12): a thread computes 8 columns x
+//     one 16-byte channel vector in f32, one tap row's taps of its
+//     channels at a time from shared memory; 16-byte loads and stores.
+//     The tile is the whole row (up to 256 columns a box; wider rows take
+//     several boxes), the channel slice the widest whose ring fits two
+//     blocks an SM.
+//   - lane (k = 5 and 7, and narrow rows): lanes are consecutive channels
+//     (conflict-free 2- or 4-byte shared loads, and each warp's stores
+//     cover whole 32-byte sectors); a thread keeps its channel's k*k taps
+//     and 12 (or 8) f32 sums in registers: fewer instructions per output
+//     than a vector of channels, whose taps do not fit in registers at
+//     k = 5. Column tiles of up to 256 threads' runs, channel slices of
+//     at least four column groups.
+//   scripts/depthwise_ablation.py times each kernel at B4's layers.
+// * The staged-tile kernel (k in {3, 5, 7}, rows no tensor map can take:
+//   C not a multiple of the 16-byte vector, or x misaligned): one block
+//   owns a tile of 8 output rows x 12 output columns x 32 channels of one
+//   image and stages the tile's inputs plus the P-wide halo into shared
+//   memory as f32, zero-filled outside the image and past C (16-byte loads
+//   where C allows, else one element); thread (channel, row) keeps its 12
+//   outputs and its channel's taps in registers.
+// * The direct kernel (any other odd k): one thread per output, taps read
+//   from global memory: right, not fast.
+// The dgrad is the forward reading the tap table reversed (the `flip`
+// argument; the TPU code reverses the table, `wt[::-1]`). The wgrad (not
+// redesigned): each block of the staged-tile shape walks every row tile of
+// a column strip with its K*K per-channel sums in f32 registers, sums its
+// 8 rows of threads in shared memory in a fixed order and writes one
+// partial row per (image, column strip); a second kernel sums the partials
+// in a fixed order. No atomics: dw repeats bit for bit, like the TPU's
+// partials-then-sum. k in {3, 5, 7} is compiled with k fixed; any other
+// odd k takes a direct wgrad (one block per tap and 32 channels). The
+// measured times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "bulk.cuh"
+
+// Build switches (scripts/depthwise_ablation.py): DW_TMA_KERNEL forces
+// the TMA stencil's kernel (0: tma_kernel's choice, 1: vector, 2: lane);
+// DW_RING_EXTRA the ring's rows beyond k (0: the plan's choice).
+#ifndef DW_TMA_KERNEL
+#define DW_TMA_KERNEL 0
+#endif
+#ifndef DW_RING_EXTRA
+#define DW_RING_EXTRA 0
+#endif
 
 namespace {
 
@@ -187,6 +219,249 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int r = 0; r < kTW; ++r)
       if (w0 + r < s.W) y[offset(s, b, h, w0 + r, c)] = from_f32<T>(acc[r]);
+  }
+}
+
+// ------------------------------------------------ the TMA row-ring stencils
+
+constexpr int kTmaMaxConsumers = 256;  // compute threads a block at most
+
+// How a TMA-stencil launch is cut (host plans below): an item is (image,
+// strip of `rows` output rows, tile of `tw` output columns, slice of `cs`
+// channels); a padded input row of the tile is `pieces` boxes of `box_w`
+// columns x cs channels; the ring holds `ring` such rows. `units` is the
+// compute threads' work a row (vector kernel) or their column groups
+// (lane kernel).
+struct TmaPlan {
+  int cs, cslices, tw, ctiles, rows, strips, box_w, pieces, ring, units, consumers, smem;
+};
+
+__host__ __device__ inline int tma_row_bytes(const TmaPlan& p, int elem) {
+  return p.pieces * p.box_w * p.cs * elem;
+}
+// Shared memory: the ring's full and empty mbarriers, the taps [k*k][cs]
+// f32 (flipped for the dgrad; the vector kernel's), then the ring rows
+// (each a multiple of 128 bytes).
+__host__ __device__ inline int tma_taps_off(const TmaPlan& p) { return (2 * p.ring * 8 + 127) & ~127; }
+__host__ __device__ inline int tma_ring_off(const TmaPlan& p, int K, bool taps) {
+  return (tma_taps_off(p) + (taps ? K * K * p.cs * 4 : 0) + 127) & ~127;
+}
+
+// The item of block blockIdx.x: channel slice fastest, then column tile,
+// strip, image.
+struct Item {
+  int b, c0, w0, h0, n_out;
+};
+__device__ __forceinline__ Item item_of(const Shape& s, const TmaPlan& pl) {
+  Item it;
+  int item = blockIdx.x;
+  it.c0 = item % pl.cslices * pl.cs;
+  item /= pl.cslices;
+  it.w0 = item % pl.ctiles * pl.tw;
+  item /= pl.ctiles;
+  it.b = item / pl.strips;
+  it.h0 = item % pl.strips * pl.rows;
+  it.n_out = min(pl.rows, s.H - it.h0);
+  return it;
+}
+
+// Thread 0 sets up the ring's barriers (before the block's barrier).
+__device__ __forceinline__ void init_ring(unsigned char* smem, const TmaPlan& pl) {
+  if (threadIdx.x != 0) return;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  for (int i = 0; i < pl.ring; ++i) {
+    bulk::mbar_init(full + i, 1);
+    bulk::mbar_init(full + pl.ring + i, pl.consumers / 32);
+  }
+  bulk::mbar_init_fence();
+}
+
+// The producer (lane 0 of the warp after the consumers): input rows
+// h0-P .. h0+n_out+P-1 of the item's tile, each as its boxes.
+template <typename T, int K>
+__device__ __forceinline__ void produce_rows(const CUtensorMap* xmap, const TmaPlan& pl,
+                                             unsigned char* smem, unsigned char* ring,
+                                             const Item& it) {
+  if (threadIdx.x != pl.consumers) return;
+  constexpr int P = K / 2;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + pl.ring;
+  const int row_bytes = tma_row_bytes(pl, sizeof(T)), box = pl.box_w * pl.cs * (int)sizeof(T);
+  for (int i = 0; i < it.n_out + K - 1; ++i) {
+    const int slot = i % pl.ring;
+    if (i >= pl.ring) bulk::mbar_wait(empty + slot, ((i / pl.ring) - 1) & 1);
+    bulk::mbar_arrive_expect(full + slot, row_bytes);
+    for (int pc = 0; pc < pl.pieces; ++pc)
+      bulk::copy_4d(ring + slot * row_bytes + pc * box, xmap, it.c0,
+                    it.w0 + pc * pl.box_w - P, it.h0 - P + i, it.b, full + slot);
+  }
+}
+
+// The vector kernel (k = 3 on rows wider than 12: memory bound). Thread u
+// of a row's units
+// computes RW columns x one 16-byte channel vector (8 bf16 or 4 f32) of
+// the row: f32 sums in registers, one tap row's taps of its channels at a
+// time from shared memory, 16-byte loads and stores.
+template <typename T, int K, int RW>
+__global__ void __launch_bounds__(kTmaMaxConsumers + 32)
+    dwconv_stencil_tma_vec_kernel(const __grid_constant__ CUtensorMap xmap,
+                                  const float* __restrict__ taps, T* __restrict__ y, Shape s,
+                                  TmaPlan pl, int flip) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + pl.ring;
+  float* taps_s = reinterpret_cast<float*>(smem + tma_taps_off(pl));
+  unsigned char* ring = smem + tma_ring_off(pl, K, true);
+  const int row_bytes = tma_row_bytes(pl, sizeof(T));
+  const Item it = item_of(s, pl);
+  init_ring(smem, pl);
+  for (int i = threadIdx.x; i < K * K * pl.cs; i += blockDim.x) {
+    const int t = i / pl.cs, c = it.c0 + i % pl.cs;
+    taps_s[i] = c < s.C ? taps[static_cast<long long>(flip ? K * K - 1 - t : t) * s.C + c] : 0.f;
+  }
+  __syncthreads();
+  if (threadIdx.x >= pl.consumers) {
+    produce_rows<T, K>(&xmap, pl, smem, ring, it);
+    return;
+  }
+
+  const int vecs = pl.cs / V;
+  for (int i = 0; i < K - 1; ++i) bulk::mbar_wait(full + i % pl.ring, (i / pl.ring) & 1);
+  for (int r = 0; r < it.n_out; ++r) {
+    {
+      const int i = r + K - 1;
+      bulk::mbar_wait(full + i % pl.ring, (i / pl.ring) & 1);
+    }
+    for (int u = threadIdx.x; u < pl.units; u += pl.consumers) {
+      const int run = u / vecs, cl = (u % vecs) * V, c = it.c0 + cl;
+      const int wl = run * RW;  // the run's first column within the tile
+      if (c >= s.C || it.w0 + wl >= s.W) continue;
+      float acc[RW][V];
+#pragma unroll
+      for (int o = 0; o < RW; ++o)
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[o][e] = 0.f;
+#pragma unroll
+      for (int di = 0; di < K; ++di) {
+        const unsigned char* in = ring + ((r + di) % pl.ring) * row_bytes;
+        float w[K][V];
+#pragma unroll
+        for (int dj = 0; dj < K; ++dj)
+#pragma unroll
+          for (int e = 0; e < V; e += 4)
+            *reinterpret_cast<float4*>(&w[dj][e]) =
+                *reinterpret_cast<const float4*>(taps_s + (di * K + dj) * pl.cs + cl + e);
+#pragma unroll
+        for (int jj = 0; jj < RW + K - 1; ++jj) {
+          const uint4 raw =
+              *reinterpret_cast<const uint4*>(in + ((wl + jj) * pl.cs + cl) * (int)sizeof(T));
+          float x[V];
+          if constexpr (sizeof(T) == 2) {
+            x[0] = lo_bf16(raw.x), x[1] = hi_bf16(raw.x), x[2] = lo_bf16(raw.y);
+            x[3] = hi_bf16(raw.y), x[4] = lo_bf16(raw.z), x[5] = hi_bf16(raw.z);
+            x[6] = lo_bf16(raw.w), x[7] = hi_bf16(raw.w);
+          } else {
+            x[0] = __uint_as_float(raw.x), x[1] = __uint_as_float(raw.y);
+            x[2] = __uint_as_float(raw.z), x[3] = __uint_as_float(raw.w);
+          }
+#pragma unroll
+          for (int dj = 0; dj < K; ++dj) {
+            const int o = jj - dj;
+            if (o < 0 || o >= RW) continue;
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[o][e] = fmaf(x[e], w[dj][e], acc[o][e]);
+          }
+        }
+      }
+      T* out = y + offset(s, it.b, it.h0 + r, it.w0 + wl, c);
+#pragma unroll
+      for (int o = 0; o < RW; ++o) {
+        if (it.w0 + wl + o >= s.W) break;
+        uint4 v;
+        if constexpr (sizeof(T) == 2) {
+          uint32_t q[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            __nv_bfloat162 h = __floats2bfloat162_rn(acc[o][2 * e], acc[o][2 * e + 1]);
+            q[e] = *reinterpret_cast<uint32_t*>(&h);
+          }
+          v = make_uint4(q[0], q[1], q[2], q[3]);
+        } else {
+          v = make_uint4(__float_as_uint(acc[o][0]), __float_as_uint(acc[o][1]),
+                         __float_as_uint(acc[o][2]), __float_as_uint(acc[o][3]));
+        }
+        *reinterpret_cast<uint4*>(out + static_cast<long long>(o) * s.C) = v;
+      }
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) bulk::mbar_arrive(empty + r % pl.ring);
+  }
+}
+
+// The lane kernel (k = 5 and 7, compute bound, and narrow rows). Lanes are
+// consecutive
+// channels (conflict-free 2- or 4-byte shared loads; each warp's stores
+// cover whole 32-byte sectors); thread (group g, channel ch) keeps its
+// channel's k*k taps and RW f32 sums in registers and computes columns
+// g*RW .. of the tile.
+template <typename T, int K, int RW>
+__global__ void __launch_bounds__(kTmaMaxConsumers + 32)
+    dwconv_stencil_tma_lane_kernel(const __grid_constant__ CUtensorMap xmap,
+                                   const float* __restrict__ taps, T* __restrict__ y, Shape s,
+                                   TmaPlan pl, int flip) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + pl.ring;
+  unsigned char* ring = smem + tma_ring_off(pl, K, false);
+  const int row_bytes = tma_row_bytes(pl, sizeof(T));
+  const Item it = item_of(s, pl);
+  init_ring(smem, pl);
+  __syncthreads();
+  if (threadIdx.x >= pl.consumers) {
+    produce_rows<T, K>(&xmap, pl, smem, ring, it);
+    return;
+  }
+
+  const int ch = threadIdx.x % pl.cs, g = threadIdx.x / pl.cs;
+  const int c = it.c0 + ch, wg = it.w0 + g * RW;  // this thread's channel and first column
+  const bool active = g < pl.units && c < s.C && wg < s.W;
+  float w[K * K];
+#pragma unroll
+  for (int t = 0; t < K * K; ++t)
+    w[t] = active ? taps[static_cast<long long>(flip ? K * K - 1 - t : t) * s.C + c] : 0.f;
+
+  for (int i = 0; i < K - 1; ++i) bulk::mbar_wait(full + i % pl.ring, (i / pl.ring) & 1);
+  for (int r = 0; r < it.n_out; ++r) {
+    {
+      const int i = r + K - 1;
+      bulk::mbar_wait(full + i % pl.ring, (i / pl.ring) & 1);
+    }
+    if (active) {
+      float acc[RW];
+#pragma unroll
+      for (int o = 0; o < RW; ++o) acc[o] = 0.f;
+#pragma unroll
+      for (int di = 0; di < K; ++di) {
+        const T* in = reinterpret_cast<const T*>(ring + ((r + di) % pl.ring) * row_bytes) +
+                      g * RW * pl.cs + ch;
+#pragma unroll
+        for (int jj = 0; jj < RW + K - 1; ++jj) {
+          const float x = to_f32(in[jj * pl.cs]);
+#pragma unroll
+          for (int dj = 0; dj < K; ++dj) {
+            const int o = jj - dj;
+            if (o >= 0 && o < RW) acc[o] = fmaf(x, w[di * K + dj], acc[o]);
+          }
+        }
+      }
+      T* out = y + offset(s, it.b, it.h0 + r, wg, c);
+#pragma unroll
+      for (int o = 0; o < RW; ++o)
+        if (wg + o < s.W) out[static_cast<long long>(o) * s.C] = from_f32<T>(acc[o]);
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) bulk::mbar_arrive(empty + r % pl.ring);
   }
 }
 
@@ -372,21 +647,193 @@ int launch_wgrad(const void* x, const void* dy, float* part, float* dw, Shape s,
   return (int)cudaGetLastError();
 }
 
+constexpr int kMaxSmem = 232448;         // a block's dynamic shared memory at most
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
+// Which TMA stencil a shape takes: the vector kernel at k = 3 on rows
+// wider than 12 (memory bound), else the lane kernel
+// (scripts/depthwise_ablation.py times both at B4's layers).
+constexpr int kTmaVector = 1, kTmaLane = 2;
+__host__ __device__ constexpr int tma_kernel(int K, int W) {
+  if (DW_TMA_KERNEL != 0) return DW_TMA_KERNEL;
+  return K == 3 && W > 12 ? kTmaVector : kTmaLane;
+}
+
+// Columns a TMA-stencil thread computes: the vector kernel 8, or 4 on
+// rows of at most 12; the lane kernel 12 where that divides the row, else 8.
+__host__ __device__ constexpr int tma_run(bool vec, int W) {
+  return vec ? (W > 12 ? 8 : 4) : (W % 12 == 0 ? 12 : 8);
+}
+
+// Output rows a strip: of the strip counts that leave at least 4 rows a
+// strip, the one whose items fill the card's block slots best (least
+// waves x (2 rows + halo), a halo row costing its load only).
+int strip_rows(int H, int K, long long tiles, long long slots) {
+  int best = H;
+  long long best_cost = -1;
+  for (int n = 1; n <= max(1, H / 4); ++n) {
+    const int rows = (H + n - 1) / n, strips = (H + rows - 1) / rows;
+    const long long cost = (tiles * strips + slots - 1) / slots * (2 * rows + K - 1);
+    if (best_cost < 0 || cost < best_cost) best_cost = cost, best = rows;
+  }
+  return best;
+}
+
+// Strips of `kernel`'s plan: rows by strip_rows at the blocks an SM the
+// kernel's registers, threads and shared memory allow.
+template <typename Kernel>
+void set_strips(TmaPlan& p, Kernel kernel, const Shape& s, int K) {
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, p.consumers + 32, p.smem) !=
+          cudaSuccess ||
+      per_sm < 1)
+    per_sm = 1;
+  p.rows = strip_rows(s.H, K, (long long)s.B * p.ctiles * p.cslices,
+                      (long long)sm_count() * per_sm);
+  p.strips = (s.H + p.rows - 1) / p.rows;
+}
+
+// The vector kernel's plan (k = 3): a tile is the whole row, its padded
+// row as few boxes of at most 256 columns (a multiple of 8) as cover the
+// runs and the halo; the channel slice is the widest (at most 256, C if
+// it fits) whose ring of k + 1 rows and taps fit 113 KB, evened out over
+// the slices.
+template <int K>
+TmaPlan tma_vec_plan(const Shape& s, int elem) {
+  TmaPlan p{};
+  const int V = 16 / elem, RW = tma_run(true, s.W);
+  const int runs = (s.W + RW - 1) / RW, needed = runs * RW + K - 1;
+  p.tw = s.W;
+  p.ctiles = 1;
+  p.pieces = (needed + 255) / 256;
+  p.box_w = ((needed + p.pieces - 1) / p.pieces + 7) / 8 * 8;
+  p.ring = K + (DW_RING_EXTRA > 0 ? DW_RING_EXTRA : 1);
+  auto smem_of = [&](int cs) {
+    TmaPlan q = p;
+    q.cs = cs;
+    return tma_ring_off(q, K, true) + q.ring * tma_row_bytes(q, elem);
+  };
+  int cs = min(256, (s.C + V - 1) / V * V);
+  while (cs > V && smem_of(cs) > 113 * 1024) cs -= V;
+  p.cslices = (s.C + cs - 1) / cs;
+  p.cs = ((s.C + p.cslices - 1) / p.cslices + V - 1) / V * V;
+  p.smem = smem_of(p.cs);
+  p.units = runs * (p.cs / V);
+  p.consumers = min(kTmaMaxConsumers, (p.units + 31) / 32 * 32);
+  return p;
+}
+
+// The lane kernel's plan (k = 5, 7): the channel slice is at most 256
+// channels and leaves at least four column groups of 256 threads where
+// the row has them (a tile's halo then costs at most (k-1)/32 of its
+// reads), evened out over the slices; the column tile is as many runs as
+// the threads cover, its box the tile and the halo (a multiple of 8, at
+// most 256); the ring holds k rows and as many more as make 16 KB.
+template <int K>
+TmaPlan tma_lane_plan(const Shape& s, int elem) {
+  TmaPlan p{};
+  const int V = 16 / elem, RW = tma_run(false, s.W);
+  const int runs = (s.W + RW - 1) / RW;
+  const int max_groups = min(runs, (256 - K + 1) / RW);
+  int cs = kTmaMaxConsumers / min(4, max_groups) / V * V;
+  cs = max(V, min(cs, (s.C + V - 1) / V * V));
+  p.cslices = (s.C + cs - 1) / cs;
+  p.cs = ((s.C + p.cslices - 1) / p.cslices + V - 1) / V * V;
+  p.units = max(1, min(max_groups, kTmaMaxConsumers / p.cs));
+  p.tw = p.units * RW;
+  p.ctiles = (s.W + p.tw - 1) / p.tw;
+  p.consumers = (p.units * p.cs + 31) / 32 * 32;
+  p.pieces = 1;
+  p.box_w = (p.tw + K - 1 + 7) / 8 * 8;
+  const int rb = tma_row_bytes(p, elem);
+  p.ring = K + (DW_RING_EXTRA > 0 ? DW_RING_EXTRA : max(1, min(4, (16384 + rb - 1) / rb)));
+  p.smem = tma_ring_off(p, K, false) + p.ring * rb;
+  return p;
+}
+
+template <typename T, int K, int RW, bool kVec>
+int launch_stencil_tma(const void* x, const float* taps, void* y, Shape s, int flip,
+                       cudaStream_t stream) {
+  TmaPlan pl = kVec ? tma_vec_plan<K>(s, sizeof(T)) : tma_lane_plan<K>(s, sizeof(T));
+  if (pl.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = [] {
+    if constexpr (kVec) return dwconv_stencil_tma_vec_kernel<T, K, RW>;
+    else return dwconv_stencil_tma_lane_kernel<T, K, RW>;
+  }();
+  int rc = set_smem(kernel, pl.smem);
+  if (rc != 0) return rc;
+  set_strips(pl, kernel, s, K);
+  const bulk::EncodeTiled encode = bulk::encoder();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const cuuint64_t e = sizeof(T);
+  const cuuint64_t dims[4] = {(cuuint64_t)s.C, (cuuint64_t)s.W, (cuuint64_t)s.H, (cuuint64_t)s.B};
+  const cuuint64_t strides[3] = {s.C * e, (cuuint64_t)s.W * s.C * e,
+                                 (cuuint64_t)s.H * s.W * s.C * e};
+  const cuuint32_t box[4] = {(cuuint32_t)pl.cs, (cuuint32_t)pl.box_w, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUtensorMap map;
+  if (encode(&map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+             4, const_cast<void*>(x), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  const int items = s.B * pl.strips * pl.ctiles * pl.cslices;
+  kernel<<<items, pl.consumers + 32, pl.smem, stream>>>(map, taps, static_cast<T*>(y), s, pl, flip);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int K>
+int stencil_tma_k(const void* x, const float* taps, void* y, Shape s, int flip,
+                  cudaStream_t stream) {
+  if (tma_kernel(K, s.W) == kTmaVector)
+    return tma_run(true, s.W) == 4
+               ? launch_stencil_tma<T, K, 4, true>(x, taps, y, s, flip, stream)
+               : launch_stencil_tma<T, K, 8, true>(x, taps, y, s, flip, stream);
+  return tma_run(false, s.W) == 12
+             ? launch_stencil_tma<T, K, 12, false>(x, taps, y, s, flip, stream)
+             : launch_stencil_tma<T, K, 8, false>(x, taps, y, s, flip, stream);
+}
+
+// path: 0 = the TMA row ring (k in {3, 5, 7}, C a multiple of the 16-byte
+// vector, x 16-byte aligned), 1 = the tile kernel (k in {3, 5, 7}), 2 =
+// the direct kernel (any odd k): ops/depthwise.stencil_path's rule.
 template <typename T>
-int stencil(const void* x, const float* taps, void* y, Shape s, int K, int flip,
+int stencil(const void* x, const float* taps, void* y, Shape s, int K, int flip, int path,
             cudaStream_t stream) {
-  switch (K) {
-    case 3: return launch_stencil<T, 3>(x, taps, y, s, flip, stream);
-    case 5: return launch_stencil<T, 5>(x, taps, y, s, flip, stream);
-    case 7: return launch_stencil<T, 7>(x, taps, y, s, flip, stream);
-    default: {
-      const long long n = static_cast<long long>(s.B) * s.H * s.W * s.C;
-      dwconv_stencil_direct_kernel<T><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
-                                        stream>>>(static_cast<const T*>(x), taps,
-                                                  static_cast<T*>(y), s, K, flip);
-      return (int)cudaGetLastError();
+  const bool fixed_k = K == 3 || K == 5 || K == 7;
+  if (path == 0) {
+    if (!fixed_k || s.C % (16 / (int)sizeof(T)) != 0 || reinterpret_cast<uintptr_t>(x) % 16 ||
+        reinterpret_cast<uintptr_t>(y) % 16)
+      return (int)cudaErrorInvalidValue;
+    switch (K) {
+      case 3: return stencil_tma_k<T, 3>(x, taps, y, s, flip, stream);
+      case 5: return stencil_tma_k<T, 5>(x, taps, y, s, flip, stream);
+      default: return stencil_tma_k<T, 7>(x, taps, y, s, flip, stream);
     }
   }
+  if (path == 1) {
+    switch (K) {
+      case 3: return launch_stencil<T, 3>(x, taps, y, s, flip, stream);
+      case 5: return launch_stencil<T, 5>(x, taps, y, s, flip, stream);
+      case 7: return launch_stencil<T, 7>(x, taps, y, s, flip, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (path != 2) return (int)cudaErrorInvalidValue;
+  const long long n = static_cast<long long>(s.B) * s.H * s.W * s.C;
+  dwconv_stencil_direct_kernel<T><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+                                    stream>>>(static_cast<const T*>(x), taps,
+                                              static_cast<T*>(y), s, K, flip);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -418,14 +865,16 @@ bool valid(int B, int H, int W, int C, int K, int dtype) {
 // Each returns cudaGetLastError() after its launches (0 = ok).
 
 // y = the stencil of x with taps (flip = 0), or with the taps reversed
-// (flip = 1: the dgrad, x = dy, y = dx).
+// (flip = 1: the dgrad, x = dy, y = dx), by the kernel `path` names (0 =
+// TMA row ring, 1 = tile, 2 = direct, as ops/depthwise.stencil_path
+// picks; an infeasible path returns cudaErrorInvalidValue).
 extern "C" int depthwise_stencil(const void* x, const float* taps, void* y, int B, int H, int W,
-                                 int C, int K, int dtype, int flip, void* stream) {
+                                 int C, int K, int dtype, int flip, int path, void* stream) {
   if (!valid(B, H, W, C, K, dtype)) return (int)cudaErrorInvalidValue;
   const Shape s = {B, H, W, C};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? stencil<bf16>(x, taps, y, s, K, flip, st)
-                    : stencil<float>(x, taps, y, s, K, flip, st);
+  return dtype == 0 ? stencil<bf16>(x, taps, y, s, K, flip, path, st)
+                    : stencil<float>(x, taps, y, s, K, flip, path, st);
 }
 
 // Rows of the wgrad's partial buffer (each K*K*C floats): 0 when K takes

@@ -1,7 +1,7 @@
 // Warp-level building blocks shared by the port's CUDA kernels
-// (fused_grads.cu, flash_packed.cu, and through wgmma.cuh flash.cu):
-// cp.async copies into shared memory, the transposing ldmatrix fragment
-// load and the m16n8k16 bf16 -> f32 tensor-core product, bf16 packing, the
+// (fused_grads.cu, flash_packed.cu, paged_decode.cu, and through wgmma.cuh
+// flash.cu): cp.async copies into shared memory, the ldmatrix fragment
+// loads and the m16n8k16 bf16 -> f32 tensor-core product, bf16 packing, the
 // attention kernels' row store and quad reductions.
 
 #pragma once
@@ -31,6 +31,13 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 // Wait until at most N committed groups are still in flight.
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+__device__ __forceinline__ void ldsm_x4(const void* p, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_u32(p)));
+}
 
 __device__ __forceinline__ void ldsm_x4_t(const bf16* p, uint32_t& r0, uint32_t& r1, uint32_t& r2,
                                           uint32_t& r3) {

@@ -13,7 +13,8 @@ over images and positions of ``xpad·dy`` per tap, accumulated in f32 and
 returned in the weight's dtype.
 
 On a CUDA tensor each of the three launches the hand-written Hopper
-kernels of ``csrc/depthwise.cu`` (bf16 or f32; counted in
+kernels of ``csrc/depthwise.cu`` (bf16 or f32; the stencil by the path
+:func:`stencil_path` picks; counted in
 :data:`launches` and :data:`launches_by_op`); on a CPU tensor it runs
 the plain version (:func:`stencil_plain`, :func:`wgrad_plain`); any
 other device raises. An unsupported shape raises ``ValueError``, as
@@ -47,6 +48,24 @@ launches_by_op: Dict[str, int] = {"depthwise_conv": 0, "depthwise_dgrad": 0,
                                   "depthwise_wgrad": 0}
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}  # csrc/depthwise.cu's `dtype`
+_PATHS = {"tma": 0, "tile": 1, "direct": 2}  # csrc/depthwise.cu's `path`
+_TMA_MAX_W = 1024  # the vector kernel's ring of whole rows, a 16-byte vector wide, fits
+
+
+def stencil_path(b: int, h: int, w: int, c: int, k: int, dtype: torch.dtype,
+                 aligned: bool = True) -> str:
+    """Which stencil kernel a shape takes (forward and dgrad): ``"tma"``,
+    the row ring fed by a 4-D tensor map, where one can describe x (k in
+    {3, 5, 7}, rows of C elements a multiple of 16 bytes, x 16-byte
+    aligned, W at most 1024); else ``"tile"``, the staged-tile kernel,
+    for k in {3, 5, 7}; else ``"direct"`` (one thread an output). A
+    function of the shape, dtype and alignment alone."""
+    if k not in (3, 5, 7):
+        return "direct"
+    elem = 2 if dtype == torch.bfloat16 else 4
+    if (c * elem) % 16 or not aligned or w > _TMA_MAX_W:
+        return "tile"
+    return "tma"
 
 
 def supports(h: int, w: int, c: int, k: int, stride: int) -> bool:
@@ -104,7 +123,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("depthwise")
     p, i = ctypes.c_void_p, ctypes.c_int
     # Pointers as c_void_p: without argtypes ctypes would pass 32 bits.
-    lib.depthwise_stencil.argtypes = [p] * 3 + [i] * 7 + [p]
+    lib.depthwise_stencil.argtypes = [p] * 3 + [i] * 8 + [p]
     lib.depthwise_stencil.restype = i
     lib.depthwise_wgrad.argtypes = [p] * 4 + [i] * 6 + [p]
     lib.depthwise_wgrad.restype = i
@@ -125,9 +144,12 @@ def _cuda_args(x: torch.Tensor):
 
 
 def stencil_cuda(x: torch.Tensor, taps: torch.Tensor, flip: bool = False) -> torch.Tensor:
-    """Launch the stencil kernel on a CUDA ``x`` (bf16 or f32): the
-    forward, or with ``flip`` the dgrad. Returns ``x.dtype``,
-    channels_last."""
+    """Launch the stencil kernel :func:`stencil_path` names on a CUDA
+    ``x`` (bf16 or f32): the forward, or with ``flip`` the dgrad. On the
+    TMA path the source picks its vector kernel (16-byte channel vectors,
+    taps in shared memory) at k = 3 on rows wider than 12 and its lane
+    kernel (a channel a lane, taps in registers) else. Returns
+    ``x.dtype``, channels_last."""
     global launches
     k = int(round(taps.shape[0] ** 0.5))
     _check(x, k, taps.shape[1])
@@ -136,11 +158,13 @@ def stencil_cuda(x: torch.Tensor, taps: torch.Tensor, flip: bool = False) -> tor
     x, taps = _nhwc(x), taps.float().contiguous()
     y = torch.empty_like(x, memory_format=torch.channels_last)
     n, h, w, c, dtype, stream = _cuda_args(x)
+    path = stencil_path(n, h, w, c, k, x.dtype, x.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
         rc = _library().depthwise_stencil(x.data_ptr(), taps.data_ptr(), y.data_ptr(),
-                                          n, h, w, c, k, dtype, int(flip), stream)
+                                          n, h, w, c, k, dtype, int(flip), _PATHS[path],
+                                          stream)
     if rc != 0:
-        raise RuntimeError(f"depthwise stencil launch failed: CUDA error {rc}")
+        raise RuntimeError(f"depthwise stencil ({path}) launch failed: CUDA error {rc}")
     launches += 1
     launches_by_op["depthwise_dgrad" if flip else "depthwise_conv"] += 1
     return y
@@ -229,5 +253,5 @@ def depthwise_conv2d_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tenso
 
 
 __all__ = ["depthwise_conv2d", "depthwise_conv2d_plain", "launches", "launches_by_op",
-           "stencil", "stencil_cuda", "stencil_plain", "supports", "weight_taps", "wgrad",
-           "wgrad_cuda", "wgrad_plain"]
+           "stencil", "stencil_cuda", "stencil_path", "stencil_plain", "supports", "weight_taps",
+           "wgrad", "wgrad_cuda", "wgrad_plain"]

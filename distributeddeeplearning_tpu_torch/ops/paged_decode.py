@@ -6,8 +6,10 @@
 online-softmax attention of per-row query windows over a dense
 ``[B, L, H, d]`` row cache or a paged ``[nb, bs, H, d]`` block pool read
 through an int32 ``[B, mb]`` block table. On a CUDA tensor it launches
-the hand-written Hopper kernel ``csrc/paged_decode.cu`` (and counts the
-launch in :data:`launches`) or raises; on a CPU tensor it runs
+the hand-written Hopper kernel ``csrc/paged_decode.cu`` under
+:func:`split_plan` (the key axis split across blocks, the splits'
+partials merged in the same launch by the last block of each query
+tile; one call counts one launch in :data:`launches`) or raises; on a CPU tensor it runs
 :func:`fused_decode_attention_plain`, the same math in plain PyTorch.
 
 Numerics follow the TPU kernel: q pre-scaled by ``d**-0.5`` and rounded
@@ -145,6 +147,98 @@ def fused_decode_attention_plain(
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
+# The kernel's split plan (csrc/paged_decode.cu): 16 key positions per
+# ring stage, twelve consumer warps, heads per warp by head dim, query
+# rows per tile by compute dtype, and the shared memory a block may use.
+_CHUNK = 16
+_CONSUMER_WARPS = 12
+_HEADS_PER_WARP = {32: 2, 64: 1, 128: 1}
+_MAX_SMEM = 232_448  # dynamic shared memory of one block (227 KB)
+_SM_SMEM = 233_472  # one SM's shared memory (228 KB); each block reserves 1 KB
+_MAX_CHUNKS_PER_SPLIT = 8  # at most 128 keys a block
+_STAGES = 4  # ring stages of the source's default build (PD_STAGES)
+_ELEM = {"bf16": 2, "f32": 4, "int8": 1, "fp8": 1}
+
+
+def _align128(x: int) -> int:
+    return (x + 127) & ~127
+
+
+def _smem_bytes(g: int, d: int, store: str, compute: str, stages: int) -> int:
+    """A block's dynamic shared memory at most (``layout`` in the source,
+    which drops the rows' padding where a quantized stage is one copy):
+    the mbarriers and the merge's flag, the f32 q tile, ``stages`` ring
+    stages of 16 K and V position rows (and their scales when
+    quantized), and, quantized, two dequantized tiles in the compute
+    dtype."""
+    quant = store in ("int8", "fp8")
+    stride_s = g * d * _ELEM[store] + 16
+    stride_c = g * d * _ELEM[compute] + 16
+    stage = _align128(2 * _CHUNK * stride_s + (2 * _CHUNK * g * 4 if quant else 0))
+    q_off = _align128(2 * stages * 8 + 4)
+    ring_off = _align128(q_off + (4 * stride_c if compute == "f32" else 0))
+    return ring_off + stages * stage + (4 * _CHUNK * stride_c if quant else 0)
+
+
+def split_plan(b: int, t: int, h: int, d: int, length: int, store: str, sm_count: int, *,
+               compute: str = "bf16", stages: int = _STAGES) -> dict:
+    """How the kernel cuts a call into blocks, from shapes alone (never
+    from ``q_pos``'s values, so the wrapper reads nothing back from the
+    device): a block is (cache row, tile of ``tile_q`` query rows, group
+    of ``group_heads`` heads, split of ``chunks_per_split`` chunks of 16
+    key positions). Heads are grouped only where one group's ring does
+    not fit a block's shared memory. Splits: enough that the blocks of a
+    full-length call fill the card once (at the occupancy the shared
+    memory allows), and at most 128 keys a block; with more than one
+    split the last block of each query tile to finish merges them
+    (``combine``). A split that starts past its tile's live length does
+    no work, and a tile with nothing live still runs its first split.
+    ``stages`` is the ring depth the library was built with."""
+    if store not in _ELEM or compute not in ("bf16", "f32") or d not in _HEAD_DIMS:
+        raise ValueError(f"no plan for store {store!r}, compute {compute!r}, head_dim {d}")
+    tile_q = 16 if compute == "bf16" else 4
+    tiles = -(-t // tile_q)
+    groups = -(-h // (_CONSUMER_WARPS * _HEADS_PER_WARP[d]))
+    while True:
+        g = -(-h // groups)
+        groups = -(-h // g)
+        smem = _smem_bytes(g, d, store, compute, stages)
+        if smem <= _MAX_SMEM:
+            break
+        if g == 1:
+            raise ValueError(f"one head of d {d} in {store} does not fit {stages} stages")
+        groups += 1
+    per_sm = max(1, min(2, _SM_SMEM // (smem + 1024)))
+    nchunks = max(1, -(-length // _CHUNK))
+    items = b * tiles * groups
+    splits = max(sm_count * per_sm // items, -(-nchunks // _MAX_CHUNKS_PER_SPLIT))
+    splits = min(max(splits, 1), nchunks)
+    cps = -(-nchunks // splits)
+    splits = -(-nchunks // cps)
+    return {"tile_q": tile_q, "tiles": tiles, "groups": groups, "group_heads": g,
+            "splits": splits, "chunks_per_split": cps, "stages": stages,
+            "smem_bytes": smem, "blocks": b * tiles * groups * splits,
+            "combine": "last_block" if splits > 1 else "none"}
+
+
+def _store_name(q_dtype, k_dtype, quantized: bool) -> str:
+    if quantized:
+        return _STORE_CODE[k_dtype][1]
+    return "bf16" if q_dtype == torch.bfloat16 else "f32"
+
+
+def plan_for(q, k_cache, block_table=None, block_size: int = 0,
+             quantized: bool = False) -> dict:
+    """:func:`split_plan` of a call's operands (the SM count of q's card,
+    the ring depth of the loaded library)."""
+    b, t, h, d = q.shape
+    return split_plan(b, t, h, d, _length(k_cache, block_table, block_size),
+                      _store_name(q.dtype, k_cache.dtype, quantized),
+                      torch.cuda.get_device_properties(q.device).multi_processor_count,
+                      compute="bf16" if q.dtype == torch.bfloat16 else "f32",
+                      stages=_library().paged_decode_ring_stages())
+
+
 def fused_decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -156,6 +250,7 @@ def fused_decode_attention(
     block_table: Optional[torch.Tensor] = None,
     block_size: int = 0,
     kv_len: Optional[int] = None,
+    drop_last_split: bool = False,
 ) -> torch.Tensor:
     """Fused masked decode attention over a dense row cache or a paged
     block pool.
@@ -175,14 +270,22 @@ def fused_decode_attention(
       block_size: positions per pool block (paged only).
       kv_len: logical key length (dense default ``L``; paged default
         ``mb * block_size``).
+      drop_last_split: drop each query tile's last live key split: a
+        wrong variant, only for negative controls (CUDA only; a CPU
+        tensor raises).
 
     CPU tensors run :func:`fused_decode_attention_plain`. CUDA tensors
-    launch ``csrc/paged_decode.cu`` on the current stream (bf16 or f32
-    q; caches in q's dtype, or int8 / fp8 e4m3 with f32 scales; head_dim
-    32/64/128) and raise on anything the kernel does not take.
-    Returns ``[B, t, H, d]`` in ``q.dtype``.
+    launch ``csrc/paged_decode.cu`` on the current stream under
+    :func:`split_plan` (bf16 or f32 q; caches in q's dtype, or int8 /
+    fp8 e4m3 with f32 scales; head_dim 32/64/128) and raise on anything
+    the kernel does not take. The merge's counters are kept per (device,
+    stream): calls on one stream run in order, and calls on two streams
+    never share a buffer. Returns ``[B, t, H, d]`` in ``q.dtype``.
     """
     if q.device.type == "cpu":
+        if drop_last_split:
+            raise ValueError("drop_last_split is a control of the CUDA kernel; the plain "
+                             "version on the CPU has no splits to drop")
         return fused_decode_attention_plain(
             q, k_cache, v_cache, q_pos, k_scale=k_scale, v_scale=v_scale,
             block_table=block_table, block_size=block_size, kv_len=kv_len,
@@ -239,18 +342,30 @@ def fused_decode_attention(
     for x in (q, k_cache, v_cache):
         if x.data_ptr() % 16:
             raise ValueError("kernel operands must be 16-byte aligned")
+    plan = plan_for(q, k_cache, block_table, block_size, k_scale is not None)
     out = torch.empty_like(q)
+    part_acc = part_ml = counters = None
+    if plan["splits"] > 1:
+        rows = plan["splits"] * b * t * h
+        part_acc = torch.empty(rows * d, dtype=torch.float32, device=q.device)
+        part_ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        if plan["splits"] > 1:
+            counters = _counters(q.device, stream, b * plan["tiles"] * plan["groups"])
         rc = lib.paged_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr() if scales else None,
             v_scale.data_ptr() if scales else None,
             pos.data_ptr(), table.data_ptr() if table is not None else None,
-            out.data_ptr(), b, t, h, d, int(table is not None),
-            int(block_size), table.shape[1] if table is not None else 0,
-            k_cache.shape[1], int(kv_len), _DTYPE_CODE[q.dtype], store,
+            out.data_ptr(), part_acc.data_ptr() if part_acc is not None else None,
+            part_ml.data_ptr() if part_ml is not None else None,
+            counters.data_ptr() if counters is not None else None, b, t, h, d,
+            int(table is not None), int(block_size),
+            table.shape[1] if table is not None else 0, k_cache.shape[1], int(kv_len),
+            _DTYPE_CODE[q.dtype], store, plan["group_heads"], plan["groups"],
+            plan["splits"], plan["chunks_per_split"], int(drop_last_split),
             float(d) ** -0.5, stream,
         )
     if rc != 0:
@@ -261,11 +376,29 @@ def fused_decode_attention(
     return out
 
 
+# Per (device, stream): the int32 counters of the kernel's in-launch
+# merge (one per row, tile and head group). They start zero and every
+# launch leaves them zero, so one buffer serves every call on its stream,
+# where launches run in order; another stream gets its own. A buffer only
+# grows.
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[(device, stream)] = buf
+    return buf
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("paged_decode")
     fn = lib.paged_decode_attention
     p, i = ctypes.c_void_p, ctypes.c_int
     # Pointers as c_void_p: without argtypes ctypes would pass 32 bits.
-    fn.argtypes = [p] * 8 + [i] * 11 + [ctypes.c_float, p]
+    fn.argtypes = [p] * 11 + [i] * 16 + [ctypes.c_float, p]
     fn.restype = ctypes.c_int
+    lib.paged_decode_ring_stages.argtypes = []
+    lib.paged_decode_ring_stages.restype = ctypes.c_int
     return lib

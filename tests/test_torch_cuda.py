@@ -32,11 +32,17 @@ machine that has only PyTorch for CUDA:
 * the decode-attention kernel on int8 and fp8 caches (dense, paged with
   a trash block of large finite codes) against its plain version, with
   chip_smoke's ``bf16_tolerance``, and a scales-of-1 control that must
-  miss it;
+  miss it; a sweep over t ∈ {1, 5, 16, 17}, L ∈ {48, 2048}, d ∈ {32, 64,
+  128}, bf16 / f32 / int8 / fp8 stores, dense and paged (rows live to 1,
+  16, 17 and L positions; kv_len below L with NaN past it; kv_len 0 and
+  all-negative query positions, which give zeros), each call one launch
+  and repeated bit for bit; and the dropped-split control;
 * the depthwise stencil (forward, dgrad) and wgrad kernels against
   their plain version and cuDNN at chip_smoke's ragged, f32, k = 9 and
   one B4 case with its limits, and once through ``depthwise_conv2d``'s
-  autograd (one launch of each; unsupported shapes raise);
+  autograd (one launch of each; unsupported shapes raise); the TMA
+  stencil at C ∈ {8, 24, 48, 960} × W ∈ {12, 190, 255, 257} × k ∈ {3,
+  5, 7}, bf16 and f32, forward and dgrad, with a bitwise repeat;
 * quantized serving (int8 and fp8 KV and weights, paged, fused kernel)
   of a small f32 LM on the card: the kernel launched once per layer per
   forward, under its storage dtype, and the greedy streams of the plain
@@ -354,6 +360,132 @@ def test_cuda_quantized_decode_kernel_matches_plain(kind, paged):
     assert ((wrong.float() - ref).abs() / tol).max().item() > 10
 
 
+def _decode_inputs(store, paged, d, length, t, g, kv_len=None):
+    """Four cache rows whose live lengths are 1, 16, 17 and L (each row's
+    window of t query positions ends there; earlier rows of the window
+    sit at 0), H = 768 / d heads, and the cache in ``store``: dense, or a
+    pool of 16-position blocks through a shuffled table whose unowned
+    entries point at trash block 0, which holds large finite garbage.
+    Quantized stores hold ops/quant.quantize_kv's codes and scales. With
+    ``kv_len`` below L, every position past it holds NaN (scales, when
+    quantized): the kernel must read none of them."""
+    import numpy as np
+
+    from distributeddeeplearning_tpu_torch.ops import quant
+
+    dev, h, bs = "cuda", 768 // d, 16
+    compute = torch.float32 if store == "f32" else torch.bfloat16
+    lives = np.array([1, 16, 17, length])
+    pos = np.maximum(lives[:, None] - t + np.arange(t), 0).astype(np.int32)
+    rng = np.random.RandomState(length + t + d)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=g).to(compute)
+
+    if paged:
+        mb = length // bs
+        nb = 4 * mb + 1
+        k, v = randn(nb, bs, h, d), randn(nb, bs, h, d)
+        k[0], v[0] = 1e4, -1e4
+        perm = rng.permutation(np.arange(1, nb))
+        table = np.zeros((4, mb), np.int32)
+        for r in range(4):
+            n = -(-int(lives[r]) // bs)
+            table[r, :n] = perm[r * mb:r * mb + n]
+        table = torch.from_numpy(table).to(dev)
+        kw = dict(block_table=table, block_size=bs)
+    else:
+        k, v = randn(4, length, h, d), randn(4, length, h, d)
+        kw = {}
+    scales = {}
+    if store in ("int8", "fp8"):
+        (k, ks), (v, vs) = quant.quantize_kv(k, store), quant.quantize_kv(v, store)
+        if paged:
+            for c, sc in ((k, ks), (v, vs)):
+                c[0] = 127 if store == "int8" else 448
+                sc[0] = 1e2
+        scales = dict(k_scale=ks, v_scale=vs)
+    if kv_len is not None:
+        kw["kv_len"] = kv_len
+        owned = table.cpu().numpy() if paged else None
+        for x in (scales.values() if scales else (k, v)):
+            if not paged:
+                x[:, kv_len:] = float("nan")
+                continue
+            for r in range(4):  # owned blocks only: the trash block stays finite
+                for p in range(kv_len, length):
+                    if owned[r, p // bs]:
+                        x[owned[r, p // bs], p % bs] = float("nan")
+    q = randn(4, t, h, d)
+    return q, k, v, torch.from_numpy(pos).to(dev), dict(kw, **scales)
+
+
+DECODE_STORES = ("bf16", "f32", "int8", "fp8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", DECODE_STORES)
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_cuda_decode_kernel_sweep(store, paged, d):
+    """The decode kernel against its plain version (f32, on the same
+    inputs and codes) within chip_smoke's bf16_tolerance, at t in {1, 5,
+    16, 17} and L in {48, 2048}, rows live to 1, 16, 17 and L positions,
+    once with kv_len = 37 and NaN past it, and, at L 2048 (many splits),
+    with nothing live: kv_len = 0 (every position NaN), and a row whose
+    query positions are all negative. Each call counts one launch and
+    repeats bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the decode kernel is CUDA C++ for sm_90a")
+    import chip_smoke
+    from distributeddeeplearning_tpu_torch.ops import paged_decode as pd
+
+    g = torch.Generator(device="cuda").manual_seed(d)
+    shapes = [(length, t, None, False) for length in (48, 2048) for t in (1, 5, 16, 17)]
+    empty = [(48, 5, 37, False), (2048, 1, 0, False), (2048, 17, 0, False), (2048, 5, None, True)]
+    for length, t, kv_len, negative in shapes + empty:
+        q, k, v, pos, kw = _decode_inputs(store, paged, d, length, t, g, kv_len)
+        if negative:
+            pos[0] = -1
+        before = pd.launches
+        out = pd.fused_decode_attention(q, k, v, pos, **kw)
+        again = pd.fused_decode_attention(q, k, v, pos, **kw)
+        if store in ("int8", "fp8"):
+            ref = pd.fused_decode_attention_plain(q.float(), k, v, pos, **kw)
+        else:
+            ref = pd.fused_decode_attention_plain(q.float(), k.float(), v.float(), pos, **kw)
+        torch.cuda.synchronize()
+        what = (f"{store} {'paged' if paged else 'dense'} d{d} L{length} t{t} kv_len {kv_len}"
+                f"{' row 0 at -1' if negative else ''}")
+        assert pd.launches == before + 2, what
+        assert torch.equal(out, again), what
+        assert torch.isfinite(out.float()).all(), what
+        if kv_len == 0 or negative:  # nothing live: zeros, as the plain version gives
+            n_empty = len(out) if kv_len == 0 else 1
+            assert not out[:n_empty].float().any() and not ref[:n_empty].any(), what
+            out, ref = out[n_empty:], ref[n_empty:]
+        if len(out):
+            ratio = ((out.float() - ref).abs() / chip_smoke.bf16_tolerance(ref)).max().item()
+            assert ratio <= 1.0, (what, ratio)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_drop_last_split_control():
+    """The wrong variant that drops each tile's last live split misses
+    the tolerance by far at lm_base's decode shape (16 splits)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the decode kernel is CUDA C++ for sm_90a")
+    import chip_smoke
+    from distributeddeeplearning_tpu_torch.ops import paged_decode as pd
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, pos, kw = _decode_inputs("bf16", True, 64, 2048, 1, g)
+    ref = pd.fused_decode_attention_plain(q.float(), k.float(), v.float(), pos, **kw)
+    bad = pd.fused_decode_attention(q, k, v, pos, drop_last_split=True, **kw)
+    ratio = ((bad.float() - ref).abs() / chip_smoke.bf16_tolerance(ref)).max().item()
+    assert ratio > 10
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
 def test_cuda_quantized_served_streams(kind):
@@ -411,6 +543,41 @@ def test_cuda_depthwise_kernels_match_plain(case):
                       torch.Generator(device="cuda").manual_seed(0))
     assert max(line["err_over_limit"].values()) <= 1.0
     assert max(line["cudnn_err_over_limit"].values()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_cuda_depthwise_tma_stencil_sweep(k, dtype):
+    """The TMA row-ring stencil (forward and dgrad) against the plain
+    version in f32 within chip_smoke's dw_limit, at C in {8, 24, 48, 960}
+    and W in {12, 190, 255, 257} (one box, and two boxes a padded row),
+    H 11, each launch repeated bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the depthwise kernels are CUDA C++ for sm_90a")
+    import chip_smoke as cs
+    from distributeddeeplearning_tpu_torch.ops import depthwise as dwm
+
+    g = torch.Generator(device="cuda").manual_seed(k)
+    for c in (8, 24, 48, 960):
+        for w in (12, 190, 255, 257):
+            b, h = (1, 11) if c * w > 20_000 else (2, 11)
+            assert dwm.stencil_path(b, h, w, c, k, dtype) == "tma"
+            x = torch.randn(b, c, h, w, device="cuda", generator=g).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+            taps = (torch.randn(k * k, c, device="cuda", generator=g) / k).to(dtype).float()
+            for flip in (False, True):
+                got = dwm.stencil_cuda(x, taps, flip)
+                again = dwm.stencil_cuda(x, taps, flip)
+                ref = dwm.stencil_plain(x.float(), taps, flip)
+                lim = cs.dw_limit(ref, dwm.stencil_plain(x.float().abs(), taps.abs(), flip),
+                                  k * k, dtype)
+                torch.cuda.synchronize()
+                what = f"c{c} w{w} k{k} {dtype} flip={flip}"
+                assert torch.equal(got, again), what
+                assert got.dtype == dtype and got.shape == x.shape, what
+                _, ratio = cs._ratio(got, ref, lim)
+                assert ratio <= 1.0, (what, ratio)
 
 
 @pytest.mark.cuda

@@ -141,3 +141,28 @@ def test_other_devices_raise():
         dw.stencil(x, torch.zeros(9, 4, device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         dw.wgrad(x, x, 3)
+
+
+def test_stencil_path_sends_b4_layers_to_the_tma_ring():
+    """All ten of EfficientNet-B4's stride-1 layer shapes (chip_smoke's
+    ``B4_DW_LAYERS``, batch 64, bf16) take the TMA row ring; a C whose
+    rows are not a multiple of 16 bytes (130 bf16, 130 f32) or an
+    unaligned x takes the tile kernel; k = 9 the direct one."""
+    import chip_smoke
+
+    assert len(chip_smoke.B4_DW_LAYERS) == 10
+    for c, h, k, _ in chip_smoke.B4_DW_LAYERS:
+        assert dw.stencil_path(64, h, h, c, k, torch.bfloat16) == "tma", (c, h, k)
+    assert dw.stencil_path(8, 24, 24, 672, 5, torch.float32) == "tma"
+    assert dw.stencil_path(4, 13, 11, 130, 7, torch.bfloat16) == "tile"
+    assert dw.stencil_path(4, 13, 11, 130, 3, torch.float32) == "tile"
+    assert dw.stencil_path(64, 190, 190, 48, 3, torch.bfloat16, aligned=False) == "tile"
+    assert dw.stencil_path(2, 13, 11, 130, 9, torch.bfloat16) == "direct"
+    assert dw.stencil_path(2, 13, 11, 48, 9, torch.bfloat16) == "direct"
+    # the whole DW_CASES table: the B4 rows and the ragged C = 40 row on
+    # the ring, the C = 130 rows on the tile kernel, k = 9 direct
+    paths = {name: dw.stencil_path(b, h, w, c, k, dtype)
+             for name, b, h, w, c, k, dtype in chip_smoke.DW_CASES}
+    assert paths["ragged_17x9_c40_k7"] == "tma"
+    assert paths["ragged_13x11_c130_k7"] == paths["ragged_13x11_c130_k3_f32"] == "tile"
+    assert paths["direct_13x11_c130_k9"] == "direct"

@@ -175,6 +175,83 @@ def test_vector_position_contract():
         )
 
 
+def _covers(plan, t, h, length):
+    """How often the kernel's blocks under ``plan`` cover each query row,
+    head and key position: blocks are the product of tiles of query rows,
+    groups of heads and splits of 16-key chunks (as the source cuts
+    them), so each axis is counted alone."""
+    rows, heads, keys = np.zeros(t, int), np.zeros(h, int), np.zeros(length, int)
+    for tile in range(plan["tiles"]):
+        rows[tile * plan["tile_q"]:(tile + 1) * plan["tile_q"]] += 1
+    for group in range(plan["groups"]):
+        heads[group * plan["group_heads"]:(group + 1) * plan["group_heads"]] += 1
+    for split in range(plan["splits"]):
+        c0 = split * plan["chunks_per_split"] * 16
+        keys[c0:c0 + plan["chunks_per_split"] * 16] += 1
+    return rows, heads, keys
+
+
+@pytest.mark.parametrize("t", [1, 5, 16, 17, 512])
+@pytest.mark.parametrize("length", [16, 48, 2048, 4096])
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_split_plan_covers_every_key_once(t, length, layout):
+    """The split plan (shapes only) covers each (query row, head, key
+    position) exactly once, in every storage and compute dtype and head
+    dim, on 132 SMs and on 8; no group is empty and each block fits the
+    card's shared memory. Dense caches give the plan L, paged ones
+    mb * block_size: the same length, so the same cover."""
+    b = 2 if t == 512 else 8
+    if layout == "paged":
+        length = (length // 16) * 16  # mb blocks of 16 positions
+    for d in (32, 64, 128):
+        h = 768 // d
+        for store, compute in (("bf16", "bf16"), ("f32", "f32"), ("int8", "bf16"),
+                               ("fp8", "bf16"), ("int8", "f32")):
+            for sms in (132, 8):
+                plan = paged_decode.split_plan(b, t, h, d, length, store, sms, compute=compute)
+                assert plan["smem_bytes"] <= 232_448
+                assert (plan["groups"] - 1) * plan["group_heads"] < h
+                assert plan["chunks_per_split"] <= 8
+                assert plan["combine"] == ("last_block" if plan["splits"] > 1 else "none")
+                for cover in _covers(plan, t, h, length):
+                    assert (cover == 1).all(), (d, store, sms)
+                assert plan["blocks"] == b * plan["tiles"] * plan["groups"] * plan["splits"]
+
+
+def test_split_plan_fills_the_card_at_lm_base_decode():
+    """lm_base's decode call (B 8, t 1, H 12, d 64, L 2048) takes 16
+    splits of 128 keys: 128 blocks on 132 SMs, all heads in one group."""
+    plan = paged_decode.split_plan(8, 1, 12, 64, 2048, "bf16", 132)
+    assert (plan["splits"], plan["groups"], plan["blocks"]) == (16, 1, 128)
+    quant = paged_decode.split_plan(8, 1, 12, 64, 2048, "int8", 132)
+    assert (quant["splits"], quant["groups"]) == (16, 1)
+
+
+def test_merge_counters_are_kept_per_device_and_stream():
+    """The in-launch merge's counter buffer is one per (device, stream):
+    a second stream never shares the first's counters, a later call on
+    the same stream reuses its buffer, zeroed, and a larger plan grows
+    it. The buffer is allocated on the device it is asked for, so the
+    CPU stands in for a card here."""
+    cpu = torch.device("cpu")
+    first = paged_decode._counters(cpu, 1001, 64)
+    assert first.dtype == torch.int32 and not first.any()
+    assert paged_decode._counters(cpu, 1001, 64) is first
+    other = paged_decode._counters(cpu, 1002, 64)
+    assert other is not first
+    grown = paged_decode._counters(cpu, 1001, first.numel() + 1)
+    assert grown.numel() > first.numel() and not grown.any()
+    assert paged_decode._counters(cpu, 1002, 64) is other
+
+
+def test_drop_last_split_is_refused_on_the_cpu():
+    q = torch.zeros(B, 1, H, D)
+    k = torch.zeros(B, L, H, D)
+    with pytest.raises(ValueError, match="drop_last_split"):
+        paged_decode.fused_decode_attention(q, k, k, torch.zeros(B, 1, dtype=torch.int32),
+                                            drop_last_split=True)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 def test_cuda_kernel_matches_plain(paged):
