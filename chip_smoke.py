@@ -42,13 +42,19 @@ non-zero.
    version, the backward run twice with equal bits, and the same
    negative control at ViT-B/16; and the
    dW+db kernel at the four ViT-B/16 Dense shapes, the f32 head and a
-   ragged N; the depthwise stencil (forward, dgrad; each run twice with
-   equal bits, each line naming the stencil path) and wgrad at
+   ragged N, each run twice with equal bits, its line naming the plan
+   (path, tile, row splits), timed beside two yardsticks (cuBLAS with a
+   bf16 dW plus a column sum of an f32 copy; cuBLAS with an f32 dW plus
+   an f32-accumulated column sum), with a negative control (each tile's
+   last row split left out of the merge must fail); the depthwise
+   stencil (forward, dgrad) and wgrad, each run twice with equal bits,
+   each line naming the stencil path and the wgrad's plan, at
    EfficientNet-B4's ten stride-1 layer shapes (batch 64, bf16; all on
    the TMA row ring), an f32 case, ragged H, W and C, k = 7 and k = 9,
    against the plain version (f32; the wgrad f64) and cuDNN's grouped
    conv, with negative controls (the dgrad with unflipped taps must
-   fail, on the staged-tile kernel and on the TMA stencil).
+   fail, on the staged-tile kernel and on the TMA stencil; the wgrad
+   with its last partial row left out of the sum must fail).
 4. ``serve``: full-width ``lm_base`` with seeded random weights behind
    ``Server.build`` (paged KV, fused kernel, 8 slots) answers 16
    requests. Checks: lengths and vocab range, the kernel ran exactly
@@ -1725,7 +1731,9 @@ def _fp_entry(op, cases, launches):
 
 H100_F32_FLOP_S = 67e12  # float32 outside the tensor cores
 
-# dW+db cases: (name, N, K, M, dtype). ViT-B/16 at batch 64: N = 64·197.
+# dW+db cases: (name, N, K, M, dtype). ViT-B/16 at batch 64: N = 64·197;
+# a ragged N (the wgmma kernel's partial last chunk), and K and M that no
+# tensor map takes (the mma.sync kernel, rows loaded element by element).
 FG_CASES = (
     ("vit_b16_qkv", 12_608, 768, 2304, torch.bfloat16),
     ("vit_b16_proj", 12_608, 768, 768, torch.bfloat16),
@@ -1733,7 +1741,10 @@ FG_CASES = (
     ("vit_b16_fc2", 12_608, 3072, 768, torch.bfloat16),
     ("vit_b16_head_f32", 64, 768, 1000, torch.float32),
     ("ragged_n", 1000, 256, 384, torch.bfloat16),
+    ("ragged_km", 1000, 250, 390, torch.bfloat16),
 )
+# The dropped-split control's shape: a plan of four splits of 1,024 rows.
+FG_CONTROL = ("split_control", 4096, 256, 256, torch.bfloat16)
 
 
 def fg_limit(terms: torch.Tensor, n: int) -> torch.Tensor:
@@ -1753,13 +1764,22 @@ def fg_limit(terms: torch.Tensor, n: int) -> torch.Tensor:
 
 def fg_case(fg, name, n, k, m, dtype, flush, g):
     """``matmul_dw_db`` against its plain version run in f32 on the same
-    inputs, the limit above, CUDA-event times of the kernel, the plain
-    version, the library yardstick (``torch.matmul(g.T, x)`` and
-    ``g.float().sum(0)``) and the bound."""
+    inputs, the limit above, run twice for equal bits, its plan (path,
+    tile, splits), CUDA-event times of the kernel, the plain version, two
+    library yardsticks and the bound. ``library_ms``:
+    ``torch.matmul(g.T, x)`` and ``g.float().sum(0)`` (dW rounded to
+    the inputs' dtype, and g copied to f32 first); ``library_f32_ms``:
+    ``torch.mm(g.T, x, out_dtype=torch.float32)`` and ``g.sum(0,
+    dtype=torch.float32)``, the kernel's own function (for bf16 inputs;
+    for f32 the plain matmul and sum)."""
     x = torch.randn(n, k, device="cuda", generator=g).to(dtype)
     gr = torch.randn(n, m, device="cuda", generator=g).to(dtype)
     dw, db = fg.matmul_dw_db_cuda(x, gr)
+    dw2, db2 = fg.matmul_dw_db_cuda(x, gr)
     torch.cuda.synchronize()
+    if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+        raise AssertionError(f"{name}: a second launch did not repeat the first bit for bit")
+    del dw2, db2
     if dw.shape != (m, k) or db.shape != (m,) or dw.dtype != torch.float32:
         raise AssertionError(f"{name}: dW {tuple(dw.shape)} {dw.dtype}, db {tuple(db.shape)}")
     if not (torch.isfinite(dw).all() and torch.isfinite(db).all()):
@@ -1778,17 +1798,24 @@ def fg_case(fg, name, n, k, m, dtype, flush, g):
     def library():
         return torch.matmul(gr.t(), x), gr.float().sum(0)
 
+    def library_f32():
+        if dtype == torch.float32:
+            return torch.mm(gr.t(), x), gr.sum(0)
+        return torch.mm(gr.t(), x, out_dtype=torch.float32), gr.sum(0, dtype=torch.float32)
+
     nbytes = x.element_size() * (n * k + n * m) + 4 * (m * k + m)
     flops = 2.0 * n * k * m
     rate = H100_BF16_FLOP_S if dtype == torch.bfloat16 else H100_F32_FLOP_S
     bound_bytes, bound_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / rate * 1e3
     return {
         "case": name, "shape": {"N": n, "K": k, "M": m, "dtype": str(dtype).split(".")[-1]},
+        "plan": fg.plan_for(x, gr), "repeats_bitwise": True,
         "max_abs_err": {w: e[0] for w, e in errs.items()},
         "err_over_limit": {w: e[1] for w, e in errs.items()},
         "ms": time_ms(lambda: fg.matmul_dw_db_cuda(x, gr), flush),
         "plain_ms": time_ms(lambda: fg.matmul_dw_db_plain(x, gr), flush),
         "library_ms": time_ms(library, flush),
+        "library_f32_ms": time_ms(library_f32, flush),
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         "bytes": int(nbytes), "flops": flops,
@@ -1796,11 +1823,33 @@ def fg_case(fg, name, n, k, m, dtype, flush, g):
 
 
 def fg_phase(fg, flush):
+    """Every ``FG_CASES`` case (between them all three kernels), then a
+    negative control: the kernel with
+    each dW tile's last row split left out of the merge
+    (``drop_last_split=True``) must exceed ``fg_limit`` more than
+    tenfold, at ``FG_CONTROL`` (a plan of several splits)."""
     g = torch.Generator(device="cuda").manual_seed(9753)
     cases = []
     for case in FG_CASES:
         cases.append(fg_case(fg, *case, flush, g))
         torch.cuda.empty_cache()
+    paths = {c["plan"]["path"] for c in cases}
+    if paths != {"wgmma", "mma_sync", "f32"}:
+        raise AssertionError(f"the dW+db cases took the kernels {sorted(paths)}, not all three")
+    _, n, k, m, dtype = FG_CONTROL
+    x = torch.randn(n, k, device="cuda", generator=g).to(dtype)
+    gr = torch.randn(n, m, device="cuda", generator=g).to(dtype)
+    ref_dw, ref_db = fg.matmul_dw_db_plain(x, gr)
+    xa, ga = x.float().abs(), gr.float().abs()
+    dw, db = fg.matmul_dw_db_cuda(x, gr, drop_last_split=True)
+    factor = max(_ratio(dw, ref_dw, fg_limit(ga.t() @ xa, n))[1],
+                 _ratio(db, ref_db, fg_limit(ga.sum(0), n))[1])
+    print("control " + json.dumps({"case": "dw_db_drop_last_split_" + FG_CONTROL[0],
+                                   "plan": fg.plan_for(x, gr), "err_over_limit": factor}),
+          flush=True)
+    if not factor > 10:
+        raise AssertionError(f"dW+db without each tile's last split stays within {factor:.2f}x "
+                             f"of its limit: a split is not merged")
     return cases
 
 
@@ -1814,7 +1863,8 @@ def _fg_entry(cases, launches):
         "max_abs_err": max(e for c in cases for e in c["max_abs_err"].values()),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"], "timed_case": "vit_b16_qkv",
+        "library_ms": main_case["library_ms"], "library_f32_ms": main_case["library_f32_ms"],
+        "timed_case": "vit_b16_qkv",
     }
 
 
@@ -2008,10 +2058,11 @@ B4_DW_LAYERS = (
 )
 
 # dw cases: (name, batch, H, W, C, k, dtype). The B4 layers at batch 64
-# in bf16 and an f32 one (the TMA stencil), ragged H and W with C = 130
-# (the staged-tile kernel: element loads, the last channel tile
-# part-filled) and C = 40 (the TMA stencil), k = 7, and k = 9 (the direct
-# kernels); depthwise.stencil_path names each case's path.
+# in bf16 and an f32 one (the TMA stencil, the staged-tile wgrad), ragged
+# H and W with C = 130 (the staged-tile kernel: element loads, the last
+# channel tile part-filled) and C = 40 (the TMA stencil), k = 7, and k = 9
+# (the direct kernels); depthwise.stencil_path and wgrad_path name each
+# case's paths.
 DW_CASES = tuple((f"b4_{c}x{h}_k{k}", 64, h, h, c, k, torch.bfloat16)
                  for c, h, k, _ in B4_DW_LAYERS) + (
     ("f32_672x24_k5", 8, 24, 24, 672, 5, torch.float32),
@@ -2040,15 +2091,28 @@ def dw_limit(ref: torch.Tensor, terms: torch.Tensor, n: int, dtype) -> torch.Ten
     return u * ref.abs() + n * 2 ** -22 * terms
 
 
-def dw_wgrad_depth(b: int, h: int, w: int, k: int) -> int:
-    """The longest chain of f32 additions behind one dw element in the
-    wgrad kernels: for k in {3, 5, 7}, a thread's 12 columns over each
-    row tile, then the block's 8 thread rows, then a strided share of the
-    partial rows and the 32 shares; the direct kernel (other k) walks a
-    thread row's positions, then the 8 rows."""
-    if k in (3, 5, 7):
-        parts = b * -(-w // DW_TILE_W)
-        return DW_TILE_W * -(-h // DW_TILE_H) + DW_TILE_H + -(-parts // 32) + 32
+def dw_wgrad_depth(plan: dict, b: int, h: int, w: int) -> int:
+    """The longest chain of f32 roundings (fused multiply-adds and
+    additions) behind one dw element in the wgrad kernels of a
+    ``depthwise.wgrad_plan`` for a ``[b, h, w, C]`` input:
+
+    * TMA path: a thread adds its ``run`` columns' products (one fma
+      each) to its sums for every output row of its strip, at most
+      ``rows`` of them: ``rows · run``; the block then adds its
+      ``tw / run`` runs' sums in run order, from zero: ``tw / run``;
+      the partial rows' sum adds a strided share of the ``partials``
+      rows (``ceil(partials / 32)``), then the 32 shares: 32 more.
+    * Staged tile: a thread's 12 columns over each row tile of 8 rows
+      (``12 · ceil(h / 8)``), the block's 8 thread rows, then the
+      partial rows' sum as above.
+    * Direct (other k): a thread row's share of the ``b·h·w``
+      positions (every 8th), then the 8 rows."""
+    if plan["path"] == "tma":
+        tail = -(-plan["partials"] // 32) + 32
+        return plan["rows"] * plan["run"] + plan["tw"] // plan["run"] + tail
+    if plan["path"] == "tile":
+        tail = -(-plan["partials"] // 32) + 32
+        return DW_TILE_W * -(-h // DW_TILE_H) + DW_TILE_H + tail
     return -(-b * h * w // DW_TILE_H) + DW_TILE_H
 
 
@@ -2057,9 +2121,10 @@ def dw_wgrad_limit(terms: torch.Tensor, depth: int) -> torch.Tensor:
     same inputs): a sum along chains of ``depth`` f32 additions errs by
     at most depth·2**-24·Σ|x·dy| to first order; twice that covers the
     second order. (An f32 sum of B·H·W = 2.3M products has no useful
-    worst-case bound, so the reference is f64.) A lost partial row (one
-    image's column strip of 64·16 at 190²) moves dw by about 1e-3 of
-    Σ|x·dy| against a limit of 4e-5 of it."""
+    worst-case bound, so the reference is f64.) A lost partial row moves
+    dw by the sum of its own products: at B4's 190² × 48 layer at batch
+    2 (76 partial rows of 5 output rows each) the dropped-partial control
+    missed this limit 217-fold on the card."""
     return 2 * depth * 2 ** -24 * terms
 
 
@@ -2123,7 +2188,7 @@ def dw_check(dwm, name, x, dy, taps, got, cudnn):
     del refs, xa, dya
     ref = dwm.wgrad_plain(x.double(), dy.double(), k)
     terms = dwm.wgrad_plain(x.double().abs(), dy.double().abs(), k)
-    lim = dw_wgrad_limit(terms, dw_wgrad_depth(b, h, w, k))
+    lim = dw_wgrad_limit(terms, dw_wgrad_depth(dwm.wgrad_plan_for(x, dy, k), b, h, w))
     err = (got[2].double() - ref).abs().max().item()
     ratio = ((got[2].double() - ref).abs() / lim.clamp(min=1e-300)).max().item()
     lib_ratio = ((got[2].double() - dwm.weight_taps(cudnn[2]).double()).abs()
@@ -2183,13 +2248,14 @@ def dw_case(dwm, name, b, h, w, c, k, dtype, flush, g):
     with torch.no_grad():
         got = (dwm.stencil_cuda(x, taps), dwm.stencil_cuda(dy, taps, flip=True),
                dwm.wgrad_cuda(x, dy, k))
-        again = (dwm.stencil_cuda(x, taps), dwm.stencil_cuda(dy, taps, flip=True))
+        again = (dwm.stencil_cuda(x, taps), dwm.stencil_cuda(dy, taps, flip=True),
+                 dwm.wgrad_cuda(x, dy, k))
         lib_y = torch.nn.functional.conv2d(x, weight, padding=k // 2, groups=c)
         lib_dx, lib_dw, _ = cudnn_dw_backward(dy, x, weight, [True, True, False])
     torch.cuda.synchronize()
     if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
-        raise AssertionError(f"{name}: a second forward or dgrad did not repeat the first "
-                             f"bit for bit")
+        raise AssertionError(f"{name}: a second forward, dgrad or wgrad did not repeat the "
+                             f"first bit for bit")
     del again
     for t, shape, dt in zip(got, ((b, c, h, w),) * 2 + ((k * k, c),),
                             (dtype, dtype, torch.float32)):
@@ -2198,7 +2264,8 @@ def dw_case(dwm, name, b, h, w, c, k, dtype, flush, g):
                                  f"want {shape} {dt}, finite")
     line = {"case": name, "shape": {"B": b, "H": h, "W": w, "C": c, "k": k,
                                     "dtype": str(dtype).split(".")[-1]},
-            "stencil_path": dwm.stencil_path(b, h, w, c, k, dtype), "repeats_bitwise": True}
+            "stencil_path": dwm.stencil_path(b, h, w, c, k, dtype),
+            "wgrad_plan": dwm.wgrad_plan_for(x, dy, k), "repeats_bitwise": True}
     line.update(dw_check(dwm, name, x, dy, taps, got, (lib_y, lib_dx, lib_dw)))
     del got, lib_y, lib_dx, lib_dw
     line.update(dw_times(dwm, x, dy, taps, flush))
@@ -2209,19 +2276,22 @@ def dw_case(dwm, name, b, h, w, c, k, dtype, flush, g):
 
 def dw_phase(dwm, flush):
     """Every ``DW_CASES`` case (each line names the stencil path its shape
-    takes, ``depthwise.stencil_path``), then two negative controls: the
-    dgrad run with unflipped taps on an asymmetric tap table must exceed
-    its limit (the taps are reversed where they must be), on the tile
-    path (the ragged C = 130 case) and on the TMA path (B4's 190² × 48 k3
-    layer at batch 2)."""
+    takes, ``depthwise.stencil_path``, and the wgrad's plan), then three
+    negative controls: the dgrad run with unflipped taps on an asymmetric
+    tap table must exceed its limit (the taps are reversed where they
+    must be), on the tile path (the ragged C = 130 case) and on the TMA
+    path (B4's 190² × 48 k3 layer at batch 2); and the wgrad with its
+    last partial row left out of the sum must exceed its limit more than
+    tenfold (every partial is summed) at that layer and batch."""
     g = torch.Generator(device="cuda").manual_seed(2468)
     cases = []
     for case in DW_CASES:
         cases.append(dw_case(dwm, *case, flush, g))
         torch.cuda.empty_cache()
-    off = [c["case"] for c in cases if c["case"].startswith("b4_") and c["stencil_path"] != "tma"]
+    off = [c["case"] for c in cases if c["case"].startswith("b4_")
+           and (c["stencil_path"], c["wgrad_plan"]["path"]) != ("tma", "tma")]
     if off:
-        raise AssertionError(f"B4 layers off the TMA stencil path: {off}")
+        raise AssertionError(f"B4 layers off the TMA stencil or wgrad path: {off}")
     for control, batch in (("ragged_13x11_c130_k7", None), ("b4_48x190_k3", 2)):
         _, b, h, w, c, k, dtype = next(cs for cs in DW_CASES if cs[0] == control)
         b = batch or b
@@ -2241,6 +2311,20 @@ def dw_phase(dwm, flush):
         if not factor > 10:
             raise AssertionError(f"the dgrad with unflipped taps ({path} path) stays within "
                                  f"{factor:.2f}x of its limit: the taps are not reversed")
+    _, _, h, w, c, k, dtype = next(cs for cs in DW_CASES if cs[0] == "b4_48x190_k3")
+    x, dy = (torch.randn(2, c, h, w, device="cuda", generator=g).to(dtype).contiguous(
+        memory_format=torch.channels_last) for _ in range(2))
+    plan = dwm.wgrad_plan_for(x, dy, k)
+    ref = dwm.wgrad_plain(x.double(), dy.double(), k)
+    lim = dw_wgrad_limit(dwm.wgrad_plain(x.double().abs(), dy.double().abs(), k),
+                         dw_wgrad_depth(plan, 2, h, w))
+    got = dwm.wgrad_cuda(x, dy, k, drop_last_partial=True).double()
+    factor = ((got - ref).abs() / lim.clamp(min=1e-300)).max().item()
+    print("control " + json.dumps({"case": "wgrad_drop_last_partial_b4_48x190_k3_b2",
+                                   "wgrad_plan": plan, "err_over_limit": factor}), flush=True)
+    if not factor > 10:
+        raise AssertionError(f"the wgrad without its last partial row stays within "
+                             f"{factor:.2f}x of its limit: a partial is not summed")
     return cases
 
 

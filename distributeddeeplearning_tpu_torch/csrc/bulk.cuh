@@ -1,9 +1,10 @@
 // mbarriers and bulk asynchronous copies (TMA) shared by the port's
-// ring-buffered kernels (paged_decode.cu, depthwise.cu): barrier set-up,
-// arrivals that expect bytes, parity waits, the 1-D bulk copy (no tensor
-// map) and the 4-D tiled copy, the proxy fence between a thread's
-// ordinary shared-memory writes and a later bulk copy into the same
-// bytes, and (host side) the tensor-map encoder, cuTensorMapEncodeTiled.
+// ring-buffered kernels (paged_decode.cu, depthwise.cu, fused_grads.cu):
+// barrier set-up, arrivals that expect bytes, parity waits, the 1-D bulk
+// copy (no tensor map) and the 2-D and 4-D tiled copies, the proxy fence
+// between a thread's ordinary shared-memory writes and a later bulk copy
+// into the same bytes, and (host side) the tensor-map encoder,
+// cuTensorMapEncodeTiled.
 
 #pragma once
 
@@ -54,6 +55,18 @@ __device__ __forceinline__ void copy_1d(void* dst, const void* src, uint32_t byt
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
           "r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A box of a 2-D tensor map at coordinates (c0 innermost, c1) into shared
+// memory, its bytes counted on `bar`; elements outside the tensor arrive
+// as zeros.
+__device__ __forceinline__ void copy_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
 }
 

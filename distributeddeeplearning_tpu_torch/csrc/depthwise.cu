@@ -63,15 +63,33 @@
 // * The direct kernel (any other odd k): one thread per output, taps read
 //   from global memory: right, not fast.
 // The dgrad is the forward reading the tap table reversed (the `flip`
-// argument; the TPU code reverses the table, `wt[::-1]`). The wgrad (not
-// redesigned): each block of the staged-tile shape walks every row tile of
-// a column strip with its K*K per-channel sums in f32 registers, sums its
-// 8 rows of threads in shared memory in a fixed order and writes one
-// partial row per (image, column strip); a second kernel sums the partials
-// in a fixed order. No atomics: dw repeats bit for bit, like the TPU's
-// partials-then-sum. k in {3, 5, 7} is compiled with k fixed; any other
-// odd k takes a direct wgrad (one block per tap and 32 channels). The
-// measured times are in PERF.md.
+// argument; the TPU code reverses the table, `wt[::-1]`).
+//
+// The wgrad (the TPU's `_wgrad_kernel`: partials per batch block, then one
+// sum) reads x and dy once each, so it is bound by bytes like the forward
+// (190^2 x 48, K 3: 444 MB, 133 us). It takes the path the forward takes,
+// but for f32 rows of at most 24 columns, which take the staged tile
+// (ops/depthwise.wgrad_path):
+// * The TMA row ring (the shapes above), under depthwise_plan.h's
+//   WgPlan: an item is (image, strip of rows, column tile, channel
+//   slice) and a second tensor map brings dy's rows
+//   (no halo) into the same ring slots as x's: ring row i holds padded x
+//   row i and dy row i, whose last reader is output row i for both. A
+//   thread owns `run` columns x V channels (V = 4, 2, 1 at k = 3, 5, 7:
+//   k*k*V <= 50 f32 sums in registers across the whole strip) and loads
+//   V channels at a time (8, 4 or 2 bytes of bf16); channel slices are
+//   fitted to C, so C = 24 and 48 leave no lanes idle. At the strip's end
+//   the block sums its runs in run order and writes one partial row per
+//   (image, strip, column tile).
+// * The staged-tile wgrad (ragged C, misaligned x or dy): each block of
+//   the staged-tile shape walks every row tile of a column strip with its
+//   K*K per-channel sums in f32 registers, sums its 8 rows of threads in
+//   shared memory in a fixed order and writes one partial row per (image,
+//   column strip).
+// * Any other odd k: a direct wgrad (one block per tap and 32 channels).
+// A second kernel sums the partial rows in a fixed order. No atomics: dw
+// repeats bit for bit, like the TPU's partials-then-sum. The measured
+// times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,10 +98,12 @@
 #include <type_traits>
 
 #include "bulk.cuh"
+#include "depthwise_plan.h"
 
 // Build switches (scripts/depthwise_ablation.py): DW_TMA_KERNEL forces
 // the TMA stencil's kernel (0: tma_kernel's choice, 1: vector, 2: lane);
-// DW_RING_EXTRA the ring's rows beyond k (0: the plan's choice).
+// DW_RING_EXTRA the stencil ring's rows beyond k (0: the plan's choice);
+// the wgrad's are in depthwise_plan.h.
 #ifndef DW_TMA_KERNEL
 #define DW_TMA_KERNEL 0
 #endif
@@ -93,16 +113,9 @@
 
 namespace {
 
-constexpr int kCB = 32;              // channels per block: one warp's lanes
-constexpr int kTH = 8;               // output rows per tile: one warp each
-constexpr int kTW = 12;              // output columns per thread
-constexpr int kThreads = kCB * kTH;  // 256
+constexpr int kThreads = kCB * kTH;  // 256: the staged tile's block (depthwise_plan.h)
 
 using bf16 = __nv_bfloat16;
-
-struct Shape {
-  int B, H, W, C;
-};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -465,7 +478,148 @@ __global__ void __launch_bounds__(kTmaMaxConsumers + 32)
   }
 }
 
-// wgrad partials: part[b * tiles_w + column tile][t][c]. Grid: (channel
+// ------------------------------------------------- the TMA row-ring wgrad
+
+// V consecutive channels of T at p (V-element aligned), as f32.
+template <typename T, int V>
+__device__ __forceinline__ void load_channels(const unsigned char* p, float* out) {
+  static_assert(V == 1 || V == 2 || V == 4, "a thread's channels: 1, 2 or 4");
+  if constexpr (sizeof(T) == 2) {
+    if constexpr (V == 1) {
+      out[0] = __uint_as_float(static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p)) << 16);
+    } else if constexpr (V == 2) {
+      const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+      out[0] = lo_bf16(u), out[1] = hi_bf16(u);
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      out[0] = lo_bf16(u.x), out[1] = hi_bf16(u.x), out[2] = lo_bf16(u.y), out[3] = hi_bf16(u.y);
+    }
+  } else {
+    if constexpr (V == 1) {
+      out[0] = *reinterpret_cast<const float*>(p);
+    } else if constexpr (V == 2) {
+      const float2 u = *reinterpret_cast<const float2*>(p);
+      out[0] = u.x, out[1] = u.y;
+    } else {
+      const float4 u = *reinterpret_cast<const float4*>(p);
+      out[0] = u.x, out[1] = u.y, out[2] = u.z, out[3] = u.w;
+    }
+  }
+}
+
+// The wgrad on the row ring. The producer (lane 0 of the warp after the
+// consumers) brings padded x rows h0-P .. h0+n_out+P-1 of the item, ring
+// row i with dy row h0+i (i < n_out): x row i is last read by output row
+// i, as dy row i is, so both leave the ring together. Compute thread
+// (run g, channel vector q) keeps its k*k x V sums in registers over the
+// whole strip: per output row its RW dy values, then per tap row the
+// RW + k - 1 x values of its run, one fma per (tap, column, channel).
+// Then the consumers sum their runs in run order through shared memory
+// and write the item's slice of its partial row.
+template <typename T, int K, int V, int RW>
+__global__ void __launch_bounds__(kWgMaxConsumers + 32, 2)
+    dwconv_wgrad_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                            const __grid_constant__ CUtensorMap dymap, float* __restrict__ part,
+                            Shape s, WgPlan pl) {
+  constexpr int P = K / 2, E = sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + pl.ring;
+  unsigned char* ring = smem + wg_ring_off(pl);
+  const int xrow = wg_xrow_bytes(pl, E), slot = wg_slot_bytes(pl, E);
+  int item = blockIdx.x;
+  const int c0 = item % pl.cslices * pl.cs;
+  item /= pl.cslices;
+  const int ctile = item % pl.ctiles;
+  item /= pl.ctiles;
+  const int strip = item % pl.strips, b = item / pl.strips;
+  const int w0 = ctile * pl.tw, h0 = strip * pl.rows, n_out = min(pl.rows, s.H - h0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < pl.ring; ++i) {
+      bulk::mbar_init(full + i, 1);
+      bulk::mbar_init(empty + i, pl.consumers / 32);
+    }
+    bulk::mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= pl.consumers) {
+    if (threadIdx.x == pl.consumers) {
+      const uint32_t xb = pl.box_w * pl.cs * E, db = pl.tw * pl.cs * E;
+      for (int i = 0; i < n_out + K - 1; ++i) {
+        const int sl = i % pl.ring;
+        if (i >= pl.ring) bulk::mbar_wait(empty + sl, (i / pl.ring - 1) & 1);
+        bulk::mbar_arrive_expect(full + sl, xb + (i < n_out ? db : 0u));
+        bulk::copy_4d(ring + sl * slot, &xmap, c0, w0 - P, h0 - P + i, b, full + sl);
+        if (i < n_out)
+          bulk::copy_4d(ring + sl * slot + xrow, &dymap, c0, w0, h0 + i, b, full + sl);
+      }
+    }
+    return;
+  }
+
+  const int vecs = pl.cs / V, runs = pl.tw / RW;
+  const int q = threadIdx.x % vecs, g = threadIdx.x / vecs;
+  const bool active = g < runs;
+  const int choff = q * V * E, col0 = g * RW, pitch = pl.cs * E;
+  float acc[K * K][V];
+#pragma unroll
+  for (int t = 0; t < K * K; ++t)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[t][e] = 0.f;
+  for (int i = 0; i < K - 1; ++i) bulk::mbar_wait(full + i % pl.ring, (i / pl.ring) & 1);
+  for (int r = 0; r < n_out; ++r) {
+    {
+      const int i = r + K - 1;
+      bulk::mbar_wait(full + i % pl.ring, (i / pl.ring) & 1);
+    }
+    if (active) {
+      const unsigned char* dyr = ring + (r % pl.ring) * slot + xrow + choff + col0 * pitch;
+      float d[RW][V];
+#pragma unroll
+      for (int o = 0; o < RW; ++o) load_channels<T, V>(dyr + o * pitch, d[o]);
+#pragma unroll
+      for (int di = 0; di < K; ++di) {
+        const unsigned char* xr = ring + ((r + di) % pl.ring) * slot + choff + col0 * pitch;
+#pragma unroll
+        for (int jj = 0; jj < RW + K - 1; ++jj) {
+          float xv[V];
+          load_channels<T, V>(xr + jj * pitch, xv);
+#pragma unroll
+          for (int dj = 0; dj < K; ++dj) {
+            const int o = jj - dj;
+            if (o < 0 || o >= RW) continue;
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+              acc[di * K + dj][e] = fmaf(xv[e], d[o][e], acc[di * K + dj][e]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) bulk::mbar_arrive(empty + r % pl.ring);
+  }
+
+  // Every copy has landed and every consumer is past the ring: its bytes
+  // take the runs' sums, which are then added in run order.
+  asm volatile("bar.sync 1, %0;\n" ::"r"(pl.consumers) : "memory");
+  float* red = reinterpret_cast<float*>(ring);  // [runs][K*K][cs]
+  if (active)
+#pragma unroll
+    for (int t = 0; t < K * K; ++t)
+#pragma unroll
+      for (int e = 0; e < V; ++e) red[(g * K * K + t) * pl.cs + q * V + e] = acc[t][e];
+  asm volatile("bar.sync 1, %0;\n" ::"r"(pl.consumers) : "memory");
+  const long long prow = (static_cast<long long>(b) * pl.strips + strip) * pl.ctiles + ctile;
+  for (int i = threadIdx.x; i < K * K * pl.cs; i += pl.consumers) {
+    const int t = i / pl.cs, cl = i % pl.cs;
+    float sum = 0.f;
+    for (int gg = 0; gg < runs; ++gg) sum += red[(gg * K * K + t) * pl.cs + cl];
+    if (c0 + cl < s.C) part[(prow * K * K + t) * s.C + c0 + cl] = sum;
+  }
+}
+
+// The staged-tile wgrad (shapes no tensor map takes): partials
+// part[b * tiles_w + column tile][t][c]. Grid: (channel
 // tiles x column tiles, 1, B), the channel tile fastest; each block walks
 // every row tile of its column strip.
 template <typename T, int K, bool kVec>
@@ -629,8 +783,14 @@ int launch_stencil(const void* x, const float* taps, void* y, Shape s, int flip,
   return (int)cudaGetLastError();
 }
 
+// dw = the sum of `rows` partial rows (each n floats), in a fixed order.
+int sum_partials(const float* part, float* dw, int rows, int n, cudaStream_t stream) {
+  dwconv_sum_partials_kernel<<<(n + 31) / 32, 1024, 0, stream>>>(part, dw, rows, n);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int K>
-int launch_wgrad(const void* x, const void* dy, float* part, float* dw, Shape s,
+int launch_wgrad(const void* x, const void* dy, float* part, float* dw, Shape s, int drop_last,
                  cudaStream_t stream) {
   const int tiles_w = (s.W + kTW - 1) / kTW;
   const dim3 grid(((s.C + kCB - 1) / kCB) * tiles_w, 1, s.B);
@@ -642,12 +802,8 @@ int launch_wgrad(const void* x, const void* dy, float* part, float* dw, Shape s,
       static_cast<const T*>(x), static_cast<const T*>(dy), part, s, tiles_w);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  const int n = K * K * s.C;
-  dwconv_sum_partials_kernel<<<(n + 31) / 32, 1024, 0, stream>>>(part, dw, s.B * tiles_w, n);
-  return (int)cudaGetLastError();
+  return sum_partials(part, dw, s.B * tiles_w - drop_last, K * K * s.C, stream);
 }
-
-constexpr int kMaxSmem = 232448;         // a block's dynamic shared memory at most
 
 int sm_count() {
   static const int n = [] {
@@ -674,32 +830,17 @@ __host__ __device__ constexpr int tma_run(bool vec, int W) {
   return vec ? (W > 12 ? 8 : 4) : (W % 12 == 0 ? 12 : 8);
 }
 
-// Output rows a strip: of the strip counts that leave at least 4 rows a
-// strip, the one whose items fill the card's block slots best (least
-// waves x (2 rows + halo), a halo row costing its load only).
-int strip_rows(int H, int K, long long tiles, long long slots) {
-  int best = H;
-  long long best_cost = -1;
-  for (int n = 1; n <= max(1, H / 4); ++n) {
-    const int rows = (H + n - 1) / n, strips = (H + rows - 1) / rows;
-    const long long cost = (tiles * strips + slots - 1) / slots * (2 * rows + K - 1);
-    if (best_cost < 0 || cost < best_cost) best_cost = cost, best = rows;
-  }
-  return best;
-}
-
-// Strips of `kernel`'s plan: rows by strip_rows at the blocks an SM the
-// kernel's registers, threads and shared memory allow.
-template <typename Kernel>
-void set_strips(TmaPlan& p, Kernel kernel, const Shape& s, int K) {
+// Strips of `kernel`'s plan (a TmaPlan or a WgPlan): rows by strip_rows
+// at the blocks an SM the kernel's registers, threads and shared memory
+// allow.
+template <typename Plan, typename Kernel>
+void set_strips(Plan& p, Kernel kernel, const Shape& s, int K) {
   int per_sm = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, p.consumers + 32, p.smem) !=
           cudaSuccess ||
       per_sm < 1)
     per_sm = 1;
-  p.rows = strip_rows(s.H, K, (long long)s.B * p.ctiles * p.cslices,
-                      (long long)sm_count() * per_sm);
-  p.strips = (s.H + p.rows - 1) / p.rows;
+  plan_strips(p, s, K, sm_count(), per_sm);
 }
 
 // The vector kernel's plan (k = 3): a tile is the whole row, its padded
@@ -760,6 +901,26 @@ TmaPlan tma_lane_plan(const Shape& s, int elem) {
   return p;
 }
 
+// A 4-D tensor map over an NHWC tensor [B, H, W, C] of T whose boxes are
+// (cs channels, box_w columns, one row, one image); 0 or a CUDA error.
+template <typename T>
+int nhwc_map(CUtensorMap* map, const void* base, const Shape& s, int cs, int box_w) {
+  const bulk::EncodeTiled encode = bulk::encoder();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const cuuint64_t e = sizeof(T);
+  const cuuint64_t dims[4] = {(cuuint64_t)s.C, (cuuint64_t)s.W, (cuuint64_t)s.H, (cuuint64_t)s.B};
+  const cuuint64_t strides[3] = {s.C * e, (cuuint64_t)s.W * s.C * e,
+                                 (cuuint64_t)s.H * s.W * s.C * e};
+  const cuuint32_t box[4] = {(cuuint32_t)cs, (cuuint32_t)box_w, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                4, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0
+             : (int)cudaErrorInvalidValue;
+}
+
 template <typename T, int K, int RW, bool kVec>
 int launch_stencil_tma(const void* x, const float* taps, void* y, Shape s, int flip,
                        cudaStream_t stream) {
@@ -772,20 +933,9 @@ int launch_stencil_tma(const void* x, const float* taps, void* y, Shape s, int f
   int rc = set_smem(kernel, pl.smem);
   if (rc != 0) return rc;
   set_strips(pl, kernel, s, K);
-  const bulk::EncodeTiled encode = bulk::encoder();
-  if (!encode) return (int)cudaErrorNotSupported;
-  const cuuint64_t e = sizeof(T);
-  const cuuint64_t dims[4] = {(cuuint64_t)s.C, (cuuint64_t)s.W, (cuuint64_t)s.H, (cuuint64_t)s.B};
-  const cuuint64_t strides[3] = {s.C * e, (cuuint64_t)s.W * s.C * e,
-                                 (cuuint64_t)s.H * s.W * s.C * e};
-  const cuuint32_t box[4] = {(cuuint32_t)pl.cs, (cuuint32_t)pl.box_w, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
   CUtensorMap map;
-  if (encode(&map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-             4, const_cast<void*>(x), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
+  rc = nhwc_map<T>(&map, x, s, pl.cs, pl.box_w);
+  if (rc != 0) return rc;
   const int items = s.B * pl.strips * pl.ctiles * pl.cslices;
   kernel<<<items, pl.consumers + 32, pl.smem, stream>>>(map, taps, static_cast<T*>(y), s, pl, flip);
   return (int)cudaGetLastError();
@@ -836,19 +986,79 @@ int stencil(const void* x, const float* taps, void* y, Shape s, int K, int flip,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int K, int RW>
+auto wgrad_tma_kernel() {
+  return dwconv_wgrad_tma_kernel<T, K, wgrad_vec(K), RW>;
+}
+
+// The TMA wgrad's plan for this card: depthwise_plan.h's geometry, then
+// strips at the occupancy of the kernel it picks (whose shared memory it
+// also sets); 0 or a CUDA error.
+template <typename T, int K>
+int wgrad_tma_plan_k(const Shape& s, WgPlan& pl) {
+  if (s.C % (16 / (int)sizeof(T)) != 0 || !wg_geometry(pl, s, K, sizeof(T)))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = pl.run == 4 ? wgrad_tma_kernel<T, K, 4>() : wgrad_tma_kernel<T, K, 8>();
+  const int rc = set_smem(kernel, pl.smem);
+  if (rc != 0) return rc;
+  set_strips(pl, kernel, s, K);
+  return 0;
+}
+
+template <typename T, int K>
+int wgrad_tma_k(const void* x, const void* dy, float* part, float* dw, Shape s, int drop_last,
+                cudaStream_t stream) {
+  WgPlan pl;
+  int rc = wgrad_tma_plan_k<T, K>(s, pl);
+  if (rc != 0) return rc;
+  CUtensorMap xmap, dymap;
+  if ((rc = nhwc_map<T>(&xmap, x, s, pl.cs, pl.box_w)) != 0) return rc;
+  if ((rc = nhwc_map<T>(&dymap, dy, s, pl.cs, pl.tw)) != 0) return rc;
+  const int partials = s.B * pl.strips * pl.ctiles;
+  const auto kernel = pl.run == 4 ? wgrad_tma_kernel<T, K, 4>() : wgrad_tma_kernel<T, K, 8>();
+  kernel<<<partials * pl.cslices, pl.consumers + 32, pl.smem, stream>>>(xmap, dymap, part, s, pl);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return sum_partials(part, dw, partials - drop_last, K * K * s.C, stream);
+}
+
 template <typename T>
-int wgrad(const void* x, const void* dy, float* part, float* dw, Shape s, int K,
-          cudaStream_t stream) {
+int wgrad_tma_plan(const Shape& s, int K, WgPlan& pl) {
   switch (K) {
-    case 3: return launch_wgrad<T, 3>(x, dy, part, dw, s, stream);
-    case 5: return launch_wgrad<T, 5>(x, dy, part, dw, s, stream);
-    case 7: return launch_wgrad<T, 7>(x, dy, part, dw, s, stream);
-    default:
-      dwconv_wgrad_direct_kernel<T><<<dim3((s.C + kCB - 1) / kCB, K * K), kThreads, 0,
-                                      stream>>>(static_cast<const T*>(x),
-                                                static_cast<const T*>(dy), dw, s, K);
-      return (int)cudaGetLastError();
+    case 3: return wgrad_tma_plan_k<T, 3>(s, pl);
+    case 5: return wgrad_tma_plan_k<T, 5>(s, pl);
+    case 7: return wgrad_tma_plan_k<T, 7>(s, pl);
+    default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// path as for the stencil: 0 = the TMA row ring, 1 = the staged tile, 2 =
+// the direct kernel (no partials, nothing to drop).
+template <typename T>
+int wgrad(const void* x, const void* dy, float* part, float* dw, Shape s, int K, int path,
+          int drop_last, cudaStream_t stream) {
+  if (path == 0) {
+    if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(dy) % 16)
+      return (int)cudaErrorInvalidValue;
+    switch (K) {
+      case 3: return wgrad_tma_k<T, 3>(x, dy, part, dw, s, drop_last, stream);
+      case 5: return wgrad_tma_k<T, 5>(x, dy, part, dw, s, drop_last, stream);
+      case 7: return wgrad_tma_k<T, 7>(x, dy, part, dw, s, drop_last, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (path == 1) {
+    switch (K) {
+      case 3: return launch_wgrad<T, 3>(x, dy, part, dw, s, drop_last, stream);
+      case 5: return launch_wgrad<T, 5>(x, dy, part, dw, s, drop_last, stream);
+      case 7: return launch_wgrad<T, 7>(x, dy, part, dw, s, drop_last, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (path != 2 || drop_last) return (int)cudaErrorInvalidValue;
+  dwconv_wgrad_direct_kernel<T><<<dim3((s.C + kCB - 1) / kCB, K * K), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), dw, s, K);
+  return (int)cudaGetLastError();
 }
 
 bool valid(int B, int H, int W, int C, int K, int dtype) {
@@ -877,18 +1087,36 @@ extern "C" int depthwise_stencil(const void* x, const float* taps, void* y, int 
                     : stencil<float>(x, taps, y, s, K, flip, path, st);
 }
 
-// Rows of the wgrad's partial buffer (each K*K*C floats): 0 when K takes
-// the direct kernel, which needs none.
-extern "C" int depthwise_wgrad_partials(int B, int W, int K) {
-  return (K == 3 || K == 5 || K == 7) ? B * ((W + kTW - 1) / kTW) : 0;
-}
-
-// dw = the wgrad of x and dy; part holds depthwise_wgrad_partials() rows.
+// dw = the wgrad of x and dy by the kernels `path` names (0 = TMA row
+// ring, 1 = staged tile, 2 = direct, as ops/depthwise.stencil_path
+// picks). part holds the partial rows depthwise_wgrad_plan counts (TMA: B
+// x strips x column tiles; tile: B x ceil(W / 12); direct: none), each
+// K*K*C floats. drop_last != 0 leaves the last partial row out of the sum
+// (a wrong variant, only for negative controls; not on the direct path).
+// An infeasible path returns cudaErrorInvalidValue.
 extern "C" int depthwise_wgrad(const void* x, const void* dy, float* part, float* dw, int B,
-                               int H, int W, int C, int K, int dtype, void* stream) {
+                               int H, int W, int C, int K, int dtype, int path, int drop_last,
+                               void* stream) {
   if (!valid(B, H, W, C, K, dtype)) return (int)cudaErrorInvalidValue;
   const Shape s = {B, H, W, C};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? wgrad<bf16>(x, dy, part, dw, s, K, st)
-                    : wgrad<float>(x, dy, part, dw, s, K, st);
+  return dtype == 0 ? wgrad<bf16>(x, dy, part, dw, s, K, path, drop_last, st)
+                    : wgrad<float>(x, dy, part, dw, s, K, path, drop_last, st);
+}
+
+// The plan depthwise_wgrad runs on the current device for this shape and
+// path, as kWgPlanInts ints (depthwise_plan.h's wgrad_plan_ints); 0 or a
+// CUDA error. x and dy are taken 16-byte aligned.
+extern "C" int depthwise_wgrad_plan(int B, int H, int W, int C, int K, int dtype, int path,
+                                    int* out) {
+  if (!valid(B, H, W, C, K, dtype) || path < 0 || path > 2) return (int)cudaErrorInvalidValue;
+  const Shape s = {B, H, W, C};
+  if (path != 0) {
+    wgrad_plan_ints(nullptr, s, path, out);
+    return 0;
+  }
+  WgPlan pl;
+  const int rc = dtype == 0 ? wgrad_tma_plan<bf16>(s, K, pl) : wgrad_tma_plan<float>(s, K, pl);
+  if (rc == 0) wgrad_plan_ints(&pl, s, path, out);
+  return rc;
 }

@@ -1,7 +1,7 @@
 // Warpgroup building blocks shared by the port's wgmma kernels
-// (flash_packed.cu, flash.cu): swizzled shared-memory tiles, wgmma
-// descriptors, the m64nNk16 bf16 -> f32 products with A from shared
-// memory or from registers, and the fences around them.
+// (flash_packed.cu, flash.cu, fused_grads.cu): swizzled shared-memory
+// tiles, wgmma descriptors, the m64nNk16 bf16 -> f32 products with A from
+// shared memory or from registers, and the fences around them.
 //
 // Shared-memory tiles are row-major [rows][D] bf16 without padding, their
 // 16-byte chunks swizzled as wgmma's canonical layouts want (the XOR of a
@@ -82,13 +82,32 @@ __device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int rows,
   return make_desc<D>(tile + kk * 16 * row_bytes<D>(), rows * 128, 8 * row_bytes<D>());
 }
 
+// MN-major A operand (the contraction runs along the tile's rows, the
+// product's 64 rows along its columns): rows m0 .. m0+63 of the product are
+// the 64-column panel m0 / 64 of a tile of `rows` rows stored as such
+// panels (desc_mn's layout), k-step kk its rows 16kk .. 16kk+15.
+__device__ __forceinline__ uint64_t desc_mn_a(const unsigned char* tile, int rows, int m0, int kk) {
+  return desc_mn<128>(tile + (m0 / 64) * rows * 128, rows, kk);
+}
+
 // wgmma.mma_async m64nNk16, bf16 -> f32, both operands from shared
-// memory, accumulating when `acc` is non-zero: A K-major, B K-major (TB =
-// 0) or MN-major (TB = 1).
-template <int N, int TB = 0>
+// memory, accumulating when `acc` is non-zero: A K-major (TA = 0) or
+// MN-major (TA = 1), B K-major (TB = 0) or MN-major (TB = 1).
+template <int N, int TB = 0, int TA = 0>
 struct Wgmma;
-template <int TB>
-struct Wgmma<128, TB> {
+template <int TB, int TA>
+struct Wgmma<8, TB, TA> {
+  static __device__ __forceinline__ void mma(float (*d)[4], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, "
+        "%8, %7;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
+        : "l"(a), "l"(b), "r"(acc), "n"(TB), "n"(TA));
+  }
+};
+template <int TB, int TA>
+struct Wgmma<128, TB, TA> {
   static __device__ __forceinline__ void mma(float (*d)[4], uint64_t a, uint64_t b, int acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -97,7 +116,7 @@ struct Wgmma<128, TB> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
           "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
           "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -114,18 +133,18 @@ struct Wgmma<128, TB> {
           "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
           "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
           "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+        : "l"(a), "l"(b), "r"(acc), "n"(TB), "n"(TA));
   }
 };
-template <int TB>
-struct Wgmma<64, TB> {
+template <int TB, int TA>
+struct Wgmma<64, TB, TA> {
   static __device__ __forceinline__ void mma(float (*d)[4], uint64_t a, uint64_t b, int acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
           "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
           "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -134,22 +153,22 @@ struct Wgmma<64, TB> {
           "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
           "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
           "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+        : "l"(a), "l"(b), "r"(acc), "n"(TB), "n"(TA));
   }
 };
-template <int TB>
-struct Wgmma<32, TB> {
+template <int TB, int TA>
+struct Wgmma<32, TB, TA> {
   static __device__ __forceinline__ void mma(float (*d)[4], uint64_t a, uint64_t b, int acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+        "}, %16, %17, p, 1, 1, %20, %19;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
           "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
           "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
           "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+        : "l"(a), "l"(b), "r"(acc), "n"(TB), "n"(TA));
   }
 };
 

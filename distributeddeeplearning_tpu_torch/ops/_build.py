@@ -6,7 +6,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 includes PyTorch's headers, so a build takes seconds. The build runs at
 first use, never at import: importing this module needs no CUDA
 toolkit. The hash covers the source and the shared headers
-(``csrc/*.cuh``), so a stale library is never loaded.
+(``csrc/*.cuh``, ``csrc/*.h``), so a stale library is never loaded. A
+``csrc/<name>.cpp`` (host code that a kernel's source shares, such as
+``depthwise_plan.cpp``) builds the same way with the host's C++
+compiler, which needs no card.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -50,18 +55,34 @@ def nvcc() -> str:
     )
 
 
+def host_cxx() -> str:
+    """The host's C++ compiler: ``$CXX``, then ``c++``, then ``g++`` on
+    ``PATH``. Raises when there is none."""
+    for c in (os.environ.get("CXX"), shutil.which("c++"), shutil.which("g++")):
+        if c:
+            return c
+    raise RuntimeError("no host C++ compiler ($CXX, c++, g++) for the csrc/*.cpp sources")
+
+
+def _source(name: str) -> Path:
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (keyed by source, headers and
-    flags)."""
+    """Where ``csrc/<name>.cu`` (or ``.cpp``) builds to (keyed by source,
+    headers and flags)."""
+    source = _source(name)
     h = hashlib.sha256()
-    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    for path in [source, *sorted(CSRC.glob("*.cuh")), *sorted(CSRC.glob("*.h"))]:
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS if source.suffix == ".cu" else HOST_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; returns the
+    """Compile ``csrc/<name>.cu`` with ``nvcc`` (or ``csrc/<name>.cpp``
+    with the host compiler) unless its library exists; returns the
     library path. The compiler's output (``-Xptxas -v``: registers,
     shared memory, spills) is kept beside the library as ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -70,15 +91,17 @@ def build(name: str) -> Path:
         return path
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     log = path.with_suffix(".log")
+    source = _source(name)
+    command = ([nvcc(), *NVCC_FLAGS] if source.suffix == ".cu" else [host_cxx(), *HOST_FLAGS])
     res = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [*command, "-o", str(tmp), str(source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     log.write_text(res.stdout)
     if res.returncode != 0:
         tail = "\n".join(res.stdout.splitlines()[-20:])
         raise RuntimeError(
-            f"kernel build failed: {name} (nvcc rc={res.returncode}, see {log}):\n{tail}"
+            f"build failed: {name} ({command[0]} rc={res.returncode}, see {log}):\n{tail}"
         )
     os.replace(tmp, path)  # atomic: a reader never sees half a file
     return path
@@ -91,7 +114,8 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``), built on
+    first use."""
     lib = _loaded.get(name)
     if lib is None:
         path = build(name)

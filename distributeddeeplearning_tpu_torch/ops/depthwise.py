@@ -14,7 +14,8 @@ returned in the weight's dtype.
 
 On a CUDA tensor each of the three launches the hand-written Hopper
 kernels of ``csrc/depthwise.cu`` (bf16 or f32; the stencil by the path
-:func:`stencil_path` picks; counted in
+:func:`stencil_path` picks, the wgrad by :func:`wgrad_path` under the
+plan of ``csrc/depthwise_plan.h``; counted in
 :data:`launches` and :data:`launches_by_op`); on a CPU tensor it runs
 the plain version (:func:`stencil_plain`, :func:`wgrad_plain`); any
 other device raises. An unsupported shape raises ``ValueError``, as
@@ -50,6 +51,9 @@ launches_by_op: Dict[str, int] = {"depthwise_conv": 0, "depthwise_dgrad": 0,
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}  # csrc/depthwise.cu's `dtype`
 _PATHS = {"tma": 0, "tile": 1, "direct": 2}  # csrc/depthwise.cu's `path`
 _TMA_MAX_W = 1024  # the vector kernel's ring of whole rows, a 16-byte vector wide, fits
+# csrc/depthwise_plan.h's wgrad_plan_ints, in order.
+_WG_FIELDS = ("cs", "cslices", "tw", "ctiles", "rows", "strips", "box_w", "ring", "run", "vec",
+              "consumers", "smem", "partials", "items")
 
 
 def stencil_path(b: int, h: int, w: int, c: int, k: int, dtype: torch.dtype,
@@ -66,6 +70,62 @@ def stencil_path(b: int, h: int, w: int, c: int, k: int, dtype: torch.dtype,
     if (c * elem) % 16 or not aligned or w > _TMA_MAX_W:
         return "tile"
     return "tma"
+
+
+_WGRAD_TILE_F32_MAX_W = 24  # f32 rows this narrow: the staged tile measured faster
+
+
+def wgrad_path(b: int, h: int, w: int, c: int, k: int, dtype: torch.dtype,
+               aligned: bool = True) -> str:
+    """Which wgrad kernels a shape takes: :func:`stencil_path`'s rule,
+    except that f32 rows of at most 24 columns take the staged tile
+    (``"tile"``) where a tensor map could take them: on B4's layers in
+    f32 at batch 8 the staged tile beat the TMA ring at every such layer
+    and lost at every wider one (``scripts/depthwise_ablation.py``,
+    PERF.md). A function of the shape, dtype and alignment alone."""
+    path = stencil_path(b, h, w, c, k, dtype, aligned)
+    if path == "tma" and dtype == torch.float32 and w <= _WGRAD_TILE_F32_MAX_W:
+        return "tile"
+    return path
+
+
+def _plan_library() -> ctypes.CDLL:
+    lib = _build.load("depthwise_plan")
+    lib.depthwise_wgrad_plan_host.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.depthwise_wgrad_plan_host.restype = ctypes.c_int
+    return lib
+
+
+def _plan_dict(path: str, ints) -> dict:
+    if path != "tma":
+        return {"path": path, "partials": ints[12]}
+    return dict(zip(_WG_FIELDS, ints), path=path)
+
+
+def wgrad_plan(b: int, h: int, w: int, c: int, k: int, dtype: torch.dtype, aligned: bool = True,
+               sm_count: int = 132, per_sm: int = 2) -> dict:
+    """How the wgrad cuts a call, from shapes alone: ``path`` as
+    :func:`wgrad_path`, and ``partials``, the partial rows (each
+    ``[k², C]`` f32) its blocks write before one kernel sums them in a
+    fixed order. The plan is ``csrc/depthwise_plan.h``'s, the one the
+    card runs, built here for the host (``csrc/depthwise_plan.cpp``), so
+    it needs a C++ compiler but no card.
+
+    On the TMA path an item is (image, strip of ``rows`` output rows,
+    column tile of ``tw`` columns, slice of ``cs`` channels); a compute
+    thread owns ``run`` columns x ``vec`` channels and keeps their k²
+    sums in registers across the strip; the ring holds ``ring`` slots of
+    an x row and a dy row; one partial row per (image, strip, column
+    tile), ``items`` blocks. The strips fill ``sm_count`` SMs at
+    ``per_sm`` blocks each (the plan's aim, two; on the card the kernel's
+    occupancy, :func:`wgrad_plan_for`). The staged-tile path writes one
+    partial row per (image, 12 columns); the direct path none."""
+    path = wgrad_path(b, h, w, c, k, dtype, aligned)
+    ints = (ctypes.c_int * len(_WG_FIELDS))()
+    if _plan_library().depthwise_wgrad_plan_host(b, h, w, c, k, _DTYPES[dtype], _PATHS[path],
+                                                 sm_count, per_sm, ints) != 0:
+        raise ValueError(f"no wgrad plan for {b}x{h}x{w}x{c} k{k} {dtype} on the {path} path")
+    return _plan_dict(path, list(ints))
 
 
 def supports(h: int, w: int, c: int, k: int, stride: int) -> bool:
@@ -125,10 +185,10 @@ def _library() -> ctypes.CDLL:
     # Pointers as c_void_p: without argtypes ctypes would pass 32 bits.
     lib.depthwise_stencil.argtypes = [p] * 3 + [i] * 8 + [p]
     lib.depthwise_stencil.restype = i
-    lib.depthwise_wgrad.argtypes = [p] * 4 + [i] * 6 + [p]
+    lib.depthwise_wgrad.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.depthwise_wgrad.restype = i
-    lib.depthwise_wgrad_partials.argtypes = [i] * 3
-    lib.depthwise_wgrad_partials.restype = i
+    lib.depthwise_wgrad_plan.argtypes = [i] * 7 + [p]
+    lib.depthwise_wgrad_plan.restype = i
     return lib
 
 
@@ -170,9 +230,28 @@ def stencil_cuda(x: torch.Tensor, taps: torch.Tensor, flip: bool = False) -> tor
     return y
 
 
-def wgrad_cuda(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
-    """Launch the wgrad kernels (per-block partials, then their sum in a
-    fixed order) on CUDA ``x`` and ``dy`` of one dtype: ``[k², C]`` f32."""
+def wgrad_plan_for(x: torch.Tensor, dy: torch.Tensor, k: int) -> dict:
+    """The plan :func:`wgrad_cuda` runs on CUDA ``x`` and ``dy`` (NHWC),
+    as the loaded library computes it on their card (its SM count, the
+    kernel's occupancy, the library's build constants): the fields of
+    :func:`wgrad_plan`."""
+    n, c, h, w = x.shape
+    path = wgrad_path(n, h, w, c, k, x.dtype, x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0)
+    ints = (ctypes.c_int * len(_WG_FIELDS))()
+    with torch.cuda.device(x.device):
+        rc = _library().depthwise_wgrad_plan(n, h, w, c, k, _cuda_args(x)[4], _PATHS[path], ints)
+    if rc != 0:
+        raise RuntimeError(f"depthwise wgrad plan ({path}) failed: CUDA error {rc}")
+    return _plan_dict(path, list(ints))
+
+
+def wgrad_cuda(x: torch.Tensor, dy: torch.Tensor, k: int, *,
+               drop_last_partial: bool = False) -> torch.Tensor:
+    """Launch the wgrad kernels on CUDA ``x`` and ``dy`` of one dtype
+    under :func:`wgrad_plan_for` (per-block partial rows, then their sum in
+    a fixed order): ``[k², C]`` f32. ``drop_last_partial`` leaves the
+    last partial row out of the sum: a wrong variant, only for negative
+    controls (not on the direct path, which has none)."""
     global launches
     _check(x, k, x.shape[1])
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
@@ -180,15 +259,17 @@ def wgrad_cuda(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
                          f"{tuple(x.shape)} {x.dtype}")
     x, dy = _nhwc(x), _nhwc(dy)
     n, h, w, c, dtype, stream = _cuda_args(x)
-    lib = _library()
-    rows = lib.depthwise_wgrad_partials(n, w, k)
-    part = torch.empty(max(rows, 1), k * k, c, dtype=torch.float32, device=x.device)
+    plan = wgrad_plan_for(x, dy, k)
+    if drop_last_partial and not plan["partials"]:
+        raise ValueError("the direct wgrad has no partial rows to drop")
+    part = torch.empty(max(plan["partials"], 1), k * k, c, dtype=torch.float32, device=x.device)
     dw = torch.empty(k * k, c, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = lib.depthwise_wgrad(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                                 n, h, w, c, k, dtype, stream)
+        rc = _library().depthwise_wgrad(
+            x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), n, h, w, c, k, dtype,
+            _PATHS[plan["path"]], int(drop_last_partial), stream)
     if rc != 0:
-        raise RuntimeError(f"depthwise wgrad launch failed: CUDA error {rc}")
+        raise RuntimeError(f"depthwise wgrad ({plan['path']}) launch failed: CUDA error {rc}")
     launches += 1
     launches_by_op["depthwise_wgrad"] += 1
     return dw
@@ -204,12 +285,17 @@ def stencil(x: torch.Tensor, taps: torch.Tensor, flip: bool = False) -> torch.Te
     raise ValueError(f"depthwise: unsupported device {x.device}")
 
 
-def wgrad(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+def wgrad(x: torch.Tensor, dy: torch.Tensor, k: int, *,
+          drop_last_partial: bool = False) -> torch.Tensor:
     """The wgrad: the kernels on CUDA tensors, the plain version on CPU
-    tensors."""
+    tensors. ``drop_last_partial`` is :func:`wgrad_cuda`'s negative
+    control; the plain version has no partials, so a CPU tensor raises."""
     if x.device.type == "cuda":
-        return wgrad_cuda(x, dy, k)
+        return wgrad_cuda(x, dy, k, drop_last_partial=drop_last_partial)
     if x.device.type == "cpu":
+        if drop_last_partial:
+            raise ValueError("drop_last_partial is a control of the CUDA kernels; the plain "
+                             "version on the CPU has no partial rows to drop")
         return wgrad_plain(x, dy, k)
     raise ValueError(f"depthwise: unsupported device {x.device}")
 
@@ -254,4 +340,4 @@ def depthwise_conv2d_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tenso
 
 __all__ = ["depthwise_conv2d", "depthwise_conv2d_plain", "launches", "launches_by_op",
            "stencil", "stencil_cuda", "stencil_path", "stencil_plain", "supports", "weight_taps",
-           "wgrad", "wgrad_cuda", "wgrad_plain"]
+           "wgrad", "wgrad_cuda", "wgrad_path", "wgrad_plain", "wgrad_plan", "wgrad_plan_for"]

@@ -30,6 +30,8 @@ from typing import Optional
 import torch
 
 from distributeddeeplearning_tpu_torch.ops import _build
+# The merge's counters (one per row, tile and head group), per (device, stream).
+from distributeddeeplearning_tpu_torch.ops._counters import counters as _counters
 
 # Kernel launches since the last reset (chip_smoke.py zeroes both before
 # driving the serving path and reads them after): the total, and the
@@ -374,22 +376,6 @@ def fused_decode_attention(
     launches += 1
     launches_by_store[key] += 1
     return out
-
-
-# Per (device, stream): the int32 counters of the kernel's in-launch
-# merge (one per row, tile and head group). They start zero and every
-# launch leaves them zero, so one buffer serves every call on its stream,
-# where launches run in order; another stream gets its own. A buffer only
-# grows.
-_COUNTERS: dict = {}
-
-
-def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    buf = _COUNTERS.get((device, stream))
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[(device, stream)] = buf
-    return buf
 
 
 def _library() -> ctypes.CDLL:

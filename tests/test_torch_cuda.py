@@ -28,7 +28,10 @@ machine that has only PyTorch for CUDA:
   kernels), once through autograd, and ``attn_impl="auto"`` taking the
   kernel on the card;
 * the dW+db kernel (bf16 at a ragged N, f32 at ViT's head) against its
-  plain version, and once through ``bias_dense``'s backward;
+  plain version, and once through ``bias_dense``'s backward; a sweep
+  over N ∈ {1, 63, 64, 1000, 12,608} × (K, M) aligned (the wgmma path,
+  one and several splits) and ragged (mma.sync), bf16 and f32, within
+  chip_smoke's ``fg_limit``, each launch repeated bit for bit;
 * the decode-attention kernel on int8 and fp8 caches (dense, paged with
   a trash block of large finite codes) against its plain version, with
   chip_smoke's ``bf16_tolerance``, and a scales-of-1 control that must
@@ -42,7 +45,9 @@ machine that has only PyTorch for CUDA:
   one B4 case with its limits, and once through ``depthwise_conv2d``'s
   autograd (one launch of each; unsupported shapes raise); the TMA
   stencil at C ∈ {8, 24, 48, 960} × W ∈ {12, 190, 255, 257} × k ∈ {3,
-  5, 7}, bf16 and f32, forward and dgrad, with a bitwise repeat;
+  5, 7}, bf16 and f32, forward and dgrad, with a bitwise repeat; and the
+  TMA wgrad over the same sweep against the plain version in f64 within
+  ``dw_wgrad_limit`` at its plan's depth, with a bitwise repeat;
 * quantized serving (int8 and fp8 KV and weights, paged, fused kernel)
   of a small f32 LM on the card: the kernel launched once per layer per
   forward, under its storage dtype, and the greedy streams of the plain
@@ -311,6 +316,45 @@ def test_cuda_dw_db_kernel_matches_plain(case):
     assert fg.launches == before + 1
     want_dw, want_db = fg.matmul_dw_db_cuda(x.detach().to(dtype), gy.to(dtype))
     assert torch.equal(dw, want_dw) and torch.equal(db, want_db)
+
+
+# (K, M) of the dW+db sweep: ViT-B/16's qkv and fc2 widths, a narrow
+# aligned pair (the wgmma path: tile edges masked), an odd count of M
+# tiles, and two ragged pairs (mma.sync: element loads, tiles
+# part-filled).
+DW_DB_SWEEP_KM = ((768, 2304), (3072, 768), (264, 136), (256, 384), (250, 390), (12, 20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n", [1, 63, 64, 1000, 12_608])
+def test_cuda_dw_db_kernel_sweep(n, dtype):
+    """``matmul_dw_db`` against its plain version (f32 on the same
+    inputs) within chip_smoke's ``fg_limit``, at one N and every (K, M)
+    of the sweep; each launch repeated bit for bit; bf16 aligned shapes
+    on the wgmma path, ragged ones on mma.sync."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the dW+db kernel is CUDA C++ for sm_90a")
+    import chip_smoke as cs
+    from distributeddeeplearning_tpu_torch.ops import fused_grads as fg
+
+    g = torch.Generator(device="cuda").manual_seed(n)
+    for k, m in DW_DB_SWEEP_KM:
+        x = torch.randn(n, k, device="cuda", generator=g).to(dtype)
+        gr = torch.randn(n, m, device="cuda", generator=g).to(dtype)
+        plan = fg.plan_for(x, gr)
+        want = "f32" if dtype == torch.float32 else (
+            "wgmma" if k % 8 == 0 and m % 8 == 0 else "mma_sync")
+        what = f"n{n} k{k} m{m} {dtype} {plan}"
+        assert plan["path"] == want, what
+        dw, db = fg.matmul_dw_db_cuda(x, gr)
+        dw2, db2 = fg.matmul_dw_db_cuda(x, gr)
+        torch.cuda.synchronize()
+        assert torch.equal(dw, dw2) and torch.equal(db, db2), what
+        ref_dw, ref_db = fg.matmul_dw_db_plain(x, gr)
+        xa, ga = x.float().abs(), gr.float().abs()
+        assert cs._ratio(dw, ref_dw, cs.fg_limit(ga.t() @ xa, n))[1] <= 1.0, what
+        assert cs._ratio(db, ref_db, cs.fg_limit(ga.sum(0), n))[1] <= 1.0, what
 
 
 @pytest.mark.cuda
@@ -607,3 +651,40 @@ def test_cuda_depthwise_autograd_launches_each_kernel_once():
     assert dw.dtype == torch.float32 and torch.equal(dw, want)
     with pytest.raises(ValueError):
         dwm.depthwise_conv2d(x.detach(), weight.detach()[:, :, :4, :4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_cuda_depthwise_wgrad_sweep(k, dtype, monkeypatch):
+    """The TMA wgrad against the plain version in f64 within chip_smoke's
+    ``dw_wgrad_limit`` at its plan's depth, at C in {8, 24, 48, 960} and
+    W in {12, 190, 255, 257} (one column tile, and several), H 11; each
+    launch repeated bit for bit. The TMA path is taken wherever
+    ``stencil_path`` allows it, f32 rows of 12 included, which
+    ``wgrad_path`` would send to the staged tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the depthwise kernels are CUDA C++ for sm_90a")
+    import chip_smoke as cs
+    from distributeddeeplearning_tpu_torch.ops import depthwise as dwm
+
+    monkeypatch.setattr(dwm, "wgrad_path", dwm.stencil_path)
+
+    g = torch.Generator(device="cuda").manual_seed(10 + k)
+    for c in (8, 24, 48, 960):
+        for w in (12, 190, 255, 257):
+            b, h = (1, 11) if c * w > 20_000 else (2, 11)
+            x, dy = (torch.randn(b, c, h, w, device="cuda", generator=g).to(dtype).contiguous(
+                memory_format=torch.channels_last) for _ in range(2))
+            plan = dwm.wgrad_plan_for(x, dy, k)
+            what = f"c{c} w{w} k{k} {dtype} {plan}"
+            assert plan["path"] == "tma", what
+            got = dwm.wgrad_cuda(x, dy, k)
+            again = dwm.wgrad_cuda(x, dy, k)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), what
+            ref = dwm.wgrad_plain(x.double(), dy.double(), k)
+            lim = cs.dw_wgrad_limit(dwm.wgrad_plain(x.double().abs(), dy.double().abs(), k),
+                                    cs.dw_wgrad_depth(plan, b, h, w))
+            ratio = ((got.double() - ref).abs() / lim.clamp(min=1e-300)).max().item()
+            assert got.shape == (k * k, c) and ratio <= 1.0, (what, ratio)

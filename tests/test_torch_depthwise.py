@@ -13,6 +13,16 @@ JAX package's Pallas kernel (``ops/pallas/depthwise.py``, interpreted).
   flipped stencil, dw from the wgrad).
 * ``supports`` agrees with JAX's wherever JAX's VMEM term holds, and
   every shape it refuses raises ``ValueError``.
+* ``wgrad_plan`` (the wgrad's items and partial rows, as
+  ``csrc/depthwise_plan.h`` computes them, built for the host): every
+  (image, row, column, channel) in exactly one item of the kernel's item
+  order, at B4's ten layers and ``chip_smoke``'s other ``DW_CASES``;
+  B4's layers on the TMA path with channel slices that divide C (f32
+  rows of at most 24 columns on the staged tile, ``wgrad_path``); where
+  two blocks would not fit an SM, narrower channel slices before
+  narrower column tiles; ``chip_smoke.dw_wgrad_depth`` the longest chain
+  the plan's items give; the dropped-partial control refused on the
+  CPU.
 """
 
 import jax
@@ -166,3 +176,119 @@ def test_stencil_path_sends_b4_layers_to_the_tma_ring():
     assert paths["ragged_17x9_c40_k7"] == "tma"
     assert paths["ragged_13x11_c130_k7"] == paths["ragged_13x11_c130_k3_f32"] == "tile"
     assert paths["direct_13x11_c130_k9"] == "direct"
+
+
+def _wgrad_cases():
+    import chip_smoke
+
+    return [(name, b, h, w, c, k, dtype) for name, b, h, w, c, k, dtype in chip_smoke.DW_CASES]
+
+
+def _tma_items(plan, b, h, w, c):
+    """The TMA wgrad's items in the kernel's order (channel slice fastest,
+    then column tile, strip, image), as (image, rows, columns, channels)
+    ranges clipped to the tensor."""
+    items = []
+    for item in range(plan["items"]):
+        cslice, rest = item % plan["cslices"], item // plan["cslices"]
+        ctile, rest = rest % plan["ctiles"], rest // plan["ctiles"]
+        strip, image = rest % plan["strips"], rest // plan["strips"]
+        h0, w0, c0 = strip * plan["rows"], ctile * plan["tw"], cslice * plan["cs"]
+        items.append((image, range(h0, min(h, h0 + plan["rows"])),
+                      range(w0, min(w, w0 + plan["tw"])), range(c0, min(c, c0 + plan["cs"]))))
+    return items
+
+
+@pytest.mark.parametrize("name,b,h,w,c,k,dtype", _wgrad_cases(), ids=[c[0] for c in _wgrad_cases()])
+def test_wgrad_plan_covers_every_element_once(name, b, h, w, c, k, dtype):
+    plan = dw.wgrad_plan(b, h, w, c, k, dtype)
+    assert plan["path"] == dw.wgrad_path(b, h, w, c, k, dtype)
+    if plan["path"] == "tile":
+        assert plan["partials"] == b * -(-w // 12)
+        return
+    if plan["path"] == "direct":
+        assert plan["partials"] == 0
+        return
+    items = _tma_items(plan, b, h, w, c)
+    # the items are a product of per-axis ranges: each axis covered once,
+    # and each combination once, is every element once
+    for axis, size in ((1, h), (2, w), (3, c)):
+        seen = np.zeros(size, dtype=np.int64)
+        for r in {(it[axis].start, it[axis].stop) for it in items}:
+            assert r[0] < r[1], (name, axis, plan)  # no empty item
+            seen[r[0]:r[1]] += 1
+        assert (seen == 1).all(), (name, axis, plan)
+    keys = {(it[0], it[1].start, it[2].start, it[3].start) for it in items}
+    assert len(keys) == len(items) == b * plan["strips"] * plan["ctiles"] * plan["cslices"]
+    assert {it[0] for it in items} == set(range(b))
+    assert plan["partials"] == b * plan["strips"] * plan["ctiles"]
+    assert plan["box_w"] == plan["tw"] + k - 1 <= 256 and plan["cs"] <= 256
+    assert plan["tw"] % plan["run"] == 0 and plan["cs"] % plan["vec"] == 0
+    assert (plan["tw"] // plan["run"]) * (plan["cs"] // plan["vec"]) <= plan["consumers"] <= 256
+    assert plan["ring"] >= k + 1 and plan["smem"] <= 232_448
+
+
+def test_wgrad_plan_sends_b4_layers_to_the_tma_path():
+    """B4's ten layers take the TMA wgrad, their channel slices divide C
+    (C = 24 and 48 included: no padded channel, no idle lane but in a
+    warp's tail), and two blocks fit an SM's shared memory."""
+    import chip_smoke
+
+    for c, h, k, _ in chip_smoke.B4_DW_LAYERS:
+        plan = dw.wgrad_plan(64, h, h, c, k, torch.bfloat16)
+        assert plan["path"] == "tma", (c, h, k, plan)
+        assert plan["cs"] * plan["cslices"] == c, (c, h, k, plan)
+        assert 2 * (plan["smem"] + 1024) <= 233_472, (c, h, k, plan)
+        assert plan["vec"] == {3: 4, 5: 2, 7: 1}[k]
+
+
+def test_wgrad_plan_halves_channel_slices_before_narrowing_tiles():
+    """f32 48² x 336 at k = 5: an 84-channel slice of the whole row would
+    not fit two blocks an SM; the plan halves the slice (44 channels, no
+    byte added) and keeps the whole row as one column tile, where
+    narrower tiles would each re-read a 4-column halo."""
+    plan = dw.wgrad_plan(8, 48, 48, 336, 5, torch.float32)
+    assert plan["path"] == "tma"
+    assert (plan["cs"], plan["cslices"], plan["tw"], plan["ctiles"]) == (44, 8, 48, 1), plan
+    assert 2 * (plan["smem"] + 1024) <= 233_472, plan
+    wide = dw.wgrad_plan(64, 48, 48, 336, 5, torch.bfloat16)  # the same layer in bf16 fits
+    assert (wide["cs"], wide["tw"], wide["ctiles"]) == (56, 48, 1), wide
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wgrad_path_takes_the_tile_for_narrow_f32_rows(dtype):
+    """The wgrad follows ``stencil_path`` but for f32 rows of at most 24
+    columns, which take the staged tile; B4's ten layers in bf16 all take
+    the TMA ring."""
+    import chip_smoke
+
+    for c, h, k, _ in chip_smoke.B4_DW_LAYERS:
+        want = "tile" if dtype == torch.float32 and h <= 24 else "tma"
+        assert dw.wgrad_path(8, h, h, c, k, dtype) == want, (c, h, k, dtype)
+        assert dw.stencil_path(8, h, h, c, k, dtype) == "tma"
+    assert dw.wgrad_path(4, 13, 11, 130, 7, dtype) == "tile"  # ragged C, as the stencil
+    assert dw.wgrad_path(2, 13, 11, 128, 9, dtype) == "direct"
+
+
+@pytest.mark.parametrize("name,b,h,w,c,k,dtype", _wgrad_cases(), ids=[c[0] for c in _wgrad_cases()])
+def test_dw_wgrad_depth_agrees_with_the_plan_chain(name, b, h, w, c, k, dtype):
+    """``chip_smoke.dw_wgrad_depth`` against the chain the plan's items
+    give: on the TMA path the most output rows an item holds times a
+    thread's columns (one fma each), its runs, then the partial rows'
+    sum (a strided share of 32, then the 32 shares)."""
+    import chip_smoke
+
+    plan = dw.wgrad_plan(b, h, w, c, k, dtype)
+    depth = chip_smoke.dw_wgrad_depth(plan, b, h, w)
+    if plan["path"] != "tma":
+        assert depth == (chip_smoke.DW_TILE_W * -(-h // 8) + 8 + -(-plan["partials"] // 32) + 32
+                         if plan["path"] == "tile" else -(-b * h * w // 8) + 8)
+        return
+    chain = max(len(rows) for _, rows, _, _ in _tma_items(plan, b, h, w, c)) * plan["run"]
+    assert depth == chain + plan["tw"] // plan["run"] + -(-plan["partials"] // 32) + 32
+
+
+def test_dropped_partial_control_is_refused_on_the_cpu():
+    x = torch.zeros(2, 48, 19, 19)
+    with pytest.raises(ValueError, match="drop_last_partial"):
+        dw.wgrad(x, x, 3, drop_last_partial=True)

@@ -19,7 +19,17 @@ mode on the CPU, as its own tests run it) on the same numpy inputs.
   forward bitwise, and in f32 the gradients of a plain ``Dense`` within
   1e-5 relative (both take the same f32 products);
 * on the CPU the wrapper runs the plain version and launches nothing;
-  the card path's dtype checks raise instead of running it.
+  the card path's dtype checks raise instead of running it;
+* ``dw_db_plan`` (the wgmma kernel's tile and row splits): every row of
+  N in exactly one split, every split non-empty, at every
+  ``chip_smoke.FG_CASES`` shape and at N in {1, 63, 64, 1000}; ViT-B/16's
+  proj takes one wave of at least 80 % of an H100's 132 SMs; at
+  ``chip_smoke.FG_CONTROL`` the splits, each summed in f32 and merged in
+  split order, agree with the plain version within
+  ``chip_smoke.fg_limit``, while dropping the last split misses it more
+  than tenfold (what the card's negative control relies on); that
+  control, ``drop_last_split``, is refused on the CPU;
+* ``chip_smoke.FG_CASES`` reach all three kernels by ``kernel_path``.
 """
 
 import jax
@@ -119,3 +129,89 @@ def test_validation_and_card_path_checks():
                              torch.zeros(4, 8, dtype=torch.float16))
     with pytest.raises(NotImplementedError):
         fg.matmul_dw_db_cuda(torch.zeros(4, 8, dtype=torch.bfloat16), torch.zeros(4, 8))
+
+
+def _fg_plan_cases():
+    import chip_smoke
+
+    cases = [(name, n, k, m) for name, n, k, m, _ in chip_smoke.FG_CASES]
+    return cases + [(f"qkv_n{n}", n, 768, 2304) for n in (1, 63, 64, 1000)]
+
+
+@pytest.mark.parametrize("name,n,k,m", _fg_plan_cases(), ids=[c[0] for c in _fg_plan_cases()])
+def test_dw_db_plan_covers_every_row_once(name, n, k, m):
+    plan = fg.dw_db_plan(n, k, m, 132)
+    chunks, cps, splits = -(-n // 64), plan["chunks_per_split"], plan["splits"]
+    seen = np.zeros(n, dtype=np.int64)
+    for split in range(splits):
+        lo = split * cps * 64
+        hi = min(n, (split + 1) * cps * 64)
+        assert lo < hi, (name, plan)  # no split is empty
+        seen[lo:hi] += 1
+    assert (seen == 1).all(), (name, plan)
+    assert cps * splits >= chunks > cps * (splits - 1)
+    assert plan["tile_k"] in (128, 256) and plan["tile_m"] == 128
+    assert plan["tiles"] == -(-m // 128) * -(-k // plan["tile_k"])
+    assert plan["blocks"] == plan["tiles"] * splits
+    assert plan["merge"] == ("last_block" if splits > 1 else "none")
+
+
+def test_dw_db_plan_fills_the_card_at_proj():
+    """ViT-B/16's proj (N 12,608, K = M = 768) has 18 dW tiles of 128 x
+    256 or 36 of 128 x 128: the row splits make one wave of at least 80 %
+    of an H100's 132 SMs, and no tail wave (one split would leave 96 or
+    114 SMs idle; 128 x 256 in 7 splits, 126 blocks, merges more bytes
+    than 128 x 128 in 3, 108 blocks, and measured slower: PERF.md)."""
+    plan = fg.dw_db_plan(12_608, 768, 768, 132)
+    assert plan["waves"] == 1 and 0.8 * 132 <= plan["blocks"] <= 132, plan
+    assert plan["splits"] > 1
+
+
+def test_split_merge_order_and_the_dropped_split_control():
+    """The kernel's arithmetic under its plan at chip_smoke's control
+    shape: each split's rows summed in f32, the partials merged in split
+    order, is within ``fg_limit`` of the plain version; without the last
+    split it misses the limit more than tenfold."""
+    import chip_smoke
+
+    _, n, k, m, _ = chip_smoke.FG_CONTROL
+    plan = fg.dw_db_plan(n, k, m, 132)
+    assert plan["splits"] > 1, plan
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(n, k).astype(np.float32)).bfloat16()
+    g = torch.from_numpy(rng.randn(n, m).astype(np.float32)).bfloat16()
+    ref_dw, ref_db = fg.matmul_dw_db_plain(x, g)
+    lim_dw = chip_smoke.fg_limit(g.float().abs().t() @ x.float().abs(), n)
+    lim_db = chip_smoke.fg_limit(g.float().abs().sum(0), n)
+    rows = plan["chunks_per_split"] * 64
+    parts = [fg.matmul_dw_db_plain(x[i:i + rows], g[i:i + rows]) for i in range(0, n, rows)]
+    assert len(parts) == plan["splits"]
+
+    def merged(live):
+        dw, db = torch.zeros(m, k), torch.zeros(m)
+        for pdw, pdb in parts[:live]:
+            dw, db = dw + pdw, db + pdb
+        return max(chip_smoke._ratio(dw, ref_dw, lim_dw)[1], chip_smoke._ratio(db, ref_db, lim_db)[1])
+
+    assert merged(len(parts)) <= 1.0
+    assert merged(len(parts) - 1) > 10
+
+
+def test_fg_cases_take_every_kernel():
+    """``chip_smoke.FG_CASES`` reach all three kernels of
+    ``csrc/fused_grads.cu`` by ``kernel_path``'s rule: wgmma (ViT-B/16's
+    bf16 Dense layers, ragged N), mma.sync (K and M not multiples of 8)
+    and the f32 kernel (the head)."""
+    import chip_smoke
+
+    paths = {}
+    for name, n, k, m, dtype in chip_smoke.FG_CASES:
+        x, g = torch.zeros(n, k, dtype=dtype), torch.zeros(n, m, dtype=dtype)
+        paths.setdefault(fg.kernel_path(x, g), []).append(name)
+    assert set(paths) == {"wgmma", "mma_sync", "f32"}, paths
+    assert paths["mma_sync"] == ["ragged_km"] and paths["f32"] == ["vit_b16_head_f32"]
+
+
+def test_drop_last_split_is_refused_on_the_cpu():
+    with pytest.raises(ValueError, match="drop_last_split"):
+        fg.matmul_dw_db(torch.zeros(1000, 256), torch.zeros(1000, 384), drop_last_split=True)
