@@ -29,8 +29,13 @@ non-zero.
    kernel dropping each tile's last key split, and the int8 kernel given
    scales of 1, must fail);
    ``matmul_stats`` and
-   ``bn_relu_matmul_stats`` at the four ResNet-50 training shapes, a
-   ragged M and a prologue channel with σ ≪ |μ|; the three flash
+   ``bn_relu_matmul_stats`` at the four ResNet-50 training shapes (the
+   plain version timed), at the rest of the forward's twelve shapes
+   (``FB_MODEL_SHAPES``; the ``fbforward`` line sums them by launches),
+   a ragged M and a prologue channel with σ ≪ |μ|, each run twice with
+   equal bits, its line naming the plan, timed beside the library
+   yardstick and a bare ``torch.matmul``, with a negative control (each
+   panel's last block left out of the statistics must fail); the three flash
    kernels (forward, dq, dk/dv) at lm_base training, its longest
    sequence, lm_large's head dim 96, ViT-B/16's ragged 197 tokens, a
    ragged cross-attention and a near one-hot softmax, the backward run
@@ -401,15 +406,32 @@ def kernel_phase(pd, flush):
     return cases
 
 
-FB_ROW_TILE = 128  # csrc/fused_block.cu kBM: rows of y per block
-
-# The training path's shapes (ResNet-50, batch 64, 224 px): (where, M, K, N).
+# The training path's shapes (ResNet-50, batch 64, 224 px): (where, M, K, N),
+# both ops at each, with the plain version timed.
 FB_SHAPES = (
     ("stage1_conv3", 200_704, 64, 256),
     ("stage1_conv1", 200_704, 256, 64),
     ("stage3_conv1", 12_544, 1024, 256),
     ("stage4_conv3", 3_136, 512, 2048),
 )
+# Every call of the ResNet-50 forward at batch 64 and 224 px (the port's
+# fused bottlenecks, models/resnet.py): (op, M, K, N, launches a forward).
+FB_MODEL_SHAPES = (
+    ("matmul_stats", 200_704, 64, 64, 1),
+    ("matmul_stats", 200_704, 256, 64, 2),
+    ("matmul_stats", 200_704, 256, 128, 1),
+    ("matmul_stats", 50_176, 512, 128, 3),
+    ("matmul_stats", 50_176, 512, 256, 1),
+    ("matmul_stats", 12_544, 1024, 256, 5),
+    ("matmul_stats", 12_544, 1024, 512, 1),
+    ("matmul_stats", 3_136, 2048, 512, 2),
+    ("bn_relu_matmul_stats", 200_704, 64, 256, 3),
+    ("bn_relu_matmul_stats", 50_176, 128, 512, 4),
+    ("bn_relu_matmul_stats", 12_544, 256, 1024, 6),
+    ("bn_relu_matmul_stats", 3_136, 512, 2048, 3),
+)
+# The dropped-partial control's shape: 33 blocks a panel in 6 merge groups.
+FB_CONTROL = ("bn_relu_matmul_stats", 12_544, 256, 1024)
 
 
 def fb_y_limit(ref: torch.Tensor) -> torch.Tensor:
@@ -433,36 +455,56 @@ def fb_y_limit(ref: torch.Tensor) -> torch.Tensor:
     return 2 ** -8 * ref.abs() + 2 ** -8 * row_max
 
 
-def fb_stats_limit(terms: torch.Tensor, m: int) -> torch.Tensor:
+def fb_stats_limit(terms: torch.Tensor, depth: int) -> torch.Tensor:
     """Per-column limit on |kernel Σ - f64 Σ of the kernel's own y|.
 
-    The kernel sums each 128-row tile in f32, then the tiles' partials
-    in f32 in a fixed order. Recursive f32 summation of n terms errs by
-    at most (n-1)·2**-24·Σ|term|, so a BM-row tile sum followed by a
-    sum over the row tiles stays within (BM + tiles)·2**-24·Σ|term|
-    (|y| for Σy, y² for Σy²). At M = 200,704 that is about 1e-4 of
-    Σ|term|; a dropped row tile moves Σy² by about 1/1568 = 6.4e-4 of
-    it and fails. (M·2**-24, 0.012, would pass it.)"""
-    tiles = -(-m // FB_ROW_TILE)
-    return (FB_ROW_TILE + tiles) * 2 ** -24 * terms
+    The kernel's order (``csrc/fused_block_plan.h``): a thread sums its
+    column over its warp's 16 rows of each of its block's items in turn
+    (at most items_per_block · 16 terms), the block sums its 8 warps'
+    rows in order, the last block of a merge group the group's block rows
+    (group), the last group of the panel the group rows (groups), all in
+    f32. Recursive f32 summation of n terms errs by at most
+    (n-1)·2**-24·Σ|term|, and a chain of such sums by at most the sum of
+    its levels' n, so the error stays within depth·2**-24·Σ|term| (|y|
+    for Σy, y² for Σy²), depth the plan's ``stat_depth``: 223 at
+    stage1_conv3 (12 items, 8 warps, 12 + 11), about 1.3e-5 of Σ|term|.
+    Leaving one of 33 blocks out (the dropped-partial control at
+    ``FB_CONTROL``, depth 3 · 16 + 8 + 6 + 6 = 68) moves Σy² by about
+    1/33 of it, some 7,000 times the limit."""
+    return depth * 2 ** -24 * terms
 
 
-def fb_case(name, fb, op, a, w, flush, *, bn=None):
+def _fb_stats_ratio(s, ss, y, depth):
+    """The larger of |Σ - exact| / limit for Σy and Σy² (exact: f64 sums
+    of the kernel's own y)."""
+    y64 = y.double()
+    ratio = 0.0
+    for got, exact, terms in ((s, y64.sum(0), y64.abs().sum(0)),
+                              (ss, (y64 * y64).sum(0), (y64 * y64).sum(0))):
+        d = (got.double() - exact).abs()
+        ratio = max(ratio, (d / fb_stats_limit(terms, depth).clamp(min=1e-300)).max().item())
+    return ratio
+
+
+def fb_case(name, fb, op, a, w, flush, *, bn=None, plain=True):
     """One fused-block case: the kernel against its plain version run in
-    f32 on the same bf16 inputs, the two limits above, and CUDA-event
-    times of the kernel, the plain version (bf16 operands), the library
-    yardstick (torch.matmul, then the two column sums; the elementwise
-    prologue first for bn_relu) and the bound."""
+    f32 on the same bf16 inputs, the two limits above, run twice for
+    equal bits, its plan, and CUDA-event times of the kernel, the plain
+    version (bf16 operands; with ``plain``), the library yardstick
+    (torch.matmul, then the two column sums; the elementwise prologue
+    first for bn_relu), one bare ``torch.matmul`` of the same operands
+    (for bn_relu of a z computed before the timer: a floor for any
+    library route) and the bound."""
     m, k = a.shape
     n = w.shape[0]
     if bn is None:
         def kern():
             return fb.matmul_stats(a, w)
 
-        def plain():
+        def plain_fn():
             return fb.matmul_stats_plain(a, w)
 
-        ref_y = fb.matmul_stats_plain(a.float(), w.float())[0]
+        z = a
         prologue_bytes = 0
     else:
         mean, var, scale, bias = bn
@@ -470,17 +512,20 @@ def fb_case(name, fb, op, a, w, flush, *, bn=None):
         def kern():
             return fb.bn_relu_matmul_stats(a, mean, var, scale, bias, w)
 
-        def plain():
+        def plain_fn():
             return fb.bn_relu_matmul_stats_plain(a, mean, var, scale, bias, w)
 
         inv = torch.rsqrt(var + 1e-5) * scale
         z = torch.relu(a.float() * inv + (bias - mean * inv)).to(a.dtype)
-        ref_y = fb.matmul_stats_plain(z.float(), w.float())[0]
-        del z
         prologue_bytes = 4 * 4 * k
+    ref_y = fb.matmul_stats_plain(z.float(), w.float())[0]
     with torch.no_grad():
         y, s, ss = kern()
+        y2, s2, ss2 = kern()
     torch.cuda.synchronize()
+    if not (torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(ss, ss2)):
+        raise AssertionError(f"{name}: a second launch did not repeat the first bit for bit")
+    del y2, s2, ss2
     if y.shape != (m, n) or y.dtype != torch.bfloat16:
         raise AssertionError(f"{name}: y {tuple(y.shape)} {y.dtype}")
     yf = y.float()
@@ -492,19 +537,11 @@ def fb_case(name, fb, op, a, w, flush, *, bn=None):
     y_ratio = (diff / lim.clamp(min=torch.finfo(torch.float32).tiny)).max().item()
     if not (diff <= lim).all():
         raise AssertionError(f"{name}: |y - plain| exceeds its limit {y_ratio:.2f}x (max {err})")
-    y64 = y.double()
-    s_ratio = 0.0
-    for got, exact, terms, what in (
-        (s, y64.sum(0), y64.abs().sum(0), "sum"),
-        (ss, (y64 * y64).sum(0), (y64 * y64).sum(0), "sumsq"),
-    ):
-        d = (got.double() - exact).abs()
-        lim_s = fb_stats_limit(terms, m)
-        ratio = (d / lim_s.clamp(min=1e-300)).max().item()
-        s_ratio = max(s_ratio, ratio)
-        if not (d <= lim_s).all():
-            raise AssertionError(f"{name}: {what} exceeds its limit {ratio:.2f}x")
-    del y64, yf, diff, lim
+    del yf, diff, lim, ref_y
+    plan = fb.plan_for(a, w, bn is not None)
+    s_ratio = _fb_stats_ratio(s, ss, y, plan["stat_depth"])
+    if s_ratio > 1.0:
+        raise AssertionError(f"{name}: the statistics exceed their limit {s_ratio:.2f}x")
 
     # Library yardstick: one bf16 product, then the column sums (f32).
     if bn is None:
@@ -528,11 +565,13 @@ def fb_case(name, fb, op, a, w, flush, *, bn=None):
     with torch.no_grad():
         out = {
             "case": name, "op": "matmul_stats" if bn is None else "bn_relu_matmul_stats",
-            "shape": {"M": m, "K": k, "N": n},
+            "shape": {"M": m, "K": k, "N": n}, "plan": plan, "repeats_bitwise": True,
             "max_abs_err": err, "y_err_over_limit": y_ratio,
             "stats_err_over_limit": s_ratio,
-            "ms": time_ms(kern, flush), "plain_ms": time_ms(plain, flush),
+            "ms": time_ms(kern, flush),
+            "plain_ms": time_ms(plain_fn, flush) if plain else "not timed",
             "library_ms": time_ms(library, flush),
+            "gemm_ms": time_ms(lambda: torch.matmul(z, w.t()), flush),
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "bytes": int(nbytes), "flops": flops,
@@ -541,8 +580,15 @@ def fb_case(name, fb, op, a, w, flush, *, bn=None):
 
 
 def fused_block_phase(fb, flush):
-    """Both ops at the four training shapes, a ragged M for each (not a
-    multiple of the 128-row tile), and a prologue channel with σ ≪ |μ|."""
+    """Both ops at the four training shapes (the plain version timed), at
+    every other shape of ``FB_MODEL_SHAPES``, a ragged M for each (not a
+    multiple of the 128-row tile), and a prologue channel with σ ≪ |μ|;
+    the ``fbforward`` line (the model shapes' launch-weighted sums, and
+    the unweighted sum of the ``FB_SHAPES`` cases, comparable with an
+    older smoke's); then
+    a negative control: the kernel leaving each panel's last block out of
+    its statistics (``drop_last_partial=True``) at ``FB_CONTROL`` must
+    exceed ``fb_stats_limit`` more than tenfold."""
     dev, bf = "cuda", torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(4321)
 
@@ -565,24 +611,58 @@ def fused_block_phase(fb, flush):
         var = (af * af).mean(0) - mean * mean
         return a, (mean, var, 1.0 + 0.1 * randn(k), 0.1 * randn(k))
 
+    def case(name, op, m, k, n, plain):
+        w = weights(n, k)
+        if op == "matmul_stats":
+            return fb_case(name, fb, op, randn(m, k).to(bf), w, flush, plain=plain)
+        a, bn = bn_inputs(m, k)
+        return fb_case(name, fb, op, a, w, flush, bn=bn, plain=plain)
+
     cases = []
     for where, m, k, n in FB_SHAPES:
-        w = weights(n, k)
-        a = randn(m, k).to(bf)
-        cases.append(fb_case(f"matmul_stats/{where}", fb, "matmul_stats", a, w, flush))
-        a, bn = bn_inputs(m, k)
-        cases.append(fb_case(f"bn_relu_matmul_stats/{where}", fb, "bn_relu", a, w,
-                             flush, bn=bn))
-        del a, w, bn
+        for op in ("matmul_stats", "bn_relu_matmul_stats"):
+            cases.append(case(f"{op}/{where}", op, m, k, n, True))
+            torch.cuda.empty_cache()
+    model = []
+    for op, m, k, n, per_forward in FB_MODEL_SHAPES:
+        c = next((c for c in cases if c["op"] == op and c["shape"] == {"M": m, "K": k, "N": n}),
+                 None)
+        if c is None:
+            c = case(f"{op}/model_{m}x{k}x{n}", op, m, k, n, False)
+            cases.append(c)
+            torch.cuda.empty_cache()
+        model.append((c, per_forward))
     m, k, n = 3_136 + 77, 512, 128
-    w = weights(n, k)
-    cases.append(fb_case("matmul_stats/ragged_m", fb, "matmul_stats",
-                         randn(m, k).to(bf), w, flush))
-    a, bn = bn_inputs(m, k)
-    cases.append(fb_case("bn_relu_matmul_stats/ragged_m", fb, "bn_relu", a, w, flush, bn=bn))
+    cases.append(case("matmul_stats/ragged_m", "matmul_stats", m, k, n, True))
+    cases.append(case("bn_relu_matmul_stats/ragged_m", "bn_relu_matmul_stats", m, k, n, True))
     a, bn = bn_inputs(12_544, 256, wide=3)
     cases.append(fb_case("bn_relu_matmul_stats/sigma_much_less_than_mu", fb, "bn_relu",
                          a, weights(256, 256), flush, bn=bn))
+    del a, bn
+
+    sums = {key: sum(c[key] * per for c, per in model)
+            for key in ("ms", "library_ms", "gemm_ms", "bound_ms")}
+    print("fbforward " + json.dumps({
+        "launches": sum(per for _, per in model), "sums_ms": sums,
+        # the eight FB_SHAPES cases, which an older smoke times too
+        "fb_shapes_ms": sum(c["ms"] for c in cases[:2 * len(FB_SHAPES)]),
+        "kernel_over_bound": sums["ms"] / sums["bound_ms"],
+        "per_shape": [{"case": c["case"], "launches": per, "ms": c["ms"],
+                       "library_ms": c["library_ms"], "gemm_ms": c["gemm_ms"],
+                       "bound_ms": c["bound_ms"], "panel": c["plan"]["panel"],
+                       "grid": c["plan"]["grid"]} for c, per in model]}), flush=True)
+
+    op, m, k, n = FB_CONTROL
+    a, (mean, var, scale, bias) = bn_inputs(m, k)
+    w = weights(n, k)
+    y, s, ss = fb.bn_relu_matmul_stats(a, mean, var, scale, bias, w, drop_last_partial=True)
+    plan = fb.plan_for(a, w, True)
+    factor = _fb_stats_ratio(s, ss, y, plan["stat_depth"])
+    print("control " + json.dumps({"case": "fused_block_drop_last_partial", "plan": plan,
+                                   "err_over_limit": factor}), flush=True)
+    if not factor > 10:
+        raise AssertionError(f"the fused block without each panel's last block stays within "
+                             f"{factor:.2f}x of its limit: a partial is not merged")
     return cases
 
 
@@ -1249,7 +1329,7 @@ def _family(key: str) -> str:
     for fam, marks in (("flash (ours)", ("flash_",)),
                        ("packed attention (ours)", ("packed_",)),
                        ("dw_db (ours)", ("dw_db_",)),
-                       ("fused_block (ours)", ("matmul_stats", "reduce_partials")),
+                       ("fused_block (ours)", ("matmul_stats",)),
                        ("gemm (library)", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
                        ("conv (library)", ("conv", "cudnn")),
                        ("copy/set", ("memcpy", "memset")),
@@ -2679,7 +2759,7 @@ def main(argv=None) -> int:
         by_op = fused_line["launches_by_op"]
         profile_train(state, step, batches, card, fused_line["step_ms"],
                       "fused resnet50 train step, batch 64, 224 px, bf16",
-                      ("matmul_stats_kernel", "reduce_partials"))
+                      ("matmul_stats",))
         del state, step, batches
         torch.cuda.empty_cache()
         _, state, step, batches = train_phase(fb, card, fused=False)

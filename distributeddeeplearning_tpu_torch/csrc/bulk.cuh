@@ -1,9 +1,10 @@
 // mbarriers and bulk asynchronous copies (TMA) shared by the port's
-// ring-buffered kernels (paged_decode.cu, depthwise.cu, fused_grads.cu):
-// barrier set-up, arrivals that expect bytes, parity waits, the 1-D bulk
-// copy (no tensor map) and the 2-D and 4-D tiled copies, the proxy fence
-// between a thread's ordinary shared-memory writes and a later bulk copy
-// into the same bytes, and (host side) the tensor-map encoder,
+// ring-buffered kernels (paged_decode.cu, depthwise.cu, fused_grads.cu,
+// fused_block.cu): barrier set-up, arrivals that expect bytes, parity
+// waits, the 1-D bulk copy (no tensor map) and the 2-D and 4-D tiled
+// copies, the 2-D tiled store with its commit and wait groups, the proxy
+// fence between a thread's ordinary shared-memory writes and a later bulk
+// copy of the same bytes, and (host side) the tensor-map encoder,
 // cuTensorMapEncodeTiled.
 
 #pragma once
@@ -83,8 +84,35 @@ __device__ __forceinline__ void copy_4d(void* dst, const CUtensorMap* map, int c
       : "memory");
 }
 
+// A box of shared memory into a 2-D tensor map at coordinates (c0
+// innermost, c1), as a bulk group of this thread; elements outside the
+// tensor are not written. Commit with store_commit; the thread that
+// issued it waits with store_wait_read before the box's bytes are written
+// again, and with store_wait before it exits.
+__device__ __forceinline__ void store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until at most N of this thread's committed stores still read shared memory.
+template <int N>
+__device__ __forceinline__ void store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Until at most N of this thread's committed stores are incomplete.
+template <int N>
+__device__ __forceinline__ void store_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Orders this thread's earlier ordinary shared-memory writes before its
-// later bulk copies (a different proxy) into the same bytes.
+// later bulk copies (a different proxy) of the same bytes: into them, or
+// (store_2d) out of them.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

@@ -319,15 +319,6 @@ __device__ __forceinline__ void stores_done() {
   if ((threadIdx.x & 127) == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
 // The barriers a kernel uses, after its tiles; initialized by thread 0,
 // then made visible to the block (and to TMA).
 __device__ __forceinline__ void init_barriers(uint64_t* bars, int n, const int* counts) {
@@ -388,15 +379,6 @@ __device__ __forceinline__ void apply_mask_t(float (*s)[4], const Params& p, int
       const int qi = q0 + ni * 8 + (lane & 3) * 2 + (e & 1);
       if (qi >= p.Tq || (p.causal && qi < key0 + (e >> 1) * 8)) s[ni][e] = kNegInf;
     }
-}
-
-// wgmma groups committed and waited separately (wg_end is both, for all).
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Key tiles rows q0 .. q0+kRows-1 need: all, or up to the diagonal.

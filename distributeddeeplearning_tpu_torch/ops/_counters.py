@@ -1,6 +1,7 @@
 """The int32 counter buffers of the kernels whose last block of a tile
 merges the tile's splits (``csrc/paged_decode.cu``,
-``csrc/fused_grads.cu``).
+``csrc/fused_grads.cu``; ``csrc/fused_block.cu``'s merge groups of
+blocks).
 
 One buffer per (device, stream): a launch's counters start zero and the
 last block of each tile resets its own, so every launch leaves them

@@ -8,8 +8,12 @@ machine that has only PyTorch for CUDA:
 (``--noconftest``: the suite's ``conftest.py`` configures JAX).
 
 * both fused-block kernels against their plain version, at a ragged M,
-  with the limits ``chip_smoke.py`` derives (``fb_y_limit``,
-  ``fb_stats_limit``);
+  with the limits ``chip_smoke.py`` derives (``fb_y_limit``, and
+  ``fb_stats_limit`` at the plan's ``stat_depth``); a sweep over M ∈ {1,
+  127, 129, 3,213, 200,704} × K ∈ {32, 64, 96, 2,048} × N ∈ {64, 192,
+  2,048}, both ops (the prologue's shift positive, so that rows past M
+  would not be zero), each call repeated bit for bit
+  (``test_cuda_fused_block_sweep``);
 * one fused and one unfused bf16 ResNet-50 step at full width from the
   same weights and batch (``chip_smoke.fused_vs_unfused_step``);
 * the three flash-attention kernels against their plain versions at
@@ -92,12 +96,52 @@ def test_cuda_fused_block_kernels_match_plain():
         ref = fb.matmul_stats_plain(z.float(), w.float())[0]
         torch.cuda.synchronize()
         assert ((y.float() - ref).abs() <= chip_smoke.fb_y_limit(ref)).all()
-        y64 = y.double()
-        assert ((s.double() - y64.sum(0)).abs()
-                <= chip_smoke.fb_stats_limit(y64.abs().sum(0), m)).all()
-        assert ((ss.double() - (y64 * y64).sum(0)).abs()
-                <= chip_smoke.fb_stats_limit((y64 * y64).sum(0), m)).all()
+        depth = fb.plan_for(a, w, prologue)["stat_depth"]
+        assert chip_smoke._fb_stats_ratio(s, ss, y, depth) <= 1.0
     assert fb.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["matmul_stats", "bn_relu_matmul_stats"])
+@pytest.mark.parametrize("m", [1, 127, 129, 3_213, 200_704])
+def test_cuda_fused_block_sweep(op, m):
+    """Each op at M rows against the plain version over K ∈ {32, 64, 96,
+    2,048} (K past a multiple of the 64-column box zero-filled) and N ∈
+    {64, 192, 2,048} (panels of 64 and 256 columns): y within
+    ``fb_y_limit``, the statistics within ``fb_stats_limit`` at the
+    plan's depth, a second call equal bit for bit, one launch a call. The
+    prologue's shift is positive, so relu(shift) of the zero rows TMA
+    brings past M is not zero: they must stay out of y and the sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ for sm_90a")
+    import chip_smoke
+
+    g = torch.Generator(device="cuda").manual_seed(m)
+    for k in (32, 64, 96, 2048):
+        a = torch.randn(m, k, device="cuda", generator=g).to(torch.bfloat16)
+        mean = torch.zeros(k, device="cuda")
+        var = torch.ones(k, device="cuda")
+        scale = 1.0 + 0.1 * torch.randn(k, device="cuda", generator=g)
+        bias = 0.5 + 0.1 * torch.rand(k, device="cuda", generator=g)  # relu(shift) > 0
+        for n in (64, 192, 2048):
+            w = (torch.randn(n, k, device="cuda", generator=g) * k ** -0.5).to(torch.bfloat16)
+            before = fb.launches
+            if op == "matmul_stats":
+                outs = [fb.matmul_stats(a, w) for _ in range(2)]
+                z = a
+            else:
+                outs = [fb.bn_relu_matmul_stats(a, mean, var, scale, bias, w) for _ in range(2)]
+                inv = torch.rsqrt(var + 1e-5) * scale
+                z = torch.relu(a.float() * inv + (bias - mean * inv)).to(torch.bfloat16)
+            torch.cuda.synchronize()
+            assert fb.launches == before + 2
+            (y, s, ss), (y2, s2, ss2) = outs
+            assert torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(ss, ss2), (k, n)
+            ref = fb.matmul_stats_plain(z.float(), w.float())[0]
+            assert ((y.float() - ref).abs() <= chip_smoke.fb_y_limit(ref)).all(), (k, n)
+            depth = fb.plan_for(a, w, op != "matmul_stats")["stat_depth"]
+            assert chip_smoke._fb_stats_ratio(s, ss, y, depth) <= 1.0, (k, n)
+            del outs, y, y2, ref
 
 
 @pytest.mark.cuda

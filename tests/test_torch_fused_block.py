@@ -17,7 +17,12 @@ at a ragged M (70 rows, not a multiple of any tile). Tolerances:
   largest |grad| of each input.
 
 The hand-written kernel is held to the plain version on the card by
-``test_torch_cuda.py`` and ``chip_smoke.py``.
+``test_torch_cuda.py`` and ``chip_smoke.py``. Here, besides: the
+twelve shapes ``chip_smoke.FB_MODEL_SHAPES`` times are the ones the
+port's fused ResNet-50 calls, and the kernel's plan
+(``csrc/fused_block_plan.h``, built for the host) covers every item of
+them once, fits shared memory and transforms each element of ``a`` as
+often as it says.
 """
 
 import jax
@@ -146,3 +151,90 @@ def test_unsupported_device_raises():
     v = torch.zeros(32, device="meta")
     with pytest.raises(ValueError, match="device"):
         fb.bn_relu_matmul_stats(a, v, v, v, v, w)
+
+
+def test_model_shapes_are_the_fused_resnet50_calls():
+    """``FB_MODEL_SHAPES`` is what a fused ResNet-50 forward calls: the
+    ops recorded from a CPU forward at batch 1 and 32 px, whose rows scale
+    to batch 64 at 224 px by 64 · 7²."""
+    import chip_smoke
+    from distributeddeeplearning_tpu_torch.models import get_model
+
+    calls = []
+    forward = fb._forward
+
+    def record(a, w, affine, op, *rest):
+        calls.append((op, a.shape[0] * 64 * 7 ** 2, a.shape[1], w.shape[0]))
+        return forward(a, w, affine, op, *rest)
+
+    model = get_model("resnet50", num_classes=10, dtype=torch.float32, fused=True, device="cpu")
+    fb._forward = record
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, 32, 32, 3))
+    finally:
+        fb._forward = forward
+    counted = {}
+    for c in calls:
+        counted[c] = counted.get(c, 0) + 1
+    assert counted == {s[:4]: s[4] for s in chip_smoke.FB_MODEL_SHAPES}
+    assert len(calls) == 32 == sum(s[4] for s in chip_smoke.FB_MODEL_SHAPES)
+
+
+def _plan_cases():
+    import chip_smoke
+
+    cases = [(op == "bn_relu_matmul_stats", m, k, n) for op, m, k, n, _ in chip_smoke.FB_MODEL_SHAPES]
+    cases += [(bn, m, k, n) for bn in (False, True) for m in (1, 127, 129, 3213)
+              for k, n in ((32, 64), (96, 192), (2048, 2048))]
+    return cases
+
+
+@pytest.mark.parametrize("bn_relu,m,k,n", _plan_cases())
+def test_plan_covers_every_item_once(bn_relu, m, k, n):
+    """The blocks' walk takes each (row tile, panel) of the call exactly
+    once, each block one panel; the plan fits a block's shared memory;
+    the prologue runs ``transforms_per_element`` times on each element
+    of a (once a panel, 0 without it); ``stat_depth`` is the plan's own
+    reckoning of the statistics' order."""
+    p = fb.plan(m, k, n, bn_relu)
+    assert p["panel"] in (64, 128, 256) and n % p["panel"] == 0 and p["panels"] == n // p["panel"]
+    assert p["row_tiles"] == -(-m // 128) and p["kblocks"] == -(-k // p["box_k"])
+    assert 2 <= p["stages"] <= 6 and p["smem"] <= 232_448
+    walk = fb.walk(m, k, n, bn_relu)
+    assert len(walk) == p["grid"] == p["blocks_per_panel"] * p["panels"] <= 132
+    seen = {}
+    for b, items in enumerate(walk):
+        assert 1 <= len(items) <= p["items_per_block"]
+        assert {pn for _, pn in items} == {b % p["panels"]}
+        for item in items:
+            seen[item] = seen.get(item, 0) + 1
+    assert seen == {(t, pn): 1 for t in range(p["row_tiles"]) for pn in range(p["panels"])}
+    per_tile = {}
+    for t, _ in seen:
+        per_tile[t] = per_tile.get(t, 0) + 1
+    assert set(per_tile.values()) == {p["panels"]}
+    assert p["transforms_per_element"] == (p["panels"] if bn_relu else 0)
+    # a thread's 16 rows an item, the block's 8 warps, the merge group, the groups
+    assert p["stat_depth"] == p["items_per_block"] * 16 + 8 + p["group"] + p["groups"]
+    assert p["group"] * p["groups"] >= p["blocks_per_panel"] > p["group"] * (p["groups"] - 1)
+
+
+def test_plan_fills_the_card_at_stage_one():
+    """At the stage-1 shapes every SM holds a block, and a 256-column
+    panel serves bn_relu's conv3 (N 256): a's elements are read and
+    transformed once."""
+    p = fb.plan(200_704, 64, 256, True)
+    assert (p["panel"], p["panels"], p["grid"], p["transforms_per_element"]) == (256, 1, 132, 1)
+    assert fb.plan(200_704, 256, 64, False)["grid"] == 132
+
+
+def test_dropped_partial_control_is_refused_on_cpu():
+    """``drop_last_partial`` is a control of the kernel's merge; the plain
+    version on a CPU tensor has no partials, so the call raises."""
+    a, mean, var, scale, bias, w = map(torch.tensor, _inputs())
+    wt = w.t().contiguous()
+    with pytest.raises(ValueError, match="drop_last_partial"):
+        fb.matmul_stats(a, wt, drop_last_partial=True)
+    with pytest.raises(ValueError, match="drop_last_partial"):
+        fb.bn_relu_matmul_stats(a, mean, var, scale, bias, wt, drop_last_partial=True)
