@@ -4,7 +4,7 @@
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--phases kernels,serve,servequant,servespec,train,lmtrain,
-                                    vittrain,effnettrain]
+                                    vittrain,effnettrain,fit,bench]
 
 (all phases by default). Any failure raises and the script exits
 non-zero.
@@ -32,6 +32,8 @@ non-zero.
    ``bn_relu_matmul_stats`` at the four ResNet-50 training shapes (the
    plain version timed), at the rest of the forward's twelve shapes
    (``FB_MODEL_SHAPES``; the ``fbforward`` line sums them by launches),
+   at stage 1's two timed shapes under ``ACCUM_STEPS=2``
+   (``FB_MICRO_SHAPES``, M = 100,352),
    a ragged M and a prologue channel with σ ≪ |μ|, each run twice with
    equal bits, its line naming the plan, timed beside the library
    yardstick and a bare ``torch.matmul``, with a negative control (each
@@ -112,7 +114,24 @@ non-zero.
    kernels held to the plain version and to cuDNN on its real x, weight
    and dy, and timed beside cuDNN (the ``effnetdw`` line). Batch 64 is
    halved, and the cut printed, if it does not fit the card.
-11. The ``kernels`` JSON line (every kernel whose phases ran), then the
+11. ``fit``: the training loop (``training.loop.fit``) at full width:
+   fused ResNet-50 for an epoch as a user runs it (32 launches a
+   forward, one host sync, no synchronizing CUDA call in the steady
+   steps but the epoch readback, under
+   ``torch.cuda.set_sync_debug_mode("warn")``), then against the bare
+   step in turns (bare, fit, fit, bare); 2 epochs with
+   ``CHECKPOINT_EVERY_STEPS=5`` under ``hostsync.track()`` (one sync an
+   epoch and one a save); a resume from the step-15 checkpoint held to
+   the uninterrupted run (``FIT_RESUME_*``); an epoch with
+   ``ACCUM_STEPS=2`` (64 launches a dispatch) and one fused against one
+   unfused accumulated step; ``lm_base`` pallas through ``fit`` (12
+   launches a pass of each flash kernel). See :func:`fit_phase`.
+12. ``bench``: ``python -m distributeddeeplearning_tpu_torch.bench`` in a
+   subprocess, three runs of the canonical ResNet-50 protocol and three
+   of ``BENCH_MODEL=lm_base``: each record printed (``platform`` cuda,
+   ``host_sync_count`` 1), and a ``benchwall`` line with each
+   protocol's median, min and max.
+13. The ``kernels`` JSON line (every kernel whose phases ran), then the
    contract's last line ``{"ok": true, "device": {...}}``.
 
 Exits with code 2 and prints no result when CUDA is absent or the port
@@ -123,6 +142,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -430,6 +450,13 @@ FB_MODEL_SHAPES = (
     ("bn_relu_matmul_stats", 12_544, 256, 1024, 6),
     ("bn_relu_matmul_stats", 3_136, 512, 2048, 3),
 )
+# Stage 1's two timed shapes at the microbatch of ACCUM_STEPS=2 (batch 64
+# in two halves of 32: M = 100,352), where each microbatch's BN
+# statistics come from the kernels: (where, op, M, K, N).
+FB_MICRO_SHAPES = (
+    ("micro_stage1_conv1", "matmul_stats", 100_352, 256, 64),
+    ("micro_stage1_conv3", "bn_relu_matmul_stats", 100_352, 64, 256),
+)
 # The dropped-partial control's shape: 33 blocks a panel in 6 merge groups.
 FB_CONTROL = ("bn_relu_matmul_stats", 12_544, 256, 1024)
 
@@ -581,7 +608,8 @@ def fb_case(name, fb, op, a, w, flush, *, bn=None, plain=True):
 
 def fused_block_phase(fb, flush):
     """Both ops at the four training shapes (the plain version timed), at
-    every other shape of ``FB_MODEL_SHAPES``, a ragged M for each (not a
+    every other shape of ``FB_MODEL_SHAPES``, at stage 1's microbatch
+    shapes under ``ACCUM_STEPS=2`` (``FB_MICRO_SHAPES``), a ragged M for each (not a
     multiple of the 128-row tile), and a prologue channel with σ ≪ |μ|;
     the ``fbforward`` line (the model shapes' launch-weighted sums, and
     the unweighted sum of the ``FB_SHAPES`` cases, comparable with an
@@ -632,6 +660,9 @@ def fused_block_phase(fb, flush):
             cases.append(c)
             torch.cuda.empty_cache()
         model.append((c, per_forward))
+    for where, op, m, k, n in FB_MICRO_SHAPES:
+        cases.append(case(f"{op}/{where}", op, m, k, n, False))
+        torch.cuda.empty_cache()
     m, k, n = 3_136 + 77, 512, 128
     cases.append(case("matmul_stats/ragged_m", "matmul_stats", m, k, n, True))
     cases.append(case("bn_relu_matmul_stats/ragged_m", "bn_relu_matmul_stats", m, k, n, True))
@@ -1244,7 +1275,7 @@ AGREE_STATS_REL = 1e-2
 
 
 def _train_setup(fused, *, depth=50, image_size=224, batch=64, num_classes=1000,
-                 num_physical_batches=4, state_dict=None, device="cuda"):
+                 num_physical_batches=4, state_dict=None, accum_steps=1, device="cuda"):
     """The port's entry points as a user calls them: config, synthetic
     data, model, optimizer, seeded train state and step, on the card
     (``device="cpu"`` rehearses the flow at a small size)."""
@@ -1258,7 +1289,8 @@ def _train_setup(fused, *, depth=50, image_size=224, batch=64, num_classes=1000,
     )
 
     cfg = TrainConfig(model=f"resnet{depth}", image_size=image_size,
-                      batch_size_per_device=batch, num_classes=num_classes)
+                      batch_size_per_device=batch, num_classes=num_classes,
+                      accum_steps=accum_steps)
     ds = SyntheticImageDataset(global_batch_size=cfg.global_batch_size,
                                image_size=cfg.image_size, num_classes=cfg.num_classes,
                                num_physical_batches=num_physical_batches, seed=cfg.seed)
@@ -1401,9 +1433,11 @@ def _agree_group(name: str) -> str:
 
 
 def fused_vs_unfused_step(depth=50, image_size=224, batch=64, num_classes=1000,
-                          device="cuda"):
+                          accum_steps=1, device="cuda"):
     """One fused and one unfused bf16 step from the same weights on the
-    same batch, and whether they agree.
+    same batch, and whether they agree (with ``accum_steps=2``: one
+    accumulated step each, the fused kernels at the microbatch shapes,
+    each microbatch's BN statistics their own).
 
     Weights: the seeded init with every BN γ drawn as 1 ± 0.2 (sd), and
     0.1 ± 0.02 on each branch's last BN (0 at init, which would hide the
@@ -1441,7 +1475,8 @@ def fused_vs_unfused_step(depth=50, image_size=224, batch=64, num_classes=1000,
     for fused in (False, True):
         cfg, ds, model, state, step = _train_setup(
             fused, depth=depth, image_size=image_size, batch=batch,
-            num_classes=num_classes, num_physical_batches=1, state_dict=sd, device=device)
+            num_classes=num_classes, num_physical_batches=1, state_dict=sd,
+            accum_steps=accum_steps, device=device)
         state, m = step(state, next(iter(ds.epoch(0))))
         out[fused] = (float(m["loss"]),
                       {k: v.detach().clone() for k, v in model.state_dict().items()})
@@ -1457,7 +1492,8 @@ def fused_vs_unfused_step(depth=50, image_size=224, batch=64, num_classes=1000,
         n, d = sums.get(_agree_group(k), (0.0, 0.0))
         sums[_agree_group(k)] = (n + (df - du).pow(2).sum().item(), d + du.pow(2).sum().item())
     gaps = {grp: (n / d) ** 0.5 for grp, (n, d) in sums.items()}
-    res = {"loss_fused": lf, "loss_unfused": lu, "loss_rel": abs(lf - lu) / abs(lu),
+    res = {"accum_steps": accum_steps,
+           "loss_fused": lf, "loss_unfused": lu, "loss_rel": abs(lf - lu) / abs(lu),
            "update_rel_by_group": gaps, "running_stats_rel": stats,
            "limits": {"loss_rel": AGREE_LOSS_REL, "update_rel": AGREE_UPDATE_REL,
                       "running_stats_rel": AGREE_STATS_REL}}
@@ -2635,6 +2671,394 @@ def effnet_hook_pass(dwm, model, cfg, batch, flush, device="cuda"):
             "bound_ms_sum_per_op": bound, "per_layer": per_layer}
 
 
+# The fit phase's resume: the run resumed from its step-15 checkpoint
+# against the uninterrupted run, all parameters together
+# (||p_resumed - p_full|| / ||p_full - p_init||) and each running
+# statistic (max |resumed - full| / max |full|).
+FIT_RESUME_PARAM_REL = 1e-2
+FIT_RESUME_STATS_REL = 1e-2
+
+
+def _fit_watch(watch_syncs):
+    """A callback for ``fit``: snapshots the state at train begin, stamps
+    each step's end on the host clock and, from the end of the first step
+    to the end of the run, sets ``torch.cuda.set_sync_debug_mode("warn")``
+    (every synchronizing CUDA call then warns)."""
+    from distributeddeeplearning_tpu_torch.training.callbacks import Callback
+
+    class FitWatch(Callback):
+        def __init__(self):
+            self.stamps, self.init = [], None
+
+        def on_train_begin(self, logs=None):
+            self.init = {k: v.detach().clone()
+                         for k, v in logs["state"].model.state_dict().items()}
+
+        def on_step_end(self, step, logs=None):
+            self.stamps.append(time.perf_counter())
+            if watch_syncs and len(self.stamps) == 1:
+                torch.cuda.set_sync_debug_mode("warn")
+
+        def on_train_end(self, logs=None):
+            if watch_syncs:
+                torch.cuda.set_sync_debug_mode(0)
+
+    return FitWatch()
+
+
+def _sync_site(frames):
+    """``file:line`` of the innermost frame of the repo (the port or this
+    script) in a warning's stack: the line that made the call; None for
+    the warning ``torch.cuda.set_sync_debug_mode`` itself raises."""
+    if any(f.name == "set_sync_debug_mode" for f in frames):
+        return None
+    for f in reversed(frames):
+        for mark in ("/distributeddeeplearning_tpu_torch/", "/chip_smoke.py"):
+            if mark in f.filename:
+                return f"{f.filename.split(mark)[-1] or 'chip_smoke.py'}:{f.lineno}"
+    return f"{frames[-1].filename}:{frames[-1].lineno}" if frames else "?"
+
+
+def _fit_run(counter, cfg, data, model, device, watch_syncs=False, track=True, state=None,
+             tx=None):
+    """``training.loop.fit`` as a user calls it, on a state built first
+    (``create_train_state``: the seeded init, whose set-up reads are not
+    the loop's) unless ``state`` and ``tx`` are given, with ``track``
+    under ``hostsync.track()`` (every tensor
+    materialisation counted), and with synchronizing-call warnings
+    caught. Returns the result, the watch callback, the kernels'
+    launches by op in this run, the host syncs by label and each
+    synchronizing call as the ``file:line`` of the repo's line that
+    made it (:func:`_sync_site`)."""
+    import contextlib
+    import traceback
+    import warnings
+
+    from distributeddeeplearning_tpu_torch.training import (
+        create_optimizer,
+        create_train_state,
+        loop,
+    )
+    from distributeddeeplearning_tpu_torch.utils import hostsync
+
+    if state is None:
+        tx, _ = create_optimizer(cfg, data.steps_per_epoch)
+        state = create_train_state(model, cfg, tx, device=device)
+    watch = _fit_watch(watch_syncs and torch.device(device).type == "cuda")
+    counter.launches = 0
+    for k in counter.launches_by_op:
+        counter.launches_by_op[k] = 0
+    hostsync.accountant().reset()
+    syncs = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        site = _sync_site(traceback.extract_stack()[:-1]) if "synchroniz" in str(message) else None
+        if site is not None:
+            syncs.append(site)
+
+    with warnings.catch_warnings(), (hostsync.track() if track else contextlib.nullcontext()):
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        res = loop.fit(model, cfg, data, device=device, tx=tx, state=state,
+                       callbacks=[watch], add_default_logger=False)
+    return (res, watch, dict(counter.launches_by_op), dict(hostsync.accountant().by_label),
+            syncs)
+
+
+def _fit_tx(cfg, data):
+    from distributeddeeplearning_tpu_torch.training import create_optimizer
+
+    return create_optimizer(cfg, data.steps_per_epoch)[0]
+
+
+def _bare_turn(model, tx, cfg, state, data, device):
+    """One epoch of the bare step (``make_train_step`` over
+    ``prefetch_to_device``, as the ``train`` phase runs it), closed by a
+    host readback of the loss: the state and each step end's host time."""
+    from distributeddeeplearning_tpu_torch.data import prefetch_to_device
+    from distributeddeeplearning_tpu_torch.training import make_train_step
+
+    step = make_train_step(model, tx, cfg, device=device)
+    stamps = []
+    for batch in prefetch_to_device(data.epoch(0), device):
+        state, m = step(state, batch)
+        stamps.append(time.perf_counter())
+    float(m["loss"])
+    return state, stamps
+
+
+def _resnet_fit_setup(*, epochs, steps, accum_steps=1, model_dir=None, every=0,
+                      image_size=224, batch=64, num_classes=1000, device="cuda"):
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+    from distributeddeeplearning_tpu_torch.data import SyntheticImageDataset
+    from distributeddeeplearning_tpu_torch.models import get_model
+
+    cfg = TrainConfig(model="resnet50", image_size=image_size, batch_size_per_device=batch,
+                      num_classes=num_classes, fake_data_length=steps * batch, epochs=epochs,
+                      accum_steps=accum_steps, model_dir=model_dir,
+                      checkpoint_every_steps=every, log_every_steps=1)
+    data = SyntheticImageDataset(length=cfg.fake_data_length,
+                                 global_batch_size=cfg.global_batch_size,
+                                 image_size=image_size, num_classes=num_classes,
+                                 num_physical_batches=4, seed=cfg.seed)
+    model = get_model(cfg.model, num_classes=num_classes, dtype=cfg.compute_dtype, fused=True,
+                      device=device)
+    return cfg, data, model
+
+
+def _check_fit_run(what, res, launches, by_label, want_launches, epochs, saves=0):
+    losses = [h["loss"] for h in res.history]
+    if len(losses) != epochs or not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: epoch means {losses}")
+    if launches != want_launches:
+        raise AssertionError(f"{what}: kernel launches {launches}, want {want_launches}")
+    want = {"epoch_metrics": epochs}
+    if saves:
+        want["checkpoint"] = saves
+    if by_label != want:
+        raise AssertionError(f"{what}: host syncs {by_label}, want {want} (one an epoch, "
+                             f"one a checkpoint save)")
+
+
+def fit_phase(fb, fl, card, bare_step_ms=None, device="cuda", image_size=224, batch=64,
+              num_classes=1000, lm_size=None):
+    """The training loop (``training.loop.fit``) at full width on the card:
+
+    1. fused ResNet-50 (224 px, batch 64, bf16), one epoch of 12 steps as
+       a user runs it. Checks: ``fused_block`` 32 launches a forward,
+       finite epoch means, one host sync, and no synchronizing CUDA call
+       from the second step on but the loop's own epoch readback
+       (``torch.cuda.set_sync_debug_mode("warn")``, each call traced to
+       the repo's line that made it; ``utils/hostsync.py`` only). Prints
+       the loop's step wall (the median interval between step ends)
+       beside ``bare_step_ms``, the ``train`` phase's bare step.
+    2. The same for 2 epochs with ``MODEL_DIR`` a temporary directory and
+       ``CHECKPOINT_EVERY_STEPS=5`` (saves at 5, 10, 12, 15, 20, 24; the
+       newest 3 kept), under ``hostsync.track()``: exactly one host sync
+       an epoch and one a save (every ``Tensor.item``/``.cpu``/... of the
+       loop counted); the steps' walls with the saves.
+    3. The checkpoints past step 15 deleted and ``fit`` run again: it
+       resumes mid-epoch 2 (3 of 12 batches replayed) and must end within
+       ``FIT_RESUME_*`` of the uninterrupted run; whether its bits are
+       equal is printed (cuDNN may pick non-deterministic backward
+       algorithms).
+    4. One epoch with ``ACCUM_STEPS=2``: 64 launches a dispatch, then one
+       fused against one unfused accumulated step within
+       ``fused_vs_unfused_step``'s limits.
+    5. ``lm_base`` (T 1024, batch 8, vocab 32,000) with
+       ``attn_impl="pallas"``: one epoch of 6 steps, each flash kernel
+       launched 12 times a forward or backward, one host sync.
+
+    Returns each kernel's launches by op in run 1 (ResNet-50, 12 steps)
+    and in the ``lm_base`` run (6 steps). ``device="cpu"`` with small
+    ``image_size``/``batch``/``num_classes`` and ``lm_size`` rehearses
+    the flow (no kernel launches there)."""
+    import shutil
+    import tempfile
+
+    from distributeddeeplearning_tpu_torch import faults
+
+    on_card = torch.device(device).type == "cuda"
+    size = dict(image_size=image_size, batch=batch, num_classes=num_classes, device=device)
+    steps, every = 12, 5
+
+    # (1) the loop as a user runs it: no checkpoints, no patched methods;
+    # synchronizing calls watched from the second step on.
+    cfg, data, model = _resnet_fit_setup(epochs=1, steps=steps, **size)
+    res, watch, launches, by_label, syncs = _fit_run(fb, cfg, data, model, device,
+                                                     watch_syncs=True, track=False)
+    want = {k: 16 * steps if on_card else 0 for k in launches}
+    _check_fit_run("fit resnet50", res, launches, by_label, want, 1)
+    fit_launches = dict(launches)
+    stray = [s for s in syncs if s.split(":")[0] != "utils/hostsync.py"]
+    if stray:
+        raise AssertionError(f"synchronizing CUDA calls in the steady steps: {stray}")
+    st = watch.stamps
+    steady = [(st[j] - st[j - 1]) * 1e3 for j in range(1, steps)]
+    # The loop against the bare step in turns (bare, fit, fit, bare), on
+    # the same model and state: each turn one epoch of 12 steps, its step
+    # walls the intervals between step ends on the host clock.
+    turns = []
+    state, tx = res.state, _fit_tx(cfg, data)  # the optimizer is stateless: its state is in state
+    for kind in ("bare", "fit", "fit", "bare"):
+        if kind == "fit":
+            r, w, *_ = _fit_run(fb, cfg, data, model, device, track=False, state=state, tx=tx)
+            state, st = r.state, w.stamps
+        else:
+            state, st = _bare_turn(model, tx, cfg, state, data, device)
+        walls = [(st[j] - st[j - 1]) * 1e3 for j in range(1, len(st))]
+        turns.append({"kind": kind, "step_ms_median": statistics.median(walls),
+                      "step_ms_min": min(walls), "step_ms_max": max(walls)})
+    line = {
+        "model": "resnet50", "fused": True, "image_size": image_size, "batch": batch,
+        "epochs": 1, "steps": steps, "history": res.history, "launches_by_op": launches,
+        "launches_per_forward": sum(launches.values()) / steps,
+        "sync_calls_by_line": {s: syncs.count(s) for s in sorted(set(syncs))},
+        "steady_sync_calls": len(stray),
+        "loop_step_ms_median": statistics.median(steady), "loop_step_ms_min": min(steady),
+        "loop_step_ms_max": max(steady),
+        "dispatch_p50_ms": res.perf["dispatch_p50_ms"],
+        "dispatch_p99_ms": res.perf["dispatch_p99_ms"],
+        "bare_train_step_ms": bare_step_ms if bare_step_ms is not None else "not measured",
+        "turns": turns,
+        "fit_step_ms_median_of_turns": statistics.median(
+            t["step_ms_median"] for t in turns if t["kind"] == "fit"),
+        "bare_step_ms_median_of_turns": statistics.median(
+            t["step_ms_median"] for t in turns if t["kind"] == "bare"),
+        "images_per_s": res.images_per_sec, "card": card,
+    }
+    print("fit " + json.dumps(line), flush=True)
+    del res, watch, model, data
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (2) 2 epochs with step checkpoints, every materialisation counted
+    tmp = tempfile.mkdtemp(prefix="ddl-fit-")
+    try:
+        cfg, data, model = _resnet_fit_setup(epochs=2, steps=steps, model_dir=tmp, every=every,
+                                             **size)
+        res, watch, launches, by_label, _ = _fit_run(fb, cfg, data, model, device)
+        saves = [5, 10, 12, 15, 20, 24]
+        want = {k: 16 * 2 * steps if on_card else 0 for k in launches}
+        _check_fit_run("fit resnet50 checkpointed", res, launches, by_label, want, 2,
+                       len(saves))
+        st = watch.stamps
+        steps_ms = [(st[j] - st[j - 1]) * 1e3 for j in range(1, 2 * steps)]
+        full = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        init = watch.init
+        print("fitckpt " + json.dumps({
+            "epochs": 2, "steps_per_epoch": steps, "checkpoint_every_steps": every,
+            "saves_at": saves, "history": res.history, "host_syncs_by_label": by_label,
+            "step_ms_median": statistics.median(steps_ms),
+            "step_ms_of_saves": [steps_ms[s - 2] for s in saves if s >= 2],
+            "run_s": res.perf["dispatch_total_s"] + res.perf["wait_total_s"],
+            "images_per_s": res.images_per_sec, "card": card}), flush=True)
+        del res, watch, model, data
+        if on_card:
+            torch.cuda.empty_cache()
+
+        kept = faults.checkpoint_steps(tmp)
+        if 15 not in kept:
+            raise AssertionError(f"step 15's checkpoint is gone: {kept}")
+        for s in kept:
+            if s > 15:
+                shutil.rmtree(os.path.join(tmp, str(s)))
+        cfg, data, model = _resnet_fit_setup(epochs=2, steps=steps, model_dir=tmp, every=every,
+                                             **size)
+        res, _, launches, by_label, _ = _fit_run(fb, cfg, data, model, device)
+        want = {k: 16 * (2 * steps - 15) if on_card else 0 for k in launches}
+        _check_fit_run("fit resnet50 resumed", res, launches, by_label, want, 1, 2)
+        got = model.state_dict()
+        num = den = stats = 0.0
+        equal = True
+        for k, ref in full.items():
+            equal = equal and torch.equal(got[k], ref)
+            if "running" in k:
+                stats = max(stats, ((got[k] - ref).abs().max() / ref.abs().max()).item())
+                continue
+            num += (got[k].double() - ref.double()).pow(2).sum().item()
+            den += (ref.double() - init[k].double()).pow(2).sum().item()
+        resume = {"resumed_from": 15, "epoch_images_first": res.history[0]["epoch_images"],
+                  "param_rel": (num / den) ** 0.5, "running_stats_rel": stats,
+                  "bits_equal": equal,
+                  "limits": {"param_rel": FIT_RESUME_PARAM_REL,
+                             "running_stats_rel": FIT_RESUME_STATS_REL}, "card": card}
+        print("fitresume " + json.dumps(resume), flush=True)
+        if not (resume["param_rel"] <= FIT_RESUME_PARAM_REL
+                and stats <= FIT_RESUME_STATS_REL):
+            raise AssertionError(f"the resumed run left the uninterrupted one: {resume}")
+        del res, model, data, full, init, got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if on_card:
+        torch.cuda.empty_cache()
+
+    cfg, data, model = _resnet_fit_setup(epochs=1, steps=steps, accum_steps=2, **size)
+    res, _, launches, by_label, _ = _fit_run(fb, cfg, data, model, device)
+    want = {k: 16 * 2 * steps if on_card else 0 for k in launches}
+    _check_fit_run("fit resnet50 ACCUM_STEPS=2", res, launches, by_label, want, 1)
+    print("fitaccum " + json.dumps({
+        "accum_steps": 2, "history": res.history, "launches_by_op": launches,
+        "launches_per_dispatch": sum(launches.values()) / steps,
+        "dispatch_p50_ms": res.perf["dispatch_p50_ms"], "images_per_s": res.images_per_sec,
+        "card": card}), flush=True)
+    del res, model, data
+    if on_card:
+        torch.cuda.empty_cache()
+    agree = fused_vs_unfused_step(image_size=image_size, batch=batch, num_classes=num_classes,
+                                  accum_steps=2, device=device)
+    print("fitaccumagree " + json.dumps(dict(agree, card=card)), flush=True)
+    if not agree["within_limits"]:
+        raise AssertionError(f"fused and unfused accumulated steps disagree: {agree}")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+    from distributeddeeplearning_tpu_torch.data import SyntheticTokenDataset
+    from distributeddeeplearning_tpu_torch.models import get_model
+
+    lm = {"variant": "base", "batch": 8, "seq": 1024, "vocab": 32_000, **(lm_size or {})}
+    lm_steps = 6
+    cfg = TrainConfig(model=f"lm_{lm['variant']}", batch_size_per_device=lm["batch"],
+                      num_classes=lm["vocab"], attn_impl="pallas",
+                      fake_data_length=lm_steps * lm["batch"], epochs=1, log_every_steps=1)
+    data = SyntheticTokenDataset(length=cfg.fake_data_length,
+                                 global_batch_size=cfg.global_batch_size, seq_len=lm["seq"],
+                                 vocab_size=lm["vocab"], num_physical_batches=4, seed=cfg.seed)
+    model = get_model(cfg.model, **cfg.model_kwargs(), max_seq_len=lm["seq"], device=device)
+    res, _, launches, by_label, _ = _fit_run(fl, cfg, data, model, device)
+    want = {k: model.depth * lm_steps if on_card else 0 for k in launches}
+    _check_fit_run("fit lm pallas", res, launches, by_label, want, 1)
+    print("fitlm " + json.dumps({
+        "model": cfg.model, "attn_impl": "pallas", "seq_len": lm["seq"], "batch": lm["batch"],
+        "steps": lm_steps, "history": res.history, "launches_by_op": launches,
+        "host_syncs_by_label": by_label, "dispatch_p50_ms": res.perf["dispatch_p50_ms"],
+        "tokens_per_s": res.images_per_sec * lm["seq"], "card": card}), flush=True)
+    fit_launches.update(launches)
+    return fit_launches
+
+
+BENCH_RUNS = 3
+
+
+BENCH_PROTOCOLS = (("resnet50", {}), ("lm_base", {"BENCH_MODEL": "lm_base"}))
+
+
+def bench_phase(card, runs=BENCH_RUNS, protocols=BENCH_PROTOCOLS, timeout=600):
+    """The port's bench harness as a user runs it, in a subprocess:
+    ``runs`` runs of each protocol (the canonical ResNet-50 one and
+    ``BENCH_MODEL=lm_base``; ``protocols`` pairs a label with its env).
+    Each must exit 0 and print its record with ``detail.platform ==
+    "cuda"`` (``"cpu"`` under ``BENCH_DEVICE=cpu``) and
+    ``host_sync_count == 1``; the ``benchwall`` line gives each
+    protocol's median, min and max ``value``."""
+    base = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    records = {}
+    for label, extra in protocols:
+        env = dict(base, **extra)
+        platform = "cpu" if env.get("BENCH_DEVICE") == "cpu" else "cuda"
+        for i in range(runs):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "distributeddeeplearning_tpu_torch.bench"],
+                                  env=env, capture_output=True, text=True, timeout=timeout)
+            wall = time.perf_counter() - t0
+            lines = [x for x in proc.stdout.splitlines() if x.startswith("{")]
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"bench {label} run {i} exited {proc.returncode}: "
+                                     f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+            rec = json.loads(lines[-1])
+            print("bench " + json.dumps(dict(rec, run=i, process_wall_s=wall, card=card)),
+                  flush=True)
+            if rec["detail"]["platform"] != platform or rec["host_sync_count"] != 1:
+                raise AssertionError(f"bench {label} record: {rec}")
+            records.setdefault(rec["metric"], []).append(rec["value"])
+    wall = {m: {"runs": len(v), "median": statistics.median(v), "min": min(v), "max": max(v),
+                "spread_rel": (max(v) - min(v)) / statistics.median(v)}
+            for m, v in records.items()}
+    print("benchwall " + json.dumps(dict(wall, card=card)), flush=True)
+    return wall
+
+
 def _fb_entry(name, cases, timed_case, launches):
     main_case = next(c for c in cases if c["case"] == timed_case)
     return {
@@ -2652,7 +3076,7 @@ def _fb_entry(name, cases, timed_case, launches):
 
 
 PHASES = ("kernels", "serve", "servequant", "servespec", "train", "lmtrain", "vittrain",
-          "effnettrain")
+          "effnettrain", "fit", "bench")
 
 
 def _pd_entry(name, cases, store, launches):
@@ -2754,8 +3178,10 @@ def main(argv=None) -> int:
         spec_serving_phase(pd, card)
         torch.cuda.empty_cache()
 
+    bare_step_ms = None
     if "train" in phases:
         fused_line, state, step, batches = train_phase(fb, card, fused=True)
+        bare_step_ms = fused_line["step_ms"]
         by_op = fused_line["launches_by_op"]
         profile_train(state, step, batches, card, fused_line["step_ms"],
                       "fused resnet50 train step, batch 64, 224 px, bf16",
@@ -2851,6 +3277,17 @@ def main(argv=None) -> int:
                           {"depthwise_wgrad": by_op["depthwise_wgrad"]},
                           line["depthwise_launches"]),
             ]
+
+    if "fit" in phases:
+        fit_launches = fit_phase(fb, fl, card, bare_step_ms)
+        for e in entries:  # the same kernels' launches on the loop's path
+            if e["name"] in fit_launches:
+                e["fit_launches"] = fit_launches[e["name"]]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if "bench" in phases:
+        bench_phase(card)
 
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

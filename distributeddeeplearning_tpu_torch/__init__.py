@@ -28,7 +28,14 @@ Ported so far:
   through the packed-QKV attention kernels, ``ops/flash_packed.py`` +
   ``csrc/flash_packed.cu``, and ``FUSED_DENSE_GRAD=1`` through the
   dW+db kernel, ``ops/fused_grads.py`` + ``csrc/fused_grads.cu``) and
-  the same train step.
+  the same train step;
+* the training loop and the harness: ``training.loop.fit`` /
+  ``evaluate`` over the dp engine (``training/engines.py``) with the
+  on-device metric accumulator, in-step and multi-step gradient
+  accumulation, checkpoints with JAX's manifest, callbacks, the loop's
+  fault plan (``faults``) and host-sync ledger (``utils/hostsync``), and
+  ``python -m distributeddeeplearning_tpu_torch.bench``, ``bench.py``'s
+  one-line record.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (the CPU tier's parity tests do). Importing the package
@@ -36,5 +43,5 @@ imports neither ``jax`` nor ``distributeddeeplearning_tpu``, and builds
 no kernel: kernels are compiled with ``nvcc`` on first launch.
 """
 
-__all__ = ["config", "data", "inference", "models", "native", "obs", "ops", "serving",
-           "training", "utils"]
+__all__ = ["bench", "config", "data", "faults", "inference", "models", "native", "obs", "ops",
+           "parallel", "serving", "training", "utils"]

@@ -1,15 +1,18 @@
 """Typed training configuration: the port's twin of the JAX package's
 ``config.TrainConfig`` for the fields the data-parallel ResNet, LM, ViT
-and EfficientNet training slices read (``MODEL`` names any model of
-``models.get_model``, ``efficientnet_b0`` … ``efficientnet_b7`` too).
+and EfficientNet training slices and the training loop read (``MODEL``
+names any model of ``models.get_model``, ``efficientnet_b0`` …
+``efficientnet_b7`` too): accumulation (``ACCUM_STEPS``,
+``GRAD_ACCUM_STEPS``), validation, prefetch depth, the non-finite guard
+and checkpointing (``MODEL_DIR``/``AZ_BATCHAI_OUTPUT_MODEL``,
+``RESUME``, ``CHECKPOINT_*``).
 
 Field names, defaults and ``from_env`` parsing are the JAX package's. A
 field of a later slice that the dataclass carries (``engine``,
-``optimizer``, ``accum_steps``, ``grad_accum_steps``, ``fake``) must
-keep its default; any other value raises ``NotImplementedError`` naming
-the slice that brings it. An env var of the JAX contract whose field the
-port does not carry yet raises the same way from :meth:`from_env`: no
-setting is silently ignored. ``FUSED_DENSE_GRAD`` is no field in either
+``optimizer``, ``fake``) must keep its default; any other value raises
+``NotImplementedError`` naming the slice that brings it. An env var of
+the JAX contract whose field the port does not carry yet raises the
+same way from :meth:`from_env`: no setting is silently ignored. ``FUSED_DENSE_GRAD`` is no field in either
 package: ``models/vit._dense`` reads it whenever a Dense is built, as the
 JAX package's ``_dense`` does.
 """
@@ -33,15 +36,12 @@ IMAGENET_TRAIN_LENGTH = 1_281_167  # FAKE_DATA_LENGTH default
 _GATED = {
     "engine": ("dp", "the mesh/engine slice (pjit, pp, sp)"),
     "optimizer": ("sgd", "the adamw optimizer (a later slice)"),
-    "accum_steps": (1, "in-step accumulation (training/accum.py)"),
-    "grad_accum_steps": (1, "multi-step accumulation (training/accum.py)"),
     "fake": (True, "the real-data pipeline (data/imagenet.py, data/stream/)"),
 }
 
 # Env vars of the JAX contract whose fields this slice does not carry.
 _LATER_ENV = {
     "DISTRIBUTED": "the process tier (launch.py, parallel/distributed.py)",
-    "VALIDATION": "the training loop with eval (training/loop.py)",
     "NUM_WORKERS": "the real-data pipeline", "WORKER_MODE": "the real-data pipeline",
     "MULTIPROCESSING": "the real-data pipeline", "DATA_FORMAT": "the real-data pipeline",
     "STREAM_SHUFFLE_BLOCK": "the real-data pipeline",
@@ -55,17 +55,9 @@ _LATER_ENV = {
     "PP_SCHEDULE": "the mesh/engine slice", "PARAM_SHARDING": "the mesh/engine slice",
     "ALLOW_SYNC_BN": "the mesh/engine slice", "MESH_AXES": "the mesh/engine slice",
     "MESH_SHAPE": "the mesh/engine slice",
-    "COMPILATION_CACHE_DIR": "the warm-up slice (training/warmup.py)",
-    "AOT_WARMUP": "the warm-up slice (training/warmup.py)",
-    "PREFETCH_BATCHES": "the training loop (training/loop.py)",
-    "AZ_BATCHAI_OUTPUT_MODEL": "checkpointing (training/checkpoint.py)",
-    "MODEL_DIR": "checkpointing (training/checkpoint.py)",
-    "CHECKPOINT_EVERY_STEPS": "checkpointing (training/checkpoint.py)",
-    "CHECKPOINT_KEEP": "checkpointing (training/checkpoint.py)",
-    "CHECKPOINT_ASYNC": "checkpointing (training/checkpoint.py)",
-    "RESUME": "checkpointing (training/checkpoint.py)",
+    "COMPILATION_CACHE_DIR": "the warm-up slice (training/warmup.py: CUDA-graph capture)",
+    "AOT_WARMUP": "the warm-up slice (training/warmup.py: CUDA-graph capture)",
     "ASYNC_COLLECTIVES": "the mesh/engine slice",
-    "NONFINITE_ACTION": "the training loop (training/loop.py)",
     "ELASTIC": "the process tier", "LR_WORLD_SIZE": "the process tier",
 }
 
@@ -123,10 +115,31 @@ class TrainConfig:
     # each process taking its contiguous share of every global batch.
     data_topology: str = "process"
 
+    validation: bool = False
+    prefetch_batches: int = 2
+
     # Distribution
     engine: str = "dp"
 
+    # Bookkeeping
     seed: int = 42
+    model_dir: Optional[str] = None  # AZ_BATCHAI_OUTPUT_MODEL equivalent
+    checkpoint_every_epochs: int = 1
+    # Step-granular checkpointing (CHECKPOINT_EVERY_STEPS; 0 = epoch
+    # boundaries only): keys become global step counts and a resume
+    # re-enters mid-epoch. Each due save copies the state to the host
+    # (a deliberate host sync, booked as "checkpoint").
+    checkpoint_every_steps: int = 0
+    checkpoint_keep: int = 3
+    # CHECKPOINT_ASYNC (default on): off makes every save durable
+    # before it returns.
+    checkpoint_async: bool = True
+    resume: bool = True
+    # The on-device non-finite-loss guard (NONFINITE_ACTION): "abort"
+    # raises faults.NonFiniteLossError at the epoch boundary, "warn"
+    # logs and continues, "off" ignores the counter.
+    nonfinite_action: str = "abort"
+    log_every_steps: int = 100
 
     def __post_init__(self):
         for name, (default, later) in _GATED.items():
@@ -206,10 +219,20 @@ class TrainConfig:
             "DATA_TOPOLOGY": ("data_topology", str),
             "IMAGE_SIZE": ("image_size", int),
             "NUM_CLASSES": ("num_classes", int),
+            "VALIDATION": ("validation", _str_to_bool),
+            "PREFETCH_BATCHES": ("prefetch_batches", int),
+            "CHECKPOINT_EVERY_STEPS": ("checkpoint_every_steps", int),
+            "CHECKPOINT_KEEP": ("checkpoint_keep", int),
+            "CHECKPOINT_ASYNC": ("checkpoint_async", _str_to_bool),
+            "RESUME": ("resume", _str_to_bool),
+            "NONFINITE_ACTION": ("nonfinite_action", str),
         }
         for var, (field, conv) in parse.items():
             if var in e:
                 kw[field] = conv(e[var])
+        model_dir = e.get("AZ_BATCHAI_OUTPUT_MODEL") or e.get("MODEL_DIR")
+        if model_dir:
+            kw["model_dir"] = model_dir
         kw.update(overrides)
         return cls(**kw)
 

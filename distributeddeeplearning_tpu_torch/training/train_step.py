@@ -30,6 +30,11 @@ LM):
 * the optimizer update at the schedule's pre-update count;
   ``state.step`` increments.
 
+``ACCUM_STEPS=k`` runs the batch as k microbatches (``training/accum.py``:
+ghost BatchNorm, f32 gradient sums, the all-reduce once on the mean).
+:func:`make_eval_step` is the JAX eval step: running-statistics
+BatchNorm, weighted ``{loss, top1, top5, count}`` summed over the ranks.
+
 Metrics stay on the device (no host sync in the step).
 """
 
@@ -42,6 +47,8 @@ import torch
 
 from distributeddeeplearning_tpu_torch.config import TrainConfig
 from distributeddeeplearning_tpu_torch.data.pipeline import normalize_staged_images, to_device
+from distributeddeeplearning_tpu_torch.training import accum
+from distributeddeeplearning_tpu_torch.training.metrics import StepFn
 from distributeddeeplearning_tpu_torch.training.state import TrainState
 from distributeddeeplearning_tpu_torch.utils.device import resolve_device
 
@@ -73,11 +80,14 @@ def l2_kernel_penalty(model, weight_decay: float) -> torch.Tensor:
     return weight_decay * torch.stack([(w.float() * w.float()).sum() for w in kernels]).sum()
 
 
-def dropout_seed(seed: int, step: int, rank: int) -> int:
+def dropout_seed(seed: int, step: int, rank: int, micro: Optional[int] = None) -> int:
     """The seed of one step's dropout generator on one rank: a 63-bit
     hash of ``(seed, step, rank)``, computed on the host (no device
-    sync)."""
-    digest = hashlib.blake2b(f"{seed}/{step}/{rank}".encode(), digest_size=8).digest()
+    sync). Under ``ACCUM_STEPS > 1`` the microbatch index ``micro`` is
+    folded in as well (JAX folds it into the step's key); with one
+    microbatch the seed is the unaccumulated step's."""
+    key = f"{seed}/{step}/{rank}" + ("" if micro is None else f"/{micro}")
+    digest = hashlib.blake2b(key.encode(), digest_size=8).digest()
     return int.from_bytes(digest, "little") >> 1
 
 
@@ -87,13 +97,20 @@ def _bn_buffers(model):
 
 
 def make_train_step(model, optimizer, config: Optional[TrainConfig] = None,
-                    process_group=None, device=None) -> Callable:
-    """``step(state, (inputs, labels)) -> (state, metrics)``: ``inputs``
-    NHWC images (or ``[B, T]`` int tokens) and ``labels`` int, this
-    rank's slice, as tensors on the model's device or numpy (staged with
-    ``data.to_device``).
+                    process_group=None, device=None) -> StepFn:
+    """``step(state, (inputs, labels)) -> (state, metrics)``, and
+    ``step(state, batch, acc) -> (state, metrics, acc)`` with the
+    on-device metric accumulator (``training/metrics.StepFn``):
+    ``inputs`` NHWC images (or ``[B, T]`` int tokens) and ``labels``
+    int, this rank's slice, as tensors on the model's device or numpy
+    (staged with ``data.to_device``).
     ``metrics`` are 0-dim f32 tensors on the device: ``loss``,
     ``accuracy``, ``grad_norm``, means over the ranks.
+
+    ``config.accum_steps = k > 1`` runs the batch as k microbatches
+    through ``training/accum.accumulate_microbatches`` (ghost BatchNorm,
+    f32 gradient sums, one all-reduce on the mean); the step's
+    ``accum_steps`` attribute says k.
 
     ``process_group=None`` takes the default group when
     ``torch.distributed`` is initialised. ``device`` (``None`` means
@@ -105,6 +122,7 @@ def make_train_step(model, optimizer, config: Optional[TrainConfig] = None,
         process_group = dist.group.WORLD
     world = dist.get_world_size(process_group) if process_group is not None else 1
     rank = dist.get_rank(process_group) if process_group is not None else 0
+    k = accum.validate_accum_config(cfg, world)
     params = [p for p in model.parameters()]
     if any(p.device.type != device.type or device.index not in (None, p.device.index)
            for p in params):
@@ -112,21 +130,32 @@ def make_train_step(model, optimizer, config: Optional[TrainConfig] = None,
     buffers = _bn_buffers(model)
     generator = torch.Generator(device=device) if getattr(model, "stochastic", False) else None
 
-    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        inputs, labels = (to_device(batch, device) if not torch.is_tensor(batch[0])
-                          else batch)
+    def grads_and_metrics(state, inputs, labels, idx=None):
+        """One forward and backward (of microbatch ``idx``): the raw
+        gradients and the f32 ``loss`` (with L2) and ``accuracy``."""
         inputs = normalize_staged_images(inputs)
-        model.train()
         if generator is None:
             logits = model(inputs)
         else:
-            generator.manual_seed(dropout_seed(cfg.seed, state.step, rank))
+            generator.manual_seed(dropout_seed(cfg.seed, state.step, rank, idx))
             logits = model(inputs, generator=generator)
         loss = cross_entropy_loss(logits, labels, cfg.label_smoothing)
         loss = loss + l2_kernel_penalty(model, cfg.weight_decay)
         grads = list(torch.autograd.grad(loss, params))
         accuracy = (logits.argmax(-1) == labels.long()).float().mean()
-        loss = loss.detach()
+        return grads, {"loss": loss.detach(), "accuracy": accuracy}
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        inputs, labels = (to_device(batch, device) if not torch.is_tensor(batch[0])
+                          else batch)
+        model.train()
+        if k == 1:
+            grads, m = grads_and_metrics(state, inputs, labels)
+        else:
+            grads, m = accum.accumulate_microbatches(
+                lambda mb, idx: grads_and_metrics(state, *mb, idx=idx),
+                (inputs, labels), k, params)
+        loss, accuracy = m["loss"], m["accuracy"]
         if world > 1:
             # One all-reduce for the gradients, the running stats and the
             # metrics: the JAX step's pmean of each (sum, then / world).
@@ -144,5 +173,68 @@ def make_train_step(model, optimizer, config: Optional[TrainConfig] = None,
         optimizer.apply(params, grads, state.opt_state)
         state.step += 1
         return state, {"loss": loss, "accuracy": accuracy, "grad_norm": grad_norm}
+
+    return StepFn(step, accum_steps=k)
+
+
+def eval_metrics_fn(logits: torch.Tensor, labels: torch.Tensor,
+                    weights: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Weighted metric sums of one batch (JAX ``eval_metrics_fn``):
+    ``weights`` in {0, 1} mark real against padded samples; token
+    models' ``[B, T, V]`` logits count per token, each sample's weight
+    on all its tokens. f32 throughout. ``top5`` counts a label among
+    the five largest logits (``torch.topk``; on an exact tie at the
+    fifth place the kept index may differ from JAX's ``argsort``)."""
+    logits = logits.float()
+    if logits.dim() == 3:
+        b, t, v = logits.shape
+        logits = logits.reshape(b * t, v)
+        labels = labels.reshape(b * t)
+        weights = weights.repeat_interleave(t)
+    labels = labels.long()
+    w = weights.float()
+    logp = torch.log_softmax(logits, dim=-1)
+    per_ex = -logp.gather(1, labels[:, None])[:, 0]
+    top1 = (logits.argmax(-1) == labels).float()
+    top5 = (logits.topk(min(5, logits.shape[-1]), dim=-1).indices
+            == labels[:, None]).any(-1).float()
+    return {"loss": (per_ex * w).sum(), "top1": (top1 * w).sum(),
+            "top5": (top5 * w).sum(), "count": w.sum()}
+
+
+def make_eval_step(model, process_group=None, device=None) -> Callable:
+    """``eval_step(state, batch) -> {loss, top1, top5, count}`` (JAX
+    ``make_eval_step``): running-statistics BatchNorm (eval mode), the
+    batch's weighted sums summed over the ranks (one all-reduce), then
+    the per-batch means and ``count``, the number of real samples.
+    Takes ``(inputs, labels)`` (every sample real, one process only) or
+    ``(inputs, labels, weights)`` from an exact dataset."""
+    device = resolve_device(device)
+    dist = torch.distributed
+    if process_group is None and dist.is_available() and dist.is_initialized():
+        process_group = dist.group.WORLD
+    world = dist.get_world_size(process_group) if process_group is not None else 1
+
+    @torch.no_grad()
+    def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        batch = to_device(batch, device) if not torch.is_tensor(batch[0]) else batch
+        if len(batch) == 2:
+            if world > 1:
+                raise ValueError("multi-process eval requires (inputs, labels, weights) "
+                                 "batches: use an exact eval dataset (train=False)")
+            inputs, labels = batch
+            weights = torch.ones(labels.shape[:1], dtype=torch.float32, device=labels.device)
+        else:
+            inputs, labels, weights = batch
+        model.eval()
+        logits = model(normalize_staged_images(inputs))
+        sums = eval_metrics_fn(logits, labels, weights)
+        keys = ("loss", "top1", "top5", "count")
+        flat = torch.stack([sums[key] for key in keys])
+        if world > 1:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=process_group)
+        count = flat[3]
+        means = flat[:3] / torch.clamp(count, min=1.0)  # an all-padding batch
+        return {"loss": means[0], "top1": means[1], "top5": means[2], "count": count}
 
     return step

@@ -3,6 +3,12 @@ CPU (driven by ``test_torch_train_step_dp.py``; imports no JAX).
 
     python _torch_dp_worker.py RANK WORLD PORT FUSED IN.npz OUT.npz
 
+With ``FUSED`` = ``fit`` the rank runs ``training.loop.fit`` instead
+(driven by ``test_torch_checkpoint.py``): an ``lm_*`` model on the global
+synthetic token stream (``length``, ``seq_len`` in ``IN.npz``), with the
+``BroadcastGlobalVariablesCallback``; rank 0 writes each epoch's history
+(``history<e>/<key>``), ``host_sync_count`` and the final state dict.
+
 ``IN.npz`` holds the initial state dict (``sd/<name>``), the config
 (``cfg/<field>``) and the global batches (``images<i>``, ``labels<i>``:
 images, or ``[B, T]`` tokens for an ``lm_*`` model); rank 0 writes the
@@ -28,6 +34,31 @@ from distributeddeeplearning_tpu_torch.training import (
 )
 
 
+def fit_main(rank, world, cfg, data, sd, path_out):
+    from distributeddeeplearning_tpu_torch.data import SyntheticTokenDataset
+    from distributeddeeplearning_tpu_torch.training import loop
+    from distributeddeeplearning_tpu_torch.training.callbacks import (
+        BroadcastGlobalVariablesCallback,
+    )
+
+    seq_len = int(data["seq_len"])
+    ds = SyntheticTokenDataset(length=int(data["length"]), global_batch_size=cfg.global_batch_size,
+                               seq_len=seq_len, vocab_size=cfg.num_classes, seed=cfg.seed,
+                               process_index=rank, process_count=world, topology="global")
+    model = get_model(cfg.model, num_classes=cfg.num_classes, dtype=cfg.compute_dtype,
+                      max_seq_len=seq_len, device="cpu")
+    tx, _ = create_optimizer(cfg, ds.steps_per_epoch)
+    state = create_train_state(model, cfg, tx, device="cpu", state_dict=sd)
+    res = loop.fit(model, cfg, ds, device="cpu", tx=tx, state=state,
+                   callbacks=[BroadcastGlobalVariablesCallback()], add_default_logger=False)
+    out = {f"history{e}/{k}": np.float64(v) for e, h in enumerate(res.history)
+           for k, v in h.items()}
+    out["host_sync_count"] = np.float64(res.perf["host_sync_count"])
+    out.update({f"sd/{k}": v.numpy() for k, v in model.state_dict().items()})
+    if rank == 0:
+        np.savez(path_out, **out)
+
+
 def main(rank, world, port, fused, path_in, path_out):
     torch.set_num_threads(2)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
@@ -35,6 +66,11 @@ def main(rank, world, port, fused, path_in, path_out):
     data = np.load(path_in)
     cfg = TrainConfig(**{k[4:]: v.item() for k, v in data.items() if k.startswith("cfg/")})
     sd = {k[3:]: torch.from_numpy(v) for k, v in data.items() if k.startswith("sd/")}
+    if fused == "fit":
+        fit_main(rank, world, cfg, data, sd, path_out)
+        dist.barrier()
+        dist.destroy_process_group()
+        return
     masks = []
     if cfg.model.startswith("lm_"):
         kw = dict(attn_impl=cfg.attn_impl, max_seq_len=int(data["images0"].shape[1]))
@@ -73,4 +109,4 @@ def main(rank, world, port, fused, path_in, path_out):
 
 if __name__ == "__main__":
     r, w, p, f, i, o = sys.argv[1:]
-    main(int(r), int(w), int(p), f == "1", i, o)
+    main(int(r), int(w), int(p), f if f == "fit" else f == "1", i, o)

@@ -74,7 +74,10 @@ ENVS = [
      "FAKE_DATA_LENGTH": "5000", "EPOCHS": "3", "LR": "0.1", "SEED": "7",
      "WEIGHT_DECAY": "1e-4", "LR_SCHEDULE": "cosine", "COMPUTE_DTYPE": "float32",
      "INPUT_STAGING": "uint8", "DATA_TOPOLOGY": "global", "FAKE": "yes",
-     "ENGINE": "dp", "OPTIMIZER": "sgd", "ACCUM_STEPS": "1", "GRAD_ACCUM_STEPS": "1"},
+     "ENGINE": "dp", "OPTIMIZER": "sgd", "ACCUM_STEPS": "2", "GRAD_ACCUM_STEPS": "4",
+     "VALIDATION": "true", "PREFETCH_BATCHES": "3", "CHECKPOINT_EVERY_STEPS": "5",
+     "CHECKPOINT_KEEP": "7", "CHECKPOINT_ASYNC": "0", "RESUME": "false",
+     "NONFINITE_ACTION": "warn", "MODEL_DIR": "/ckpt", "AZ_BATCHAI_OUTPUT_MODEL": "/out"},
 ]
 
 
@@ -86,8 +89,8 @@ def test_config_from_env_resolves_like_jax(env):
     assert mine.steps_per_epoch() == max(mine.fake_data_length // mine.batch_size_per_device, 1)
 
 
-@pytest.mark.parametrize("env", [{"ENGINE": "pjit"}, {"ACCUM_STEPS": "2"},
-                                 {"OPTIMIZER": "adamw"}, {"GRAD_ACCUM_STEPS": "2"},
+@pytest.mark.parametrize("env", [{"ENGINE": "pjit"}, {"AOT_WARMUP": "1"},
+                                 {"OPTIMIZER": "adamw"}, {"COMPILATION_CACHE_DIR": "/cache"},
                                  {"FAKE": "false"}, {"DATA_DIR": "/data"}, {"MESH_SHAPE": "2,4"}])
 def test_config_settings_of_later_slices_raise(env):
     with pytest.raises(NotImplementedError):
@@ -95,7 +98,7 @@ def test_config_settings_of_later_slices_raise(env):
 
 
 def test_config_gated_fields_raise_when_built_directly():
-    for kw in (dict(engine="pp"), dict(accum_steps=4), dict(optimizer="adamw")):
+    for kw in (dict(engine="pp"), dict(fake=False), dict(optimizer="adamw")):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             TrainConfig(**kw)
 

@@ -94,3 +94,27 @@ def test_kernel_wrapper_raises_on_unsupported_device():
     pos = torch.zeros(1, 1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         paged_decode.fused_decode_attention(q, k, k, pos)
+
+
+def test_loop_engine_and_bench_default_to_cuda_and_raise_without_it(monkeypatch):
+    from distributeddeeplearning_tpu_torch import bench
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+    from distributeddeeplearning_tpu_torch.data import make_dataset
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.training import create_optimizer, loop
+    from distributeddeeplearning_tpu_torch.training.engines import build_engine
+
+    cfg = TrainConfig(model="resnet18", num_classes=8, image_size=16, batch_size_per_device=2,
+                      fake_data_length=4)
+    model = get_model("resnet18", num_classes=8, device="meta")
+    tx, _ = create_optimizer(cfg, 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("BENCH_DEVICE", raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.fit(model, cfg, make_dataset(cfg))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.evaluate(model, cfg, make_dataset(cfg, train=False), state=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_engine(model, cfg, tx)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench._device()
