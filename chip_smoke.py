@@ -4,7 +4,8 @@
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--phases kernels,serve,servequant,servespec,train,lmtrain,
-                                    vittrain,effnettrain,fit,bench]
+                                    vittrain,effnettrain,fit,warmup,frontends,trace,
+                                    bench]
 
 (all phases by default). Any failure raises and the script exits
 non-zero.
@@ -126,12 +127,30 @@ non-zero.
    ``ACCUM_STEPS=2`` (64 launches a dispatch) and one fused against one
    unfused accumulated step; ``lm_base`` pallas through ``fit`` (12
    launches a pass of each flash kernel). See :func:`fit_phase`.
-12. ``bench``: ``python -m distributeddeeplearning_tpu_torch.bench`` in a
+12. ``warmup``: ``AOT_WARMUP`` (the step captured as CUDA graphs)
+   through ``fit``: fused ResNet-50 and ``lm_base`` ``pallas``, eager,
+   graphed, graphed, eager, each run's step medians, busy share, peak
+   memory, ``compile_sec`` and ``graphs_captured``, graphed against
+   eager bit for bit, the kernels counted under replay by the
+   profiler's names; EfficientNet-B0 with dropout and ViT-B/16 flagged
+   at 64 px, and ``GRAD_ACCUM_STEPS=2``, graphed against eager. See
+   :func:`warmup_phase`.
+13. ``frontends``: the four example modules
+   (``distributeddeeplearning_tpu_torch.examples``) as subprocesses,
+   one in a one-rank NCCL world from ``DDL_*``. See
+   :func:`frontends_phase`.
+14. ``trace``: ``TRACE_EVERY_N_EPOCHS=1`` on a graphed two-epoch ``fit``:
+   a Chrome trace an epoch naming the fused kernels. See
+   :func:`trace_phase`.
+15. ``bench``: ``python -m distributeddeeplearning_tpu_torch.bench`` in a
    subprocess, three runs of the canonical ResNet-50 protocol and three
-   of ``BENCH_MODEL=lm_base``: each record printed (``platform`` cuda,
-   ``host_sync_count`` 1), and a ``benchwall`` line with each
-   protocol's median, min and max.
-13. The ``kernels`` JSON line (every kernel whose phases ran), then the
+   of ``BENCH_MODEL=lm_base``, each timing the captured step: each
+   record printed (``platform`` cuda, ``graphs_captured`` 1,
+   ``host_sync_count`` 1; ``lm_base``'s runs share a fresh
+   ``COMPILATION_CACHE_DIR``: misses in the first, hits after), and a
+   ``benchwall`` line with each protocol's median, min and max.
+16. The ``kernels`` JSON line (every kernel whose phases ran; rows 1–5
+   also with their launches a step under graph replay), then the
    contract's last line ``{"ok": true, "device": {...}}``.
 
 Exits with code 2 and prints no result when CUDA is absent or the port
@@ -3018,10 +3037,452 @@ def fit_phase(fb, fl, card, bare_step_ms=None, device="cuda", image_size=224, ba
     return fit_launches
 
 
+WARM_GAP_LIMIT = 0.0  # graphed against eager: bitwise (see warmup_phase)
+
+
+def _warm_fit(cfg, data, model, device, profile_steps=False):
+    """``training.loop.fit`` on a fresh seeded state (``AOT_WARMUP`` as
+    ``cfg.aot_warmup`` says), with each step end stamped on the host
+    clock. ``profile_steps`` runs a CUDA-only ``torch.profiler`` from the
+    end of the first step (so the warm-up's eager steps stay out) to the
+    end of the run, and counts the device's kernels by name: the
+    launches of a captured step happen on replay, where no Python
+    counter ticks. Returns the result, the steady step walls (ms), the
+    peak memory (GB), the kernels by name a profiled step and the device
+    ms a profiled step (on the card)."""
+    from distributeddeeplearning_tpu_torch.training import (
+        create_optimizer,
+        create_train_state,
+        loop,
+    )
+    from distributeddeeplearning_tpu_torch.training.callbacks import Callback
+
+    on_card = torch.device(device).type == "cuda"
+    profiling = profile_steps and on_card
+
+    class Profiled(Callback):
+        """Profiles the steps after the first."""
+
+        def __init__(self):
+            self.prof, self.steps = None, 0
+
+        def on_step_end(self, step, logs=None):
+            if self.prof is None and profiling:
+                from torch.profiler import ProfilerActivity, profile
+
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                self.prof.start()
+            elif self.prof is not None:
+                self.steps += 1
+
+        def on_train_end(self, logs=None):
+            if self.prof is not None:
+                torch.cuda.synchronize()
+                self.prof.stop()
+
+    tx, _ = create_optimizer(cfg, data.steps_per_epoch)
+    state = create_train_state(model, cfg, tx, device=device)
+    watch, prof = _fit_watch(False), Profiled()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    res = loop.fit(model, cfg, data, device=device, tx=tx, state=state,
+                   callbacks=[watch, prof], add_default_logger=False)
+    st = watch.stamps
+    walls = [(st[j] - st[j - 1]) * 1e3 for j in range(1, len(st))]
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else "not measured"
+    kernels, device_ms = {}, "not measured"
+    if prof.prof is not None:
+        events = [e for e in prof.prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = {e.key: e.count / prof.steps for e in events}
+        device_ms = sum(e.device_time_total for e in events) / 1e3 / prof.steps
+    return res, walls, peak, kernels, device_ms
+
+
+def _state_gap(want, got):
+    """Whether two state dicts are bitwise equal, and the largest gap of
+    a parameter (relative to its largest value) if not."""
+    equal = all(torch.equal(want[k], got[k]) for k in want)
+    gap = max(((got[k].double() - want[k].double()).abs().max()
+               / want[k].double().abs().max().clamp(min=1e-30)).item()
+              for k in want if want[k].is_floating_point())
+    return equal, gap
+
+
+def _ours(kernels, marks):
+    """The port's kernels among the profiler's, by name, launches a step."""
+    return {k[:100]: v for k, v in kernels.items() if any(m in k for m in marks)}
+
+
+def warmup_turns(name, make, device, marks, want_per_step, card, counter=None):
+    """One model through ``fit`` with ``AOT_WARMUP=0`` and ``=1`` in turns
+    (eager, graphed, graphed, eager), then one profiled run of each kind.
+    ``make(aot)`` returns ``(cfg, data, model)``. Checks: the graphed
+    runs captured graphs and took no eager step; the first graphed run's
+    parameters and running statistics equal the first eager run's bit for
+    bit (``WARM_GAP_LIMIT``: the same kernels on the same inputs, replayed
+    in the same order); under replay the port's kernels named by
+    ``marks`` launch ``want_per_step`` times a step (the profiler's count:
+    a replay goes through no Python counter). Prints a ``warmup`` line
+    and returns it."""
+    on_card = torch.device(device).type == "cuda"
+    turns, finals = [], {}
+    for i, aot in enumerate((False, True, True, False)):
+        cfg, data, model = make(aot)
+        if counter is not None:
+            counter.launches = 0
+        res, walls, peak, _, _ = _warm_fit(cfg, data, model, device)
+        turns.append({
+            "kind": "graphed" if aot else "eager",
+            "step_ms_median": statistics.median(walls), "step_ms_min": min(walls),
+            "step_ms_max": max(walls), "peak_gb": peak,
+            "compile_sec": res.perf.get("compile_sec"),
+            "graphs_captured": res.perf.get("graphs_captured", 0),
+            "eager_steps": res.perf.get("eager_steps"),
+            "python_counter_launches": counter.launches if counter is not None else None,
+            "dispatch_p50_ms": res.perf["dispatch_p50_ms"], "history": res.history})
+        if aot and not (res.perf["graphs_captured"] >= on_card and res.perf["eager_steps"] == 0):
+            raise AssertionError(f"warmup {name}: {res.perf}")
+        if i < 2:
+            finals[aot] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        del res, model, data
+        if on_card:
+            torch.cuda.empty_cache()
+    equal, gap = _state_gap(finals[False], finals[True])
+    del finals
+    profiled = {}
+    for aot in (False, True):
+        cfg, data, model = make(aot)
+        res, walls, _, kernels, device_ms = _warm_fit(cfg, data, model, device, True)
+        profiled["graphed" if aot else "eager"] = {
+            "device_ms_per_step": device_ms, "ours_per_step": _ours(kernels, marks),
+            "kernels_per_step": sum(kernels.values()) if kernels else "not measured"}
+        del res, model, data
+        if on_card:
+            torch.cuda.empty_cache()
+    for kind in ("eager", "graphed"):
+        med = statistics.median(t["step_ms_median"] for t in turns if t["kind"] == kind)
+        dev_ms = profiled[kind]["device_ms_per_step"]
+        profiled[kind]["step_ms_median_of_turns"] = med
+        profiled[kind]["busy_share"] = (dev_ms / med if on_card else "not measured")
+    line = {"what": name, "turns": turns, "by_kind": profiled, "bitwise_equal": equal,
+            "max_param_gap_rel": gap, "limit": WARM_GAP_LIMIT, "card": card}
+    print("warmup " + json.dumps(line), flush=True)
+    if not (equal or gap <= WARM_GAP_LIMIT):
+        raise AssertionError(f"warmup {name}: graphed run left the eager one by {gap}")
+    if on_card:
+        got = profiled["graphed"]["ours_per_step"]
+        for mark, want in want_per_step.items():
+            n = sum(v for k, v in got.items() if mark in k)
+            if n != want:
+                raise AssertionError(f"warmup {name}: {mark} launched {n} times a replayed "
+                                     f"step, want {want} ({got})")
+    return line
+
+
+def warmup_phase(card, device="cuda", image_size=224, batch=64, num_classes=1000,
+                 lm_size=None, small=None):
+    """``AOT_WARMUP`` (``training/warmup.py``: the step captured as CUDA
+    graphs) through ``fit`` on the card:
+
+    1. fused ResNet-50 (224 px, batch 64, 12 steps) and ``lm_base``
+       ``pallas`` (T 1024, batch 8, 6 steps), each eager, graphed,
+       graphed, eager (:func:`warmup_turns`): step medians, busy share,
+       peak memory, ``compile_sec``, ``graphs_captured``; graphed against
+       eager bit for bit; under replay 32 ``matmul_stats`` launches a
+       step (16 a op) and 12 of each flash kernel;
+    2. at a small size (``small``: 64 px, batch 8, 10 classes, 3 steps):
+       EfficientNet-B0 with dropout, graphed against eager bit for bit
+       (the masks follow ``(seed, step, rank)`` on replay: each replay
+       reseeds the step's registered generator); ViT-B/16 with
+       ``attn_impl="fused"`` and ``FUSED_DENSE_GRAD=1``, graphed
+       against eager, rows 4a, 4b and 5 counted under replay (12
+       ``packed_fwd``, 12 + 12 ``packed_bwd_*``, 49 ``dw_db``);
+    3. the eval step captured beside the train step (``Engine.warmup``
+       with ``eval_batch``; fused ResNet-50 at the small size): its
+       replay against the eager eval, bit for bit;
+    4. fused ResNet-50 with ``GRAD_ACCUM_STEPS=2`` (batch 32, 4 steps):
+       two graphs (one a micro-step), graphed against eager bit for bit.
+
+    ``device="cpu"`` with small sizes rehearses the flow (no graph, no
+    profile). Returns the replayed launches a step by kernel family."""
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+    from distributeddeeplearning_tpu_torch.data import (
+        SyntheticImageDataset,
+        SyntheticTokenDataset,
+    )
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.ops import flash as fl
+    from distributeddeeplearning_tpu_torch.ops import fused_block as fb
+
+    small = {"image_size": 64, "batch": 8, "num_classes": 10, **(small or {})}
+    size = dict(image_size=image_size, batch=batch, num_classes=num_classes, device=device)
+    replayed = {}
+
+    def resnet(aot, steps=12, **kw):
+        cfg, data, model = _resnet_fit_setup(epochs=1, steps=steps, **{**size, **kw})
+        return cfg.replace(aot_warmup=aot), data, model
+
+    line = warmup_turns("resnet50 fused", lambda aot: resnet(aot), device, ("matmul_stats",),
+                        {"matmul_stats": 32}, card, fb)
+    replayed["fused_block"] = line["by_kind"]["graphed"]["ours_per_step"]
+
+    lm = {"variant": "base", "batch": 8, "seq": 1024, "vocab": 32_000, **(lm_size or {})}
+
+    def lm_make(aot, steps=6):
+        cfg = TrainConfig(model=f"lm_{lm['variant']}", batch_size_per_device=lm["batch"],
+                          num_classes=lm["vocab"], attn_impl="pallas",
+                          fake_data_length=steps * lm["batch"], epochs=1, log_every_steps=1,
+                          aot_warmup=aot)
+        data = SyntheticTokenDataset(length=cfg.fake_data_length,
+                                     global_batch_size=cfg.global_batch_size,
+                                     seq_len=lm["seq"], vocab_size=lm["vocab"],
+                                     num_physical_batches=4, seed=cfg.seed)
+        model = get_model(cfg.model, **cfg.model_kwargs(), max_seq_len=lm["seq"], device=device)
+        return cfg, data, model
+
+    line = warmup_turns(f"lm_{lm['variant']} pallas", lm_make, device, ("flash_",),
+                        {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}, card, fl)
+    replayed["flash"] = line["by_kind"]["graphed"]["ours_per_step"]
+
+    def small_make(model_name, aot, steps=3, **kw):
+        cfg = TrainConfig(model=model_name, image_size=small["image_size"],
+                          batch_size_per_device=small["batch"], num_classes=small["num_classes"],
+                          fake_data_length=steps * small["batch"], epochs=1, log_every_steps=1,
+                          aot_warmup=aot, **kw)
+        data = SyntheticImageDataset(length=cfg.fake_data_length,
+                                     global_batch_size=cfg.global_batch_size,
+                                     image_size=cfg.image_size, num_classes=cfg.num_classes,
+                                     num_physical_batches=steps, seed=cfg.seed)
+        extra = {"fused_dense_grad": True} if model_name.startswith("vit_") else {}
+        model = get_model(cfg.model, **cfg.model_kwargs(), device=device, **extra)
+        return cfg, data, model
+
+    on_card = torch.device(device).type == "cuda"
+    for what, make, marks, want in (
+            ("efficientnet_b0 dropout", lambda aot: small_make("efficientnet_b0", aot), (), {}),
+            ("vit_b16 fused FUSED_DENSE_GRAD=1",
+             lambda aot: small_make("vit_b16", aot, attn_impl="fused"), ("packed_", "dw_db"),
+             {"packed_fwd": 12, "packed_bwd": 24, "dw_db": 49})):
+        finals, lines = [], {}
+        for aot in (False, True):
+            cfg, data, model = make(aot)
+            res, _, _, kernels, _ = _warm_fit(cfg, data, model, device, aot)
+            finals.append({k: v.detach().clone() for k, v in model.state_dict().items()})
+            lines["graphed" if aot else "eager"] = {
+                "history": res.history, "graphs_captured": res.perf.get("graphs_captured", 0),
+                "eager_steps": res.perf.get("eager_steps"), "ours_per_step": _ours(kernels, marks)}
+            del res, model, data
+        equal, gap = _state_gap(*finals)
+        out = {"what": what, "size": small, "steps": 3, **lines, "bitwise_equal": equal,
+               "max_param_gap_rel": gap, "limit": WARM_GAP_LIMIT, "card": card}
+        print("warmup " + json.dumps(out), flush=True)
+        if not (equal or gap <= WARM_GAP_LIMIT):
+            raise AssertionError(f"warmup {what}: graphed run left the eager one by {gap}")
+        if on_card:
+            got = lines["graphed"]["ours_per_step"]
+            for mark, n_want in want.items():
+                n = sum(v for k, v in got.items() if mark in k)
+                if n != n_want:
+                    raise AssertionError(f"warmup {what}: {mark} launched {n} times a replayed "
+                                         f"step, want {n_want} ({got})")
+            if want:
+                replayed["vit"] = got
+            if lines["graphed"]["graphs_captured"] < 1:
+                raise AssertionError(f"warmup {what}: no graph captured")
+
+    # The eval step (warmup_engine's eval_batch): captured beside the
+    # train step, its replay against the eager eval of the same batch.
+    from distributeddeeplearning_tpu_torch.data import to_device
+    from distributeddeeplearning_tpu_torch.training import create_optimizer
+    from distributeddeeplearning_tpu_torch.training.engines import build_engine
+    from distributeddeeplearning_tpu_torch.training.metrics import init_accumulator
+
+    cfg, data, model = _resnet_fit_setup(epochs=1, steps=2, image_size=small["image_size"],
+                                         batch=small["batch"],
+                                         num_classes=small["num_classes"], device=device)
+    eng = build_engine(model, cfg, create_optimizer(cfg, data.steps_per_epoch)[0],
+                       device=device)
+    eval_batch = to_device(next(iter(data.epoch(0))), device)
+    eager = {k: v.clone() for k, v in eng.eval_step(eng.state, eval_batch).items()}
+    info = eng.warmup(eval_batch, acc=init_accumulator(device), eval_batch=eval_batch)
+    graphed = eng.eval_step(eng.state, eval_batch)
+    equal = all(torch.equal(eager[k], graphed[k]) for k in eager)
+    print("warmup " + json.dumps({
+        "what": "resnet50 fused eval step", "size": small,
+        "eager": {k: v.item() for k, v in eager.items()},
+        "graphed": {k: v.item() for k, v in graphed.items()}, "bitwise_equal": equal,
+        "graphs_captured": info["graphs_captured"],
+        "eval_compile_sec": info["eval_compile_sec"], "card": card}), flush=True)
+    if not equal or info["graphs_captured"] != 2 * on_card or eng.eval_step.eager_calls:
+        raise AssertionError(f"warmup eval step: {eager} against {graphed}, {info}")
+    del eng, model, data
+
+    finals, lines = [], {}
+    for aot in (False, True):
+        cfg, data, model = resnet(aot, steps=4, batch=max(batch // 2, 1))
+        cfg = cfg.replace(grad_accum_steps=2)
+        res, _, _, _, _ = _warm_fit(cfg, data, model, device)
+        finals.append({k: v.detach().clone() for k, v in model.state_dict().items()})
+        lines["graphed" if aot else "eager"] = {
+            "history": res.history, "graphs_captured": res.perf.get("graphs_captured", 0),
+            "eager_steps": res.perf.get("eager_steps")}
+        del res, model, data
+    equal, gap = _state_gap(*finals)
+    print("warmup " + json.dumps({
+        "what": "resnet50 fused GRAD_ACCUM_STEPS=2", "batch": max(batch // 2, 1), "steps": 4,
+        **lines, "bitwise_equal": equal, "max_param_gap_rel": gap, "limit": WARM_GAP_LIMIT,
+        "card": card}), flush=True)
+    if not (equal or gap <= WARM_GAP_LIMIT):
+        raise AssertionError(f"warmup GRAD_ACCUM_STEPS=2: graphed run left the eager one by {gap}")
+    if on_card and lines["graphed"]["graphs_captured"] != 2:
+        raise AssertionError(f"warmup GRAD_ACCUM_STEPS=2: {lines['graphed']}")
+    if on_card:
+        torch.cuda.empty_cache()
+    return replayed
+
+
+FRONTEND_ENV = {"FAKE": "True", "FAKE_DATA_LENGTH": "256", "EPOCHS": "1", "BATCHSIZE": "32",
+                "IMAGE_SIZE": "64", "NUM_CLASSES": "10", "VALIDATION": "true"}
+FRONTENDS = (
+    # (example module, extra env, a line its summary must print)
+    ("imagenet_explicit", {}, "Total images/sec"),
+    ("imagenet_keras", {"AOT_WARMUP": "1", "DDL_NUM_PROCESSES": "1", "DDL_PROCESS_ID": "0"},
+     "throughput:"),
+    ("imagenet_estimator", {"AOT_WARMUP": "1"}, "Total images/sec"),
+    ("lm_synthetic", {"MODEL": "lm_tiny", "ATTN_IMPL": "pallas", "SEQ_LEN": "128",
+                      "VOCAB": "1024", "BATCHSIZE": "8", "FAKE_DATA_LENGTH": "64"},
+     "Total images/sec"),
+)
+
+
+def frontends_phase(card, platform=None, extra_env=None, timeout=600):
+    """The four example modules of the port
+    (``python -m distributeddeeplearning_tpu_torch.examples.<name>``) as
+    a user runs them, in subprocesses started together on the card:
+    ResNet-50 at 64 px (8 steps of 32 and a validation pass; the
+    imagenet examples' model is fixed, as in ``examples/*_tpu.py``)
+    through the explicit, Keras-style (``AOT_WARMUP=1``, and a one-rank
+    NCCL world formed by ``maybe_initialize`` from ``DDL_COORDINATOR``,
+    ``DDL_NUM_PROCESSES=1``, ``DDL_PROCESS_ID=0``) and estimator-style
+    (``AOT_WARMUP=1``) front-ends, and ``lm_tiny`` with the flash kernels
+    through the explicit one. Each must exit 0 and print its summary;
+    the Keras one its rendezvous. ``platform="cpu"`` (``DDL_PLATFORM``)
+    with ``extra_env`` rehearses the flow on the CPU."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = {k: v for k, v in os.environ.items() if not k.startswith("DDL_")}
+    base.update(FRONTEND_ENV, **(extra_env or {}))
+    if platform:
+        base["DDL_PLATFORM"] = platform
+    procs = []
+    for name, env, _ in FRONTENDS:
+        env = dict(base, **env)
+        if "DDL_NUM_PROCESSES" in env:
+            env["DDL_COORDINATOR"] = f"127.0.0.1:{port}"
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", f"distributeddeeplearning_tpu_torch.examples.{name}"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    lines = {}
+    for (name, _, mark), p, out in zip(FRONTENDS, procs, outs):
+        summary = [x.split("] ", 1)[-1] for x in out.splitlines()
+                   if any(m in x for m in ("images/sec", "Total", "throughput", "validation",
+                                           "distributed initialized", "warmup(",
+                                           "compile_sec", "graphs_captured"))]
+        lines[name] = {"returncode": p.returncode, "summary": summary}
+        if p.returncode != 0 or mark not in out:
+            raise AssertionError(f"example {name} exited {p.returncode}: {out[-4000:]}")
+    if "distributed initialized: process 0/1, backend " + ("gloo" if platform == "cpu"
+                                                            else "nccl") not in outs[1]:
+        raise AssertionError(f"imagenet_keras formed no one-rank world: {outs[1][-4000:]}")
+    print("frontends " + json.dumps({"examples": lines, "wall_s": wall, "card": card}),
+          flush=True)
+    return lines
+
+
+def trace_phase(fb, card, device="cuda", image_size=224, batch=64, num_classes=1000):
+    """``TRACE_EVERY_N_EPOCHS=1`` (``obs/trace.py``) on a two-epoch
+    ``fit`` of fused ResNet-50 (3 steps an epoch) with ``AOT_WARMUP=1``:
+    ``trace-epoch0000`` and ``trace-epoch0001`` written, each a Chrome
+    trace naming the hand-written kernels that ran (epoch 1: 32
+    ``matmul_stats`` launches a replayed step; epoch 0 also holds the
+    warm-up's eager steps), the two bus points an epoch, and one labelled
+    ``trace_stop`` sync an epoch beside the loop's own."""
+    import shutil
+    import tempfile
+
+    from distributeddeeplearning_tpu_torch import obs
+    from distributeddeeplearning_tpu_torch.utils import hostsync
+
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="ddl-trace-")
+    old = {k: os.environ.get(k) for k in ("TRACE_EVERY_N_EPOCHS", "TRACE_DIR")}
+    os.environ.update(TRACE_EVERY_N_EPOCHS="1", TRACE_DIR=tmp)
+    try:
+        cfg, data, model = _resnet_fit_setup(epochs=2, steps=3, image_size=image_size,
+                                             batch=batch, num_classes=num_classes,
+                                             device=device)
+        hostsync.accountant().reset()
+        res, _, _, _, _ = _warm_fit(cfg.replace(aot_warmup=True), data, model, device)
+        by_label = dict(hostsync.accountant().by_label)
+        points = [(r["name"], r["labels"]["epoch"]) for r in obs.get_bus().ring
+                  if r["kind"] == "point" and r["name"] in ("trace_start", "trace_stop")][-4:]
+        epochs = {}
+        for d in sorted(os.listdir(tmp)):
+            files = os.listdir(os.path.join(tmp, d))
+            with open(os.path.join(tmp, d, files[0])) as fh:
+                events = json.load(fh)["traceEvents"]
+            kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+            epochs[d] = {"file": files[0], "bytes": os.path.getsize(os.path.join(tmp, d,
+                                                                               files[0])),
+                         "kernels": len(kernels),
+                         "ours": {k: kernels.count(k) for k in sorted(set(kernels))
+                                  if "matmul_stats" in k}}
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    line = {"epochs": epochs, "bus_points": points, "host_syncs_by_label": by_label,
+            "graphs_captured": res.perf.get("graphs_captured"), "history": res.history,
+            "card": card}
+    print("trace " + json.dumps(line), flush=True)
+    if sorted(epochs) != ["trace-epoch0000", "trace-epoch0001"]:
+        raise AssertionError(f"trace: wrote {sorted(epochs)}")
+    if points != [("trace_start", 0), ("trace_stop", 0), ("trace_start", 1),
+                  ("trace_stop", 1)]:
+        raise AssertionError(f"trace: bus points {points}")
+    if on_card:
+        if sum(epochs["trace-epoch0001"]["ours"].values()) != 32 * 3:
+            raise AssertionError(f"trace: epoch 1 names {epochs['trace-epoch0001']['ours']} "
+                                 f"launches of the fused kernels, want 96")
+        if by_label != {"epoch_metrics": 2, "trace_stop": 2}:
+            raise AssertionError(f"trace: host syncs {by_label}")
+    return line
+
+
 BENCH_RUNS = 3
 
 
-BENCH_PROTOCOLS = (("resnet50", {}), ("lm_base", {"BENCH_MODEL": "lm_base"}))
+# COMPILATION_CACHE_DIR None: a fresh directory that the protocol's runs share.
+BENCH_PROTOCOLS = (("resnet50", {}),
+                   ("lm_base", {"BENCH_MODEL": "lm_base", "COMPILATION_CACHE_DIR": None}))
 
 
 def bench_phase(card, runs=BENCH_RUNS, protocols=BENCH_PROTOCOLS, timeout=600):
@@ -3029,13 +3490,25 @@ def bench_phase(card, runs=BENCH_RUNS, protocols=BENCH_PROTOCOLS, timeout=600):
     ``runs`` runs of each protocol (the canonical ResNet-50 one and
     ``BENCH_MODEL=lm_base``; ``protocols`` pairs a label with its env).
     Each must exit 0 and print its record with ``detail.platform ==
-    "cuda"`` (``"cpu"`` under ``BENCH_DEVICE=cpu``) and
-    ``host_sync_count == 1``; the ``benchwall`` line gives each
-    protocol's median, min and max ``value``."""
-    base = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    "cuda"`` (``"cpu"`` under ``BENCH_DEVICE=cpu``), the step captured
+    (``detail.graphs_captured`` 1; 0 on the CPU) and ``host_sync_count
+    == 1``; the ``benchwall`` line gives each protocol's median, min and
+    max ``value``. A protocol with ``COMPILATION_CACHE_DIR`` shares a
+    fresh library cache across its runs: the first run's capture builds
+    what it loads (misses, no hit), each later one loads it (hits, no
+    miss)."""
+    import shutil
+    import tempfile
+
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith("BENCH_") and k != "COMPILATION_CACHE_DIR"}
     records = {}
+    caches = []
     for label, extra in protocols:
         env = dict(base, **extra)
+        if "COMPILATION_CACHE_DIR" in env and env["COMPILATION_CACHE_DIR"] is None:
+            caches.append(tempfile.mkdtemp(prefix="ddl-cache-"))
+            env["COMPILATION_CACHE_DIR"] = caches[-1]
         platform = "cpu" if env.get("BENCH_DEVICE") == "cpu" else "cuda"
         for i in range(runs):
             t0 = time.perf_counter()
@@ -3049,13 +3522,23 @@ def bench_phase(card, runs=BENCH_RUNS, protocols=BENCH_PROTOCOLS, timeout=600):
             rec = json.loads(lines[-1])
             print("bench " + json.dumps(dict(rec, run=i, process_wall_s=wall, card=card)),
                   flush=True)
-            if rec["detail"]["platform"] != platform or rec["host_sync_count"] != 1:
+            detail = rec["detail"]
+            if (detail["platform"] != platform or rec["host_sync_count"] != 1
+                    or detail.get("graphs_captured") != (1 if platform == "cuda" else 0)):
                 raise AssertionError(f"bench {label} record: {rec}")
+            if "COMPILATION_CACHE_DIR" in env and platform == "cuda":
+                hits, misses = (detail["persistent_cache_hits"],
+                                detail["persistent_cache_misses"])
+                if not ((hits == 0 and misses >= 1) if i == 0 else (hits >= 1 and misses == 0)):
+                    raise AssertionError(f"bench {label} run {i}: library cache {hits} hit(s), "
+                                         f"{misses} miss(es)")
             records.setdefault(rec["metric"], []).append(rec["value"])
     wall = {m: {"runs": len(v), "median": statistics.median(v), "min": min(v), "max": max(v),
                 "spread_rel": (max(v) - min(v)) / statistics.median(v)}
             for m, v in records.items()}
     print("benchwall " + json.dumps(dict(wall, card=card)), flush=True)
+    for d in caches:
+        shutil.rmtree(d, ignore_errors=True)
     return wall
 
 
@@ -3075,8 +3558,47 @@ def _fb_entry(name, cases, timed_case, launches):
     }
 
 
+class _PhaseClock:
+    """Seconds each phase took: ``start(name)`` closes the running
+    phase (the build first) and opens ``name``."""
+
+    def __init__(self, phases):
+        self.t0 = self.last = time.perf_counter()
+        self.phases, self.current, self.seconds = phases, "build", {}
+
+    def start(self, name):
+        now = time.perf_counter()
+        if self.current == "build" or self.current in self.phases:
+            self.seconds[self.current] = now - self.last
+        self.current, self.last = name, now
+
+
 PHASES = ("kernels", "serve", "servequant", "servespec", "train", "lmtrain", "vittrain",
-          "effnettrain", "fit", "bench")
+          "effnettrain", "fit", "warmup", "frontends", "trace", "bench")
+
+
+# A kernels-line entry -> (replayed family, what its kernel names hold,
+# device kernels a call).
+_REPLAYED = {
+    "matmul_stats": ("fused_block", ", false>", 1),
+    "bn_relu_matmul_stats": ("fused_block", ", true>", 1),
+    "flash_fwd": ("flash", "flash_fwd", 1),
+    "flash_bwd_dq": ("flash", "flash_bwd_dq", 1),
+    "flash_bwd_dkv": ("flash", "flash_bwd_dkv", 1),
+    "fused_qkv_fwd": ("vit", "packed_fwd", 1),
+    "fused_qkv_bwd": ("vit", "packed_bwd", 2),
+    "matmul_dw_db": ("vit", "dw_db", 1),
+}
+
+
+def _replayed_launches(name, replayed):
+    """Calls a replayed step of a kernels-line entry, from the
+    ``warmup`` phase's profiler counts (None for a kernel it does not
+    replay)."""
+    if name not in _REPLAYED or _REPLAYED[name][0] not in replayed:
+        return None
+    family, mark, per_call = _REPLAYED[name]
+    return sum(v for k, v in replayed[family].items() if mark in k) / per_call
 
 
 def _pd_entry(name, cases, store, launches):
@@ -3125,6 +3647,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
 
+    clock = _PhaseClock(phases)
     # One nvcc per source, all started together.
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3145,6 +3668,7 @@ def main(argv=None) -> int:
 
     entries = []
     pd_cases = fb_cases = flash_cases = fp_cases = fg_cases = dw_cases = None
+    clock.start("kernels")
     if "kernels" in phases:
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
         pd_cases = kernel_phase(pd, flush)
@@ -3158,12 +3682,14 @@ def main(argv=None) -> int:
         del flush
         torch.cuda.empty_cache()
 
+    clock.start("serve")
     if "serve" in phases:
         launches = serving_phase(pd, card)
         torch.cuda.empty_cache()
         if pd_cases is not None:
             entries.append(_pd_entry("paged_decode_attention", pd_cases, "bfloat16", launches))
 
+    clock.start("servequant")
     if "servequant" in phases:
         by_store = quant_serving_phase(pd, card)
         torch.cuda.empty_cache()
@@ -3174,11 +3700,13 @@ def main(argv=None) -> int:
                           by_store["fp8"]),
             ]
 
+    clock.start("servespec")
     if "servespec" in phases:
         spec_serving_phase(pd, card)
         torch.cuda.empty_cache()
 
     bare_step_ms = None
+    clock.start("train")
     if "train" in phases:
         fused_line, state, step, batches = train_phase(fb, card, fused=True)
         bare_step_ms = fused_line["step_ms"]
@@ -3204,6 +3732,7 @@ def main(argv=None) -> int:
                           "bn_relu_matmul_stats/stage1_conv3", by_op["bn_relu_matmul_stats"]),
             ]
 
+    clock.start("lmtrain")
     if "lmtrain" in phases:
         line, state, step, batches = lm_train_phase(fl, card, "pallas")
         by_op = line["launches_by_op"]
@@ -3224,6 +3753,7 @@ def main(argv=None) -> int:
         if flash_cases is not None:
             entries += [_flash_entry(op, flash_cases, by_op[op]) for op in FLASH_OPS]
 
+    clock.start("vittrain")
     if "vittrain" in phases:
         line, state, step, batches = vit_train_phase(fp, fg, card, "fused", True)
         by_op = line["launches_by_op"]
@@ -3251,6 +3781,7 @@ def main(argv=None) -> int:
             entries += [_fp_entry(op, fp_cases, by_op[op]) for op in FP_OPS]
             entries.append(_fg_entry(fg_cases, by_op["matmul_dw_db"]))
 
+    clock.start("effnettrain")
     if "effnettrain" in phases:
         line, state, step, batches, ds, cfg = effnet_train_fit(dwm, card)
         profile_train(state, step, batches, card, line["step_ms"],
@@ -3278,6 +3809,7 @@ def main(argv=None) -> int:
                           line["depthwise_launches"]),
             ]
 
+    clock.start("fit")
     if "fit" in phases:
         fit_launches = fit_phase(fb, fl, card, bare_step_ms)
         for e in entries:  # the same kernels' launches on the loop's path
@@ -3286,9 +3818,33 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    clock.start("warmup")
+    if "warmup" in phases:
+        replayed = warmup_phase(card)
+        for e in entries:  # the same kernels' launches a step under graph replay
+            n = _replayed_launches(e["name"], replayed)
+            if n is not None:
+                e["replay_launches_per_step"] = n
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    clock.start("frontends")
+    if "frontends" in phases:
+        frontends_phase(card)
+
+    clock.start("trace")
+    if "trace" in phases:
+        trace_phase(fb, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    clock.start("bench")
     if "bench" in phases:
         bench_phase(card)
 
+    clock.start("end")
+    print("phases " + json.dumps(dict(clock.seconds, total=time.perf_counter() - clock.t0)),
+          flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

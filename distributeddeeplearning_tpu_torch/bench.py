@@ -22,24 +22,32 @@ Three modes, with ``bench.py``'s env knobs, metric names and record keys
 * **decode** (``BENCH_DECODE=1``): generated tokens/s through
   ``inference.generate`` on the dense cache (no kernel, as in JAX).
 
-Each training protocol runs 3 warm-up and 20 timed steps of one staged
+Each training protocol first captures the step as CUDA graphs (the
+port's counterpart of ``bench.py``'s AOT compile, ``bench.py:140-146``:
+``metrics.StepFn.aot_compile``, warm-up steps on the capture stream
+included), then runs 3 warm-up and 20 timed replays of one staged
 batch; the timed window closes with one host readback of the loss, and
 ``host_sync_count`` counts the materialisations inside it under
-``utils/hostsync.track()`` (1 when the step is sync-free). ``ACCUM_STEPS``
+``utils/hostsync.track()`` (1 when the step is sync-free).
+``compile_sec`` is the capture's seconds, the first kernel builds
+included; ``COMPILATION_CACHE_DIR`` makes re-runs load the kernel
+libraries built there instead of running ``nvcc`` again
+(``training/warmup.enable_persistent_cache``), and the record's
+``detail`` then carries the cache's hits and misses. On the CPU (``BENCH_DEVICE=cpu``) there is no graph: the
+warm-up step runs in its place and the timed steps run eager. ``ACCUM_STEPS``
 sets in-step accumulation. ``BENCH_PROFILE=DIR`` writes a
 ``torch.profiler`` Chrome trace of the timed window there. ``--events``
 (or ``OBS_DIR``) routes every record and span through the event bus.
 
-Three departures from ``bench.py``, on purpose:
+Two departures from ``bench.py``, on purpose:
 
-(a) ``compile_sec`` is the seconds of the first step up to a device
-    sync: library load, cuDNN's algorithm choice and the lazy ``nvcc``
-    kernel builds (eager torch has no separate compile).
-(b) OOM only: the batch step-down catches ``torch.cuda.OutOfMemoryError``
-    and nothing else (``bench.py`` retries on any exception). Any other
-    failure prints the error record and raises, exiting non-zero, so a
-    kernel that fails never passes as a smaller batch.
-(c) No CPU fallback: without CUDA the harness prints the error record
+(a) OOM only: the batch step-down catches ``torch.cuda.OutOfMemoryError``
+    and nothing else (``bench.py`` retries on any exception); an OOM
+    during the capture discards the graphs and their pool before the
+    smaller batch. Any other failure (a failed capture included) prints
+    the error record and raises, exiting non-zero, so a kernel that fails
+    never passes as a smaller batch.
+(b) No CPU fallback: without CUDA the harness prints the error record
     and exits non-zero, unless ``BENCH_DEVICE=cpu`` asks for the CPU
     (the tests do); ``detail.platform`` then says ``"cpu"``.
 
@@ -99,20 +107,21 @@ def _sync(device: torch.device) -> None:
 
 
 def _timed_steps(step, state, batch, device, profile_dir=None):
-    """The protocol shared by the training modes: the first step timed
-    to a device sync (``compile_sec``), the rest of the warm-up, a
-    fence, then ``MEASURE_STEPS`` steps closed by one host readback,
-    under ``hostsync.track()``. Returns ``(seconds, compile_sec,
-    host_sync_count)``."""
+    """The protocol shared by the training modes: the step captured
+    (``compile_sec``; an OOM there drops the graphs before it
+    propagates), the warm-up, a fence, then ``MEASURE_STEPS`` steps
+    closed by one host readback, under ``hostsync.track()``. Returns
+    ``(seconds, compile_sec, host_sync_count, graphs)``."""
     from distributeddeeplearning_tpu_torch import obs
     from distributeddeeplearning_tpu_torch.utils import hostsync
 
-    t0 = time.perf_counter()
     with obs.span("compile", what="bench_step"):
-        state, metrics = step(state, batch)
-        _sync(device)
-    compile_sec = time.perf_counter() - t0
-    for _ in range(WARMUP_STEPS - 1):
+        try:
+            captured, compile_sec = step.aot_compile(state, batch)
+        except torch.cuda.OutOfMemoryError:
+            step.discard()
+            raise
+    for _ in range(WARMUP_STEPS):
         state, metrics = step(state, batch)
     float(hostsync.device_get(metrics["loss"], label="bench_fence"))
 
@@ -135,7 +144,9 @@ def _timed_steps(step, state, batch, device, profile_dir=None):
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
         p.export_chrome_trace(os.path.join(profile_dir, "bench_trace.json"))
-    return dt, compile_sec, int(hostsync.accountant().count - sync0)
+    if step.eager_calls:
+        raise RuntimeError(f"{step.eager_calls} step(s) found no graph for their signature")
+    return dt, compile_sec, int(hostsync.accountant().count - sync0), captured.graphs
 
 
 def run_bench(per_device_batch: int, device: torch.device, profile_dir=None, *,
@@ -168,9 +179,10 @@ def run_bench(per_device_batch: int, device: torch.device, profile_dir=None, *,
         rng.randint(0, 1000, size=(global_batch,)).astype(np.int32),
     )
     batch = to_device(host_batch, device)
-    dt, compile_sec, syncs = _timed_steps(step, state, batch, device, profile_dir)
+    dt, compile_sec, syncs, graphs = _timed_steps(step, state, batch, device, profile_dir)
     perf = {"compile_sec": round(compile_sec, 3), "host_sync_count": syncs,
-            "accum_steps": cfg.accum_steps, "effective_batch": global_batch}
+            "accum_steps": cfg.accum_steps, "effective_batch": global_batch,
+            "graphs_captured": graphs}
     return MEASURE_STEPS * global_batch / dt, n_dev, perf
 
 
@@ -199,9 +211,10 @@ def run_lm_bench(model_name: str, per_device_batch: int, seq_len: int, attn_impl
     rng = np.random.RandomState(42)
     rows = rng.randint(0, vocab, size=(global_batch, seq_len + 1)).astype(np.int32)
     batch = to_device((rows[:, :-1], rows[:, 1:]), device)
-    dt, compile_sec, syncs = _timed_steps(step, state, batch, device, profile_dir)
+    dt, compile_sec, syncs, graphs = _timed_steps(step, state, batch, device, profile_dir)
     perf = {"compile_sec": round(compile_sec, 3), "host_sync_count": syncs,
-            "accum_steps": cfg.accum_steps, "effective_batch": global_batch}
+            "accum_steps": cfg.accum_steps, "effective_batch": global_batch,
+            "graphs_captured": graphs}
     return MEASURE_STEPS * global_batch * seq_len / dt, n_dev, perf
 
 
@@ -261,6 +274,29 @@ def _intended_metric():
     return _vision_protocol()[4], "images/sec"
 
 
+def _released(e: BaseException) -> BaseException:
+    """The error without its traceback, whose frames hold the failed
+    protocol's model, state and graphs."""
+    return type(e)(str(e))
+
+
+def _graphs(perf: dict) -> dict:
+    """``graphs_captured`` moved from the protocol's ``perf`` to the
+    record's ``detail`` (the top-level keys are ``bench.py``'s)."""
+    return {"graphs_captured": perf.pop("graphs_captured")} if "graphs_captured" in perf else {}
+
+
+def _cache_detail() -> dict:
+    """The library cache's hits and misses this process, when
+    ``COMPILATION_CACHE_DIR`` is set."""
+    if not os.environ.get("COMPILATION_CACHE_DIR"):
+        return {}
+    from distributeddeeplearning_tpu_torch.training.warmup import cache_stats
+
+    hits, misses = cache_stats()
+    return {"persistent_cache_hits": hits, "persistent_cache_misses": misses}
+
+
 def _free(device: torch.device) -> None:
     gc.collect()
     if device.type == "cuda":
@@ -296,9 +332,10 @@ def lm_main(device: torch.device) -> int:
             tps, n_dev, perf = run_lm_bench(model_name, per_device_batch, seq_len, attn_impl,
                                             device, profile_dir)
         except torch.cuda.OutOfMemoryError as e:
-            last_err = e
+            last_err = _released(e)
             _free(device)
             continue
+        graphs = _graphs(perf)
         _emit_record({
             "metric": f"{model_name}_synthetic_train_tokens_per_sec",
             "value": round(tps, 1),
@@ -308,7 +345,7 @@ def lm_main(device: torch.device) -> int:
             "detail": {"devices": n_dev, "per_device_batch": per_device_batch,
                        "seq_len": seq_len, "attn_impl": attn_impl,
                        "tokens_per_sec_per_device": round(tps / n_dev, 1),
-                       "platform": device.type},
+                       "platform": device.type, **graphs, **_cache_detail()},
         })
         return 0
     _emit_record({"metric": f"{model_name}_synthetic_train_tokens_per_sec", "value": 0.0,
@@ -329,13 +366,15 @@ def vision_main(device: torch.device) -> int:
                                          model_name=vision_model, depth=depth,
                                          image_size=image_size)
         except torch.cuda.OutOfMemoryError as e:
-            last_err = e
+            last_err = _released(e)
             _free(device)
             continue
+        graphs = _graphs(perf)
         per_chip = ips / n_dev
         detail = {"devices": n_dev, "world_size": n_dev, "per_device_batch": per_device_batch,
                   "images_per_sec_per_device": round(per_chip, 1),
-                  "platform": device.type, "image_size": image_size}
+                  "platform": device.type, "image_size": image_size,
+                  **graphs, **_cache_detail()}
         if vision_model:
             detail["model"] = vision_model
         else:
@@ -363,6 +402,11 @@ def main(argv=None) -> int:
         if not os.environ.get("OBS_DIR"):
             os.environ["OBS_DIR"] = os.path.join("runs", f"bench-{int(time.time())}")
         obs.configure_from_env()
+    if os.environ.get("COMPILATION_CACHE_DIR"):
+        # The kernel-library cache: re-runs load what an earlier run built.
+        from distributeddeeplearning_tpu_torch.training.warmup import enable_persistent_cache
+
+        enable_persistent_cache(os.environ["COMPILATION_CACHE_DIR"])
     metric, unit = _intended_metric()
     try:
         device = _device()

@@ -5,7 +5,10 @@ names any model of ``models.get_model``, ``efficientnet_b0`` …
 ``efficientnet_b7`` too): accumulation (``ACCUM_STEPS``,
 ``GRAD_ACCUM_STEPS``), validation, prefetch depth, the non-finite guard
 and checkpointing (``MODEL_DIR``/``AZ_BATCHAI_OUTPUT_MODEL``,
-``RESUME``, ``CHECKPOINT_*``).
+``RESUME``, ``CHECKPOINT_*``), the warm-up (``AOT_WARMUP``: CUDA-graph
+capture of the step, ``training/warmup.py``), the library cache
+(``COMPILATION_CACHE_DIR``: built kernel libraries, ``ops/_build.py``)
+and ``DISTRIBUTED`` (``parallel/distributed.py``).
 
 Field names, defaults and ``from_env`` parsing are the JAX package's. A
 field of a later slice that the dataclass carries (``engine``,
@@ -41,7 +44,6 @@ _GATED = {
 
 # Env vars of the JAX contract whose fields this slice does not carry.
 _LATER_ENV = {
-    "DISTRIBUTED": "the process tier (launch.py, parallel/distributed.py)",
     "NUM_WORKERS": "the real-data pipeline", "WORKER_MODE": "the real-data pipeline",
     "MULTIPROCESSING": "the real-data pipeline", "DATA_FORMAT": "the real-data pipeline",
     "STREAM_SHUFFLE_BLOCK": "the real-data pipeline",
@@ -55,10 +57,9 @@ _LATER_ENV = {
     "PP_SCHEDULE": "the mesh/engine slice", "PARAM_SHARDING": "the mesh/engine slice",
     "ALLOW_SYNC_BN": "the mesh/engine slice", "MESH_AXES": "the mesh/engine slice",
     "MESH_SHAPE": "the mesh/engine slice",
-    "COMPILATION_CACHE_DIR": "the warm-up slice (training/warmup.py: CUDA-graph capture)",
-    "AOT_WARMUP": "the warm-up slice (training/warmup.py: CUDA-graph capture)",
     "ASYNC_COLLECTIVES": "the mesh/engine slice",
-    "ELASTIC": "the process tier", "LR_WORLD_SIZE": "the process tier",
+    "ELASTIC": "the process tier (launch.py, the rest of faults.py)",
+    "LR_WORLD_SIZE": "the process tier (launch.py, the rest of faults.py)",
 }
 
 
@@ -118,8 +119,17 @@ class TrainConfig:
     validation: bool = False
     prefetch_batches: int = 2
 
-    # Distribution
+    # Distribution: DISTRIBUTED asks parallel/distributed.maybe_initialize
+    # for torch's env:// rendezvous when no DDL_* variables are set.
+    distributed: bool = False
     engine: str = "dp"
+
+    # Cheap-restart knobs: the directory built kernel libraries go to and
+    # load from (COMPILATION_CACHE_DIR; None = the package's _build/), and
+    # AOT warm-up (AOT_WARMUP): capture the train step as CUDA graphs on
+    # the first staged batch (training/warmup.py).
+    compilation_cache_dir: Optional[str] = None
+    aot_warmup: bool = False
 
     # Bookkeeping
     seed: int = 42
@@ -200,6 +210,7 @@ class TrainConfig:
             )
         kw = {}
         parse = {
+            "DISTRIBUTED": ("distributed", _str_to_bool),
             "FAKE": ("fake", _str_to_bool),
             "FAKE_DATA_LENGTH": ("fake_data_length", int),
             "EPOCHS": ("epochs", int),
@@ -226,10 +237,13 @@ class TrainConfig:
             "CHECKPOINT_ASYNC": ("checkpoint_async", _str_to_bool),
             "RESUME": ("resume", _str_to_bool),
             "NONFINITE_ACTION": ("nonfinite_action", str),
+            "AOT_WARMUP": ("aot_warmup", _str_to_bool),
         }
         for var, (field, conv) in parse.items():
             if var in e:
                 kw[field] = conv(e[var])
+        if "COMPILATION_CACHE_DIR" in e:
+            kw["compilation_cache_dir"] = e["COMPILATION_CACHE_DIR"] or None
         model_dir = e.get("AZ_BATCHAI_OUTPUT_MODEL") or e.get("MODEL_DIR")
         if model_dir:
             kw["model_dir"] = model_dir

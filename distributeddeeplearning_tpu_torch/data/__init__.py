@@ -1,6 +1,6 @@
 """Data of the port: seeded synthetic images and tokens, host->device
 staging, and the JAX package's dataset factory (:func:`make_dataset`,
-its synthetic branch)."""
+its synthetic branch, and :func:`make_input_fn`)."""
 
 from distributeddeeplearning_tpu_torch.data.pipeline import (
     normalize_staged_images,
@@ -44,10 +44,17 @@ def make_dataset(config, train: bool = True) -> SyntheticImageDataset:
     )
 
 
+def make_input_fn(train: bool = True):
+    """Estimator-style input_fn factory (reference ``_create_data_fn``/
+    ``_create_fake_data_fn``, ``imagenet_estimator_tf_horovod.py:235-345``)."""
+    return lambda config: make_dataset(config, train=train)
+
+
 __all__ = [
     "SyntheticImageDataset",
     "SyntheticTokenDataset",
     "make_dataset",
+    "make_input_fn",
     "normalize_staged_images",
     "prefetch_to_device",
     "shard_batch",

@@ -105,6 +105,19 @@ def normalize_staged_images(images: torch.Tensor) -> torch.Tensor:
     f32, ``(x/255 - mean)/sd``; anything else passes through."""
     if images.dtype != torch.uint8 or images.dim() != 4:
         return images
-    mean = torch.tensor(IMAGENET_RGB_MEAN, dtype=torch.float32, device=images.device)
-    sd = torch.tensor(IMAGENET_RGB_SD, dtype=torch.float32, device=images.device)
+    mean, sd = _normalization(images.device)
     return (images.to(torch.float32) / 255.0 - mean) / sd
+
+
+_NORMALIZATION: dict = {}
+
+
+def _normalization(device: torch.device):
+    """The mean and sd on ``device``, copied there once: a captured step
+    (``metrics.StepFn.aot_compile``) may not copy from the host."""
+    got = _NORMALIZATION.get(device)
+    if got is None:
+        got = _NORMALIZATION[device] = tuple(
+            torch.tensor(v, dtype=torch.float32, device=device)
+            for v in (IMAGENET_RGB_MEAN, IMAGENET_RGB_SD))
+    return got

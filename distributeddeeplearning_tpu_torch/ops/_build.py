@@ -10,6 +10,13 @@ toolkit. The hash covers the source and the shared headers
 ``csrc/<name>.cpp`` (host code that a kernel's source shares, such as
 ``depthwise_plan.cpp``) builds the same way with the host's C++
 compiler, which needs no card.
+
+``set_cache_dir`` (``training/warmup.enable_persistent_cache``, from
+``COMPILATION_CACHE_DIR``) points builds and loads at another directory:
+the port's counterpart of JAX's on-disk executable cache. A library
+loaded from disk without running a compiler is a cache hit, a build a
+miss; each goes to the listener ``set_listener`` installs (the warm-up's
+counters and the bus's ``xla_cache_hit``/``xla_cache_miss``).
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -34,6 +41,32 @@ NVCC_FLAGS = (
 HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_cache_dir: Optional[Path] = None
+_listener: Optional[Callable[[str, str], None]] = None
+
+
+def set_cache_dir(directory: Optional[str]) -> None:
+    """Build to and load from ``directory`` (``None``: the package's
+    ``_build/``). Libraries already loaded in this process stay loaded."""
+    global _cache_dir
+    _cache_dir = Path(directory) if directory else None
+
+
+def build_dir() -> Path:
+    """Where libraries are built and loaded from now."""
+    return _cache_dir if _cache_dir is not None else BUILD_DIR
+
+
+def set_listener(fn: Optional[Callable[[str, str], None]]) -> None:
+    """Call ``fn("hit" | "miss", name)`` for each library loaded from
+    disk (``hit``) or built (``miss``)."""
+    global _listener
+    _listener = fn
+
+
+def _notify(event: str, name: str) -> None:
+    if _listener is not None:
+        _listener(event, name)
 
 
 def nvcc() -> str:
@@ -77,7 +110,7 @@ def library_path(name: str) -> Path:
     for path in [source, *sorted(CSRC.glob("*.cuh")), *sorted(CSRC.glob("*.h"))]:
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS if source.suffix == ".cu" else HOST_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -85,8 +118,8 @@ def build(name: str) -> Path:
     with the host compiler) unless its library exists; returns the
     library path. The compiler's output (``-Xptxas -v``: registers,
     shared memory, spills) is kept beside the library as ``.log``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = library_path(name)
+    path.parent.mkdir(parents=True, exist_ok=True)
     if path.exists():
         return path
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
@@ -104,6 +137,7 @@ def build(name: str) -> Path:
             f"build failed: {name} ({command[0]} rc={res.returncode}, see {log}):\n{tail}"
         )
     os.replace(tmp, path)  # atomic: a reader never sees half a file
+    _notify("miss", name)
     return path
 
 
@@ -118,7 +152,10 @@ def load(name: str) -> ctypes.CDLL:
     first use."""
     lib = _loaded.get(name)
     if lib is None:
+        cached = library_path(name).exists()
         path = build(name)
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
+        if cached:
+            _notify("hit", name)
     return lib

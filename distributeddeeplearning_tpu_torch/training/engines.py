@@ -55,11 +55,13 @@ class Engine:
     process_group: Any = None
 
     def warmup(self, batch, *, acc=None, eval_batch=None):
-        """AOT warm-up (``AOT_WARMUP``) is not ported: its analogue is
-        CUDA-graph capture, a later slice (``training/warmup.py``)."""
-        raise NotImplementedError(
-            "AOT_WARMUP: the warm-up slice (training/warmup.py: CUDA-graph capture) "
-            "is not ported yet")
+        """Capture the steps against ``batch``'s signature before the
+        data flows (``AOT_WARMUP``): CUDA graphs installed on the steps,
+        the capture seconds, the warm-up step's FLOPs and the library
+        cache's hit/miss delta. See ``training/warmup.py``."""
+        from distributeddeeplearning_tpu_torch.training.warmup import warmup_engine
+
+        return warmup_engine(self, batch, acc=acc, eval_batch=eval_batch)
 
 
 def build_engine(model, config: TrainConfig, tx, *, state: Optional[TrainState] = None,

@@ -13,9 +13,13 @@ tensor an epoch (the epoch means and the non-finite counter), applies
 the non-finite guard, optionally evaluates, and prints the throughput
 block (``utils/logging.log_summary``).
 
-``TRACE_EVERY_N_EPOCHS`` and ``TRACE_ON_SIGNAL`` (JAX ``obs/trace.py``)
-raise ``NotImplementedError``: the device tracer comes with the
-observability slice.
+``COMPILATION_CACHE_DIR`` points the kernel builds at a cache before the
+engine is built; ``AOT_WARMUP`` captures the step as CUDA graphs on the
+first staged batch, outside the dispatch clock (``training/warmup.py``;
+``compile_sec``, ``graphs_captured`` and the steps that found no graph,
+``eager_steps``, go into ``perf``); ``TRACE_EVERY_N_EPOCHS`` and
+``TRACE_ON_SIGNAL`` start and stop ``torch.profiler`` captures at epoch
+boundaries (``obs/trace.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +27,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import itertools
-import os
 import time
 from typing import Any, Dict, Iterable, List, Optional, Protocol, Sequence, Tuple
 
@@ -79,21 +82,11 @@ class FitResult:
     history: List[Dict[str, float]]
     images_per_sec: float
     # Host-sync accounting for the run (utils/hostsync.py): the step's
-    # host time p50/p99 (``dispatch_*``: in eager torch a step's whole
-    # host time, every launch of it, not one program's enqueue), wait
-    # time, host_sync_count, accum_steps, effective_batch.
+    # host time p50/p99 (``dispatch_*``: eager, a step's whole host time,
+    # every launch of it; captured, a graph replay's enqueue), wait
+    # time, host_sync_count, accum_steps, effective_batch; with
+    # AOT_WARMUP the warm-up's keys (training/warmup.py) and eager_steps.
     perf: Dict[str, float] = dataclasses.field(default_factory=dict)
-
-
-def _refuse_tracing(env=None) -> None:
-    e = os.environ if env is None else env
-    every_n = int(e.get("TRACE_EVERY_N_EPOCHS", "0") or 0)
-    on_signal = e.get("TRACE_ON_SIGNAL", "").strip().lower() in {"1", "true", "t", "yes", "y",
-                                                                  "on"}
-    if every_n > 0 or on_signal:
-        raise NotImplementedError(
-            "TRACE_EVERY_N_EPOCHS / TRACE_ON_SIGNAL: the device tracer comes with the "
-            "observability slice (obs/trace.py), not ported yet")
 
 
 def resolve_engine(config: TrainConfig, device=None) -> Tuple[str, torch.device]:
@@ -111,7 +104,6 @@ def resolve_engine(config: TrainConfig, device=None) -> Tuple[str, torch.device]
             f"CHECKPOINT_EVERY_STEPS must be >= 0, got {config.checkpoint_every_steps}")
     if config.checkpoint_keep < 1:
         raise ValueError(f"CHECKPOINT_KEEP must be >= 1, got {config.checkpoint_keep}")
-    _refuse_tracing()
     return config.engine, resolve_device(device)
 
 
@@ -140,7 +132,18 @@ def fit(
     # OBS_DIR turns on JSONL capture; without it every emit below is a
     # host-side append to the flight ring. Either way no device work.
     bus = obs.configure_from_env()
+    from distributeddeeplearning_tpu_torch.obs import trace as obs_trace
+
+    tracer = obs_trace.from_env()
+    if config.compilation_cache_dir:
+        # Before any kernel build (engine init included): re-runs load
+        # the libraries built there instead of running nvcc again.
+        from distributeddeeplearning_tpu_torch.training.warmup import enable_persistent_cache
+
+        enable_persistent_cache(config.compilation_cache_dir)
     engine_name, dev = resolve_engine(config, device)
+    if tracer is not None:
+        tracer.cuda = dev.type == "cuda"
     epochs = epochs if epochs is not None else config.epochs
     steps_per_epoch = train_data.steps_per_epoch
     world = collectives.world_size(process_group)
@@ -255,6 +258,9 @@ def fit(
     accumulates = getattr(train_step, "accumulates_metrics", False)
     clock = hostsync.StepClock()
     sync_start = hostsync.accountant().count
+    warmup_pending = config.aot_warmup
+    warmup_info: Dict[str, float] = {}
+    eager_start = getattr(train_step, "eager_calls", 0)
 
     history: List[Dict[str, float]] = []
     # Throughput counts what the dataset delivers (the staged batch's
@@ -269,6 +275,8 @@ def fit(
     metrics: Dict[str, Any] = {}
     first_dispatch = True
     for epoch in range(start_epoch, epochs):
+        if tracer is not None:
+            tracer.maybe_start(epoch)
         epoch_t0 = time.monotonic()
         callback_list.on_epoch_begin(epoch)
         step_in_epoch = 0
@@ -303,6 +311,12 @@ def fit(
                          skip_s * 1000.0)
         for batch in prefetch_to_device(batches, dev, size=config.prefetch_batches):
             global_batch = int(batch[0].shape[0]) * world
+            if warmup_pending:
+                # Capture against the real staged signature, OUTSIDE the
+                # dispatch clock: the capture's time is compile_sec, not
+                # step time.
+                warmup_info = eng.warmup(batch, acc=acc)
+                warmup_pending = False
             if injector is not None:
                 # FAULT_PLAN nan:step=N poisons the batch whose dispatch
                 # completes step N: an on-device multiply, no host sync.
@@ -388,6 +402,8 @@ def fit(
                                 manifest=make_manifest(global_step))
         bus.span_event("epoch", time.monotonic() - epoch_t0, t=epoch_t0, epoch=epoch,
                        steps=step_in_epoch)
+        if tracer is not None:
+            tracer.maybe_stop(epoch)
         bus.flush()  # epoch boundary: the one place events hit disk
 
     run_timer.stop()
@@ -397,6 +413,11 @@ def fit(
 
     perf = clock.summary()
     perf["host_sync_count"] = float(hostsync.accountant().count - sync_start)
+    perf.update(warmup_info)
+    if warmup_info:
+        # Steps that found no graph for their signature (a padded tail
+        # batch) and ran eager: the only steps that do once graphs exist.
+        perf["eager_steps"] = float(getattr(train_step, "eager_calls", 0) - eager_start)
     # One dispatch is one optimizer step on the whole staged batch, with
     # or without in-step accumulation: the delivered batch IS the
     # effective batch.
@@ -410,6 +431,9 @@ def fit(
     if accum_steps > 1:
         extra["accum_steps"] = accum_steps
         extra["effective_batch"] = int(global_batch)
+    if "compile_sec" in perf:
+        extra["compile_sec"] = round(perf["compile_sec"], 3)
+        extra["graphs_captured"] = int(perf["graphs_captured"])
     images_per_sec = log_summary(
         data_length=total_images, duration_s=run_timer.elapsed,
         batch_size_per_device=config.batch_size_per_device, num_devices=world,

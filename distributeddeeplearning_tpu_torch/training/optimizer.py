@@ -13,11 +13,22 @@ port of ``optax.MultiSteps`` (JAX ``training/optimizer.py:45-76``):
 gradients are averaged over k dispatches, the parameters and the
 schedule's count move on every k-th, and the running mean lives in the
 optimizer state, so it is checkpointed.
+
+Each update is split at the host/device boundary, so that the device
+part can be captured in a CUDA graph (``training/metrics.StepFn``):
+:meth:`prepare` does the host part (the schedule's rate at the host
+``count``, written into a device scalar with one ``fill_``, and the
+counters) and returns a token; :meth:`update` does the device part,
+reading the rate from that scalar, never from a host float, so a
+replayed graph follows the schedule. :meth:`apply` is the two in turn.
+``MultiSteps`` has a host branch (fold, or fold and apply): its token
+carries the micro-step, and a captured step keeps one graph for each
+micro-step of the k-cycle (:meth:`phase`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,24 +41,55 @@ class MomentumSGD:
     makes the state, :meth:`apply` updates parameters and state in
     place (the port keeps parameters in the model, not in a pytree)."""
 
+    phases = 1
+
     def __init__(self, schedule: Schedule, momentum: float = 0.9) -> None:
         self.schedule = schedule
         self.momentum = momentum
+        self._neg_lr: Dict[torch.device, torch.Tensor] = {}
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
         return {"count": 0,
                 "trace": [torch.zeros_like(p, memory_format=torch.preserve_format)
                           for p in params]}
 
+    def neg_lr(self, device) -> torch.Tensor:
+        """The f32 device scalar that holds ``-lr`` for ``device``'s
+        updates (one per device, made on first use)."""
+        device = torch.device(device)
+        t = self._neg_lr.get(device)
+        if t is None:
+            t = self._neg_lr[device] = torch.zeros((), dtype=torch.float32, device=device)
+        return t
+
+    def phase(self, state: Dict) -> int:
+        """Which device program the next update runs: always the one."""
+        return 0
+
     @torch.no_grad()
-    def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict) -> float:
-        """One update; returns the learning rate it used."""
+    def prepare(self, state: Dict) -> float:
+        """The host part of one update: the rate at ``count`` into the
+        device scalar (one ``fill_``, no sync), ``count`` advanced.
+        Returns the rate."""
         lr = self.schedule(state["count"])
+        self.neg_lr(state["trace"][0].device).fill_(-lr)
+        state["count"] += 1
+        return lr
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict,
+               token=None) -> None:
+        """The device part: ``trace = momentum·trace + g``, ``p += -lr·trace``
+        with ``-lr`` read from the device scalar."""
         trace = state["trace"]
         torch._foreach_mul_(trace, self.momentum)
         torch._foreach_add_(trace, grads)
-        torch._foreach_add_(params, torch._foreach_mul(trace, -lr))
-        state["count"] += 1
+        torch._foreach_add_(params, torch._foreach_mul(trace, self.neg_lr(trace[0].device)))
+
+    def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict) -> float:
+        """One update; returns the learning rate it used."""
+        lr = self.prepare(state)
+        self.update(params, grads, state, lr)
         return lr
 
 
@@ -64,6 +106,7 @@ class MultiSteps:
             raise ValueError(f"GRAD_ACCUM_STEPS must be >= 1, got {every_k}")
         self.inner = inner
         self.every_k = every_k
+        self.phases = every_k
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
         return {"mini_step": 0, "gradient_step": 0,
@@ -71,23 +114,44 @@ class MultiSteps:
                         for p in params],
                 "inner": self.inner.init(params)}
 
+    def phase(self, state: Dict) -> int:
+        """The next call's micro-step: its device program (fold, or at
+        ``k - 1`` fold and apply)."""
+        return state["mini_step"]
+
+    def prepare(self, state: Dict) -> Tuple[int, Optional[float]]:
+        """The host part of one micro-step: ``(micro_step, lr)``, ``lr``
+        None unless this call moves the parameters (then the inner
+        optimizer's host part ran)."""
+        n = state["mini_step"]
+        if n < self.every_k - 1:
+            state["mini_step"] += 1
+            return n, None
+        lr = self.inner.prepare(state["inner"])
+        state["mini_step"] = 0
+        state["gradient_step"] += 1
+        return n, lr
+
     @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict,
+               token: Tuple[int, Optional[float]]) -> None:
+        """The device part of micro-step ``token[0]``."""
+        n = token[0]
+        acc = state["acc"]
+        delta = torch._foreach_sub(grads, acc)
+        torch._foreach_div_(delta, float(n + 1))
+        torch._foreach_add_(acc, delta)
+        if n == self.every_k - 1:
+            self.inner.update(params, acc, state["inner"])
+            torch._foreach_zero_(acc)
+
     def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
               state: Dict) -> Optional[float]:
         """One micro-step; returns the learning rate when the parameters
         moved, else None."""
-        acc = state["acc"]
-        delta = torch._foreach_sub(grads, acc)
-        torch._foreach_div_(delta, float(state["mini_step"] + 1))
-        torch._foreach_add_(acc, delta)
-        if state["mini_step"] < self.every_k - 1:
-            state["mini_step"] += 1
-            return None
-        lr = self.inner.apply(params, acc, state["inner"])
-        torch._foreach_zero_(acc)
-        state["mini_step"] = 0
-        state["gradient_step"] += 1
-        return lr
+        token = self.prepare(state)
+        self.update(params, grads, state, token)
+        return token[1]
 
 
 def create_optimizer(config: TrainConfig, steps_per_epoch: int,

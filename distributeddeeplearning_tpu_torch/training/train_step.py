@@ -15,12 +15,13 @@ LM):
   step and every rank draws its own noise, as the JAX step's
   ``fold_in(fold_in(PRNGKey(seed), step), device)`` key does (the bits
   differ: same distributions, other numbers);
-* loss = f32 sparse softmax cross-entropy, the mean over examples (over
-  the ``B·T`` tokens of an LM), label smoothing as the JAX
-  package smooths (``on = 1 - ls``, ``off = ls / (V - 1)``, not
-  ``F.cross_entropy``'s ``ls / V``), plus ``weight_decay · Σw²`` over
-  the model's ``kernel_parameters()`` (conv and Dense kernels) only;
-  accuracy is top-1 per example (per token);
+* loss = f32 softmax cross-entropy on sparse or one-hot labels, the
+  mean over examples (over the ``B·T`` tokens of an LM), label
+  smoothing as the JAX package smooths (``on = 1 - ls``, ``off = ls /
+  (V - 1)``, not ``F.cross_entropy``'s ``ls / V``), plus ``weight_decay
+  · Σw²`` over the model's ``kernel_parameters()`` (conv and Dense
+  kernels) only; accuracy is top-1 per example (per token), against the
+  argmax of one-hot labels;
 * with a process group of more than one rank: one all-reduce **mean** of
   the gradients, the BatchNorm running statistics and the metrics
   ``{loss, accuracy}`` (``grad_norm`` is taken from the reduced
@@ -36,39 +37,67 @@ ghost BatchNorm, f32 gradient sums, the all-reduce once on the mean).
 BatchNorm, weighted ``{loss, top1, top5, count}`` summed over the ranks.
 
 Metrics stay on the device (no host sync in the step).
+
+The step is split at the host/device boundary (``metrics.StepParts``),
+so that its device part can be captured as a CUDA graph
+(``metrics.StepFn.aot_compile``): the host part seeds the dropout
+generators from ``(seed, step, rank)`` and runs the optimizer's host
+part; the device part is the forward, backward, all-reduce and the
+optimizer's device part; the last host part advances ``state.step``.
+Under ``ACCUM_STEPS = k`` each microbatch draws from a generator of its
+own, seeded with its index folded in, so that no generator is reseeded
+inside the device part.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 
 from distributeddeeplearning_tpu_torch.config import TrainConfig
 from distributeddeeplearning_tpu_torch.data.pipeline import normalize_staged_images, to_device
 from distributeddeeplearning_tpu_torch.training import accum
-from distributeddeeplearning_tpu_torch.training.metrics import StepFn
+from distributeddeeplearning_tpu_torch.training.metrics import EvalStepFn, StepFn, StepParts
 from distributeddeeplearning_tpu_torch.training.state import TrainState
 from distributeddeeplearning_tpu_torch.utils.device import resolve_device
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        label_smoothing: float = 0.0) -> torch.Tensor:
-    """Mean sparse softmax cross-entropy in f32 (``_sparse_ce_primal``):
-    ``lse - picked``, or with smoothing ``lse - (on - off)·picked -
-    off·Σlogits``."""
-    logits = logits.float().reshape(-1, logits.shape[-1])
+    """Mean softmax cross-entropy in f32. Sparse labels (the logits'
+    rank minus one; ``_sparse_ce_primal``): ``lse - picked``, or with
+    smoothing ``lse - (on - off)·picked - off·Σlogits``. One-hot labels
+    (float, the logits' rank: Keras' ``categorical_crossentropy``, JAX
+    ``train_step.py:107-129``): targets smoothed to ``t·(on - off) +
+    off``, then ``-mean(Σ targets · log_softmax(logits))``."""
+    num_classes = logits.shape[-1]
+    logits = logits.float()
+    if labels.dim() == logits.dim():  # one-hot
+        targets = labels.float()
+        if label_smoothing > 0.0:
+            on = 1.0 - label_smoothing
+            off = label_smoothing / (num_classes - 1)
+            targets = targets * (on - off) + off
+        return -(targets * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
+    logits = logits.reshape(-1, num_classes)
     labels = labels.reshape(-1).long()
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(1, labels[:, None])[:, 0]
     if label_smoothing > 0.0:
         on = 1.0 - label_smoothing
-        off = label_smoothing / (logits.shape[-1] - 1)
+        off = label_smoothing / (num_classes - 1)
         per_example = lse - (on - off) * picked - off * logits.sum(-1)
     else:
         per_example = lse - picked
     return per_example.mean()
+
+
+def hard_labels(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Class indices: one-hot labels (the logits' rank) by their argmax,
+    sparse ones as they are."""
+    return labels.argmax(-1) if labels.dim() == logits.dim() else labels.long()
 
 
 def l2_kernel_penalty(model, weight_decay: float) -> torch.Tensor:
@@ -102,8 +131,9 @@ def make_train_step(model, optimizer, config: Optional[TrainConfig] = None,
     ``step(state, batch, acc) -> (state, metrics, acc)`` with the
     on-device metric accumulator (``training/metrics.StepFn``):
     ``inputs`` NHWC images (or ``[B, T]`` int tokens) and ``labels``
-    int, this rank's slice, as tensors on the model's device or numpy
-    (staged with ``data.to_device``).
+    int (or one-hot float, of the logits' rank), this rank's slice, as
+    tensors on the model's device or numpy (staged with
+    ``data.to_device``).
     ``metrics`` are 0-dim f32 tensors on the device: ``loss``,
     ``accuracy``, ``grad_norm``, means over the ranks.
 
@@ -128,32 +158,40 @@ def make_train_step(model, optimizer, config: Optional[TrainConfig] = None,
            for p in params):
         raise ValueError(f"the model is not on {device}: create_train_state moves it there")
     buffers = _bn_buffers(model)
-    generator = torch.Generator(device=device) if getattr(model, "stochastic", False) else None
+    stochastic = getattr(model, "stochastic", False)
+    generators = ([torch.Generator(device=device) for _ in range(k)] if stochastic else [])
+    if not hasattr(optimizer, "prepare"):
+        raise TypeError(f"{type(optimizer).__name__} has no prepare/update split: "
+                        "use training.optimizer's MomentumSGD or MultiSteps")
 
-    def grads_and_metrics(state, inputs, labels, idx=None):
-        """One forward and backward (of microbatch ``idx``): the raw
+    def grads_and_metrics(inputs, labels, generator=None):
+        """One forward and backward (of one microbatch): the raw
         gradients and the f32 ``loss`` (with L2) and ``accuracy``."""
         inputs = normalize_staged_images(inputs)
-        if generator is None:
-            logits = model(inputs)
-        else:
-            generator.manual_seed(dropout_seed(cfg.seed, state.step, rank, idx))
-            logits = model(inputs, generator=generator)
+        logits = model(inputs) if generator is None else model(inputs, generator=generator)
         loss = cross_entropy_loss(logits, labels, cfg.label_smoothing)
         loss = loss + l2_kernel_penalty(model, cfg.weight_decay)
         grads = list(torch.autograd.grad(loss, params))
-        accuracy = (logits.argmax(-1) == labels.long()).float().mean()
+        accuracy = (logits.argmax(-1) == hard_labels(logits, labels)).float().mean()
         return grads, {"loss": loss.detach(), "accuracy": accuracy}
 
-    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        inputs, labels = (to_device(batch, device) if not torch.is_tensor(batch[0])
-                          else batch)
+    def prepare(state: TrainState):
+        """The host part before the device work: the generators seeded
+        for ``(seed, state.step, rank)``, the optimizer's host part."""
+        for idx, gen in enumerate(generators):
+            gen.manual_seed(dropout_seed(cfg.seed, state.step, rank, idx if k > 1 else None))
+        return optimizer.prepare(state.opt_state)
+
+    def run(state: TrainState, tensors, token) -> Dict[str, torch.Tensor]:
+        """The device part: no host sync, no host state read but the
+        token."""
+        inputs, labels = tensors
         model.train()
         if k == 1:
-            grads, m = grads_and_metrics(state, inputs, labels)
+            grads, m = grads_and_metrics(inputs, labels, generators[0] if generators else None)
         else:
             grads, m = accum.accumulate_microbatches(
-                lambda mb, idx: grads_and_metrics(state, *mb, idx=idx),
+                lambda mb, idx: grads_and_metrics(*mb, generators[idx] if generators else None),
                 (inputs, labels), k, params)
         loss, accuracy = m["loss"], m["accuracy"]
         if world > 1:
@@ -170,11 +208,21 @@ def make_train_step(model, optimizer, config: Optional[TrainConfig] = None,
                     b.copy_(p.view_as(b))
             loss, accuracy = pieces[-2][0], pieces[-1][0]
         grad_norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
-        optimizer.apply(params, grads, state.opt_state)
-        state.step += 1
-        return state, {"loss": loss, "accuracy": accuracy, "grad_norm": grad_norm}
+        optimizer.update(params, grads, state.opt_state, token)
+        return {"loss": loss, "accuracy": accuracy, "grad_norm": grad_norm}
 
-    return StepFn(step, accum_steps=k)
+    def finish(state: TrainState) -> None:
+        state.step += 1
+
+    def stage(batch):
+        return to_device(batch, device) if not torch.is_tensor(batch[0]) else tuple(batch)
+
+    parts = StepParts(prepare=prepare, run=run, finish=finish,
+                      phase=lambda state: optimizer.phase(state.opt_state),
+                      phases=getattr(optimizer, "phases", 1), generators=generators,
+                      stage=stage, device=device, model=model)
+
+    return StepFn(parts, accum_steps=k)
 
 
 def eval_metrics_fn(logits: torch.Tensor, labels: torch.Tensor,
@@ -184,17 +232,24 @@ def eval_metrics_fn(logits: torch.Tensor, labels: torch.Tensor,
     models' ``[B, T, V]`` logits count per token, each sample's weight
     on all its tokens. f32 throughout. ``top5`` counts a label among
     the five largest logits (``torch.topk``; on an exact tie at the
-    fifth place the kept index may differ from JAX's ``argsort``)."""
+    fifth place the kept index may differ from JAX's ``argsort``).
+    One-hot labels (the logits' rank) give the CE term directly and
+    their argmax to top-k (JAX ``train_step.py:484-511``)."""
+    one_hot = labels.dim() == logits.dim()
     logits = logits.float()
     if logits.dim() == 3:
         b, t, v = logits.shape
         logits = logits.reshape(b * t, v)
-        labels = labels.reshape(b * t)
+        labels = labels.reshape((b * t, v) if one_hot else (b * t,))
         weights = weights.repeat_interleave(t)
-    labels = labels.long()
     w = weights.float()
     logp = torch.log_softmax(logits, dim=-1)
-    per_ex = -logp.gather(1, labels[:, None])[:, 0]
+    if one_hot:
+        per_ex = -(labels.float() * logp).sum(-1)
+        labels = labels.argmax(-1)
+    else:
+        labels = labels.long()
+        per_ex = -logp.gather(1, labels[:, None])[:, 0]
     top1 = (logits.argmax(-1) == labels).float()
     top5 = (logits.topk(min(5, logits.shape[-1]), dim=-1).indices
             == labels[:, None]).any(-1).float()
@@ -202,22 +257,26 @@ def eval_metrics_fn(logits: torch.Tensor, labels: torch.Tensor,
             "top5": (top5 * w).sum(), "count": w.sum()}
 
 
-def make_eval_step(model, process_group=None, device=None) -> Callable:
+def make_eval_step(model, process_group=None, device=None) -> "EvalStepFn":
     """``eval_step(state, batch) -> {loss, top1, top5, count}`` (JAX
     ``make_eval_step``): running-statistics BatchNorm (eval mode), the
     batch's weighted sums summed over the ranks (one all-reduce), then
     the per-batch means and ``count``, the number of real samples.
     Takes ``(inputs, labels)`` (every sample real, one process only) or
-    ``(inputs, labels, weights)`` from an exact dataset."""
+    ``(inputs, labels, weights)`` from an exact dataset. The returned
+    :class:`~.metrics.EvalStepFn` can capture itself as a CUDA graph
+    (``aot_compile``)."""
     device = resolve_device(device)
     dist = torch.distributed
     if process_group is None and dist.is_available() and dist.is_initialized():
         process_group = dist.group.WORLD
     world = dist.get_world_size(process_group) if process_group is not None else 1
 
+    def stage(batch):
+        return to_device(batch, device) if not torch.is_tensor(batch[0]) else tuple(batch)
+
     @torch.no_grad()
-    def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        batch = to_device(batch, device) if not torch.is_tensor(batch[0]) else batch
+    def run(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         if len(batch) == 2:
             if world > 1:
                 raise ValueError("multi-process eval requires (inputs, labels, weights) "
@@ -237,4 +296,4 @@ def make_eval_step(model, process_group=None, device=None) -> Callable:
         means = flat[:3] / torch.clamp(count, min=1.0)  # an all-padding batch
         return {"loss": means[0], "top1": means[1], "top5": means[2], "count": count}
 
-    return step
+    return EvalStepFn(run, stage, device, model)

@@ -78,10 +78,13 @@ ENVS = [
      "VALIDATION": "true", "PREFETCH_BATCHES": "3", "CHECKPOINT_EVERY_STEPS": "5",
      "CHECKPOINT_KEEP": "7", "CHECKPOINT_ASYNC": "0", "RESUME": "false",
      "NONFINITE_ACTION": "warn", "MODEL_DIR": "/ckpt", "AZ_BATCHAI_OUTPUT_MODEL": "/out"},
+    {"AOT_WARMUP": "1"},
+    {"COMPILATION_CACHE_DIR": "/cache"},
 ]
 
 
-@pytest.mark.parametrize("env", ENVS, ids=["defaults", "all-slice-vars"])
+@pytest.mark.parametrize("env", ENVS, ids=["defaults", "all-slice-vars", "aot-warmup",
+                                           "compilation-cache-dir"])
 def test_config_from_env_resolves_like_jax(env):
     mine, ref = TrainConfig.from_env(env), JaxConfig.from_env(env)
     for f in dataclasses.fields(mine):
@@ -89,8 +92,7 @@ def test_config_from_env_resolves_like_jax(env):
     assert mine.steps_per_epoch() == max(mine.fake_data_length // mine.batch_size_per_device, 1)
 
 
-@pytest.mark.parametrize("env", [{"ENGINE": "pjit"}, {"AOT_WARMUP": "1"},
-                                 {"OPTIMIZER": "adamw"}, {"COMPILATION_CACHE_DIR": "/cache"},
+@pytest.mark.parametrize("env", [{"ENGINE": "pjit"}, {"OPTIMIZER": "adamw"},
                                  {"FAKE": "false"}, {"DATA_DIR": "/data"}, {"MESH_SHAPE": "2,4"}])
 def test_config_settings_of_later_slices_raise(env):
     with pytest.raises(NotImplementedError):
