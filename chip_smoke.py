@@ -4,8 +4,8 @@
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--phases kernels,serve,servequant,servespec,train,lmtrain,
-                                    vittrain,effnettrain,fit,warmup,frontends,trace,
-                                    bench]
+                                    vittrain,effnettrain,fit,warmup,frontends,launch,
+                                    trace,bench]
 
 (all phases by default). Any failure raises and the script exits
 non-zero.
@@ -139,17 +139,27 @@ non-zero.
    (``distributeddeeplearning_tpu_torch.examples``) as subprocesses,
    one in a one-rank NCCL world from ``DDL_*``. See
    :func:`frontends_phase`.
-14. ``trace``: ``TRACE_EVERY_N_EPOCHS=1`` on a graphed two-epoch ``fit``:
+14. ``launch``: the process tier: four launchers of ``python -m
+   distributeddeeplearning_tpu_torch.launch -n 1 --max-restarts 1`` at
+   once, each child training fused ResNet-50 (224 px, batch 64) through
+   ``fit`` in a one-rank NCCL world: (a) ``FAULT_PLAN=kill:step=8``,
+   restarted with resume (mid-epoch 2, library cache hits), held to
+   (the fourth) an uninterrupted launch within ``FIT_RESUME_*``; (b) a
+   hang ended by the watchdog (125) once, then completed; (c) a NaN
+   loss, 121 and no restart; 32 fused-block launches a step in every
+   attempt. See :func:`launch_phase`. (``--launch-child`` runs one rank
+   of a drill.)
+15. ``trace``: ``TRACE_EVERY_N_EPOCHS=1`` on a graphed two-epoch ``fit``:
    a Chrome trace an epoch naming the fused kernels. See
    :func:`trace_phase`.
-15. ``bench``: ``python -m distributeddeeplearning_tpu_torch.bench`` in a
+16. ``bench``: ``python -m distributeddeeplearning_tpu_torch.bench`` in a
    subprocess, three runs of the canonical ResNet-50 protocol and three
    of ``BENCH_MODEL=lm_base``, each timing the captured step: each
    record printed (``platform`` cuda, ``graphs_captured`` 1,
    ``host_sync_count`` 1; ``lm_base``'s runs share a fresh
    ``COMPILATION_CACHE_DIR``: misses in the first, hits after), and a
    ``benchwall`` line with each protocol's median, min and max.
-16. The ``kernels`` JSON line (every kernel whose phases ran; rows 1–5
+17. The ``kernels`` JSON line (every kernel whose phases ran; rows 1–5
    also with their launches a step under graph replay), then the
    contract's last line ``{"ok": true, "device": {...}}``.
 
@@ -3414,6 +3424,324 @@ def frontends_phase(card, platform=None, extra_env=None, timeout=600):
     return lines
 
 
+LAUNCH_STEPS = 6  # steps an epoch of the launched children, 2 epochs
+LAUNCH_HANG_TIMEOUT = 20  # seconds of silence drill (b)'s watchdog allows
+LAUNCH_ENV = {"FAKE": "True", "EPOCHS": "2", "BATCHSIZE": "64", "IMAGE_SIZE": "224",
+              "NUM_CLASSES": "1000", "CHECKPOINT_EVERY_STEPS": "1", "CHECKPOINT_ASYNC": "0"}
+# (drill, FAULT_PLAN, launcher flags, the supervisor's rc, the steps
+# each attempt reports: a fault fires before its step's report)
+LAUNCH_DRILLS = (
+    ("kill", "kill:step=8", ["--hang-timeout", "60"], 0, [range(1, 8), range(9, 13)]),
+    ("reference", None, ["--hang-timeout", "60"], 0, [range(1, 13)]),
+    ("hang", "hang:step=3,secs=600",
+     ["--hang-timeout", str(LAUNCH_HANG_TIMEOUT), "--env", "AOT_WARMUP=1"], 0,
+     [range(1, 3), range(4, 13)]),
+    ("nan", "nan:step=2", ["--hang-timeout", "60"], 121, [range(1, 7)]),
+)
+
+
+def launch_child():
+    """One rank of a ``launch`` drill (``chip_smoke.py --launch-child``,
+    started by ``python -m distributeddeeplearning_tpu_torch.launch``):
+    the rendezvous from ``DDL_*`` (``parallel.distributed``), then fused
+    ResNet-50 through ``training.loop.fit`` with the settings the
+    launcher and the drill export (sizes, ``MODEL_DIR``,
+    ``CHECKPOINT_*``, ``RESUME``, ``FAULT_PLAN``,
+    ``COMPILATION_CACHE_DIR``, ``AOT_WARMUP``). It prints a line at each
+    set-up stage (the hang watchdog counts output as liveness), a
+    ``launchstep`` JSON line at each step end (the step, the fused-block
+    launches since the last one, the library cache's hits and misses),
+    and at the end the ``launchdone`` line; rank 0 saves the state dict
+    it starts from to ``LAUNCH_CHILD_INIT`` (when set) and the final one
+    to ``LAUNCH_CHILD_OUT``."""
+    print("launchchild stage=imported", flush=True)
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+    from distributeddeeplearning_tpu_torch.data import SyntheticImageDataset
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.ops import fused_block as fb
+    from distributeddeeplearning_tpu_torch.parallel import collectives, distributed
+    from distributeddeeplearning_tpu_torch.training import loop
+    from distributeddeeplearning_tpu_torch.training.callbacks import Callback
+    from distributeddeeplearning_tpu_torch.training.warmup import cache_stats
+
+    distributed.maybe_initialize()
+    device = distributed.default_device()
+    print(f"launchchild stage=world rank={collectives.rank()} world={collectives.size()} "
+          f"device={device}", flush=True)
+    cfg = TrainConfig.from_env(model="resnet50", log_every_steps=1)
+    data = SyntheticImageDataset(length=cfg.fake_data_length,
+                                 global_batch_size=cfg.global_batch_size,
+                                 image_size=cfg.image_size, num_classes=cfg.num_classes,
+                                 num_physical_batches=4, seed=cfg.seed)
+    model = get_model(cfg.model, num_classes=cfg.num_classes, dtype=cfg.compute_dtype,
+                      fused=True, device=device)
+    print("launchchild stage=model", flush=True)
+
+    class Steps(Callback):
+        def __init__(self):
+            self.last = dict(fb.launches_by_op)
+
+        def on_train_begin(self, logs=None):
+            init = os.environ.get("LAUNCH_CHILD_INIT")
+            if init and collectives.is_master() and not os.path.exists(init):
+                torch.save({k: v.detach().cpu()
+                            for k, v in logs["state"].model.state_dict().items()}, init)
+
+        def on_step_end(self, step, logs=None):
+            now = dict(fb.launches_by_op)
+            by_op = {k: now[k] - self.last[k] for k in now}
+            self.last = now
+            hits, misses = cache_stats()
+            print("launchstep " + json.dumps({
+                "step": int(logs["state"].step), "fused_block": sum(by_op.values()),
+                "by_op": by_op, "cache_hits": hits, "cache_misses": misses}), flush=True)
+
+    res = loop.fit(model, cfg, data, device=device, callbacks=[Steps()],
+                   add_default_logger=False)
+    hits, misses = cache_stats()
+    print("launchdone " + json.dumps({
+        "history": res.history, "cache_hits": hits, "cache_misses": misses,
+        "step": int(res.state.step)}), flush=True)
+    out = os.environ.get("LAUNCH_CHILD_OUT")
+    if out and collectives.is_master():
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, out)
+    distributed.shutdown()
+
+
+def _launch_drill(name, plan, flags, root, tmp, env, timeout):
+    """Start drill ``name``'s launcher: its run directory, model
+    directory, final state file and library cache under ``tmp``."""
+    d = os.path.join(tmp, name)
+    os.makedirs(d)
+    denv = dict(env, MODEL_DIR=os.path.join(d, "model"),
+                LAUNCH_CHILD_OUT=os.path.join(d, "final.pt"),
+                LAUNCH_CHILD_INIT=os.path.join(d, "init.pt"),
+                COMPILATION_CACHE_DIR=os.path.join(d, "cache"))
+    if plan:
+        denv["FAULT_PLAN"] = plan
+    argv = [sys.executable, "-m", "distributeddeeplearning_tpu_torch.launch", "-n", "1",
+            "--max-restarts", "1", "--restart-backoff", "0.1", "--obs-dir", os.path.join(d, "obs"), *flags,
+            "--timeout", str(timeout), os.path.join(root, "chip_smoke.py"), "--launch-child"]
+    log = open(os.path.join(d, "launcher.log"), "w")
+    return subprocess.Popen(argv, cwd=root, env=denv, stdout=log, stderr=subprocess.STDOUT), log
+
+
+def _attempts(out):
+    """Per attempt (split at each ``launchchild stage=imported``): its
+    ``launchstep`` records and ``launchdone`` record."""
+    attempts = []
+    for ln in out.splitlines():
+        body = ln.split("] ", 1)[-1]
+        if body.startswith("launchchild stage=imported"):
+            attempts.append({"steps": [], "done": None})
+        elif body.startswith("launchstep ") and attempts:
+            attempts[-1]["steps"].append(json.loads(body[len("launchstep "):]))
+        elif body.startswith("launchdone ") and attempts:
+            attempts[-1]["done"] = json.loads(body[len("launchdone "):])
+    return attempts
+
+
+def _obs_records(obs, name):
+    path = os.path.join(obs, name)
+    if not os.path.exists(path):
+        return []
+    with open(path) as fh:
+        return [json.loads(x) for x in fh if x.strip()]
+
+
+def _flight_reason(path):
+    """The ``reason`` a flight dump's first line records."""
+    with open(path) as fh:
+        return json.loads(fh.readline()).get("reason")
+
+
+def _restart_seconds(merged):
+    """Seconds from each failed attempt's exit (the supervisor's
+    ``attempt_exit``) to the end of the next attempt's first step (its
+    rank 0's first ``step`` span), from the merged events' wall times:
+    what one restart costs, the children's start, kernel loads and
+    resume included."""
+    out = []
+    for e in (r for r in merged if r.get("name") == "attempt_exit" and r.get("wall")):
+        nxt = f"p0-r{e['labels']['attempt'] + 1}"
+        firsts = [r["wall"] + r.get("dur", 0.0) for r in merged
+                  if r.get("name") == "step" and r.get("p") == nxt and r.get("wall")]
+        if firsts:
+            out.append(min(firsts) - e["wall"])
+    return out
+
+
+def launch_phase(card, platform=None, extra_env=None, timeout=240):
+    """The process tier on the card: four launchers of
+    ``python -m distributeddeeplearning_tpu_torch.launch -n 1`` started
+    together, each supervising a one-rank NCCL world (``DDL_*``) whose
+    child (:func:`launch_child`) trains fused ResNet-50 (224 px, batch 64,
+    bf16, 1000 classes) through ``fit`` for 2 epochs of
+    ``LAUNCH_STEPS`` steps with ``CHECKPOINT_EVERY_STEPS=1`` and
+    ``CHECKPOINT_ASYNC=0``, each drill with its own fresh
+    ``COMPILATION_CACHE_DIR`` (``LAUNCH_DRILLS``):
+
+    (a) ``kill``: ``FAULT_PLAN=kill:step=8``: the supervisor classifies
+        ``signal_SIGKILL`` as retryable, attempt 1 runs with
+        ``RESUME=True`` from step 8 (mid-epoch 2), loads the kernel
+        library attempt 0 built (cache hits, no miss) and exits 0; its
+        final parameters and running statistics within ``FIT_RESUME_*``
+        of ``reference``'s (whether the bits are equal is printed);
+        ``flight-p0.jsonl`` holds ``fault_kill``; the merged
+        ``events.jsonl`` two ``attempt_start``;
+    (b) ``hang``: ``FAULT_PLAN=hang:step=3,secs=600`` under a
+        ``LAUNCH_HANG_TIMEOUT`` s watchdog with ``AOT_WARMUP=1``: the
+        world is ended with 125 once, after the hang, relaunched and
+        completes (rcs 125, 0): no attempt is killed while it builds the
+        kernel (attempt 0 misses the fresh cache) or captures graphs;
+    (c) ``nan``: ``FAULT_PLAN=nan:step=2``: the launcher returns 121 and
+        does not restart.
+
+    Every attempt must launch the fused-block kernels 32 times a step
+    (a forward). Prints the ``launch`` line (with each restart's wall,
+    ``restart_s``, and the hang's time to the watchdog) and returns the
+    kill drill's launches by op over both attempts. ``platform="cpu"``
+    (``DDL_PLATFORM``, a gloo world) with ``extra_env`` (small sizes)
+    rehearses the flow on the CPU, where nothing is launched."""
+    import shutil
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    on_card = platform != "cpu"
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("DDL_", "OBS_"))}
+    env.update(LAUNCH_ENV, PYTHONPATH=root, **(extra_env or {}))
+    env["FAKE_DATA_LENGTH"] = str(LAUNCH_STEPS * int(env["BATCHSIZE"]))
+    if platform:
+        env["DDL_PLATFORM"] = platform
+    tmp = tempfile.mkdtemp(prefix="ddl-launch-")
+    t0 = time.perf_counter()
+    try:
+        started = [(name, *_launch_drill(name, plan, flags, root, tmp, env, timeout))
+                   for name, plan, flags, *_ in LAUNCH_DRILLS]
+        rcs = {}
+        for name, proc, log in started:
+            try:
+                rcs[name] = proc.wait(timeout=2 * timeout + 60)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                log.close()
+        wall = time.perf_counter() - t0
+        line, failed = {"wall_s": wall, "card": card, "hang_timeout_s": LAUNCH_HANG_TIMEOUT}, []
+        finals, launches = {}, {}
+        for name, plan, flags, want_rc, want_steps in LAUNCH_DRILLS:
+            d = os.path.join(tmp, name)
+            with open(os.path.join(d, "launcher.log")) as fh:
+                out = fh.read()
+            obs = os.path.join(d, "obs")
+            sup = _obs_records(obs, "events-supervisor.jsonl")
+            merged = _obs_records(obs, "events.jsonl")
+            exits = [r["labels"] for r in sup if r.get("name") == "attempt_exit"]
+            attempts = _attempts(out)
+            per_step = [sorted({s["fused_block"] for s in a["steps"]}) for a in attempts]
+            rec = {
+                "fault_plan": plan, "rc": rcs[name],
+                "attempt_rcs": [e["rc"] for e in exits],
+                "attempt_reasons": [e["reason"] for e in exits],
+                "world_sizes": [r["labels"]["world_size"] for r in sup
+                                if r.get("name") == "attempt_start"],
+                "merged_attempt_starts": sum(r.get("name") == "attempt_start" for r in merged),
+                "restart_s": _restart_seconds(merged),
+                "resumed_at": [[r["labels"]["epoch"], r["labels"]["step_in_epoch"]]
+                               for r in merged if r.get("name") == "resume"],
+                "steps_by_attempt": [[s["step"] for s in a["steps"]] for a in attempts],
+                "fused_block_per_step_by_attempt": per_step,
+                "cache_by_attempt": [[a["steps"][-1]["cache_hits"],
+                                      a["steps"][-1]["cache_misses"]] if a["steps"] else None
+                                     for a in attempts],
+                "watchdog_fired": sum(len([r for r in _obs_records(obs, f)
+                                           if r.get("name") == "watchdog_fired"])
+                                      for f in os.listdir(obs) if f.startswith("events-launcher"))
+                if os.path.isdir(obs) else 0,
+                "flight": {f: _flight_reason(os.path.join(obs, f))
+                           for f in sorted(os.listdir(obs)) if f.startswith("flight-")}
+                if os.path.isdir(obs) else {},
+            }
+            hung = [r["wall"] for r in merged if r.get("name") == "fault_fired"
+                    and (r.get("labels") or {}).get("kind") == "hang"]
+            fired = [r["wall"] for r in merged if r.get("name") == "watchdog_fired"]
+            if hung and fired:  # the watchdog's reaction, about its timeout
+                rec["hang_to_watchdog_s"] = fired[0] - hung[0]
+            if attempts and attempts[-1]["done"]:
+                rec["history"] = attempts[-1]["done"]["history"]
+            if name == "kill":  # the drill's launches by op, both attempts
+                for a in attempts:
+                    for st in a["steps"]:
+                        for op, n in st["by_op"].items():
+                            launches[op] = launches.get(op, 0) + n
+                rec["launches_by_op"] = launches
+            line[name] = rec
+            # A forward's 32 a step; under AOT_WARMUP the first step's
+            # report holds the warm-up steps and the capture (4 x 32) and
+            # a replay ticks no counter.
+            graphed = "AOT_WARMUP=1" in flags
+            want_launches = ([0, 128] if graphed else [32]) if on_card else [0]
+            if (rcs[name] != want_rc or len(exits) != len(want_steps)
+                    or rec["steps_by_attempt"] != [list(r) for r in want_steps]
+                    or any(p != want_launches for p in per_step)):
+                failed.append(f"{name}: {rec}\n{out[-3000:]}")
+            final = os.path.join(d, "final.pt")
+            if os.path.exists(final):
+                finals[name] = torch.load(final, weights_only=True)
+        kill, hang, nan = line["kill"], line["hang"], line["nan"]
+
+        def cache(rec, attempt):  # (hits, misses) an attempt reported last
+            c = rec["cache_by_attempt"]
+            return tuple(c[attempt]) if len(c) > attempt and c[attempt] else None
+
+        # Attempt 1 resumes at step 8 = epoch 1 (0-based), 2 steps in.
+        if not (kill["attempt_reasons"][:1] == ["signal_SIGKILL"]
+                and kill["resumed_at"] == [[1, 2]]
+                and kill["flight"].get("flight-p0.jsonl") == "fault_kill"
+                and kill["merged_attempt_starts"] == 2
+                and (not on_card or (cache(kill, 1) or (0, 1))[0] >= 1
+                     and (cache(kill, 1) or (0, 1))[1] == 0)):
+            failed.append(f"kill drill: {kill}")
+        # One watchdog kill, after the hang: attempt 0 built the kernel
+        # under the watchdog (a miss in its fresh cache) and captured.
+        if not (hang["attempt_rcs"] == [125, 0] and hang["watchdog_fired"] == 1
+                and hang["attempt_reasons"][:1] == ["world_hung"]
+                and (not on_card or (cache(hang, 0) or (0, 0))[1] >= 1)):
+            failed.append(f"hang drill: {hang}")
+        if not (nan["attempt_rcs"] == [121] and nan["attempt_reasons"] == ["nonfinite_loss"]):
+            failed.append(f"nan drill: {nan}")
+        init = os.path.join(tmp, "reference", "init.pt")
+        if "kill" in finals and "reference" in finals and os.path.exists(init):
+            got, ref = finals["kill"], finals["reference"]
+            init = torch.load(init, weights_only=True)
+            num = den = stats = 0.0
+            equal = True
+            for k, r in ref.items():
+                equal = equal and torch.equal(got[k], r)
+                if "running" in k:
+                    stats = max(stats, ((got[k] - r).abs().max() / r.abs().max()).item())
+                    continue
+                if not r.is_floating_point():
+                    continue
+                num += (got[k].double() - r.double()).pow(2).sum().item()
+                den += (r.double() - init[k].double()).pow(2).sum().item()
+            line["resume_gap"] = {
+                "param_rel": (num / den) ** 0.5, "running_stats_rel": stats, "bits_equal": equal,
+                "resumed_at_step": 8, "limits": {"param_rel": FIT_RESUME_PARAM_REL,
+                                              "running_stats_rel": FIT_RESUME_STATS_REL}}
+            if not ((num / den) ** 0.5 <= FIT_RESUME_PARAM_REL and stats <= FIT_RESUME_STATS_REL):
+                failed.append(f"the resumed launch left the uninterrupted one: "
+                              f"{line['resume_gap']}")
+        else:
+            failed.append(f"final states missing: {sorted(finals)}")
+        print("launch " + json.dumps(line), flush=True)
+        if failed:
+            raise AssertionError("launch phase: " + "\n".join(failed))
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def trace_phase(fb, card, device="cuda", image_size=224, batch=64, num_classes=1000):
     """``TRACE_EVERY_N_EPOCHS=1`` (``obs/trace.py``) on a two-epoch
     ``fit`` of fused ResNet-50 (3 steps an epoch) with ``AOT_WARMUP=1``:
@@ -3574,7 +3902,7 @@ class _PhaseClock:
 
 
 PHASES = ("kernels", "serve", "servequant", "servespec", "train", "lmtrain", "vittrain",
-          "effnettrain", "fit", "warmup", "frontends", "trace", "bench")
+          "effnettrain", "fit", "warmup", "frontends", "launch", "trace", "bench")
 
 
 # A kernels-line entry -> (replayed family, what its kernel names hold,
@@ -3625,7 +3953,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of %s (default: all)" % ",".join(PHASES))
-    phases = set(ap.parse_args(argv).phases.split(","))
+    ap.add_argument("--launch-child", action="store_true",
+                    help="run one rank of a launch drill (the launch phase starts it)")
+    args = ap.parse_args(argv)
+    if args.launch_child:
+        launch_child()
+        return 0
+    phases = set(args.phases.split(","))
     if not phases <= set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
     if not torch.cuda.is_available():
@@ -3831,6 +4165,13 @@ def main(argv=None) -> int:
     clock.start("frontends")
     if "frontends" in phases:
         frontends_phase(card)
+
+    clock.start("launch")
+    if "launch" in phases:
+        launched = launch_phase(card)
+        for e in entries:  # the same kernels' launches in the launched drill
+            if e["name"] in launched:
+                e["launch_launches"] = launched[e["name"]]
 
     clock.start("trace")
     if "trace" in phases:

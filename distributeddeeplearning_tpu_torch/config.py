@@ -7,8 +7,10 @@ names any model of ``models.get_model``, ``efficientnet_b0`` …
 and checkpointing (``MODEL_DIR``/``AZ_BATCHAI_OUTPUT_MODEL``,
 ``RESUME``, ``CHECKPOINT_*``), the warm-up (``AOT_WARMUP``: CUDA-graph
 capture of the step, ``training/warmup.py``), the library cache
-(``COMPILATION_CACHE_DIR``: built kernel libraries, ``ops/_build.py``)
-and ``DISTRIBUTED`` (``parallel/distributed.py``).
+(``COMPILATION_CACHE_DIR``: built kernel libraries, ``ops/_build.py``),
+``DISTRIBUTED`` (``parallel/distributed.py``) and the elastic-worlds
+contract the launcher's supervisor exports (``ELASTIC``,
+``LR_WORLD_SIZE``; ``launch.py``).
 
 Field names, defaults and ``from_env`` parsing are the JAX package's. A
 field of a later slice that the dataclass carries (``engine``,
@@ -58,8 +60,6 @@ _LATER_ENV = {
     "ALLOW_SYNC_BN": "the mesh/engine slice", "MESH_AXES": "the mesh/engine slice",
     "MESH_SHAPE": "the mesh/engine slice",
     "ASYNC_COLLECTIVES": "the mesh/engine slice",
-    "ELASTIC": "the process tier (launch.py, the rest of faults.py)",
-    "LR_WORLD_SIZE": "the process tier (launch.py, the rest of faults.py)",
 }
 
 
@@ -144,7 +144,15 @@ class TrainConfig:
     # CHECKPOINT_ASYNC (default on): off makes every save durable
     # before it returns.
     checkpoint_async: bool = True
-    resume: bool = True
+    resume: bool = True  # env RESUME (the supervisor re-asserts it)
+    # Elastic worlds (ELASTIC): this run may be a resized relaunch of a
+    # larger world; the loop then refuses a resume whose effective batch
+    # differs from the checkpoint's, where it otherwise only warns.
+    elastic: bool = False
+    # Peak-LR world size (LR_WORLD_SIZE): the linear-scaling rule's
+    # world, pinned by the elastic supervisor to the full world so a
+    # resized relaunch keeps the schedule (None: the process group's).
+    lr_world_size: Optional[int] = None
     # The on-device non-finite-loss guard (NONFINITE_ACTION): "abort"
     # raises faults.NonFiniteLossError at the epoch boundary, "warn"
     # logs and continues, "off" ignores the counter.
@@ -238,6 +246,8 @@ class TrainConfig:
             "RESUME": ("resume", _str_to_bool),
             "NONFINITE_ACTION": ("nonfinite_action", str),
             "AOT_WARMUP": ("aot_warmup", _str_to_bool),
+            "ELASTIC": ("elastic", _str_to_bool),
+            "LR_WORLD_SIZE": ("lr_world_size", int),
         }
         for var, (field, conv) in parse.items():
             if var in e:

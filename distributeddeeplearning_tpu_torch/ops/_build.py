@@ -17,6 +17,11 @@ the port's counterpart of JAX's on-disk executable cache. A library
 loaded from disk without running a compiler is a cache hit, a build a
 miss; each goes to the listener ``set_listener`` installs (the warm-up's
 counters and the bus's ``xla_cache_hit``/``xla_cache_miss``).
+
+A build is silent for seconds to minutes, wherever the first launch
+falls (a model built before ``fit``, a wrapper called on its own), so
+it runs inside ``utils/heartbeat.during``: under the launcher's hang
+watchdog a process building kernels stays alive.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Callable, Dict, Optional
+
+from distributeddeeplearning_tpu_torch.utils import heartbeat
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -126,10 +133,11 @@ def build(name: str) -> Path:
     log = path.with_suffix(".log")
     source = _source(name)
     command = ([nvcc(), *NVCC_FLAGS] if source.suffix == ".cu" else [host_cxx(), *HOST_FLAGS])
-    res = subprocess.run(
-        [*command, "-o", str(tmp), str(source)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
+    with heartbeat.during(f"build:{name}"):
+        res = subprocess.run(
+            [*command, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
     log.write_text(res.stdout)
     if res.returncode != 0:
         tail = "\n".join(res.stdout.splitlines()[-20:])

@@ -38,6 +38,7 @@ import json
 import os
 import shutil
 import tempfile
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
@@ -247,7 +248,13 @@ class CheckpointManager:
         """Restore key ``epoch`` (default: the newest) into ``state`` in
         place and return it; :attr:`last_manifest` is the key's
         manifest. A TrainState gets its model (parameters and buffers),
-        optimizer state and step; another tree its tensors."""
+        optimizer state and step; another tree its tensors.
+
+        A restore into another world than the manifest's (an elastic
+        relaunch) emits an ``elastic.world_resized`` point and the
+        ``elastic.reshard_ms`` gauge, as JAX's does: the data-parallel
+        state is whole on every rank, so the reshard is the reload, and
+        its cost is reported all the same."""
         if not self.enabled:
             raise RuntimeError("checkpointing disabled (no directory)")
         self._drain()
@@ -256,6 +263,7 @@ class CheckpointManager:
             raise FileNotFoundError("no checkpoint to restore")
         path = os.path.join(self.directory, str(key))
         self.last_manifest = None
+        t0 = time.monotonic()
         with obs.span("checkpoint_restore", epoch=key):
             saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                                weights_only=True)
@@ -269,6 +277,11 @@ class CheckpointManager:
             else:
                 restored = _load_into(state, saved)
         self.last_manifest = manifest or None
+        saved_world = (manifest or {}).get("world_size")
+        world = collectives.size()
+        if saved_world is not None and saved_world != world:
+            obs.point("elastic.world_resized", step=key, from_world=saved_world, to_world=world)
+            obs.gauge("elastic.reshard_ms", (time.monotonic() - t0) * 1000.0)
         self._log.info("checkpoint restored", extra={"epoch": key})
         return restored
 

@@ -13,7 +13,10 @@ tensor an epoch (the epoch means and the non-finite counter), applies
 the non-finite guard, optionally evaluates, and prints the throughput
 block (``utils/logging.log_summary``).
 
-``COMPILATION_CACHE_DIR`` points the kernel builds at a cache before the
+``ELASTIC`` turns the resume's effective-batch check from a warning
+into a refusal, and ``LR_WORLD_SIZE`` sets the world of the LR
+schedule's linear scaling (``launch.py``'s elastic supervisor pins it to
+the full world). ``COMPILATION_CACHE_DIR`` points the kernel builds at a cache before the
 engine is built; ``AOT_WARMUP`` captures the step as CUDA graphs on the
 first staged batch, outside the dispatch clock (``training/warmup.py``;
 ``compile_sec``, ``graphs_captured`` and the steps that found no graph,
@@ -99,6 +102,8 @@ def resolve_engine(config: TrainConfig, device=None) -> Tuple[str, torch.device]
         raise ValueError(f"NONFINITE_ACTION={config.nonfinite_action!r} (have abort, warn, off)")
     if config.data_topology not in ("process", "global"):
         raise ValueError(f"DATA_TOPOLOGY={config.data_topology!r} (have process, global)")
+    if config.lr_world_size is not None and config.lr_world_size < 1:
+        raise ValueError(f"LR_WORLD_SIZE must be >= 1, got {config.lr_world_size}")
     if config.checkpoint_every_steps < 0:
         raise ValueError(
             f"CHECKPOINT_EVERY_STEPS must be >= 0, got {config.checkpoint_every_steps}")
@@ -148,7 +153,10 @@ def fit(
     steps_per_epoch = train_data.steps_per_epoch
     world = collectives.world_size(process_group)
     if tx is None:
-        tx, _ = create_optimizer(config, steps_per_epoch, world_size=world)
+        # An elastic world pins LR_WORLD_SIZE to the full world, so the
+        # schedule (the linear-scaling rule) is the same at any size.
+        tx, _ = create_optimizer(config, steps_per_epoch,
+                                 world_size=config.lr_world_size or world)
     eng = build_engine(model, config, tx, state=state, device=dev,
                        process_group=process_group)
     state, model = eng.state, eng.model
@@ -184,7 +192,7 @@ def fit(
     if ckpt is not None and ckpt.enabled and config.resume:
         state, ckpt_epoch, ckpt_skip = ckpt.maybe_restore_at(state, steps_per_epoch)
         manifest = ckpt.last_manifest
-        elastic = getattr(config, "elastic", False)
+        elastic = config.elastic
         if manifest and manifest.get("effective_batch"):
             saved_eff = int(manifest["effective_batch"])
             have_eff = config.batch_size_per_device * world

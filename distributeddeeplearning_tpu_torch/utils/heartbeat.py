@@ -1,7 +1,9 @@
 """Liveness heartbeats for quiet-but-alive phases (long compiles): the
 JAX package's ``utils/heartbeat.py``, copied as it is (it imports no
-JAX). In the port the silent phase is the first step (library load,
-cuDNN algorithm choice, lazy ``nvcc`` kernel builds).
+JAX). In the port the silent phases are the kernel builds
+(``ops/_build.build``, wherever the first launch falls), the graph
+capture (``training/warmup.py``) and the first step (library load,
+cuDNN algorithm choice).
 
 The launcher's hang watchdog (``launch.py --hang-timeout``) counts child
 stdout bytes as liveness — the only signal that works for a world whose
@@ -17,7 +19,8 @@ log pump recognises the magic prefix: the line ticks the watchdog but is
 suppressed from the streamed output, so operator logs stay clean.
 
 Deliberately scoped: the heartbeat thread runs ONLY inside
-:func:`during` blocks (AOT warmup compiles, the run's first dispatch).
+:func:`during` blocks (kernel builds, graph capture, the run's first
+dispatch).
 A process blocked in a device collective releases the GIL, so an
 always-on heartbeat thread would keep printing from a genuinely hung
 world and the watchdog could never catch a real deadlock — exactly the

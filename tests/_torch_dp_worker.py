@@ -4,10 +4,15 @@ CPU (driven by ``test_torch_train_step_dp.py``; imports no JAX).
     python _torch_dp_worker.py RANK WORLD PORT FUSED IN.npz OUT.npz
 
 With ``FUSED`` = ``fit`` the rank runs ``training.loop.fit`` instead
-(driven by ``test_torch_checkpoint.py``): an ``lm_*`` model on the global
+(driven by ``test_torch_checkpoint_resume.py`` and
+``test_torch_elastic_fit.py``): an ``lm_*`` model on the global
 synthetic token stream (``length``, ``seq_len`` in ``IN.npz``), with the
-``BroadcastGlobalVariablesCallback``; rank 0 writes each epoch's history
-(``history<e>/<key>``), ``host_sync_count`` and the final state dict.
+``BroadcastGlobalVariablesCallback`` and the optimizer's LR world from
+``lr_world_size`` when the config pins it (``LR_WORLD_SIZE``), else the
+process group's; rank 0 writes each epoch's history
+(``history<e>/<key>``), ``host_sync_count``, the host syncs by label
+(``sync/<label>``), the final state dict and the optimizer's momentum
+trace (``opt/<name>``, by parameter name).
 
 ``IN.npz`` holds the initial state dict (``sd/<name>``), the config
 (``cfg/<field>``) and the global batches (``images<i>``, ``labels<i>``:
@@ -32,6 +37,7 @@ from distributeddeeplearning_tpu_torch.training import (
     create_train_state,
     make_train_step,
 )
+from distributeddeeplearning_tpu_torch.utils import hostsync
 
 
 def fit_main(rank, world, cfg, data, sd, path_out):
@@ -47,14 +53,21 @@ def fit_main(rank, world, cfg, data, sd, path_out):
                                process_index=rank, process_count=world, topology="global")
     model = get_model(cfg.model, num_classes=cfg.num_classes, dtype=cfg.compute_dtype,
                       max_seq_len=seq_len, device="cpu")
-    tx, _ = create_optimizer(cfg, ds.steps_per_epoch)
+    tx, _ = create_optimizer(cfg, ds.steps_per_epoch, world_size=cfg.lr_world_size or world)
     state = create_train_state(model, cfg, tx, device="cpu", state_dict=sd)
+    syncs0 = dict(hostsync.accountant().by_label)
     res = loop.fit(model, cfg, ds, device="cpu", tx=tx, state=state,
                    callbacks=[BroadcastGlobalVariablesCallback()], add_default_logger=False)
     out = {f"history{e}/{k}": np.float64(v) for e, h in enumerate(res.history)
            for k, v in h.items()}
     out["host_sync_count"] = np.float64(res.perf["host_sync_count"])
+    out.update({f"sync/{k}": np.float64(v - syncs0.get(k, 0))
+                for k, v in hostsync.accountant().by_label.items()})
     out.update({f"sd/{k}": v.numpy() for k, v in model.state_dict().items()})
+    opt = res.state.opt_state
+    trace = opt["trace"] if "trace" in opt else opt["inner"]["trace"]
+    out.update({f"opt/{name}": t.numpy()
+                for (name, _), t in zip(model.named_parameters(), trace)})
     if rank == 0:
         np.savez(path_out, **out)
 

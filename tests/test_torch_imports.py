@@ -1,7 +1,9 @@
 """The port stands alone: no file of ``distributeddeeplearning_tpu_torch``
-and not ``chip_smoke.py`` imports ``jax`` or the JAX package, importing
-the whole port leaves ``jax`` unloaded, and its entry points default to
-the CUDA device instead of falling back to the CPU."""
+and not ``chip_smoke.py`` or ``scripts/elastic_dp_check.py`` imports
+``jax`` or the JAX package, importing the whole port leaves ``jax``
+unloaded, the process tier (``launch``, ``faults``, ``obs.tail``,
+``obs.report``) imports neither torch nor JAX, and the entry points
+default to the CUDA device instead of falling back to the CPU."""
 
 import ast
 import os
@@ -18,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distributeddeeplearning_tpu")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "scripts" / "elastic_dp_check.py"]
 
 
 def _imported(tree):
@@ -55,6 +58,24 @@ def test_importing_the_port_leaves_jax_unloaded():
         "('jax', 'jaxlib', 'flax', 'distributeddeeplearning_tpu')]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("module", ["launch", "faults", "obs.tail", "obs.report"])
+def test_process_tier_imports_neither_torch_nor_jax(module):
+    """The launcher and its supervisor read exit codes, capacity files
+    and event files without loading torch (a card world's launcher
+    imports it only to check for CUDA) or JAX."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('distributeddeeplearning_tpu_torch.{module}')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'distributeddeeplearning_tpu')]\n"
+        "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -126,7 +126,7 @@ def test_nonfinite_guard(action, monkeypatch):
     assert len(res.history) == 2 and not np.isfinite(res.history[0]["loss"])
 
 
-def test_fault_plan_parses_like_jax():
+def test_fault_plan_parses_like_jax(tmp_path):
     from distributeddeeplearning_tpu import faults as jax_faults
 
     text = "kill:step=3,rank=1; nan:step=2;hang:step=5,secs=2.5;exit:step=7,code=4"
@@ -137,8 +137,14 @@ def test_fault_plan_parses_like_jax():
             jax_faults.parse_fault_plan(bad)
         with pytest.raises(ValueError):
             faults.parse_fault_plan(bad)
-    with pytest.raises(NotImplementedError, match="process tier"):
-        faults.FaultInjector(faults.parse_fault_plan("shrink:step=3"))
+    # The elasticity verbs execute since the process tier (they raised
+    # before): a surviving rank's shrink writes the capacity file.
+    cap = str(tmp_path / "capacity.json")
+    inj = faults.FaultInjector(faults.parse_fault_plan("shrink:step=3"), rank=0, world=2,
+                               capacity_file=cap)
+    assert inj.due_after(3)
+    inj.fire_after(3)
+    assert faults.probe_capacity(cap, 2) == 1
     inj = faults.FaultInjector.from_env({"FAULT_PLAN": "nan:step=2,rank=1", "RANK": "1"})
     batch = (torch.ones(2, 3), torch.arange(2))
     assert inj.poison(1, batch) is batch

@@ -62,9 +62,14 @@ def test_config_resolves_warmup_settings_like_jax(env):
 
 
 def test_process_tier_settings_still_raise():
+    """Since the process tier landed, ``ELASTIC`` and ``LR_WORLD_SIZE``
+    no longer raise: they resolve as JAX's config resolves them (the
+    name is kept from when they raised)."""
+    from distributeddeeplearning_tpu.config import TrainConfig as JaxConfig
+
     for env in ({"ELASTIC": "1"}, {"LR_WORLD_SIZE": "8"}):
-        with pytest.raises(NotImplementedError, match="process tier"):
-            TrainConfig.from_env(env)
+        mine, ref = TrainConfig.from_env(env), JaxConfig.from_env(env)
+        assert (mine.elastic, mine.lr_world_size) == (ref.elastic, ref.lr_world_size)
 
 
 LM = dict(model="lm_tiny", num_classes=64, batch_size_per_device=2, fake_data_length=4,
