@@ -3,9 +3,9 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--phases kernels,serve,servequant,servespec,train,lmtrain,
-                                    vittrain,effnettrain,fit,warmup,frontends,launch,
-                                    trace,bench]
+    python3 chip_smoke.py [--phases kernels,serve,servequant,servespec,servegraph,train,
+                                    lmtrain,vittrain,effnettrain,fit,warmup,frontends,
+                                    launch,trace,bench]
 
 (all phases by default). Any failure raises and the script exits
 non-zero.
@@ -64,10 +64,12 @@ non-zero.
    fail, on the staged-tile kernel and on the TMA stencil; the wgrad
    with its last partial row left out of the sum must fail).
 4. ``serve``: full-width ``lm_base`` with seeded random weights behind
-   ``Server.build`` (paged KV, fused kernel, 8 slots) answers 16
-   requests. Checks: lengths and vocab range, the kernel ran exactly
-   once per layer per forward (``launches == 12 × (prefills +
-   decode_steps)``), each greedy stream equals the same request served
+   ``Server.build`` (paged KV, fused kernel, 8 slots, the engine's
+   program set captured as CUDA graphs at warmup) answers 16 requests.
+   Checks: lengths and vocab range, the kernel ran exactly once per
+   layer per forward (``launches == 12 × (prefills + decode_steps)``,
+   counted as each captured member's launches times its replays), the
+   program set closed, each greedy stream equals the same request served
    alone, and the first request's first-token logits agree with a
    full-sequence plain re-forward; then a decode-tick profile.
 5. ``servequant``: the same mix with int8 KV and weights, then fp8
@@ -80,14 +82,28 @@ non-zero.
    prompt-lookup drafts: the kernel launched 12 times per prefill and
    per verify tick, drafts accepted, greedy streams equal to the
    non-speculative engine's but at a bf16 near-tie (printed).
-7. ``train``: ResNet-50 (224 px, 1000 classes, batch 64, bf16) through
+7. ``servegraph``: the closed program sets at full width (bf16 and int8:
+   9 members in 18 graphs, each sampling member with its greedy-only
+   variant; ``SERVE_SPEC_K=4`` with the int8 self-draft: 19 in 29), their
+   capture seconds and graph-pool bytes, no capture after warmup, every
+   stream of the mix graphed equal bit for bit to the same members run
+   uncaptured; bf16 eager, graphed, graphed, eager (tick wall, device ms
+   a tick, greedy and with half the slots sampling, busy share, TTFT,
+   tokens/s); the decode kernel at 12 launches
+   a tick and a prefill by the profiler's kernel names; the live plane
+   and adaptive admission (``slo_breach`` → derate → ``slo_recover`` →
+   restore), every request's trace reconstructed, the report's
+   sections; and ``python -m distributeddeeplearning_tpu_torch.serve_bench``
+   (continuous, paged, fused, ``lm_base``), its record printed. See
+   :func:`servegraph_phase`.
+8. ``train``: ResNet-50 (224 px, 1000 classes, batch 64, bf16) through
    the port's entry points on seeded synthetic data, ``fused=True``:
    3 warm-up and 20 timed steps, finite losses, and the fused kernels
    launched exactly 32 times per forward; a profile of 5 steady steps;
    the same protocol with ``fused=False`` (cuDNN 1x1 convs) as the
    yardstick of the whole step; and one fused against one unfused step
    from the same weights and batch, within stated limits.
-8. ``lmtrain``: full-width ``lm_base`` (vocab 32,000, T = 1024, batch 8,
+9. ``lmtrain``: full-width ``lm_base`` (vocab 32,000, T = 1024, batch 8,
    bf16) through the same entry points on seeded synthetic tokens with
    ``attn_impl="pallas"``: 3 warm-up and 20 timed steps, finite losses,
    each flash kernel launched 12 times per forward (``flash_fwd``) or
@@ -95,7 +111,7 @@ non-zero.
    steps; the same protocol, and profile, with ``attn_impl="xla"`` (plain
    masked softmax) as the yardstick of the whole step; and one pallas against
    one xla step from the same weights and batch, within stated limits.
-9. ``vittrain``: ViT-B/16 (224 px, 1000 classes, batch 64, bf16)
+10. ``vittrain``: ViT-B/16 (224 px, 1000 classes, batch 64, bf16)
    through the same entry points on seeded synthetic images with
    ``attn_impl="fused"`` and fused dense grads: 3 warm-up and 20 timed
    steps, finite losses, exactly 12 launches per step of each packed
@@ -104,7 +120,7 @@ non-zero.
    stock Dense layers as the yardstick; one flagged against one yardstick step from
    the same weights and batch, within stated limits; and ``"auto"``
    taking the packed kernel once per layer of a forward on the card.
-10. ``effnettrain``: EfficientNet-B4 (380 px, 1000 classes, batch 64,
+11. ``effnettrain``: EfficientNet-B4 (380 px, 1000 classes, batch 64,
    bf16, drop-path and head dropout on) through the same entry points
    on seeded synthetic images: 3 warm-up and 20 timed steps, finite
    losses, no depthwise kernel launched by the model (its depthwise
@@ -115,7 +131,7 @@ non-zero.
    kernels held to the plain version and to cuDNN on its real x, weight
    and dy, and timed beside cuDNN (the ``effnetdw`` line). Batch 64 is
    halved, and the cut printed, if it does not fit the card.
-11. ``fit``: the training loop (``training.loop.fit``) at full width:
+12. ``fit``: the training loop (``training.loop.fit``) at full width:
    fused ResNet-50 for an epoch as a user runs it (32 launches a
    forward, one host sync, no synchronizing CUDA call in the steady
    steps but the epoch readback, under
@@ -127,7 +143,7 @@ non-zero.
    ``ACCUM_STEPS=2`` (64 launches a dispatch) and one fused against one
    unfused accumulated step; ``lm_base`` pallas through ``fit`` (12
    launches a pass of each flash kernel). See :func:`fit_phase`.
-12. ``warmup``: ``AOT_WARMUP`` (the step captured as CUDA graphs)
+13. ``warmup``: ``AOT_WARMUP`` (the step captured as CUDA graphs)
    through ``fit``: fused ResNet-50 and ``lm_base`` ``pallas``, eager,
    graphed, graphed, eager, each run's step medians, busy share, peak
    memory, ``compile_sec`` and ``graphs_captured``, graphed against
@@ -135,11 +151,11 @@ non-zero.
    profiler's names; EfficientNet-B0 with dropout and ViT-B/16 flagged
    at 64 px, and ``GRAD_ACCUM_STEPS=2``, graphed against eager. See
    :func:`warmup_phase`.
-13. ``frontends``: the four example modules
+14. ``frontends``: the four example modules
    (``distributeddeeplearning_tpu_torch.examples``) as subprocesses,
    one in a one-rank NCCL world from ``DDL_*``. See
    :func:`frontends_phase`.
-14. ``launch``: the process tier: four launchers of ``python -m
+15. ``launch``: the process tier: four launchers of ``python -m
    distributeddeeplearning_tpu_torch.launch -n 1 --max-restarts 1`` at
    once, each child training fused ResNet-50 (224 px, batch 64) through
    ``fit`` in a one-rank NCCL world: (a) ``FAULT_PLAN=kill:step=8``,
@@ -149,17 +165,17 @@ non-zero.
    loss, 121 and no restart; 32 fused-block launches a step in every
    attempt. See :func:`launch_phase`. (``--launch-child`` runs one rank
    of a drill.)
-15. ``trace``: ``TRACE_EVERY_N_EPOCHS=1`` on a graphed two-epoch ``fit``:
+16. ``trace``: ``TRACE_EVERY_N_EPOCHS=1`` on a graphed two-epoch ``fit``:
    a Chrome trace an epoch naming the fused kernels. See
    :func:`trace_phase`.
-16. ``bench``: ``python -m distributeddeeplearning_tpu_torch.bench`` in a
+17. ``bench``: ``python -m distributeddeeplearning_tpu_torch.bench`` in a
    subprocess, three runs of the canonical ResNet-50 protocol and three
    of ``BENCH_MODEL=lm_base``, each timing the captured step: each
    record printed (``platform`` cuda, ``graphs_captured`` 1,
    ``host_sync_count`` 1; ``lm_base``'s runs share a fresh
    ``COMPILATION_CACHE_DIR``: misses in the first, hits after), and a
    ``benchwall`` line with each protocol's median, min and max.
-17. The ``kernels`` JSON line (every kernel whose phases ran; rows 1–5
+18. The ``kernels`` JSON line (every kernel whose phases ran; rows 1–5
    also with their launches a step under graph replay), then the
    contract's last line ``{"ok": true, "device": {...}}``.
 
@@ -169,6 +185,7 @@ is not importable (the script on its own, outside the repository).
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -1007,6 +1024,17 @@ def _request_mix():
     return reqs
 
 
+def install_uncaptured(engine):
+    """Install every member of ``engine``'s closed program set as its
+    uncaptured functions (``ProgramSpec.uncaptured``: what the capture
+    recorded, run eagerly), the twin of the graphed engine that
+    bit-for-bit checks hold it to. Returns the programs it replaced; put
+    them back with ``engine.programs.update``."""
+    previous = dict(engine.programs)
+    engine.programs.update({ps.name: ps.uncaptured() for ps in engine.program_specs()})
+    return previous
+
+
 def _reset_launches(pd):
     pd.launches = 0
     for key in pd.launches_by_store:
@@ -1015,10 +1043,13 @@ def _reset_launches(pd):
 
 def serve_mix(pd, card, env, label, params, solo=True, variant="base", device="cuda"):
     """Full-width lm_base behind ``Server.build`` (the ``SERVE_*`` env
-    ``env``) answers the 16-request mix. Checks: lengths and vocab
-    range; the kernel ran exactly once per layer per forward (``launches
-    == 12 × (prefills + decode ticks)``, a speculative engine's verify
-    ticks counted as decode ticks); the prefix-cache hit. With ``solo``,
+    ``env``) answers the 16-request mix on its captured program set.
+    Checks: lengths and vocab range; the kernel ran exactly once per
+    layer per forward (``launches == 12 × (prefills + decode ticks)``,
+    a speculative engine's verify ticks counted as decode ticks; the
+    launches are the captured members' recorded launches times their
+    replays); the program set closed (``compile_count ==
+    programs_expected`` after the mix); the prefix-cache hit. With ``solo``,
     also: each greedy stream equals the same request served alone, and
     the first request's first-token logits agree with a full-sequence
     plain re-forward of the same model (through a quantized dense cache
@@ -1039,13 +1070,21 @@ def serve_mix(pd, card, env, label, params, solo=True, variant="base", device="c
 
     reqs = _request_mix()
     _reset_launches(pd)
+    replayed0 = engine.replayed_launches_by_store()
     prefills0, steps0 = engine.prefill_execs, engine.decode_steps
     t0 = time.perf_counter()
     handles = [server.submit(r) for r in reqs]
     server.drain()
     _sync(device)
     wall = time.perf_counter() - t0
-    launches, by_store = pd.launches, dict(pd.launches_by_store)
+    # The captured members launch the kernel on replay, where the
+    # wrapper's count does not tick: each member's launches recorded at
+    # capture times its replays (held to the profiler's kernel names in
+    # the servegraph phase), plus any launch made outside a graph.
+    by_store = dict(pd.launches_by_store)
+    for key, n in engine.replayed_launches_by_store().items():
+        by_store[key] = by_store.get(key, 0) + n - replayed0.get(key, 0)
+    launches = sum(by_store.values())
     prefills = engine.prefill_execs - prefills0
     steps = engine.decode_steps - steps0
 
@@ -1061,6 +1100,9 @@ def serve_mix(pd, card, env, label, params, solo=True, variant="base", device="c
         raise AssertionError(
             f"{label}: launches {launches} != {depth} x ({prefills} prefills + "
             f"{steps} decode ticks)")
+    if engine.compile_count != engine.programs_expected:
+        raise AssertionError(f"{label}: compile_count {engine.compile_count} != "
+                             f"programs_expected {engine.programs_expected}")
     hits = engine.allocator.stats["prefix_hit_requests"]
     if hits < 1:
         raise AssertionError(f"{label}: the shared-prefix request did not hit the prefix cache")
@@ -1072,7 +1114,10 @@ def serve_mix(pd, card, env, label, params, solo=True, variant="base", device="c
         "ttft_p99_ms": 1e3 * float(np.percentile(ttft, 99)), "wall_s": wall,
         "requests": len(handles), "generated_tokens": gen, "prefills": prefills,
         "decode_steps": steps, "launches": launches,
+        "launches_replayed": launches - pd.launches,
         "launches_by_store": {k: n for k, n in by_store.items() if n},
+        "compile_count": engine.compile_count,
+        "programs_expected": engine.programs_expected,
         "prefix_hit_requests": hits, "kv_dtype": engine.kv_dtype,
         "weight_dtype": engine.weight_dtype, "setup_s": setup_s, "card": card,
     }
@@ -1251,30 +1296,438 @@ def spec_serving_phase(pd, card, k=4, variant="base", device="cuda"):
     _print_line("servespec_base", base)
 
 
-def profile_decode(server, vocab, card, ticks=8):
+# The live-plane drill's objective: no real prefill meets it, so it
+# breaches as soon as TTFTs land in its window.
+SLO_BREACH_SPEC = "serve.ttft:p99 < 0.01ms over 2s"
+# The serve harness in the smoke checks its protocol, not a serving
+# number: its model is f32 (the script's), its prompts and max_len the
+# longtail profile's (at most 96 + 32 tokens), not the full-width program
+# set the servegraph tiers run.
+SERVE_HARNESS_ENV = {"SERVE_KV_LAYOUT": "paged", "SERVE_DECODE_KERNEL": "fused",
+                     "BENCH_MODEL": "lm_base", "SERVE_PROFILE": "longtail"}
+
+
+def _fresh_prefix_cache(engine):
+    """An empty prefix cache for an idle paged engine, so that two runs
+    of the mix take the same prefix hits (and so the same shapes)."""
+    from distributeddeeplearning_tpu_torch.serving import BlockAllocator
+
+    if engine.active_slots:
+        raise AssertionError("the engine still holds requests")
+    engine.allocator = BlockAllocator(engine.num_blocks, engine.block_size)
+
+
+def _serve_turn(server, reqs, device):
+    """One run of the mix on ``server``'s engine as installed: its
+    streams, tokens/s, TTFT p50/p99 and the median wall of the ticks
+    that decoded without a prefill."""
+    engine = server.engine
+    _fresh_prefix_cache(engine)
+    ticks = []
+    t0 = time.perf_counter()
+    handles = [server.submit(r) for r in reqs]
+    while True:
+        p0, d0 = engine.prefill_execs, server.stats["decode_steps"]
+        ts = time.perf_counter()
+        busy = server.step()
+        if engine.prefill_execs == p0 and server.stats["decode_steps"] > d0:
+            ticks.append((time.perf_counter() - ts) * 1e3)
+        if not busy:
+            break
+    _sync(device)
+    wall = time.perf_counter() - t0
+    ttft = [h.ttft_s for h in handles]
+    return [list(h.new_tokens) for h in handles], {
+        "tokens_per_s": sum(len(h.new_tokens) for h in handles) / wall,
+        "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
+        "ttft_p99_ms": 1e3 * float(np.percentile(ttft, 99)),
+        "tick_wall_median_ms": statistics.median(ticks) if ticks else None,
+        "decode_only_ticks": len(ticks), "wall_s": wall,
+    }
+
+
+def _graph_tier(label, env, params, variant, device):
+    """A tier's engine behind ``Server.build``: its closed program set
+    captured at warmup (count, seconds, pool bytes), the mix served on
+    the graphs and then on the same members uncaptured, every stream
+    equal bit for bit, and no capture after warmup. Returns ``(line,
+    server)``."""
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.serving import ServeConfig, Server
+
+    model = get_model(f"lm_{variant}", num_classes=VOCAB, device=device)
+    server = Server.build(model, params, ServeConfig.from_env(env), device=device)
+    engine = server.engine
+    t0 = time.perf_counter()
+    engine.warmup()
+    _sync(device)
+    warm_s = time.perf_counter() - t0
+    line = {"programs_expected": engine.programs_expected,
+            "compile_count": engine.compile_count,
+            "graphs_captured": engine.graphs_captured, "compile_sec": engine.compile_sec,
+            "warmup_s": warm_s, "graph_pool_bytes": engine.graph_pool_bytes}
+    graphs = sum(len(ps.variants) for ps in engine.program_specs()) if device == "cuda" else 0
+    if engine.compile_count != engine.programs_expected or engine.graphs_captured != graphs:
+        raise AssertionError(f"{label}: {engine.compile_count} programs in "
+                             f"{engine.graphs_captured} graphs captured, want "
+                             f"{engine.programs_expected} in {graphs}")
+    reqs = _request_mix()
+    graphed, line["graphed"] = _serve_turn(server, reqs, device)
+    captured = install_uncaptured(engine)
+    eager, line["eager"] = _serve_turn(server, reqs, device)
+    engine.programs.update(captured)
+    diff = [i for i, (a, b) in enumerate(zip(graphed, eager)) if a != b]
+    line["streams_bitwise_equal"] = not diff
+    if diff:
+        raise AssertionError(f"{label}: graphed streams differ from the uncaptured "
+                             f"programs' in requests {diff}")
+    if engine.compile_count != line["compile_count"]:
+        raise AssertionError(f"{label}: captured again after warmup")
+    return line, server
+
+
+def _host_breakdown(server, vocab, ticks=20):
+    """Where a graphed decode tick's wall goes, 8 slots at 512-token
+    contexts, medians of ``ticks`` calls each: the scheduler's tick
+    (``server.step``), the engine's (``decode_step``), the decode
+    member's input fill (one host-to-device copy) and its replay with the
+    readback alone (the device time plus launch and sync latency). The
+    differences are the scheduler's and the engine's host work."""
+    from distributeddeeplearning_tpu_torch.serving import Request
+
+    engine = server.engine
+    _fresh_prefix_cache(engine)
+    rng = np.random.RandomState(3)
+    handles = [server.submit(Request(prompt=rng.randint(0, vocab, size=512).astype(np.int32),
+                                     max_new_tokens=4 * ticks))
+               for _ in range(engine.num_slots)]
+    for _ in range(engine.num_slots + 2):  # admit all, warm up
+        server.step()
+    torch.cuda.synchronize()
+
+    def median_ms(fn):
+        walls = []
+        for _ in range(ticks):
+            t0 = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls)
+
+    inputs = engine._inputs["decode"]
+    values = {k: v.copy() for k, v in inputs.host.items()}
+    program = engine.programs["decode"][True]  # greedy requests: the greedy-only graph
+    line = {"server_step_ms": median_ms(server.step),
+            "engine_decode_step_ms": median_ms(engine.decode_step),
+            "inputs_load_ms": median_ms(lambda: inputs.load(**values)),
+            "replay_readback_ms": median_ms(lambda: program()[0].cpu())}
+    line["scheduler_host_ms"] = line["server_step_ms"] - line["engine_decode_step_ms"]
+    line["engine_host_ms"] = (line["engine_decode_step_ms"] - line["inputs_load_ms"]
+                              - line["replay_readback_ms"])
+    for h in handles:  # the extra engine ticks left the handles behind
+        h.cancel()
+    server.step()
+    return line
+
+
+def _profile_prefill(engine, vocab, card, depth, attempts=3):
+    """A 512-token prefill under ``torch.profiler`` on a free slot: the
+    decode kernel's launches by kernel name (``depth``, 12 on lm_base)
+    beside the captured member's replayed launches. The profiler can
+    drop records (once, 9 of 12, in about 75 profiled prefills; 60 in a
+    row saw 12), never invent them, so up to ``attempts`` prefills are
+    profiled until one sees ``depth``; every attempt's count is
+    reported."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributeddeeplearning_tpu_torch.serving import ReqSpec
+
+    rng = np.random.RandomState(2)
+    seen, replayed_each = [], []
+    while len(seen) < attempts and depth not in seen:
+        _fresh_prefix_cache(engine)
+        prompt = rng.randint(0, vocab, size=512).astype(np.int32)
+        replayed = engine.replayed_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engine.prefill(0, ReqSpec(prompt=prompt, max_new_tokens=4))
+            torch.cuda.synchronize()
+        engine.release(0)
+        seen.append(sum(e.count for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "decode_attention" in e.key))
+        replayed_each.append(engine.replayed_launches() - replayed)
+    return {"decode_attention_launches": seen[-1], "by_attempt": seen,
+            "replayed_launches": replayed_each, "card": card}
+
+
+def _live_plane_drill(server, reqs, obs_dir):
+    """The mix on ``server``'s graphed engine under the live plane:
+    ``OBS_DIR`` set, ``SLO_SPEC`` a TTFT objective no prefill meets,
+    ``SERVE_ADMISSION_POLICY=adaptive`` (two prefills a tick, so the
+    derate shows), the plane pumped in a thread as ``serve_bench``'s
+    ``start_live_plane`` does. Recovery as the JAX live-plane test drives
+    it: traffic stops, the short window drains, idle ticks let the
+    policy read the recovered rollup. Checks the merged stream's
+    ``slo_breach`` → ``serve.admission_derate`` → ``slo_recover`` →
+    ``serve.admission_restore`` order and the prefills gauge, every
+    request's critical path (no orphan, gap within tolerance) and the
+    report's SLO and trace sections."""
+    import threading
+
+    from distributeddeeplearning_tpu_torch import obs
+    from distributeddeeplearning_tpu_torch.obs import report, traces
+    from distributeddeeplearning_tpu_torch.obs.rollup import LivePlane
+    from distributeddeeplearning_tpu_torch.obs.slo import SloEngine
+    from distributeddeeplearning_tpu_torch.serving import (
+        AdaptiveAdmissionPolicy,
+        ServeConfig,
+        Server,
+    )
+
+    saved = {k: os.environ.get(k) for k in ("OBS_DIR", "SLO_SPEC")}
+    os.environ.update(OBS_DIR=obs_dir, SLO_SPEC=SLO_BREACH_SPEC)
+    bus = obs.configure(obs_dir, run_id="servegraph")
+    stop = threading.Event()
+    try:
+        cfg = ServeConfig.from_env(dict(SERVE_ENV, SERVE_ADMISSION_POLICY="adaptive",
+                                        SERVE_PREFILLS_PER_STEP="2"))
+        policy = cfg.build_admission_policy()
+        if not isinstance(policy, AdaptiveAdmissionPolicy):
+            raise AssertionError(f"SERVE_ADMISSION_POLICY=adaptive built {policy!r}")
+        drill = Server(server.engine, queue_depth=cfg.queue_depth,
+                       prefills_per_step=cfg.prefills_per_step, admission_policy=policy)
+        slo = SloEngine.from_env()
+        plane = LivePlane(obs_dir, slo_engine=slo)
+
+        def pump():
+            while not stop.is_set():
+                plane.poll(now=time.time())
+                stop.wait(0.2)
+            plane.poll(now=time.time())
+
+        thread = threading.Thread(target=pump, daemon=True)
+        thread.start()
+        _fresh_prefix_cache(server.engine)
+        handles = [drill.submit(r) for r in reqs]
+        derated = False
+        while drill.step():
+            bus.flush()
+            derated = derated or policy.derated
+        deadline = time.time() + 20.0
+        while (policy.derated or not derated) and time.time() < deadline:
+            time.sleep(0.1)
+            bus.flush()
+            drill.step()  # an idle tick: the policy reads the latest rollup
+            derated = derated or policy.derated
+        stop.set()
+        thread.join(timeout=10)
+        bus.flush()
+        if policy.derated or not derated:
+            raise AssertionError(f"live plane: derated={derated} and still derated="
+                                 f"{policy.derated} after the recovery window")
+        merged = report.merge_run_dir(obs_dir)
+        events = [json.loads(ln) for ln in open(merged)]
+        seq = [e["name"] for e in events if e.get("kind") != "meta" and e["name"] in (
+            "slo_breach", "serve.admission_derate", "slo_recover", "serve.admission_restore")]
+        gauges = [e["value"] for e in events if e.get("kind") == "gauge"
+                  and e["name"] == "serve.admission_prefills"]
+        want = ["slo_breach", "serve.admission_derate", "slo_recover",
+                "serve.admission_restore"]
+        if seq != want or gauges != [1.0, 2.0]:
+            raise AssertionError(f"live plane: sequence {seq}, prefills gauge {gauges}")
+        recon = traces.reconstruct(events)
+        mine = [r for r in recon["requests"] if r["req"] in {h.id for h in handles}]
+        if (len(mine) != len(handles) or recon["orphan_count"]
+                or any(not r["within_tolerance"] for r in mine)):
+            raise AssertionError(
+                f"traces: {len(mine)} of {len(handles)} requests reconstructed, "
+                f"{recon['orphan_count']} orphans, gaps {[r['gap_s'] for r in mine]}")
+        text = report.render(report.summarize(report.load([obs_dir])))
+        for section in ("SLO (breach/recover timeline", "traces (request critical paths"):
+            if section not in text:
+                raise AssertionError(f"report lacks its {section!r} section")
+        if drill.stats["completed"] != len(handles):
+            raise AssertionError(f"live plane: {drill.stats['completed']} of "
+                                 f"{len(handles)} requests completed")
+        return {
+            "sequence": seq, "admission_prefills_gauge": gauges,
+            "requests_reconstructed": len(mine), "orphans": recon["orphan_count"],
+            "gap_s_max": max(r["gap_s"] for r in mine),
+            "gap_tolerance_s_min": min(r["gap_tolerance_s"] for r in mine),
+            "report_sections": True,
+        }
+    finally:
+        stop.set()
+        obs.reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _run_harness(card, env=None, timeout=600):
+    """``python -m distributeddeeplearning_tpu_torch.serve_bench`` in a
+    subprocess (continuous mode, paged, fused, ``lm_base``): its record
+    line and exit code."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributeddeeplearning_tpu_torch.serve_bench"],
+        env=dict(os.environ, **(env or SERVE_HARNESS_ENV)), capture_output=True, text=True,
+        timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)))
+    records = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"metric"')]
+    if not records:
+        raise AssertionError(f"serve_bench printed no record (rc {proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    record = json.loads(records[-1])
+    detail = record.get("detail", {})
+    if "error" in record or detail.get("compiles_during_measure") != 0 or (
+            detail.get("compile_count") != detail.get("programs_expected")):
+        raise AssertionError(f"serve_bench: {records[-1]}\n{proc.stderr[-3000:]}")
+    return {"rc": proc.returncode, "seconds": time.perf_counter() - t0, "record": record,
+            "card": card}
+
+
+def servegraph_phase(pd, card, variant="base", device="cuda", obs_dir=None,
+                     harness_env=None):
+    """``servegraph``: the engine's closed program set as CUDA graphs at
+    full width (``lm_base``, ``SERVE_ENV``, the 16-request mix).
+
+    * Per tier (bf16; int8 KV and weights; ``SERVE_SPEC_K=4`` with the
+      int8 self-draft): ``compile_count == programs_expected`` (9, 9, 19
+      with the default ladder), ``compile_sec``, the graph pool's bytes,
+      every stream of the mix graphed equal bit for bit to the same
+      members uncaptured, and no capture after warmup (``_graph_tier``).
+    * bf16 in turns, eager, graphed, graphed, eager: the mix's tick-wall
+      median, TTFT p50/p99 and tokens/s, and two profiled steady decodes
+      (``profile_decode``: device ms a tick, busy share; all slots greedy,
+      the greedy-only graphs, then half sampling); where a graphed
+      tick's host time goes (``_host_breakdown``); the decode
+      kernel at 12 launches a tick and 12 a prefill by the profiler's
+      kernel names, equal to the captured members' replayed launches.
+    * The live plane and adaptive admission (``_live_plane_drill``),
+      the trace reconstruction and the report's sections.
+    * The serve harness (``_run_harness``), its record printed.
+
+    Prints the ``servegraph`` line; on the CPU (``device="cpu"``) the
+    programs are uncaptured and the device numbers are not measured."""
+    import shutil
+    import tempfile
+
+    on_card = device == "cuda"
+    params = _lm_params(variant, device)
+    depth = 12 if variant == "base" else None
+    line = {"card": card}
+    bf16, server = _graph_tier("servegraph_bf16", SERVE_ENV, params, variant, device)
+    engine = server.engine
+    reqs = _request_mix()
+    programs = dict(engine.programs)
+    turns = []
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        if mode == "eager":
+            install_uncaptured(engine)
+        else:
+            engine.programs.update(programs)
+        _, turn = _serve_turn(server, reqs, device)
+        if on_card:
+            # All-greedy slots replay the greedy-only variants; half the
+            # slots sampling (the mix's top-k 40) replay the sampler's.
+            for key, sampled in (("profile", False), ("profile_sampled", True)):
+                _fresh_prefix_cache(engine)
+                turn[key] = profile_decode(server, VOCAB, card, sampled=sampled,
+                                           label=f"servegraph_{mode}_{key}")
+        turns.append(dict(turn, mode=mode))
+    engine.programs.update(programs)
+    bf16["turns"] = turns
+    if on_card:
+        bf16["host_breakdown"] = _host_breakdown(server, VOCAB)
+        prefill = _profile_prefill(engine, VOCAB, card, depth)
+        ticks = [t[key] for t in turns if t["mode"] == "graphed"
+                 for key in ("profile", "profile_sampled")]
+        per_tick = {t["decode_attention_launches_per_tick"] for t in ticks}
+        replay_tick = {t["replayed_launches_per_tick"] for t in ticks}
+        # Profiler records can be lost, not invented: each profile reads
+        # at most depth, and one of them exactly depth; the replayed
+        # counts are exact.
+        if (depth not in per_tick or max(per_tick) > depth or replay_tick != {depth}
+                or prefill["decode_attention_launches"] != depth
+                or set(prefill["replayed_launches"]) != {depth}):
+            raise AssertionError(f"servegraph: B6 under replay, {per_tick} / {replay_tick} "
+                                 f"a tick and {prefill} a prefill, want {depth}")
+        bf16["b6_under_replay"] = {"per_tick_by_name": sorted(per_tick),
+                                   "per_prefill_by_name": prefill["by_attempt"]}
+    line["bf16"] = bf16
+    obs_dir = obs_dir or tempfile.mkdtemp(prefix="servegraph-obs-")
+    # 16 new tokens a request: the trace plane credits a request 1/active
+    # of each shared tick, so most of its decode wall is unattributed, and
+    # short streams keep that gap under the tolerance's 0.5 s floor.
+    drill_reqs = [dataclasses.replace(r, max_new_tokens=16) for r in reqs]
+    try:
+        line["live_plane"] = _live_plane_drill(server, drill_reqs, obs_dir)
+    finally:
+        shutil.rmtree(obs_dir, ignore_errors=True)
+    del server, engine, programs
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    for tier, env in (("int8", dict(SERVE_ENV, SERVE_KV_DTYPE="int8",
+                                    SERVE_WEIGHT_DTYPE="int8")),
+                      ("spec_int8", dict(SERVE_ENV, SERVE_SPEC_K="4",
+                                         SERVE_SPEC_DRAFT="int8"))):
+        line[tier], server = _graph_tier(f"servegraph_{tier}", env, params, variant, device)
+        del server
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    want = {"bf16": 9, "int8": 9, "spec_int8": 19} if variant == "base" else {}
+    for tier, n in want.items():
+        if line[tier]["compile_count"] != n:
+            raise AssertionError(f"servegraph {tier}: {line[tier]['compile_count']} "
+                                 f"programs, want {n}")
+        # Decode, 8 prefills and the verify in two variants each.
+        if on_card and line[tier]["graphs_captured"] != {"spec_int8": 29}.get(tier, 18):
+            raise AssertionError(f"servegraph {tier}: {line[tier]['graphs_captured']} "
+                                 "graphs")
+    if on_card or harness_env is not None:
+        line["harness"] = _run_harness(card, harness_env)
+        print("serve_bench " + json.dumps(line["harness"]["record"]), flush=True)
+    print("servegraph " + json.dumps(line), flush=True)
+    return line
+
+
+def profile_decode(server, vocab, card, ticks=8, label="profile", sampled=False):
     """Where a decode tick's time goes: 8 slots at 512-token contexts,
-    ``ticks`` steady decode ticks under ``torch.profiler``. Reports the
+    greedy (or with ``sampled`` every other slot at temperature 0.8 and
+    top-k 40, the mix's sampled requests), ``ticks`` steady decode ticks
+    under ``torch.profiler``. Reports the
     tick's host wall, the device time summed over kernels (busy share =
     device / wall), the decode kernel's family (its ``decode_attention``
-    instantiations) per tick and the top kernels by device time."""
+    instantiations) per tick, by time and by kernel count, the launches
+    the engine's captured members replayed per tick, and the top kernels
+    by device time. Prints the ``label`` line and returns it."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributeddeeplearning_tpu_torch.serving import Request
 
+    engine = server.engine
     rng = np.random.RandomState(1)
-    for _ in range(server.engine.num_slots):
+    for i in range(engine.num_slots):
+        knobs = dict(temperature=0.8, top_k=40, rng=i) if sampled and i % 2 else {}
         server.submit(Request(
             prompt=rng.randint(0, vocab, size=512).astype(np.int32),
-            max_new_tokens=3 * ticks))
-    for _ in range(server.engine.num_slots + 2):  # admit all, warm up
+            max_new_tokens=3 * ticks, **knobs))
+    for _ in range(engine.num_slots + 2):  # admit all, warm up
         server.step()
     torch.cuda.synchronize()
+    sampled_slots = int((engine._temps > 0).sum())
+    replayed = engine.replayed_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
             server.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    replayed = engine.replayed_launches() - replayed
     server.drain()
     # Device-side kernel and copy events only: CPU ops carry the device
     # time of what they launched too, and would count it twice.
@@ -1282,18 +1735,23 @@ def profile_decode(server, vocab, card, ticks=8):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.device_time_total for e in kernels) / 1e3 / ticks
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:6]
-    family = sum(e.device_time_total for e in kernels
-                 if "decode_attention" in e.key) / 1e3 / ticks
-    print("profile " + json.dumps({
+    family = [e for e in kernels if "decode_attention" in e.key]
+    family_ms = sum(e.device_time_total for e in family) / 1e3 / ticks
+    line = {
         "tick_wall_ms": wall_ms,
-        "decode_attention_ms_per_tick": family if device_ms > 0 else "not measured",
+        "decode_attention_ms_per_tick": family_ms if device_ms > 0 else "not measured",
+        "decode_attention_launches_per_tick": sum(e.count for e in family) / ticks,
+        "replayed_launches_per_tick": replayed / ticks,
         "tick_device_ms": device_ms if device_ms > 0 else "not measured",
         "device_busy_share": device_ms / wall_ms if device_ms > 0 else "not measured",
         "device_ops_per_tick": sum(e.count for e in kernels) / ticks,
         "top_kernels_ms_per_tick": {
             e.key[:80]: e.device_time_total / 1e3 / ticks for e in top},
-        "slots": server.engine.num_slots, "context": 512, "card": card,
-    }), flush=True)
+        "slots": engine.num_slots, "context": 512, "sampled_slots": sampled_slots,
+        "card": card,
+    }
+    print(label + " " + json.dumps(line), flush=True)
+    return line
 
 
 # Fused vs unfused bf16 step from the same weights and batch: the limits
@@ -3901,8 +4359,8 @@ class _PhaseClock:
         self.current, self.last = name, now
 
 
-PHASES = ("kernels", "serve", "servequant", "servespec", "train", "lmtrain", "vittrain",
-          "effnettrain", "fit", "warmup", "frontends", "launch", "trace", "bench")
+PHASES = ("kernels", "serve", "servequant", "servespec", "servegraph", "train", "lmtrain",
+          "vittrain", "effnettrain", "fit", "warmup", "frontends", "launch", "trace", "bench")
 
 
 # A kernels-line entry -> (replayed family, what its kernel names hold,
@@ -4037,6 +4495,12 @@ def main(argv=None) -> int:
     clock.start("servespec")
     if "servespec" in phases:
         spec_serving_phase(pd, card)
+        torch.cuda.empty_cache()
+
+    clock.start("servegraph")
+    if "servegraph" in phases:
+        servegraph_phase(pd, card)
+        gc.collect()
         torch.cuda.empty_cache()
 
     bare_step_ms = None

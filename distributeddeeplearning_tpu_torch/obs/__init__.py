@@ -4,8 +4,12 @@ and flight recorder (``obs/bus.py``), same schema and knobs
 the incremental tailer (``obs/tail.py``: ``Tailer``,
 ``activity_signature``, the launcher's telemetry liveness) and the run
 report (``obs/report.py``: ``merge_run_dir``, the launcher's host-0
-merge, ``summarize``, ``render``), both copies. Rollups, SLOs and the
-trace plane are not ported yet."""
+merge, ``summarize``, ``render``, its trace section included); and the
+live plane: windowed rollups and their atomic snapshot
+(``obs/rollup.py``: ``WindowedAggregator``, ``LivePlane``), the SLO
+engine (``obs/slo.py``: ``SLO_SPEC``, burn rates, ``slo_breach`` /
+``slo_recover``) and per-request critical paths (``obs/traces.py``:
+``reconstruct``). All copies of the JAX package's jax-free modules."""
 
 from distributeddeeplearning_tpu_torch.obs.bus import (
     DEFAULT_RING_SIZE,
@@ -33,13 +37,29 @@ from distributeddeeplearning_tpu_torch.obs.bus import (
     trace_open,
 )
 from distributeddeeplearning_tpu_torch.obs.report import merge_run_dir, render, summarize
+from distributeddeeplearning_tpu_torch.obs.rollup import (
+    LivePlane,
+    WindowedAggregator,
+    read_snapshot,
+    write_snapshot,
+)
+from distributeddeeplearning_tpu_torch.obs.slo import (
+    Objective,
+    SloEngine,
+    parse_slo_spec,
+)
 from distributeddeeplearning_tpu_torch.obs.tail import Tailer, activity_signature
+from distributeddeeplearning_tpu_torch.obs.traces import reconstruct
 
 __all__ = [
     "DEFAULT_RING_SIZE",
     "EventBus",
+    "LivePlane",
+    "Objective",
+    "SloEngine",
     "Tailer",
     "TraceContext",
+    "WindowedAggregator",
     "activity_signature",
     "bind_bus",
     "bound_bus",
@@ -55,7 +75,10 @@ __all__ = [
     "merge_run_dir",
     "new_span_id",
     "new_trace_id",
+    "parse_slo_spec",
     "point",
+    "read_snapshot",
+    "reconstruct",
     "render",
     "reset",
     "span",
@@ -64,4 +87,5 @@ __all__ = [
     "trace_close",
     "trace_ctx",
     "trace_open",
+    "write_snapshot",
 ]

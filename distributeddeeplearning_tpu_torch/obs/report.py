@@ -2,9 +2,7 @@
 
 Copied from ``distributeddeeplearning_tpu/obs/report.py`` (it never
 imported jax), the port's launcher calling :func:`merge_run_dir` at
-world exit. One departure: the trace plane (``obs/traces.py``, request
-critical paths) is not ported yet, so ``summarize`` leaves ``traces``
-None.
+world exit; the trace section reads the port's ``obs/traces.py``.
 
 Consumes the files :mod:`distributeddeeplearning_tpu_torch.obs.bus` writes —
 one ``events-p<k>.jsonl`` per process (plus the launcher's
@@ -361,8 +359,28 @@ def summarize(loaded: Dict[str, Any]) -> Dict[str, Any]:
             "migrations": counters.get("serve.migrations", 0),
         }
 
-    # Trace plane (obs/traces.py): not ported yet.
+    # Trace plane (obs/traces.py): per-request critical paths with gap
+    # accounting, reconstructed from the same merged timeline.
     trace_summary = None
+    if any("trace" in e for e in events):
+        try:
+            from distributeddeeplearning_tpu_torch.obs import traces as _traces
+            recon = _traces.reconstruct(events)
+            if recon["count"] or recon["orphan_count"]:
+                p50s = _traces.phase_p50s(recon["requests"])
+                trace_summary = {
+                    "requests": recon["count"],
+                    "orphans": recon["orphan_count"],
+                    "sheds": recon["sheds"],
+                    "within_tolerance": recon["within_tolerance"],
+                    "causes": recon["causes"],
+                    "p50s": p50s,
+                    "top_slow": _traces.top_slow(
+                        recon["requests"], k=3, p50s=p50s
+                    ),
+                }
+        except Exception:
+            trace_summary = None  # report renders even off malformed traces
 
     for entry in slo_by_obj.values():
         entry["timeline"].sort(

@@ -1,7 +1,10 @@
 """Continuous-batching serving tier of the port: slot engine over a
-dense or paged KV store (compute dtype, int8 or fp8), prefix cache,
-per-slot sampling, the speculative tier (int8 self-draft or n-gram
-proposals, batched verify) and the request scheduler.
+dense or paged KV store (compute dtype, int8 or fp8) whose closed
+program set is captured as CUDA graphs at ``warmup`` (``ProgramSpec``),
+prefix cache, per-slot sampling as data, the speculative tier (int8
+self-draft or n-gram proposals, batched verify), the request scheduler
+with static or adaptive admission (``AdaptiveAdmissionPolicy`` reads the
+live plane's rollup), and the seeded load generator (``loadgen``).
 
     from distributeddeeplearning_tpu_torch.serving import Request, Server
     server = Server.build(model, params)   # SERVE_* env, device "cuda"
@@ -16,6 +19,7 @@ from distributeddeeplearning_tpu_torch.serving.blocks import (
     hash_prefix_chain,
 )
 from distributeddeeplearning_tpu_torch.serving.engine import (
+    ProgramSpec,
     ReqSpec,
     SlotEngine,
     default_buckets,
@@ -29,6 +33,8 @@ from distributeddeeplearning_tpu_torch.serving.sampling import (
 )
 from distributeddeeplearning_tpu_torch.serving.spec import NgramDrafter
 from distributeddeeplearning_tpu_torch.serving.scheduler import (
+    AdaptiveAdmissionPolicy,
+    AdmissionPolicy,
     QueueFull,
     Request,
     RequestHandle,
@@ -37,10 +43,13 @@ from distributeddeeplearning_tpu_torch.serving.scheduler import (
 )
 
 __all__ = [
+    "AdaptiveAdmissionPolicy",
+    "AdmissionPolicy",
     "BlockAllocator",
     "BlockPoolExhausted",
     "DEFAULT_TOP_K_CAP",
     "NgramDrafter",
+    "ProgramSpec",
     "QueueFull",
     "ReqSpec",
     "Request",

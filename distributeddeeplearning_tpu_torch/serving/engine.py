@@ -3,27 +3,53 @@
 One KV store per attention layer — dense ``[num_slots, max_len, H, d]``
 rows or, with ``kv_layout="paged"``, one shared ``[num_blocks,
 block_size, H, d]`` pool addressed through per-slot block tables — and
-two kinds of step:
+a **closed set of programs** for the engine's whole lifetime, as in the
+JAX package (:meth:`SlotEngine.program_specs`,
+:attr:`SlotEngine.programs_expected`):
 
-* the *decode step*: every slot advances one token in one ``[num_slots]``
-  forward (per-slot positions, per-slot sampling config as data).
-  Requests join and leave between steps; the batch shape never changes.
-* the *prefill*: the prompt, padded up the bucket ladder, runs one
-  forward into the slot's rows (dense) or through the slot's block
-  table (paged, where a prefix-cache hit computes only the suffix).
+* one *decode step*: every slot advances one token in one ``[num_slots]``
+  forward (per-slot positions, per-slot sampling config as data,
+  per-slot stop detection on the device). Requests join and leave
+  between steps; the program never changes.
+* one *prefill* per prompt-length bucket: the prompt, padded up the
+  bucket ladder, runs one forward; dense, over a fresh zero ``[1,
+  max_len]`` cache whose rows then replace the slot's (the slot is a
+  device index, JAX's ``dynamic_update_slice``); paged, through the
+  slot's block table (a prefix-cache hit computes only the suffix). The
+  first token is sampled inside the program from the true last prompt
+  position (a device index).
+* with ``spec_k > 0`` the ``[num_slots, spec_k + 1]`` verify, and for
+  the int8 self-draft the draft phase and one draft prefill per bucket.
 
-PyTorch runs eagerly, so the JAX package's closed set of compiled
-programs becomes a fixed set of shapes: one per bucket plus the
-``[num_slots]`` decode batch, and nothing is compiled. The KV pool is
-updated IN PLACE (JAX donates and replaces it).
+On a CUDA device :meth:`SlotEngine.warmup` captures each member as a
+CUDA graph (after warm-up runs on the capture stream), all in one graph
+memory pool, inside a ``compile`` span; it then emits ``serve.programs``
+= ``compile_count``. A member that samples (decode, the prefills, the
+verify) is captured twice, with the sampler and greedy-only, and the
+host, which holds every slot's temperature, replays the greedy-only
+graph when no row samples: JAX's ``lax.cond`` keeps the sampler's work
+out of such a call in the same way. Both give a greedy row the same
+token. Every per-call input lives in the member's static
+device buffers (tokens, positions, block tables, the slot, start, the
+padded prompt, keys, temperatures, top-k, top-p and eos), filled with
+one host-to-device copy before each replay, and each member's outputs
+are read back before another member replays (they share the pool).
+After warmup the engine cannot capture again: ``compile_count`` stays
+``programs_expected``. A capture that fails raises; there is no eager
+fallback on the card. On the CPU each member installs its uncaptured
+functions (:meth:`ProgramSpec.uncaptured`), so the count and the
+idempotence hold there too. The KV stores are allocated before any
+capture, outside the pool, and updated IN PLACE (JAX donates and
+replaces them).
 
 The engine runs on ``device`` (default ``"cuda"``; raises without
 CUDA). With ``decode_kernel="fused"`` every per-row attention call — the
 decode step on both layouts, the speculative verify and the paged
 prefill — goes through ``ops.paged_decode.fused_decode_attention``,
-which launches the hand-written Hopper kernel on a CUDA device; ``"xla"``
-keeps the plain masked path. The dense prefill uses scalar positions and
-always takes the plain path, as in the JAX package.
+which launches the hand-written Hopper kernel on a CUDA device (inside
+the graphs once captured); ``"xla"`` keeps the plain masked path. The
+dense prefill uses scalar positions and always takes the plain path, as
+in the JAX package.
 
 Quantized tiers (``ops/quant.py``): ``kv_dtype`` ``"int8"``/``"fp8"``
 stores the KV pool as codes plus per-head f32 scales (the kernel
@@ -34,8 +60,8 @@ where the device cannot round-trip it.
 
 Speculative tier (``spec_k > 0``): each tick drafts ``spec_k`` tokens per
 slot, from the int8 self-draft (the same model with int8 weights, its
-own dense KV pool, the plain decode path) or from prompt lookup
-(``serving/spec.py``), then runs ONE ``[num_slots, spec_k + 1]``
+own dense KV pool, the plain decode path) or from prompt lookup on the
+host (``serving/spec.py``), then runs ONE ``[num_slots, spec_k + 1]``
 verify forward of the target and commits 1 .. ``spec_k + 1`` tokens per
 slot (``sampling.spec_verify_slots``).
 
@@ -47,8 +73,9 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,7 +91,6 @@ from distributeddeeplearning_tpu_torch.serving.blocks import (
 )
 from distributeddeeplearning_tpu_torch.serving.sampling import (
     DEFAULT_TOP_K_CAP,
-    sample_slot,
     sample_slots,
     spec_verify_slots,
 )
@@ -75,6 +101,94 @@ from distributeddeeplearning_tpu_torch.serving.spec import (
 )
 from distributeddeeplearning_tpu_torch.utils.device import resolve_device
 from distributeddeeplearning_tpu_torch.utils.logging import get_logger
+
+# Eager runs of each member on the capture stream before its capture.
+_WARMUP_RUNS = 2
+
+
+@dataclasses.dataclass
+class ProgramSpec:
+    """One member of the engine's closed program set: ``fn`` computes it
+    from ``inputs``, the member's static input buffers by ``fn``'s
+    parameter names, and returns its outputs. A member that samples is
+    made twice (``variants``): with the sampler, and greedy-only for a
+    call in which no row samples (``fn(..., greedy=True)``; JAX's
+    ``lax.cond`` economy as two graphs the host picks between).
+    :meth:`SlotEngine.warmup` captures exactly this list (``span``
+    labels its ``compile`` span) into ``SlotEngine.programs``."""
+
+    name: str
+    fn: Callable[..., Tuple[torch.Tensor, ...]]
+    inputs: Dict[str, torch.Tensor]
+    span: Dict[str, Any]  # labels for the `compile` span
+    samples: bool = False
+
+    @property
+    def variants(self) -> Tuple[bool, ...]:
+        """The member's ``greedy`` flags: ``(False, True)`` if it samples."""
+        return (False, True) if self.samples else (False,)
+
+    def uncaptured(self) -> Dict[bool, Callable[[], Tuple[torch.Tensor, ...]]]:
+        """The member's programs uncaptured, by variant: ``fn`` over the
+        static inputs, the function a capture records, run eagerly."""
+        if not self.samples:
+            return {False: functools.partial(self.fn, **self.inputs)}
+        return {g: functools.partial(self.fn, **self.inputs, greedy=g) for g in self.variants}
+
+
+class CapturedProgram:
+    """A member captured as a CUDA graph: calling it replays the graph
+    on whatever its static inputs hold and returns its static outputs.
+    ``launches`` counts the decode kernel's launches the capture
+    recorded (the wrapper's count does not tick on replay), and
+    ``launches_by_store`` the same by the cache's storage dtype;
+    ``replays`` counts the replays since capture."""
+
+    def __init__(self, graph: "torch.cuda.CUDAGraph", outputs,
+                 launches: Dict[str, int]) -> None:
+        self.graph, self.outputs = graph, outputs
+        self.launches_by_store = {k: n for k, n in launches.items() if n}
+        self.launches = sum(launches.values())
+        self.replays = 0
+
+    def __call__(self) -> Tuple[torch.Tensor, ...]:
+        self.graph.replay()
+        self.replays += 1
+        return self.outputs
+
+
+class _Inputs:
+    """One member's per-call inputs: typed views into one device buffer
+    (``dev``, the static inputs a captured graph reads) and their numpy
+    twins in one host buffer (``host``, pinned on the card). ``load``
+    fills the host views and moves all of them in one copy."""
+
+    def __init__(self, fields, device: torch.device) -> None:
+        layout, total = [], 0
+        for name, shape, dtype in fields:
+            n = int(np.prod(shape)) * torch.empty(0, dtype=dtype).element_size()
+            layout.append((name, shape, dtype, total, n))
+            total += -(-n // 16) * 16
+        on_card = device.type == "cuda"
+        self._dev = torch.zeros(total, dtype=torch.uint8, device=device)
+        self._host = torch.zeros(total, dtype=torch.uint8, pin_memory=on_card)
+        self.dev: Dict[str, torch.Tensor] = {}
+        self.host: Dict[str, np.ndarray] = {}
+        for name, shape, dtype, off, n in layout:
+            self.dev[name] = self._dev[off:off + n].view(dtype).view(shape)
+            self.host[name] = self._host[off:off + n].view(dtype).view(shape).numpy()
+        # The host buffer is refilled only after its last copy has read it.
+        self._copied = torch.cuda.Event() if on_card else None
+
+    def load(self, **values) -> None:
+        if self._copied is not None:
+            self._copied.synchronize()
+        for name, value in values.items():
+            self.host[name][...] = value
+        self._dev.copy_(self._host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+
 
 def default_buckets(max_len: int, smallest: int = 16) -> Tuple[int, ...]:
     """Power-of-two prefill ladder up to ``max_len`` (always including
@@ -277,6 +391,16 @@ class SlotEngine:
         # the int8 draft (ops/quant.py; scales None when native).
         self._stores = None
         self._draft_stores = None
+        # The closed program set: installed programs by member name and
+        # variant (ProgramSpec.variants), the members' static inputs, and
+        # the capture ledger.
+        self.programs: Dict[str, Dict[bool, Callable[[], Tuple[torch.Tensor, ...]]]] = {}
+        self._inputs: Dict[str, _Inputs] = {}
+        self._graph_pool = None
+        self.compile_count = 0
+        self.graphs_captured = 0
+        self.compile_sec = 0.0
+        self.graph_pool_bytes = 0
         self.decode_steps = 0
         self.prefill_execs = 0
         self._warmed = False
@@ -305,15 +429,92 @@ class SlotEngine:
             self._draft_stores = kv_stores(
                 self._draft, (self.num_slots, self.max_len), self.device, self.kv_dtype)
 
-    def warmup(self) -> None:
-        """Allocate the KV store(s) and, under the fused kernel on a CUDA
-        device, build and load the kernel — set-up that would otherwise
-        land in the first request's TTFT (idempotent)."""
-        self._ensure_stores()
-        if self.decode_kernel == "fused" and self.device.type == "cuda":
-            from distributeddeeplearning_tpu_torch.ops import paged_decode
+    @property
+    def programs_expected(self) -> int:
+        """The closed program set's static size: decode + one prefill
+        per bucket, plus (speculative tier) the batched verify and, for
+        the int8 self-draft, the draft phase + one draft prefill per
+        bucket. ``compile_count`` equals this for the engine's whole
+        lifetime after :meth:`warmup`."""
+        n = len(self.buckets) + 1
+        if self.spec_enabled:
+            n += 1  # the [S, spec_k + 1] verify
+            if self.spec_draft == "int8":
+                n += 1 + len(self.buckets)  # draft phase + draft prefills
+        return n
 
-            paged_decode._library()
+    def program_specs(self) -> List[ProgramSpec]:
+        """The closed program set as data: one :class:`ProgramSpec` per
+        member, its static inputs allocated once (as the KV stores are)
+        and reused by every later call. :meth:`warmup` captures exactly
+        this list."""
+        self._ensure_stores()
+        s, k, mb = self.num_slots, self.spec_k, self.blocks_per_slot
+        paged = self.allocator is not None
+        i64, i32, f32 = torch.int64, torch.int32, torch.float32
+        specs: List[ProgramSpec] = []
+
+        def sampling(key_shape):
+            return [("keys", key_shape + (2,), i64), ("temps", (s,), f32),
+                    ("top_ks", (s,), i64), ("top_ps", (s,), f32)]
+
+        def member(name, fields, fn, span, samples=True):
+            inputs = self._inputs.get(name)
+            if inputs is None:
+                inputs = self._inputs[name] = _Inputs(fields, self.device)
+            specs.append(ProgramSpec(name, fn, inputs.dev, span, samples))
+
+        table = [("tables", (s, mb), i32)] if paged else []
+        member("decode",
+               [("tokens", (s, 1), i64), ("positions", (s,), i64)] + sampling((s,))
+               + [("eos", (s,), i64)] + table,
+               self._decode_fn, {"what": "serve_decode", "slots": s})
+        for bucket in self.buckets:
+            first = [("tokens", (1, bucket), i64), ("last", (1,), i64),
+                     ("key", (1, 2), i64), ("temp", (1,), f32), ("top_k", (1,), i64),
+                     ("top_p", (1,), f32), ("eos", (1,), i64)]
+            if paged:
+                member(f"prefill_b{bucket}",
+                       [("table", (1, mb), i32), ("start", (1,), i64)] + first,
+                       self._prefill_paged_fn, {"what": f"serve_prefill_b{bucket}"})
+            else:
+                member(f"prefill_b{bucket}", [("slot", (1,), i64)] + first,
+                       self._prefill_dense_fn, {"what": f"serve_prefill_b{bucket}"})
+        if self.spec_enabled:
+            member("spec_verify",
+                   [("tokens", (s, k + 1), i64), ("positions", (s,), i64)]
+                   + sampling((s, k + 1)) + table,
+                   self._verify_fn, {"what": "serve_spec_verify", "k": k})
+            if self.spec_draft == "int8":
+                member("spec_draft", [("catchup", (s, 2), i64), ("start", (s,), i64)],
+                       self._draft_fn, {"what": "serve_spec_draft", "k": k}, samples=False)
+                for bucket in self.buckets:
+                    member(f"spec_draft_prefill_b{bucket}",
+                           [("slot", (1,), i64), ("tokens", (1, bucket), i64)],
+                           self._draft_prefill_fn,
+                           {"what": f"serve_spec_draft_prefill_b{bucket}"}, samples=False)
+        return specs
+
+    def warmup(self) -> Dict[str, float]:
+        """Install the closed program set (idempotent): on a CUDA device
+        capture every variant of every member not yet installed as a
+        CUDA graph (:meth:`_capture`), on the CPU install its uncaptured
+        functions. After this ``compile_count == programs_expected`` for
+        the engine's lifetime. Emits the byte, kernel and
+        ``serve.programs`` gauges and returns ``{"compile_sec",
+        "programs"}``."""
+        t_all = time.perf_counter()
+        pending = [ps for ps in self.program_specs() if ps.name not in self.programs]
+        if self.device.type == "cuda":
+            if pending:
+                self._capture(pending)
+        else:
+            for ps in pending:
+                with obs.span("compile", **ps.span):
+                    t0 = time.perf_counter()
+                    self.programs[ps.name] = ps.uncaptured()
+                    self.compile_sec += time.perf_counter() - t0
+                self.compile_count += 1
         self._warmed = True
         if self.kv_layout == "paged":
             self._emit_pool_gauges()
@@ -326,28 +527,107 @@ class SlotEngine:
             kernel=self.decode_kernel,
         )
         get_logger().info(
-            "serve warmup: slots=%d cache_len=%d layout=%s kernel=%s kv=%s "
-            "weights=%s%s device=%s",
-            self.num_slots, self.max_len, self.kv_layout, self.decode_kernel,
-            self.kv_dtype, self.weight_dtype,
-            (f" spec k={self.spec_k} draft={self.spec_draft}"
+            "serve warmup: %d programs (decode + %d prefill buckets %s%s) in %.2fs "
+            "(%s), slots=%d cache_len=%d layout=%s kernel=%s kv=%s weights=%s device=%s",
+            self.compile_count, len(self.buckets), list(self.buckets),
+            (f" + spec k={self.spec_k} draft={self.spec_draft}"
              if self.spec_enabled else ""),
-            self.device,
+            time.perf_counter() - t_all,
+            (f"{self.graphs_captured} CUDA graphs, pool "
+             f"{self.graph_pool_bytes / 2**20:.1f} MiB"
+             if self.device.type == "cuda" else "uncaptured"),
+            self.num_slots, self.max_len, self.kv_layout, self.decode_kernel,
+            self.kv_dtype, self.weight_dtype, self.device,
         )
+        obs.gauge("serve.programs", float(self.compile_count))
+        return {"compile_sec": self.compile_sec, "programs": float(self.compile_count)}
+
+    def _capture(self, specs: List[ProgramSpec]) -> None:
+        """Capture every variant of ``specs`` as a CUDA graph in the
+        engine's one graph pool. First each variant runs
+        :data:`_WARMUP_RUNS` times eagerly on the capture stream, so that
+        lazy state — the kernel library, cuBLAS workspaces, and the
+        decode kernel's merge counters, kept per stream and grown to the
+        largest member's need — exists outside the pool before any graph
+        records an address. Those runs execute for real on the zeroed
+        static inputs and leave nothing a request can read: paged, every
+        table is all zeros, so their K/V writes land in the trash block
+        0; dense, they write rows that the slot's next prefill replaces
+        whole. Each member's captures then run in one ``compile`` span,
+        and each graph counts the kernel launches it recorded. A failed
+        capture raises. ``graph_pool_bytes`` grows by the memory the
+        captures reserved."""
+        from distributeddeeplearning_tpu_torch.ops import paged_decode
+
+        dev = self.device
+        uncaptured = {ps.name: ps.uncaptured() for ps in specs}
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for _ in range(_WARMUP_RUNS):
+                for fns in uncaptured.values():
+                    for fn in fns.values():
+                        fn()
+        torch.cuda.synchronize(dev)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        for ps in specs:
+            with obs.span("compile", **ps.span):
+                t0 = time.perf_counter()
+                programs = {}
+                for variant, fn in uncaptured[ps.name].items():
+                    n0 = dict(paged_decode.launches_by_store)
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
+                        outputs = fn()
+                    programs[variant] = CapturedProgram(graph, outputs, {
+                        k: n - n0[k] for k, n in paged_decode.launches_by_store.items()})
+                    self.graphs_captured += 1
+                self.programs[ps.name] = programs
+                self.compile_sec += time.perf_counter() - t0
+            self.compile_count += 1
+        torch.cuda.synchronize(dev)
+        self.graph_pool_bytes += torch.cuda.memory_reserved(dev) - reserved
+
+    def replayed_launches(self) -> int:
+        """Decode-kernel launches made by replays of the captured
+        members since capture: each graph's recorded launches times its
+        replays."""
+        return sum(self.replayed_launches_by_store().values())
+
+    def replayed_launches_by_store(self) -> Dict[str, int]:
+        """:meth:`replayed_launches` by the cache's storage dtype (the
+        keys of ``ops.paged_decode.launches_by_store``)."""
+        out: Dict[str, int] = {}
+        for variants in self.programs.values():
+            for p in variants.values():
+                if isinstance(p, CapturedProgram):
+                    for k, n in p.launches_by_store.items():
+                        out[k] = out.get(k, 0) + n * p.replays
+        return out
+
+    def _run(self, name: str, greedy: bool = False, **inputs) -> Tuple[torch.Tensor, ...]:
+        """Fill member ``name``'s static inputs and run its installed
+        program, the greedy-only variant if ``greedy`` (no row samples).
+        Read its outputs before another member runs: the captured
+        members share one memory pool."""
+        self._inputs[name].load(**inputs)
+        return self.programs[name][greedy]()
 
     def _cache(self, stores, index, **kw) -> KVCache:
         k, v, ks, vs = stores
         return KVCache(k, v, index=index, kv_dtype=self.kv_dtype, k_scale=ks,
                        v_scale=vs, **kw)
 
-    def _routed(self, index) -> KVCache:
+    def _routed(self, index: torch.Tensor, tables: Optional[torch.Tensor]) -> KVCache:
         """The target's cache at per-row ``index`` (a ``[S]`` tensor),
-        routed through the block tables on the paged layout."""
-        cache = self._cache(self._stores, index, decode_kernel=self.decode_kernel)
-        if self.allocator is not None:
-            cache.block_table = self._tensor(self._tables, torch.int32)
-            cache.block_size = self.block_size
-        return cache
+        routed through ``tables`` on the paged layout."""
+        if tables is None:
+            return self._cache(self._stores, index, decode_kernel=self.decode_kernel)
+        return self._cache(self._stores, index, block_table=tables,
+                           block_size=self.block_size, decode_kernel=self.decode_kernel)
 
     # -- accounting --------------------------------------------------------
 
@@ -479,30 +759,108 @@ class SlotEngine:
             )
         return tk
 
-    # -- steps -------------------------------------------------------------
+    # -- programs (the members' functions over their static inputs) --------
 
-    def _tensor(self, array, dtype=torch.long) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(array), dtype=dtype).to(
-            self.device, non_blocking=True
-        )
+    def _dense_prefill(self, model, stores, slot: torch.Tensor,
+                       tokens: torch.Tensor) -> torch.Tensor:
+        """The padded prompt through ``model`` over a fresh zero ``[1,
+        max_len]`` cache at scalar index 0 (the lockstep path
+        ``inference.generate`` runs), whose rows then replace the rows
+        of ``slot`` (a ``[1]`` device index; JAX's
+        ``dynamic_update_slice``). Returns the logits."""
+        fresh = kv_stores(model, (1, self.max_len), self.device, self.kv_dtype)
+        logits = model(tokens, self._cache(fresh, 0))
+        for pool, rows in zip(stores, fresh):
+            for x, y in zip(pool or (), rows or ()):
+                if x.element_size() == 1:  # int8 / fp8 codes (no fp8 index_copy_)
+                    x, y = x.view(torch.uint8), y.view(torch.uint8)
+                x.index_copy_(0, slot, y)
+        return logits
 
-    def _padded(self, tokens: np.ndarray, bucket: int) -> torch.Tensor:
-        padded = np.zeros((1, bucket), np.int64)
-        padded[0, :tokens.shape[0]] = tokens
-        return self._tensor(padded)
-
-    def _dense_prefill(self, model, stores, slot: int, prompt: np.ndarray) -> torch.Tensor:
-        """The prompt, padded to its bucket, through ``model`` into a
-        fresh zeroed copy of ``slot``'s dense rows at scalar index 0 (the
-        lockstep path ``inference.generate`` runs). Returns the logits."""
-        rows = [None if c is None else [x[slot:slot + 1] for x in c] for c in stores]
-        for c in rows:
-            for x in c or ():
-                x.zero_()
-        return model(self._padded(prompt, self.bucket_for(prompt.shape[0])),
-                     self._cache(rows, 0))
+    def _first(self, logits, last, key, temp, top_k, top_p, eos, greedy):
+        """The first token, sampled from the prompt's true last position
+        ``last`` (a ``[1]`` device index), packed with its eos hit; and
+        that position's logits."""
+        row = logits[0].index_select(0, last)
+        first = sample_slots(row, key, temp, top_k, top_p, top_k_cap=self.top_k_cap,
+                             greedy=greedy)
+        return torch.cat([first, ((first == eos) & (eos >= 0)).long()]), row[0]
 
     @torch.no_grad()
+    def _decode_fn(self, tokens, positions, keys, temps, top_ks, top_ps, eos, tables=None,
+                   greedy=False):
+        logits = self.model(tokens, self._routed(positions, tables))
+        nxt = sample_slots(logits[:, -1], keys, temps, top_ks, top_ps,
+                           top_k_cap=self.top_k_cap, greedy=greedy)
+        return (torch.stack([nxt, ((nxt == eos) & (eos >= 0)).long()]),)
+
+    @torch.no_grad()
+    def _prefill_dense_fn(self, slot, tokens, last, key, temp, top_k, top_p, eos,
+                          greedy=False):
+        logits = self._dense_prefill(self.model, self._stores, slot, tokens)
+        return self._first(logits, last, key, temp, top_k, top_p, eos, greedy)
+
+    @torch.no_grad()
+    def _prefill_paged_fn(self, table, start, tokens, last, key, temp, top_k, top_p, eos,
+                          greedy=False):
+        """The (suffix of the) prompt at absolute positions ``[start,
+        start + bucket)`` through the slot's block table: K/V writes land
+        in the table's blocks, attention reads any shared prefix blocks."""
+        cache = self._cache(self._stores, start, block_table=table,
+                            block_size=self.block_size, decode_kernel=self.decode_kernel)
+        return self._first(self.model(tokens, cache), last, key, temp, top_k, top_p, eos,
+                           greedy)
+
+    @torch.no_grad()
+    def _verify_fn(self, tokens, positions, keys, temps, top_ks, top_ps, tables=None,
+                   greedy=False):
+        """One ``[S, K+1]`` forward of the target, then the acceptance
+        rule; ``committed [S, K+1]`` and ``accepted`` packed as ``[S,
+        K+2]``. Rejected-tail K/V writes land past the committed cursor
+        and are overwritten by the next tick's before any query attends
+        them."""
+        logits = self.model(tokens, self._routed(positions, tables))
+        committed, accepted = spec_verify_slots(
+            logits, tokens[:, 1:], keys, temps, top_ks, top_ps, top_k_cap=self.top_k_cap,
+            greedy=greedy)
+        return (torch.cat([committed, accepted[:, None]], dim=1),)
+
+    @torch.no_grad()
+    def _draft_fn(self, catchup, start):
+        """The int8 self-draft's ``[S, spec_k]`` greedy proposals: one
+        ``[S, 2]`` catch-up forward (the previous committed token and
+        the next input; after an all-accepted tick the draft's cache is
+        one position behind, and the pair closes the gap), then ``spec_k
+        - 1`` single-token steps, all over one dequantized copy of the
+        draft's weights."""
+        with quant.hold_dequantized(self._draft, self._draft.dtype):
+            logits = self._draft(catchup, self._cache(self._draft_stores, start))
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            drafts = [tok]
+            for j in range(1, self.spec_k):
+                cache = self._cache(self._draft_stores, start + 1 + j)
+                logits = self._draft(tok[:, None], cache)
+                tok = torch.argmax(logits[:, -1], dim=-1)
+                drafts.append(tok)
+        return (torch.stack(drafts, dim=1),)
+
+    @torch.no_grad()
+    def _draft_prefill_fn(self, slot, tokens):
+        """The whole prompt through the int8 draft into the slot's draft
+        rows: the draft attends over its OWN K/V (int8-weight K/V differ
+        from the target's), even when the target's prefill rode a
+        prefix-cache hit."""
+        self._dense_prefill(self._draft, self._draft_stores, slot, tokens)
+        return ()
+
+    # -- steps -------------------------------------------------------------
+
+    @staticmethod
+    def _padded(tokens: np.ndarray, bucket: int) -> np.ndarray:
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :tokens.shape[0]] = tokens
+        return padded
+
     def prefill(self, slot: int, spec: ReqSpec) -> Tuple[int, bool]:
         """Admit ``spec`` into ``slot``: run the bucketed prefill, seat the
         request's sampling state, and return (first token, eos hit). The
@@ -523,29 +881,34 @@ class SlotEngine:
             keylib.request_key_ladder(spec.key_data(), spec.max_new_tokens + self.spec_k)
             if sampled else None
         )
-        key0 = ladder[0] if sampled else np.zeros(2, np.uint32)
-        temp = float(spec.temperature) if sampled else 0.0
-        top_p = float(spec.top_p or 0.0)
-        eos = -1 if spec.eos_token is None else int(spec.eos_token)
+        first_inputs = dict(
+            key=ladder[0] if sampled else np.zeros(2, np.uint32),
+            temp=np.float32(spec.temperature if sampled else 0.0), top_k=tk,
+            top_p=np.float32(spec.top_p or 0.0),
+            eos=-1 if spec.eos_token is None else int(spec.eos_token),
+        )
         if self.allocator is not None:
-            last = self._prefill_paged(slot, spec, prompt)
+            packed, logits = self._prefill_paged(slot, spec, prompt, first_inputs)
         else:
-            logits = self._dense_prefill(self.model, self._stores, slot, prompt)
-            last = logits[0, t - 1]
+            bucket = self.bucket_for(t)
+            packed, logits = self._run(
+                f"prefill_b{bucket}", greedy=not sampled, slot=slot,
+                tokens=self._padded(prompt, bucket), last=t - 1, **first_inputs)
             self.last_prefill = {
-                "slot": slot, "bucket": self.bucket_for(t), "start": 0,
-                "shared_blocks": 0,
+                "slot": slot, "bucket": bucket, "start": 0, "shared_blocks": 0,
             }
+        # The outputs live in the graph pool: copy the logits out before
+        # another member runs.
+        self.last_prefill["logits"] = logits.clone()
+        self._temps[slot] = first_inputs["temp"]
+        self._top_ks[slot] = tk
+        self._top_ps[slot] = first_inputs["top_p"]
+        self._eos[slot] = first_inputs["eos"]
+        first, eos_hit = (int(x) for x in packed.cpu())
         self.prefill_execs += 1
-        self.last_prefill["logits"] = last
-        first = int(sample_slot(last, key0, temp, tk, top_p, self.top_k_cap))
         self._active[slot] = True
         self._tokens[slot] = first
         self._positions[slot] = t
-        self._temps[slot] = temp
-        self._top_ks[slot] = tk
-        self._top_ps[slot] = top_p
-        self._eos[slot] = eos
         self._ladders[slot] = ladder
         self._cursor[slot] = 1
         if self.spec_enabled:
@@ -553,19 +916,19 @@ class SlotEngine:
             self._prev_tokens[slot] = int(prompt[-1])
             self._history[slot] = [int(x) for x in prompt] + [first]
             if self._draft is not None:
-                # The draft attends over its OWN K/V of the whole prompt
-                # (int8-weight K/V differ from the target's), even when
-                # the target's prefill rode a prefix-cache hit.
-                self._dense_prefill(self._draft, self._draft_stores, slot, prompt)
-        return first, eos >= 0 and first == eos
+                bucket = self.bucket_for(t)
+                self._run(f"spec_draft_prefill_b{bucket}", slot=slot,
+                          tokens=self._padded(prompt, bucket))
+        return first, bool(eos_hit)
 
-    def _prefill_paged(self, slot, spec, prompt) -> torch.Tensor:
+    def _prefill_paged(self, slot, spec, prompt, first_inputs):
         """Paged admission: match the prompt's block-aligned prefix in the
         prefix cache, allocate the remaining blocks (all-or-nothing;
         :class:`BlockPoolExhausted` propagates as backpressure), and
         prefill ONLY the divergent suffix through the slot's block table.
         The match is capped at ``prompt_len - 1`` tokens so the last
-        prompt position is always computed. Returns its logits."""
+        prompt position is always computed. Returns the member's
+        outputs."""
         a = self.allocator
         t = prompt.shape[0]
         shared: List[int] = a.match_prefix(prompt, t - 1) if self.prefix_cache else []
@@ -585,12 +948,10 @@ class SlotEngine:
         blocks = shared + fresh
         table_row = np.zeros((1, self.blocks_per_slot), np.int32)
         table_row[0, :len(blocks)] = blocks
-        cache = self._cache(
-            self._stores, self._tensor([start]),
-            block_table=self._tensor(table_row, torch.int32),
-            block_size=self.block_size, decode_kernel=self.decode_kernel,
-        )
-        logits = self.model(self._padded(prompt[start:], bucket), cache)
+        out = self._run(f"prefill_b{bucket}", greedy=spec.temperature <= 0.0,
+                        table=table_row, start=start,
+                        tokens=self._padded(prompt[start:], bucket), last=suffix_len - 1,
+                        **first_inputs)
         if self.prefix_cache:
             # The full prompt blocks are now written and immutable
             # (decode writes start at prompt_len): make them findable.
@@ -604,9 +965,25 @@ class SlotEngine:
         if shared:
             obs.counter("serve.prefix_hit_blocks", len(shared))
         self._emit_pool_gauges()
-        return logits[0, suffix_len - 1]
+        return out
 
-    @torch.no_grad()
+    def _sampling(self, keys: np.ndarray) -> Dict[str, np.ndarray]:
+        """The per-slot sampling inputs of a tick, with its ``keys``."""
+        return dict(keys=keys, temps=self._temps, top_ks=self._top_ks,
+                    top_ps=self._top_ps)
+
+    def _all_greedy(self) -> bool:
+        """No slot samples this tick (free slots hold temperature 0): the
+        sampling members' greedy-only variant serves it."""
+        return not (self._temps > 0).any()
+
+    def _routing(self) -> Dict[str, np.ndarray]:
+        """The per-slot positions (and the paged layout's tables)."""
+        out = {"positions": self._positions}
+        if self.allocator is not None:
+            out["tables"] = self._tables
+        return out
+
     def decode_step(self) -> List[Tuple[int, int, bool]]:
         """One batched decode tick: every occupied slot emits its next
         token. Returns ``[(slot, token, eos_hit), ...]`` for occupied
@@ -621,12 +998,10 @@ class SlotEngine:
             ladder = self._ladders[i]
             if ladder is not None:
                 step_keys[i] = ladder[min(self._cursor[i], len(ladder) - 1)]
-        logits = self.model(self._tensor(self._tokens[:, None]),
-                            self._routed(self._tensor(self._positions)))
-        nxt = sample_slots(
-            logits[:, -1], step_keys, self._temps, self._top_ks, self._top_ps,
-            top_k_cap=self.top_k_cap,
-        ).cpu().numpy()
+        (packed,) = self._run("decode", greedy=self._all_greedy(),
+                              tokens=self._tokens[:, None], eos=self._eos,
+                              **self._routing(), **self._sampling(step_keys))
+        nxt, eos_hit = packed.cpu().numpy()
         self.decode_steps += 1
         out = []
         for i in slots:
@@ -639,31 +1014,9 @@ class SlotEngine:
             self._tokens[i] = tok
             self._positions[i] += 1
             self._cursor[i] += 1
-            out.append((i, tok, bool(self._eos[i] >= 0 and tok == self._eos[i])))
+            out.append((i, tok, bool(eos_hit[i])))
         return out
 
-    def _draft_proposals(self) -> np.ndarray:
-        """The int8 self-draft's ``[num_slots, spec_k]`` greedy proposals:
-        one ``[S, 2]`` catch-up forward (the previous committed token and
-        the next input; after an all-accepted tick the draft's cache is
-        one position behind, and the pair closes the gap), then
-        ``spec_k - 1`` single-token steps, all over one dequantized copy
-        of the draft's weights."""
-        start = np.maximum(self._positions - 1, 0)
-        catchup = np.stack([self._prev_tokens, self._tokens], axis=1)
-        with quant.hold_dequantized(self._draft, self._draft.dtype):
-            logits = self._draft(self._tensor(catchup),
-                                 self._cache(self._draft_stores, self._tensor(start)))
-            tok = torch.argmax(logits[:, -1], dim=-1)
-            drafts = [tok]
-            for j in range(1, self.spec_k):
-                cache = self._cache(self._draft_stores, self._tensor(start + 1 + j))
-                logits = self._draft(tok[:, None], cache)
-                tok = torch.argmax(logits[:, -1], dim=-1)
-                drafts.append(tok)
-        return torch.stack(drafts, dim=1).cpu().numpy()
-
-    @torch.no_grad()
     def spec_step(self) -> List[Tuple[int, List[int], bool]]:
         """One speculative tick: draft ``spec_k`` proposals per slot, ONE
         batched verify of the target over ``[num_slots, spec_k + 1]``
@@ -681,7 +1034,10 @@ class SlotEngine:
         tokens[:, 0] = self._tokens
         t0 = time.perf_counter()
         if self._draft is not None:
-            drafts = self._draft_proposals()
+            (drafts,) = self._run(
+                "spec_draft", catchup=np.stack([self._prev_tokens, self._tokens], axis=1),
+                start=np.maximum(self._positions - 1, 0))
+            drafts = drafts.cpu().numpy()
         else:
             drafts = propose_all(self._drafter, self._history, slots, s, k)
         draft_s = time.perf_counter() - t0
@@ -693,15 +1049,11 @@ class SlotEngine:
                 c = int(self._cursor[i])
                 step_keys[i] = ladder[c:c + k + 1]
         t1 = time.perf_counter()
-        # Rejected-tail K/V writes land past the committed cursor and are
-        # overwritten by the next tick's before any query attends them.
-        logits = self.model(self._tensor(tokens), self._routed(self._tensor(self._positions)))
-        committed, accepted = spec_verify_slots(
-            logits, tokens[:, 1:], step_keys, self._temps, self._top_ks,
-            self._top_ps, top_k_cap=self.top_k_cap,
-        )
-        committed = committed.cpu().numpy()
-        accepted = accepted.cpu().numpy()
+        (packed,) = self._run("spec_verify", greedy=self._all_greedy(), tokens=tokens,
+                              **self._routing(),
+                              **self._sampling(step_keys))
+        packed = packed.cpu().numpy()
+        committed, accepted = packed[:, :k + 1], packed[:, k + 1]
         verify_s = time.perf_counter() - t1
         self.decode_steps += 1
         out: List[Tuple[int, List[int], bool]] = []

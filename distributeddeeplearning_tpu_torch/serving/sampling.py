@@ -1,14 +1,28 @@
 """Per-slot, data-driven token sampling (port of ``serving/sampling.py``).
 
-The sampling knobs are per-slot data (``[num_slots]`` numpy vectors the
-engine holds on the host), with the JAX package's sentinels:
-``temperature <= 0`` = greedy, ``top_k == 0`` / ``top_p == 0`` = filter
-off. Every numeric step mirrors the reference: f32 upcast and
-temperature divide; the k-th threshold *by value* (from ``topk`` at the
-static ``top_k_cap`` when no nucleus filter is in play, from one
-descending sort otherwise); the nucleus keep-rule on the *unfiltered*
-sorted distribution; greedy is ``argmax`` of the raw logits (first index
-on ties).
+The sampling knobs are per-slot data (``[num_slots]`` vectors: device
+tensors inside the engine's captured programs, numpy arrays elsewhere;
+keys as ``[..., 2]`` uint32 rows or their int64 words), with the JAX
+package's sentinels: ``temperature <= 0`` = greedy, ``top_k == 0`` /
+``top_p == 0`` = filter off. :func:`sample_slots` and
+:func:`spec_verify_slots` branch on none of them on the host: every row
+runs the full-sort filter and the draw, and ``where`` selects by the
+row's temperature, so one CUDA graph serves any mix of requests. JAX
+takes a sort-free top-k filter for a batch without a nucleus row
+(``lax.cond(any(top_ps > 0))``; the verify chooses row by row): its
+k-th value is the number the sort finds once ``top_k`` is clipped at
+the static ``top_k_cap`` as that filter clips it (:func:`_capped`), so
+the rows equal JAX's bit for bit. A batch with no sampled row, a
+fact the caller holds on the host, passes ``greedy=True`` and runs the
+argmax alone (the engine captures that variant beside the sampling
+one). Every numeric step mirrors the reference: f32 upcast and a true
+divide by the temperature (a device tensor, so CUDA does not take its
+multiply-by-reciprocal path for scalar divisors); the k-th threshold
+*by value*; the nucleus keep-rule on the *unfiltered* sorted
+distribution; greedy is ``argmax`` of the raw logits (first index on
+ties). :func:`sample_slot`, ``inference.generate``'s per-row sampler,
+branches on its host configs and keeps the sort-free ``topk`` filter
+when ``top_p`` is off.
 
 The random draw is Gumbel-max with ``jax.random.categorical``'s own
 bits: under the partitionable threefry this repo pins, the uniform of
@@ -18,8 +32,8 @@ vocab entry ``i`` is the threefry-2x32 cipher of the 64-bit counter
 ``finfo(f32).tiny`` (:func:`gumbel_uniforms`, bitwise ``jax.random.
 uniform``'s). The Gumbel noise ``-log(-log(u))`` agrees with JAX's to
 the last bits of the two libraries' ``log``, so sampled streams equal
-the JAX package's except on a near-tie of two noisy logits. All sampled
-slots of a call draw in one batched ``[S, vocab]`` pass.
+the JAX package's except on a near-tie of two noisy logits. All slots of
+a call draw in one batched ``[S, vocab]`` pass.
 
 :func:`spec_verify_slots` is the speculative tier's acceptance rule
 (JAX's ``spec_verify_slots``/``_spec_row``): greedy slots accept a draft
@@ -42,34 +56,59 @@ DEFAULT_TOP_K_CAP = 128
 _NEG = torch.finfo(torch.float32).min
 
 
-def _scale(logits: torch.Tensor, temperature: float) -> torch.Tensor:
-    return logits.float() / (temperature if temperature > 0 else 1.0)
+def _as(x, device, dtype) -> torch.Tensor:
+    """A per-slot config (numpy, list, tensor or one scalar) as a tensor
+    on ``device``; a scalar becomes a ``[1]`` fill, with no host copy."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    if np.ndim(x) == 0:
+        return torch.full((1,), float(x) if dtype.is_floating_point else int(x),
+                          dtype=dtype, device=device)
+    return torch.as_tensor(np.asarray(x), device=device).to(dtype)
+
+
+def _scale(logits: torch.Tensor, temps: torch.Tensor) -> torch.Tensor:
+    """``[R, vocab]`` f32 logits over each row's temperature (1 where
+    greedy)."""
+    return logits.float() / torch.where(temps > 0, temps, 1.0)[:, None]
 
 
 def _filter_topk(scaled: torch.Tensor, top_k: int, top_k_cap: int) -> torch.Tensor:
-    """Sort-free filter: the k-th value from ``topk`` at the static cap."""
+    """Sort-free filter of one ``[vocab]`` row under a host ``top_k``:
+    the k-th value from ``topk`` at ``min(top_k, cap)``, the number a
+    sort finds (JAX clips ``top_k`` to the cap the same way)."""
     if top_k <= 0:
         return scaled
-    cap = min(top_k_cap, scaled.shape[-1])
-    kth = torch.topk(scaled, cap).values[min(max(top_k, 1), cap) - 1]
+    kth = torch.topk(scaled, min(top_k, top_k_cap, scaled.shape[-1])).values[-1]
     return torch.where(scaled < kth, _NEG, scaled)
 
 
-def _filter_full(scaled: torch.Tensor, top_k: int, top_p: float) -> torch.Tensor:
-    """Full-sort filter: one descending sort serves both filters."""
+def _capped(top_ks, nucleus: torch.Tensor, top_k_cap: int) -> torch.Tensor:
+    """``top_ks`` as ``[R]`` int64, clipped at ``top_k_cap`` where
+    ``nucleus`` is false: where JAX's sort-free filter serves the row,
+    which reads the k-th value at ``min(top_k, cap)``."""
+    top_ks = _as(top_ks, nucleus.device, torch.int64).reshape(-1)
+    return torch.where(nucleus, top_ks, top_ks.clamp(max=top_k_cap))
+
+
+def _filter_full(scaled: torch.Tensor, top_ks, top_ps) -> torch.Tensor:
+    """Full-sort filter of ``[R, vocab]`` rows under ``[R]`` configs (or
+    of one ``[vocab]`` row under scalar ones, JAX's per-row signature):
+    one descending sort serves both filters; the nucleus rule on the
+    unfiltered sorted distribution."""
+    if scaled.dim() == 1:
+        return _filter_full(scaled[None], top_ks, top_ps)[0]
+    top_ks = _as(top_ks, scaled.device, torch.int64).reshape(-1)
+    top_ps = _as(top_ps, scaled.device, torch.float32).reshape(-1)
     vocab = scaled.shape[-1]
-    sorted_desc = torch.sort(scaled, descending=True).values
-    out = scaled
-    if top_k > 0:
-        kth = sorted_desc[min(max(top_k, 1), vocab) - 1]
-        out = torch.where(scaled < kth, _NEG, scaled)
-    if top_p > 0:
-        probs = torch.softmax(sorted_desc, dim=-1)
-        cum = torch.cumsum(probs, dim=-1)
-        keep = (cum - probs) < top_p
-        threshold = torch.where(keep, sorted_desc, torch.inf).min()
-        out = torch.where(out < threshold, _NEG, out)
-    return out
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    kth = sorted_desc.gather(1, (top_ks.clamp(1, vocab) - 1)[:, None])
+    out = torch.where((top_ks[:, None] > 0) & (scaled < kth), _NEG, scaled)
+    probs = torch.softmax(sorted_desc, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < top_ps[:, None]
+    threshold = torch.where(keep, sorted_desc, torch.inf).amin(dim=-1, keepdim=True)
+    return torch.where((top_ps[:, None] > 0) & (out < threshold), _NEG, out)
 
 
 _MASK32 = 0xFFFFFFFF
@@ -77,27 +116,48 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
 
-def _random_bits(keys, n: int, device) -> torch.Tensor:
-    """``jax.random``'s 32 bits for the counters ``0 .. n - 1`` under
-    each ``[2]`` uint32 row of ``keys``: the threefry-2x32 cipher of the
-    64-bit counter, its two output words XORed; ``[S, n]`` int64 on
-    ``device``. The rounds of ``keys._threefry2x32_core`` run in int64
+def _key_words(keys, device) -> torch.Tensor:
+    """``[..., 2]`` uint32 key rows (numpy) or int64 tensors as ``[N, 2]``
+    int64 words on ``device``."""
+    if isinstance(keys, torch.Tensor):
+        return keys.to(device=device, dtype=torch.int64).reshape(-1, 2)
+    return torch.as_tensor(np.asarray(keys, np.uint32).reshape(-1, 2).astype(np.int64),
+                           device=device)
+
+
+def _threefry(k: torch.Tensor, idx: torch.Tensor):
+    """The threefry-2x32 cipher of the 64-bit counters ``idx`` (``[1,
+    n]`` int64) under each ``[N, 2]`` int64 key row: its two output words
+    ``[N, n]``. The rounds of ``keys._threefry2x32_core`` run in int64
     words masked to 32 bits (``>>`` on int64 is arithmetic, so every
     word is masked before it shifts)."""
-    k = torch.as_tensor(np.asarray(keys, np.uint32).reshape(-1, 2).astype(np.int64),
-                        device=device)
     ks = (k[:, :1], k[:, 1:], k[:, :1] ^ k[:, 1:] ^ _PARITY)
-    idx = torch.arange(n, dtype=torch.int64, device=device)[None, :]
-    x0 = (idx >> 32) + ks[0]  # the counter's hi word (0 below 2**32)
+    x0 = ((idx >> 32) + ks[0]) & _MASK32  # the counter's hi word (0 below 2**32)
     x1 = ((idx & _MASK32) + ks[1]) & _MASK32
-    x0 = x0 & _MASK32
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
             x0 = (x0 + x1) & _MASK32
             x1 = (((x1 << r) | (x1 >> (32 - r))) ^ x0) & _MASK32
         x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
         x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK32
+    return x0, x1
+
+
+def _random_bits(keys, n: int, device) -> torch.Tensor:
+    """``jax.random``'s 32 bits for the counters ``0 .. n - 1`` under
+    each ``[2]`` key row of ``keys`` (uint32 numpy or int64 tensor): the
+    threefry-2x32 cipher of the 64-bit counter, its two output words
+    XORed; ``[N, n]`` int64 on ``device``."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    x0, x1 = _threefry(_key_words(keys, device), idx)
     return x0 ^ x1
+
+
+def _fold(keys, data: int, device) -> torch.Tensor:
+    """:func:`fold_keys` on the device: ``[N, 2]`` int64 words."""
+    idx = torch.full((1, 1), int(data), dtype=torch.int64, device=device)
+    x0, x1 = _threefry(_key_words(keys, device), idx)
+    return torch.cat([x0, x1], dim=1)
 
 
 def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
@@ -138,42 +198,43 @@ def _draw(filtered: torch.Tensor, keys) -> torch.Tensor:
     return torch.argmax(-torch.log(-torch.log(u)) + filtered, dim=-1)
 
 
-def _filter(logits: torch.Tensor, temperature: float, top_k: int,
-            top_p: float, top_k_cap: int) -> torch.Tensor:
-    scaled = _scale(logits, temperature)
-    if top_p > 0:
-        return _filter_full(scaled, int(top_k), float(top_p))
-    return _filter_topk(scaled, int(top_k), top_k_cap)
-
-
 def sample_slot(logits: torch.Tensor, key, temperature: float, top_k: int,
                 top_p: float, top_k_cap: int = DEFAULT_TOP_K_CAP) -> torch.Tensor:
     """One slot's next token (0-d int64 tensor on ``logits``' device)
-    from ``[vocab]`` logits. ``key`` is the slot's ``[2]`` uint32 ladder
-    row (unused when greedy)."""
+    from ``[vocab]`` logits and host configs, branching on the host
+    (``inference.generate``'s per-row sampler, JAX's ``sample_slot``):
+    the full sort only when ``top_p`` is on. ``key`` is the slot's
+    ``[2]`` uint32 ladder row (unused when greedy)."""
     if temperature <= 0:
         return torch.argmax(logits)
-    filtered = _filter(logits, temperature, top_k, top_p, top_k_cap)
-    return _draw(filtered[None], np.asarray(key)[None])[0]
+    scaled = _scale(logits[None], _as(temperature, logits.device, torch.float32))
+    if top_p > 0:
+        filtered = _filter_full(scaled, top_k, top_p)
+    else:
+        filtered = _filter_topk(scaled[0], int(top_k), top_k_cap)[None]
+    return _draw(filtered, np.asarray(key)[None])[0]
 
 
-def sample_slots(logits: torch.Tensor, keys: np.ndarray, temperatures: np.ndarray,
-                 top_ks: np.ndarray, top_ps: np.ndarray,
-                 top_k_cap: int = DEFAULT_TOP_K_CAP) -> torch.Tensor:
-    """``[S, vocab]`` logits + per-slot host configs -> ``[S]`` tokens on
-    the logits' device. Greedy slots share one batched ``argmax``; the
-    sampled slots are filtered row by row and draw in one batched pass."""
-    out = torch.argmax(logits, dim=-1)
-    sampled = np.flatnonzero(np.asarray(temperatures) > 0)
-    if sampled.size:
-        filtered = torch.stack([
-            _filter(logits[i], float(temperatures[i]), int(top_ks[i]),
-                    float(top_ps[i]), top_k_cap)
-            for i in sampled
-        ])
-        rows = torch.as_tensor(sampled, device=logits.device)
-        out[rows] = _draw(filtered, np.asarray(keys)[sampled])
-    return out
+def sample_slots(logits: torch.Tensor, keys, temperatures, top_ks, top_ps,
+                 top_k_cap: int = DEFAULT_TOP_K_CAP, greedy: bool = False) -> torch.Tensor:
+    """``[S, vocab]`` logits + per-slot configs -> ``[S]`` int64 tokens
+    on the logits' device, as data: no host branch on the configs, so a
+    captured program serves any mix. ``keys`` are ``[S, 2]`` rows
+    (uint32 numpy or int64 tensor); temperatures, top-k and top-p are
+    ``[S]`` (numpy or tensors). Every row is filtered (the full sort,
+    ``top_k`` clipped at ``top_k_cap`` unless a row uses ``top_p``, as
+    JAX's batch-level cond does) and draws; greedy rows (temperature <= 0) take the ``argmax`` of the raw
+    logits instead. ``greedy=True`` says no row samples: the argmax
+    alone runs, with the same result."""
+    choice = torch.argmax(logits, dim=-1)
+    if greedy:
+        return choice
+    dev = logits.device
+    temps = _as(temperatures, dev, torch.float32)
+    top_ps = _as(top_ps, dev, torch.float32)
+    top_ks = _capped(top_ks, (top_ps > 0).any(), top_k_cap)
+    filtered = _filter_full(_scale(logits, temps), top_ks, top_ps)
+    return torch.where(temps > 0, _draw(filtered, keys), choice)
 
 
 # Deterministic proposers make the draft distribution q a point mass at
@@ -201,55 +262,50 @@ def _accepted(accept: torch.Tensor) -> torch.Tensor:
     return torch.cumprod(accept.long(), dim=-1).sum(dim=-1)
 
 
-def _spec_rows(logits, drafts, keys, temps, top_ks, top_ps, top_k_cap):
-    """The sampled slots' verify (``_spec_row`` for each): ``logits``
-    ``[R, K+1, vocab]``, ``drafts`` ``[R, K]``, ``keys`` ``[R, K+1, 2]``
-    numpy. Returns ``(final [R, K+1], accepted [R])``."""
-    r, k1, vocab = logits.shape
-    k = k1 - 1
-    filt = torch.stack([
-        torch.stack([_filter(logits[i, j], float(temps[i]), int(top_ks[i]),
-                             float(top_ps[i]), top_k_cap) for j in range(k1)])
-        for i in range(r)
-    ])  # [R, K+1, vocab] f32, finfo.min where filtered
-    probs = torch.softmax(filt, dim=-1)
-    p_draft = probs[:, :k].gather(-1, drafts[:, :, None])[..., 0]
-    keys = np.asarray(keys, np.uint32).reshape(r * k1, 2)
-    u = key_uniforms(fold_keys(keys, 0), logits.device).view(r, k1)[:, :k]
-    accepted = _accepted(u < p_draft)
-    # Residual (draft masked out) at positions < K, bonus (unmasked) at
-    # K: one draw per position; the accepted count picks the one that
-    # commits.
-    res = filt.clone()
-    rows = torch.arange(r, device=logits.device)[:, None]
-    res[rows, torch.arange(k, device=logits.device)[None, :], drafts] = _NEG
-    final = _draw(res.view(r * k1, vocab), fold_keys(keys, 1)).view(r, k1)
-    return final, accepted
-
-
 def spec_verify_slots(logits: torch.Tensor, drafts, keys, temperatures,
-                      top_ks, top_ps, top_k_cap: int = DEFAULT_TOP_K_CAP):
-    """Speculative verify over the slot axis.
+                      top_ks, top_ps, top_k_cap: int = DEFAULT_TOP_K_CAP,
+                      greedy: bool = False):
+    """Speculative verify over the slot axis, as data (no host branch).
 
     ``logits`` ``[S, K+1, vocab]`` (the batched verify forward over
     ``[committed_next, d_1 .. d_K]``), ``drafts`` ``[S, K]``, ``keys``
-    ``[S, K+1, 2]`` uint32, per-slot configs ``[S]`` (numpy). Returns
-    ``(committed [S, K+1], accepted [S])`` int64 tensors on the logits'
-    device: slot ``i`` commits ``accepted[i] + 1`` tokens. When every
-    slot is greedy the verify is one argmax and a compare."""
-    drafts = torch.as_tensor(np.asarray(drafts), dtype=torch.long, device=logits.device)
-    k = drafts.shape[1]
+    ``[S, K+1, 2]`` (uint32 numpy or int64 tensor), per-slot configs
+    ``[S]`` (numpy or tensors). Returns ``(committed [S, K+1], accepted
+    [S])`` int64 tensors on the logits' device: slot ``i`` commits
+    ``accepted[i] + 1`` tokens. Greedy rows accept while a draft equals
+    the target's argmax and commit the argmax; sampled rows
+    (``_spec_row``) accept draft ``d`` with probability ``p(d)`` and
+    commit a residual or bonus draw. Every row computes both, and a
+    row's temperature selects: what JAX's batch-level
+    ``lax.cond(any(temperatures > 0))`` gives row by row. ``greedy=True``
+    says no row samples: the greedy rule alone runs."""
+    dev = logits.device
+    s, k1, vocab = logits.shape
+    k = k1 - 1
+    drafts = _as(drafts, dev, torch.int64)
     choice = torch.argmax(logits, dim=-1)  # [S, K+1]
-    final = choice
-    accepted = _accepted(drafts == choice[:, :k])
-    sampled = np.flatnonzero(np.asarray(temperatures) > 0)
-    if sampled.size:
-        rows = torch.as_tensor(sampled, device=logits.device)
-        f_s, a_s = _spec_rows(
-            logits[rows], drafts[rows], np.asarray(keys)[sampled],
-            np.asarray(temperatures)[sampled], np.asarray(top_ks)[sampled],
-            np.asarray(top_ps)[sampled], top_k_cap)
-        final = final.clone()
-        final[rows] = f_s
-        accepted[rows] = a_s
-    return _commit(drafts, accepted, final), accepted
+    greedy_accept = drafts == choice[:, :k]
+    if greedy:
+        accepted = _accepted(greedy_accept)
+        return _commit(drafts, accepted, choice), accepted
+    temps = _as(temperatures, dev, torch.float32)
+    top_ps = _as(top_ps, dev, torch.float32)
+    top_ks = _capped(top_ks, top_ps > 0, top_k_cap)  # JAX's per-row cond
+    sampled = temps[:, None] > 0
+    filt = _filter_full(
+        _scale(logits.reshape(s * k1, vocab), temps.repeat_interleave(k1)),
+        top_ks.repeat_interleave(k1), top_ps.repeat_interleave(k1),
+    ).view(s, k1, vocab)  # finfo.min where filtered
+    probs = torch.softmax(filt, dim=-1)
+    p_draft = probs[:, :k].gather(-1, drafts[:, :, None])[..., 0]
+    keys = _key_words(keys, dev)  # [S * (K+1), 2]
+    u = key_uniforms(_fold(keys, 0, dev), dev).view(s, k1)[:, :k]
+    accepted = _accepted(torch.where(sampled, u < p_draft, greedy_accept))
+    # Residual (draft masked out) at positions < K, bonus (unmasked) at
+    # K: one draw per position; the accepted count picks the one that
+    # commits.
+    pad = torch.cat([drafts, drafts.new_full((s, 1), -1)], dim=1)  # -1 matches no id
+    ids = torch.arange(vocab, device=dev)
+    res = torch.where(ids == pad[:, :, None], _NEG, filt)
+    draws = _draw(res.view(s * k1, vocab), _fold(keys, 1, dev)).view(s, k1)
+    return _commit(drafts, accepted, torch.where(sampled, draws, choice)), accepted

@@ -9,18 +9,29 @@ through the port's obs bus with the JAX package's event names:
 spans   ``serve.prefill`` (bucket, slot, prompt_len), ``serve.decode_step``
         (active), ``serve.decode_share``, ``serve.delivery``,
         ``serve.queue_wait`` / ``serve.ttft`` / ``serve.request``
-gauges  ``serve.slot_occupancy``, ``serve.queue_depth``
+gauges  ``serve.slot_occupancy``, ``serve.queue_depth``, ``serve.programs``
 counters ``serve.admitted``, ``serve.completed``, ``serve.tokens``,
         ``serve.rejected``, ``serve.evicted_deadline``, ``serve.cancelled``
 points  ``serve.request_done`` (req, reason, ttft_ms, tokens)
 
+**Adaptive admission** (the telemetry feedback path): a pluggable
+:class:`AdmissionPolicy` runs at the top of every tick;
+:class:`AdaptiveAdmissionPolicy` reads the live plane's atomically
+published ``rollup.json`` (``obs/rollup.py``) and, while a *latency* SLO
+burns (``obs/slo.py``), derates admission — caps ``prefills_per_step``
+and tightens the ``QueueFull`` threshold — and restores both on
+``slo_recover``. Derate and restore are visible in the event stream
+(``serve.admission_derate`` / ``serve.admission_restore`` points,
+``serve.admission_prefills`` / ``serve.admission_queue_limit`` gauges).
+
 ``ServeConfig.from_env`` reads the same ``SERVE_*`` variables with the
-same defaults, the quantized (``SERVE_KV_DTYPE``, ``SERVE_WEIGHT_DTYPE``)
+same defaults: the quantized (``SERVE_KV_DTYPE``, ``SERVE_WEIGHT_DTYPE``)
 and speculative (``SERVE_SPEC_K``, ``SERVE_SPEC_DRAFT``,
-``SERVE_SPEC_NGRAM_N``) tiers included. Not ported yet: adaptive
-admission (``SERVE_ADMISSION_POLICY=adaptive`` raises), and the brownout
-ladder (``spec_off`` and the rest), prefill handoff, push callbacks and
-the fleet hooks, which ``Server`` takes no argument for.
+``SERVE_SPEC_NGRAM_N``) tiers, ``SERVE_ADMISSION_POLICY`` (``static`` |
+``adaptive``) and ``SERVE_ROLLUP_PATH`` (default
+``$OBS_DIR/rollup.json``). Not ported yet: the brownout ladder
+(``spec_off`` and the rest), prefill handoff, push callbacks and the
+fleet hooks, which ``Server`` takes no argument for.
 """
 
 from __future__ import annotations
@@ -42,6 +53,145 @@ from distributeddeeplearning_tpu_torch.serving.engine import ReqSpec, SlotEngine
 
 class QueueFull(RuntimeError):
     """Backpressure: the bounded admission queue is at capacity."""
+
+
+# ---------------------------------------------------------------------------
+# Admission policies (telemetry feedback)
+# ---------------------------------------------------------------------------
+
+def burning_latency_objectives(
+    snapshot: Optional[dict], watch_prefix: Optional[str] = None
+) -> List[str]:
+    """The *latency* objectives currently burning in a rollup snapshot
+    — a latency objective is one whose stat is a span quantile
+    (p50/p95/p99); rate/gauge objectives describe throughput or health
+    and shedding load would not help them (what
+    :class:`AdaptiveAdmissionPolicy` derates on)."""
+    if not snapshot:
+        return []
+    out = []
+    for st in snapshot.get("slo") or []:
+        if not st.get("burning"):
+            continue
+        if st.get("stat") not in ("p50", "p95", "p99"):
+            continue
+        if watch_prefix and not str(st.get("metric", "")).startswith(
+            watch_prefix
+        ):
+            continue
+        out.append(st.get("objective", "?"))
+    return out
+
+
+class AdmissionPolicy:
+    """Hook run at the top of every scheduler tick.
+
+    A policy may adjust ``server.prefills_per_step`` (admissions per
+    tick) and ``server.queue_limit`` (the effective ``QueueFull``
+    threshold, never above ``server.queue_depth``). The default is
+    static: no adjustment ever — exactly the pre-policy scheduler."""
+
+    def tick(self, server: "Server", now: float) -> None:  # noqa: ARG002
+        return None
+
+
+class AdaptiveAdmissionPolicy(AdmissionPolicy):
+    """Derate admission while a latency SLO burns; restore on recovery.
+
+    Reads the live plane's ``rollup.json`` snapshot (atomic replace —
+    a read sees one consistent view or none) at most every
+    ``refresh_s``; no plane running / no snapshot = no signal = static
+    behavior. A *latency* objective is one whose stat is a span
+    quantile (p50/p95/p99) — rate/gauge objectives describe throughput
+    or health, and shedding load would not help them.
+
+    While burning: ``prefills_per_step`` is capped at
+    ``derate_prefills`` (running streams keep decoding; the pool just
+    stops swallowing new prefill work) and the queue threshold drops to
+    ``derate_queue_frac`` of ``queue_depth`` (arrivals shed as
+    ``QueueFull`` instead of aging into deadline evictions). Both
+    restore when no watched objective burns.
+    """
+
+    def __init__(
+        self,
+        snapshot_path: Optional[str] = None,
+        *,
+        reader=None,
+        refresh_s: float = 0.25,
+        derate_prefills: int = 1,
+        derate_queue_frac: float = 0.5,
+        watch_prefix: Optional[str] = None,
+    ) -> None:
+        if snapshot_path is None:
+            snapshot_path = os.path.join(
+                os.environ.get("OBS_DIR", "."), "rollup.json"
+            )
+        self.snapshot_path = snapshot_path
+        self._reader = reader
+        self.refresh_s = max(float(refresh_s), 0.0)
+        self.derate_prefills = max(int(derate_prefills), 1)
+        self.derate_queue_frac = min(max(float(derate_queue_frac), 0.0), 1.0)
+        self.watch_prefix = watch_prefix
+        self.derated = False
+        self._saved: Optional[Tuple[int, int]] = None
+        self._next_read = 0.0
+        self._last: Optional[dict] = None
+
+    def _read(self) -> Optional[dict]:
+        if self._reader is not None:
+            return self._reader()
+        from distributeddeeplearning_tpu_torch.obs.rollup import read_snapshot
+
+        return read_snapshot(self.snapshot_path)
+
+    def burning_latency(self, snapshot: Optional[dict]) -> List[str]:
+        """The burning latency objectives this policy acts on."""
+        return burning_latency_objectives(snapshot, self.watch_prefix)
+
+    def tick(self, server: "Server", now: float) -> None:
+        if now < self._next_read:
+            return
+        self._next_read = now + self.refresh_s
+        snap = self._read()
+        if snap is None:
+            return  # no plane publishing: keep whatever state we hold
+        self._last = snap
+        burning = self.burning_latency(snap)
+        if burning and not self.derated:
+            self._saved = (server.prefills_per_step, server.queue_limit)
+            server.prefills_per_step = min(
+                server.prefills_per_step, self.derate_prefills
+            )
+            server.queue_limit = max(
+                1, int(server.queue_depth * self.derate_queue_frac)
+            )
+            self.derated = True
+            obs.point(
+                "serve.admission_derate",
+                objectives=";".join(burning),
+                prefills_per_step=server.prefills_per_step,
+                queue_limit=server.queue_limit,
+            )
+            self._emit_gauges(server)
+        elif not burning and self.derated:
+            if self._saved is not None:
+                server.prefills_per_step, server.queue_limit = self._saved
+            self._saved = None
+            self.derated = False
+            obs.point(
+                "serve.admission_restore",
+                prefills_per_step=server.prefills_per_step,
+                queue_limit=server.queue_limit,
+            )
+            self._emit_gauges(server)
+
+    @staticmethod
+    def _emit_gauges(server: "Server") -> None:
+        obs.gauge(
+            "serve.admission_prefills", float(server.prefills_per_step)
+        )
+        obs.gauge("serve.admission_queue_limit", float(server.queue_limit))
 
 
 @dataclasses.dataclass
@@ -72,6 +222,9 @@ class ServeConfig:
     spec_k: int = 0
     spec_draft: str = "int8"
     spec_ngram_n: int = 3
+    # "static" = fixed admission; "adaptive" = derate while a latency
+    # SLO burns, reading the live plane's rollup snapshot (rollup_path;
+    # None = $OBS_DIR/rollup.json).
     admission_policy: str = "static"
     rollup_path: Optional[str] = None
 
@@ -111,14 +264,12 @@ class ServeConfig:
             rollup_path=e.get("SERVE_ROLLUP_PATH") or None,
         )
 
-    def check_admission_policy(self) -> None:
-        """Only static admission is ported."""
+    def build_admission_policy(self) -> Optional[AdmissionPolicy]:
+        """The policy instance this config asks for (None = static)."""
         if self.admission_policy in ("", "static", "off", "none"):
-            return
+            return None
         if self.admission_policy == "adaptive":
-            raise NotImplementedError(
-                "SERVE_ADMISSION_POLICY=adaptive is not ported yet"
-            )
+            return AdaptiveAdmissionPolicy(self.rollup_path)
         raise ValueError(
             f"unknown SERVE_ADMISSION_POLICY {self.admission_policy!r} "
             f"(have: static, adaptive)"
@@ -277,6 +428,7 @@ class Server:
         queue_depth: int = 64,
         prefills_per_step: int = 1,
         default_deadline_ms: Optional[float] = None,
+        admission_policy: Optional[AdmissionPolicy] = None,
     ) -> None:
         if queue_depth < 1:
             raise ValueError(f"queue_depth must be >= 1, got {queue_depth}")
@@ -286,8 +438,12 @@ class Server:
             )
         self.engine = engine
         self.queue_depth = queue_depth
+        # The policy-adjustable knobs: queue_limit is the effective
+        # QueueFull threshold (<= queue_depth, the configured ceiling).
+        self.queue_limit = queue_depth
         self.prefills_per_step = prefills_per_step
         self.default_deadline_ms = default_deadline_ms
+        self.policy = admission_policy
         self._lock = threading.Lock()
         self._queue: Deque[RequestHandle] = collections.deque()
         self._ids = itertools.count()
@@ -307,13 +463,14 @@ class Server:
         default). ``engine_kw`` reaches :class:`SlotEngine` (``device``,
         ``max_len``, ...)."""
         cfg = config or ServeConfig.from_env()
-        cfg.check_admission_policy()
+        policy = cfg.build_admission_policy()
         engine = SlotEngine(model, params, **cfg.engine_kwargs(), **engine_kw)
         return cls(
             engine,
             queue_depth=cfg.queue_depth,
             prefills_per_step=cfg.prefills_per_step,
             default_deadline_ms=cfg.deadline_ms,
+            admission_policy=policy,
         )
 
     # -- client side -------------------------------------------------------
@@ -331,10 +488,12 @@ class Server:
         self.engine.validate_spec(request.spec())
         now = time.monotonic()
         with self._lock:
-            if len(self._queue) >= self.queue_depth:
+            # queue_limit, not queue_depth: an admission policy may have
+            # tightened the effective threshold while an SLO burns.
+            if len(self._queue) >= self.queue_limit:
                 self.stats["rejected"] += 1
                 obs.counter("serve.rejected")
-                raise QueueFull(f"admission queue at capacity ({self.queue_depth})")
+                raise QueueFull(f"admission queue at capacity ({self.queue_limit})")
             handle = RequestHandle(request, next(self._ids), now)
             self._queue.append(handle)
             with obs.trace_ctx(handle.trace):
@@ -455,6 +614,8 @@ class Server:
         """One scheduler tick. Returns True while work remains (active
         slots or queued requests)."""
         now = time.monotonic()
+        if self.policy is not None:
+            self.policy.tick(self, now)
         self._reap(now)
         self._admit(now)
         self.stats["peak_active"] = max(self.stats["peak_active"], len(self._by_slot))

@@ -53,9 +53,13 @@ machine that has only PyTorch for CUDA:
   TMA wgrad over the same sweep against the plain version in f64 within
   ``dw_wgrad_limit`` at its plan's depth, with a bitwise repeat;
 * quantized serving (int8 and fp8 KV and weights, paged, fused kernel)
-  of a small f32 LM on the card: the kernel launched once per layer per
-  forward, under its storage dtype, and the greedy streams of the plain
-  masked path.
+  of a small f32 LM on the card: the kernel captured under its storage
+  dtype and replayed once per layer per forward, and the greedy streams
+  of the plain masked path;
+* the engine's program set captured as CUDA graphs (paged and dense,
+  fused and plain, int8, speculative with the int8 self-draft and with
+  n-grams) against the same members run uncaptured, bit for bit, with
+  no capture after ``warmup``.
 """
 
 import sys
@@ -601,18 +605,94 @@ def test_cuda_quantized_served_streams(kind):
         engine = SlotEngine(model, params, num_slots=3, kv_layout="paged", block_size=16,
                             kv_dtype=kind, weight_dtype=kind, decode_kernel=kernel,
                             device="cuda")
+        captured = pd.launches_by_store[kind]
+        engine.warmup()  # the captures launch the kernel under the storage dtype
+        captured = pd.launches_by_store[kind] - captured
         server = Server(engine)
-        before = pd.launches_by_store[kind]
+        before = pd.launches
         handles = [server.submit(Request(prompt=p, max_new_tokens=12)) for p in prompts]
         server.drain()
-        counts[kernel] = (pd.launches_by_store[kind] - before,
+        assert pd.launches == before  # every launch came from a graph's replay
+        counts[kernel] = (captured, engine.replayed_launches(),
                           len(model.blocks) * (engine.prefill_execs + engine.decode_steps))
         streams[kernel] = [h.new_tokens for h in handles]
         assert engine._stores[0][0].dtype == (torch.int8 if kind == "int8"
                                               else torch.float8_e4m3fn)
-    assert counts["xla"][0] == 0
-    assert counts["fused"][0] == counts["fused"][1] > 0
+    assert counts["xla"][:2] == (0, 0)
+    assert counts["fused"][0] > 0 and counts["fused"][1] == counts["fused"][2] > 0
     assert streams["fused"] == streams["xla"]
+
+
+GRAPH_CONFIGS = {
+    "paged_fused": dict(kv_layout="paged", block_size=16, decode_kernel="fused"),
+    "dense_xla": dict(),
+    "dense_fused": dict(decode_kernel="fused"),
+    "int8_paged_fused": dict(kv_layout="paged", block_size=16, decode_kernel="fused",
+                             kv_dtype="int8", weight_dtype="int8"),
+    "spec_int8": dict(kv_layout="paged", block_size=16, decode_kernel="fused", spec_k=4,
+                      spec_draft="int8"),
+    "spec_ngram": dict(kv_layout="paged", block_size=16, decode_kernel="fused", spec_k=4,
+                       spec_draft="ngram"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", sorted(GRAPH_CONFIGS))
+def test_cuda_graphed_engine_matches_uncaptured(config):
+    """The engine's closed program set captured as CUDA graphs serves a
+    mix of greedy, top-k and nucleus requests (one with an eos) with the
+    streams of the same members run uncaptured
+    (``ProgramSpec.uncaptured``), bit for bit; every variant of every
+    member is captured; ``compile_count`` is ``programs_expected`` after warmup and
+    stays there through the mix and a second warmup; the decode kernel's
+    launches all come from replays, once per layer per forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs and the decode kernel")
+    import numpy as np
+
+    from distributeddeeplearning_tpu_torch.models import convert
+    from distributeddeeplearning_tpu_torch.models.transformer_lm import TransformerLM
+    from distributeddeeplearning_tpu_torch.ops import paged_decode as pd
+    from distributeddeeplearning_tpu_torch.serving import Request, Server, SlotEngine
+
+    vocab, max_len = 256, 128
+    params = convert.init_params("tiny", vocab, torch.Generator().manual_seed(0), max_len)
+    rng = np.random.RandomState(1)
+    reqs = []
+    for i, n in enumerate((5, 40, 17, 64, 9, 30)):
+        kw = [dict(), dict(temperature=0.8, top_k=20), dict(temperature=1.1, top_p=0.9),
+              dict(eos_token=7)][i % 4]
+        reqs.append(Request(prompt=rng.randint(0, vocab, size=n).astype(np.int32),
+                            max_new_tokens=12, rng=i, **kw))
+    streams = {}
+    for graphed in (True, False):
+        model = TransformerLM("tiny", vocab_size=vocab, max_seq_len=max_len,
+                              device="cuda")
+        engine = SlotEngine(model, params, num_slots=3, buckets=(16, 32, 64, 128),
+                            device="cuda", **GRAPH_CONFIGS[config])
+        if not graphed:
+            engine.programs.update({ps.name: ps.uncaptured() for ps in engine.program_specs()})
+        engine.warmup()
+        want = engine.programs_expected if graphed else 0
+        assert engine.compile_count == want
+        server = Server(engine)
+        launches = pd.launches
+        handles = [server.submit(r) for r in reqs]
+        server.drain()
+        engine.warmup()
+        assert engine.compile_count == want  # no capture after warmup
+        streams[graphed] = [h.new_tokens for h in handles]
+        if graphed:
+            assert pd.launches == launches
+            forwards = engine.prefill_execs + engine.decode_steps
+            fused = GRAPH_CONFIGS[config].get("decode_kernel") == "fused"
+            dense_prefills = 0 if engine.kv_layout == "paged" else engine.prefill_execs
+            assert engine.replayed_launches() == (
+                len(model.blocks) * (forwards - dense_prefills) if fused else 0)
+            assert engine.graph_pool_bytes > 0
+            assert engine.graphs_captured == sum(
+                len(ps.variants) for ps in engine.program_specs())
+    assert streams[True] == streams[False]
 
 
 @pytest.mark.cuda

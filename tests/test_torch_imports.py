@@ -1,8 +1,11 @@
 """The port stands alone: no file of ``distributeddeeplearning_tpu_torch``
 and not ``chip_smoke.py`` or ``scripts/elastic_dp_check.py`` imports
-``jax`` or the JAX package, importing the whole port leaves ``jax``
+``jax`` or the JAX package (the serving control plane's modules,
+``obs.rollup``, ``obs.slo``, ``obs.traces``, ``serving.loadgen`` and
+``serve_bench``, among them), importing the whole port leaves ``jax``
 unloaded, the process tier (``launch``, ``faults``, ``obs.tail``,
-``obs.report``) imports neither torch nor JAX, and the entry points
+``obs.report``) and the live plane (``obs.rollup``, ``obs.slo``,
+``obs.traces``) import neither torch nor JAX, and the entry points
 default to the CUDA device instead of falling back to the CPU."""
 
 import ast
@@ -65,11 +68,13 @@ def test_importing_the_port_leaves_jax_unloaded():
     assert res.returncode == 0, res.stderr
 
 
-@pytest.mark.parametrize("module", ["launch", "faults", "obs.tail", "obs.report"])
+@pytest.mark.parametrize("module", ["launch", "faults", "obs.tail", "obs.report",
+                                    "obs.rollup", "obs.slo", "obs.traces"])
 def test_process_tier_imports_neither_torch_nor_jax(module):
     """The launcher and its supervisor read exit codes, capacity files
     and event files without loading torch (a card world's launcher
-    imports it only to check for CUDA) or JAX."""
+    imports it only to check for CUDA) or JAX; so do the live plane's
+    rollups, SLO engine and trace reconstruction."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('distributeddeeplearning_tpu_torch.{module}')\n"
