@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--phases kernels,serve,servequant,servespec,servegraph,train,
                                     lmtrain,vittrain,effnettrain,fit,warmup,frontends,
-                                    launch,trace,bench]
+                                    launch,trace,bench,realdata]
 
 (all phases by default). Any failure raises and the script exits
 non-zero.
@@ -13,8 +13,10 @@ non-zero.
 1. Device: print ``nvidia-smi --query-gpu=name,power.limit`` and pin
    float32 matmuls and convolutions to full precision (no TF32).
 2. Build every kernel from ``csrc/`` with ``nvcc`` for ``sm_90a``, one
-   ``nvcc`` per source, all started together; print ptxas's registers,
-   spills and any wgmma serialization it reports.
+   ``nvcc`` per source, all started together (the native IO tier's host
+   library, ``csrc/ddl_native.cpp``, with them, by the host compiler);
+   print ptxas's registers, spills and any wgmma serialization it
+   reports.
 3. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card (run in f32 on the same bf16 inputs), with
    CUDA-event times (device time: the device spins before each timed
@@ -175,7 +177,19 @@ non-zero.
    ``host_sync_count`` 1; ``lm_base``'s runs share a fresh
    ``COMPILATION_CACHE_DIR``: misses in the first, hits after), and a
    ``benchwall`` line with each protocol's median, min and max.
-18. The ``kernels`` JSON line (every kernel whose phases ran; rows 1–5
+18. ``realdata``: the real-data plane (``FAKE=False``, ``DATA_DIR``):
+   the native IO library loaded (PIL and TensorFlow presence printed);
+   fused ResNet-50 through ``fit`` from 1,280 seeded 224 px record
+   shards (``PREFETCH_HOST_BATCHES=2``, ``AOT_WARMUP=1``, 20 steps) beside
+   synthetic images at the same config, the ``data.*`` gauges, 32
+   fused-block kernels a replayed step, and a resume from the step-10
+   checkpoint's stream cursor bit for bit the uninterrupted run;
+   ``stream_bench`` at full width (``lm_base`` pallas pretrain on token
+   shards, restore bitwise, serve through the paged fused engine equal
+   to ``generate``); the TFRecord tier's write, verified index and read;
+   where PIL imports, ``real_data_bench`` prepare, host and e2e. See
+   :func:`realdata_phase`.
+19. The ``kernels`` JSON line (every kernel whose phases ran; rows 1–5
    also with their launches a step under graph replay), then the
    contract's last line ``{"ok": true, "device": {...}}``.
 
@@ -4328,6 +4342,325 @@ def bench_phase(card, runs=BENCH_RUNS, protocols=BENCH_PROTOCOLS, timeout=600):
     return wall
 
 
+REALDATA_RECORDS = 1280  # 20 steps of batch 64: 1,280 x 224 x 224 x 3 bytes (193 MB)
+REALDATA_EVERY = 5  # step checkpoints (with the data cursor) at 5, 10, 15, 20
+REALDATA_RESUME_AT = 10
+# The token-stream leg: stream_bench at full width (lm_base pallas, T
+# 1024, batch 8, vocab 32,000; 6 steps, a checkpoint every 2).
+REALDATA_STREAM_ENV = {"BENCH_MODEL": "lm_base", "STREAM_RECORDS": "48",
+                       "STREAM_SEQ_LEN": "1024", "STREAM_VOCAB": "32000",
+                       "STREAM_SHARD_RECORDS": "16", "STREAM_SHUFFLE_BLOCK": "16",
+                       "STREAM_BATCH": "8", "STREAM_EPOCHS": "1",
+                       "SERVE_KV_LAYOUT": "paged", "SERVE_DECODE_KERNEL": "fused"}
+REALDATA_TFRECORDS = (4, 512, 110_000)  # shards, records a shard, payload bytes (JPEG-sized)
+
+
+def _importable(name):
+    """Whether ``import name`` works here (checked before any use)."""
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
+def _write_record_stream(root, records, image_size, num_classes, chunk=128):
+    """Seeded uint8 records through the port's writer, in chunks (no
+    full-size int64 temporary)."""
+    from distributeddeeplearning_tpu_torch.data.stream import write_record_shards
+
+    def chunks():
+        for i in range(0, records, chunk):
+            rng = np.random.RandomState(1000 + i)
+            n = min(chunk, records - i)
+            yield (rng.randint(0, 256, size=(n, image_size, image_size, 3), dtype=np.uint8),
+                   rng.randint(0, num_classes, size=(n,)).astype(np.int32))
+
+    t0 = time.perf_counter()
+    meta = write_record_shards(root, chunks(), image_size=image_size, num_classes=num_classes,
+                               shard_records=256)
+    return meta, time.perf_counter() - t0
+
+
+def _realdata_fit(cfg, data, device, profile=False):
+    """``fit`` of fused ResNet-50 on ``data`` as ``_warm_fit`` runs it,
+    with the ``data.*`` gauges of the run read back off the event bus.
+    Returns ``(res, walls, kernels, device_ms, gauges, model)``."""
+    from distributeddeeplearning_tpu_torch import obs
+    from distributeddeeplearning_tpu_torch.models import get_model
+
+    model = get_model(cfg.model, num_classes=cfg.num_classes, dtype=cfg.compute_dtype,
+                      fused=True, device=device)
+    t0 = time.monotonic()
+    res, walls, _, kernels, device_ms = _warm_fit(cfg, data, model, device, profile)
+    gauges = {}
+    for e in list(obs.get_bus().ring):  # the bus fit configured; spans carry "dur"
+        if e["t"] >= t0 and e["name"].startswith("data."):
+            gauges.setdefault(e["name"], []).append(e.get("value", e.get("dur")))
+    summary = {k: {"n": len(v), "median": statistics.median(v), "max": max(v)}
+               for k, v in gauges.items() if v and None not in v}
+    return res, walls, kernels, device_ms, summary, model
+
+
+def realdata_phase(fb, fl, pd, card, harness=None, device="cuda",
+                   image_size=224, batch=64, num_classes=1000, records=REALDATA_RECORDS,
+                   stream_env=None, tfrecords=REALDATA_TFRECORDS, jpeg_images=256):
+    """The real-data plane on the card (``FAKE=False``, ``DATA_DIR``):
+
+    0. the native IO library (``csrc/ddl_native.cpp``, built with the
+       kernels) must be loaded: its pure-Python path may not stand in;
+       whether PIL and TensorFlow import here is printed first.
+    1. ``records`` seeded uint8 records (224 px) written with the port's
+       ``write_record_shards``; fused ResNet-50 (batch 64) trained on
+       them through ``fit`` with ``DATA_DIR``, ``PREFETCH_HOST_BATCHES=2``,
+       ``INPUT_STAGING=uint8`` and ``AOT_WARMUP=1`` (one epoch of 20
+       steps, the steps after the first profiled: busy share, the
+       fused-block kernels a replayed step, want 32); then the same
+       config on synthetic images (the step wall beside it, in the same
+       call); the ``data.*`` gauges of the run. Then with
+       ``CHECKPOINT_EVERY_STEPS=5``: each manifest carries the stream
+       cursor, and a resume from step 10 (the newer keys deleted) seeks
+       the stream and ends bit for bit equal to the uninterrupted run.
+    2. ``python -m distributeddeeplearning_tpu_torch.stream_bench`` in
+       process at full width (``REALDATA_STREAM_ENV``: ``lm_base``
+       pallas, T 1024, batch 8): pretrain on token shards, checkpoint
+       with the cursor, restore from disk (bitwise), serve through the
+       paged ``fused`` engine (f32, as the JAX script's); the streams
+       must equal ``generate``. Flash launches (rows 3a-3c) and decode
+       launches (row 6a) counted; tokens/s beside ``harness`` (the bench
+       phase's ``lm_base`` median, when it ran).
+    3. The TFRecord tier: ``tfrecords`` = (shards, records, payload
+       bytes) written, indexed with CRCs verified and read back by the
+       native library (MB/s each), every payload checked; the native
+       reader's framing and indexing (``NativeTFRecordImageNetDataset``
+       over the set, no decode).
+    4. Where PIL imports: ``real_data_bench`` ``prepare`` (``jpeg_images``
+       JPEGs), ``host`` (ImageFolder on threads and on processes, the
+       native TFRecord reader, tf.data where TensorFlow imports) and
+       ``e2e`` (ImageFolder into fused ResNet-50).
+
+    Returns the kernels' Python-counted launches by op and by run
+    (``fit``, ``resume``, ``e2e``, ``stream``, ``serve``), each counted
+    from 0 just before that run; a graphed run counts only its eager
+    warm-up (the replayed count is the profiler's, on the ``realdata``
+    line).
+    ``device="cpu"`` with small sizes rehearses the flow."""
+    import shutil
+    import tempfile
+
+    from distributeddeeplearning_tpu_torch import faults, native
+    from distributeddeeplearning_tpu_torch import stream_bench
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+    from distributeddeeplearning_tpu_torch.data import SyntheticImageDataset, make_dataset
+
+    on_card = torch.device(device).type == "cuda"
+    has_pil, has_tf = _importable("PIL"), _importable("tensorflow")
+    pil_version = __import__("PIL").__version__ if has_pil else None
+    print("realdata libs " + json.dumps({
+        "PIL": pil_version or False, "tensorflow": has_tf,
+        "native_io": native.native_available(),
+        "native_io_error": native.load_error(), "card": card}), flush=True)
+    if not native.native_available():
+        raise AssertionError(f"the native IO library did not load: {native.load_error()}")
+    if not has_pil:
+        print("realdata jpeg: not run (PIL not installed)", flush=True)
+    launches = {}
+
+    def reset():
+        for mod in (fb, fl):
+            mod.launches = 0
+            for k in mod.launches_by_op:
+                mod.launches_by_op[k] = 0
+        _reset_launches(pd)
+
+    def tally(run, *mods):
+        for mod in mods:
+            for k, v in mod.launches_by_op.items():
+                launches.setdefault(k, {})[run] = v
+
+    tmp = tempfile.mkdtemp(prefix="ddl-realdata-")
+    try:
+        # (1) record stream -> fused ResNet-50
+        root = os.path.join(tmp, "records")
+        meta, write_s = _write_record_stream(root, records, image_size, num_classes)
+        steps = records // batch
+        base = TrainConfig.from_env({
+            "FAKE": "False", "DATA_DIR": root, "PREFETCH_HOST_BATCHES": "2",
+            "AOT_WARMUP": "1", "INPUT_STAGING": "uint8", "MODEL": "resnet50",
+            "IMAGE_SIZE": str(image_size), "BATCHSIZE": str(batch),
+            "NUM_CLASSES": str(num_classes), "EPOCHS": "1"}).replace(log_every_steps=1)
+        reset()
+        data = make_dataset(base)
+        if type(data).__name__ != "RecordStreamDataset" or data.steps_per_epoch != steps:
+            raise AssertionError(f"make_dataset gave {type(data).__name__}, "
+                                 f"{data.steps_per_epoch} steps")
+        res, walls, kernels, device_ms, gauges, model = _realdata_fit(base, data, device, True)
+        tally("fit", fb)
+        real_launches = dict(fb.launches_by_op)
+        replayed = sum(v for k, v in kernels.items() if "matmul_stats" in k)
+        history = [{k: h[k] for k in ("loss", "accuracy", "epoch_images")}
+                   for h in res.history]
+        losses = [h["loss"] for h in res.history]
+        if not (all(np.isfinite(losses)) and res.history[0]["epoch_images"] == records):
+            raise AssertionError(f"realdata fit: {res.history}")
+        if on_card and (replayed != 32 or not res.perf.get("graphs_captured")
+                        or min(real_launches.values()) == 0):
+            raise AssertionError(f"realdata fit: {replayed} fused-block kernels a replayed "
+                                 f"step (want 32), perf {res.perf}, launches {real_launches}")
+        if "data.wait" not in gauges or "data.bytes_per_s" not in gauges:
+            raise AssertionError(f"realdata fit: no data.* gauges ({sorted(gauges)})")
+        del model, res
+        synth = SyntheticImageDataset(length=records, global_batch_size=batch,
+                                      image_size=image_size, num_classes=num_classes,
+                                      num_physical_batches=4, seed=base.seed, dtype=np.uint8)
+        swalls = _realdata_fit(base.replace(fake=True), synth, device)[1]
+        if on_card:
+            torch.cuda.empty_cache()
+        step_ms = statistics.median(walls)
+        line = {
+            "model": "resnet50", "fused": True, "image_size": image_size, "batch": batch,
+            "records": records, "stream_bytes": meta["total_records"] * (
+                image_size * image_size * 3 + 4), "write_s": write_s, "steps": steps,
+            "input_staging": "uint8", "prefetch_host_batches": 2, "aot_warmup": True,
+            "history": history,
+            "step_ms_median": step_ms, "step_ms_min": min(walls), "step_ms_max": max(walls),
+            "synthetic_step_ms_median": statistics.median(swalls),
+            "device_ms_per_step": device_ms,
+            "busy_share": device_ms / step_ms if on_card else "not measured",
+            "replayed_fused_block_per_step": replayed if on_card else "not measured",
+            "launches_by_op": real_launches, "data_gauges": gauges,
+            "images_per_s": batch * 1e3 / step_ms, "card": card}
+        print("realdata " + json.dumps(line), flush=True)
+
+        # the cursor resume: checkpoints every 5 steps, rolled back to 10
+        ck = os.path.join(tmp, "ckpt")
+        cfg = base.replace(model_dir=ck, checkpoint_every_steps=REALDATA_EVERY)
+        full, *_, model = _realdata_fit(cfg, make_dataset(cfg), device)
+        want = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        del full, model
+        kept = faults.checkpoint_steps(ck)
+        cursors = {}
+        for s in kept:
+            with open(os.path.join(ck, str(s), "manifest.json")) as f:
+                cursors[s] = json.load(f).get("data_cursor")
+        if REALDATA_RESUME_AT not in kept or any(
+                (c or {}).get("offset") != s % steps for s, c in cursors.items()):
+            raise AssertionError(f"realdata checkpoints {kept}: cursors {cursors}")
+        for s in kept:
+            if s > REALDATA_RESUME_AT:
+                shutil.rmtree(os.path.join(ck, str(s)))
+        reset()
+        resumed, _, _, _, rgauges, model = _realdata_fit(cfg, make_dataset(cfg), device)
+        tally("resume", fb)
+        equal, gap = _state_gap(want, model.state_dict())
+        resume = {"resumed_from": REALDATA_RESUME_AT, "kept": kept,
+                  "cursor": cursors[REALDATA_RESUME_AT],
+                  "epoch_images": resumed.history[0]["epoch_images"],
+                  "resume_skip_batches": rgauges.get("data.resume_skip_batches"),
+                  "launches_by_op": dict(fb.launches_by_op),
+                  "bitwise_equal": equal, "max_param_gap_rel": gap, "card": card}
+        print("realdataresume " + json.dumps(resume), flush=True)
+        if not equal or resume["epoch_images"] != (steps - REALDATA_RESUME_AT) * batch:
+            raise AssertionError(f"the cursor resume left the uninterrupted run: {resume}")
+        del resumed, model, want
+        shutil.rmtree(root, ignore_errors=True)
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # (2) token stream -> lm_base, restored and served
+        env = dict(REALDATA_STREAM_ENV, **(stream_env or {}),
+                   BENCH_DEVICE=torch.device(device).type)
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        reset()
+        try:
+            record, ok, info = stream_bench.run()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        tally("stream", fl)
+        flash = dict(fl.launches_by_op)
+        decode = info["serve_launches_by_store"]
+        d = record["detail"]
+        lm_line = {"record": record, "flash_launches_by_op": flash,
+                   "decode_launches_by_store": decode,
+                   "harness_lm_tokens_per_s": harness if harness is not None
+                   else "not measured", "card": card}
+        print("realdatastream " + json.dumps(lm_line), flush=True)
+        if not ok or not (d["restore_roundtrip"] and d["serve_match"]):
+            raise AssertionError(f"stream pretrain -> restore -> serve gates: {record}")
+        if on_card and (min(flash.values()) == 0 or not decode.get("f32")):
+            raise AssertionError(f"realdatastream: flash {flash}, decode {decode}")
+        launches["paged_decode_attention"] = {"serve": decode.get("f32", 0)}  # row 6a, f32
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # (3) the TFRecord tier
+        from distributeddeeplearning_tpu_torch.data.imagenet import (
+            NativeTFRecordImageNetDataset,
+        )
+        from distributeddeeplearning_tpu_torch.native.example_proto import encode_example
+
+        n_shards, per_shard, nbytes = tfrecords
+        tfr = os.path.join(tmp, "tfrecords")
+        os.makedirs(tfr)
+        rng = np.random.RandomState(7)
+        payloads = [encode_example({"image/encoded": rng.bytes(nbytes),
+                                    "image/class/label": [i % 1000]})
+                    for i in range(per_shard)]
+        total = n_shards * sum(map(len, payloads))
+        paths = [os.path.join(tfr, f"imagenet-{i:05d}-of-{n_shards:05d}")
+                 for i in range(n_shards)]
+        t0 = time.perf_counter()
+        for p in paths:
+            native.write_tfrecord(p, payloads)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        index = [native.index_tfrecord(p, verify=True) for p in paths]
+        index_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = [native.read_tfrecord(p, verify=False) for p in paths]
+        read_s = time.perf_counter() - t0
+        if any(b != payloads for b in back) or any(len(o) != per_shard for o, _ in index):
+            raise AssertionError("the TFRecord set did not read back")
+        t0 = time.perf_counter()
+        ds = NativeTFRecordImageNetDataset(os.path.join(tfr, "imagenet-*"),
+                                           global_batch_size=batch, verify=True)
+        open_s = time.perf_counter() - t0
+        if len(ds) != n_shards * per_shard or ds.steps_per_epoch != len(ds) // batch:
+            raise AssertionError(f"native reader over the set: {len(ds)} records")
+        print("realdatatfrecord " + json.dumps({
+            "shards": n_shards, "records": n_shards * per_shard, "bytes": total,
+            "write_mb_per_s": total / write_s / 1e6, "index_verify_mb_per_s":
+            total / index_s / 1e6, "read_mb_per_s": total / read_s / 1e6,
+            "reader_open_s": open_s, "reader_records": len(ds), "warm_page_cache": True,
+            "card": card}), flush=True)
+        del back, payloads
+        shutil.rmtree(tfr, ignore_errors=True)
+
+        # (4) the JPEG paths
+        if has_pil:
+            from distributeddeeplearning_tpu_torch import real_data_bench as rdb
+
+            jroot = os.path.join(tmp, "jpeg")
+            prep = rdb.prepare(jroot, jpeg_images, image_size)
+            hb = max(batch // 2, 1)
+            host = {f"{mode}": rdb.host(jroot, 4, hb, 8, mode, image_size)
+                    for mode in ("thread", "process")}
+            reset()
+            e2e = rdb.e2e(jroot, batch, max(jpeg_images // batch - 2, 1), image_size,
+                          device=device)
+            tally("e2e", fb)
+            print("realdatajpeg " + json.dumps({
+                "prepare": prep, "host_img_per_s": host, "host_batch": hb,
+                "e2e_img_per_s": e2e, "e2e_batch": batch, "tensorflow": has_tf,
+                "card": card}), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def _fb_entry(name, cases, timed_case, launches):
     main_case = next(c for c in cases if c["case"] == timed_case)
     return {
@@ -4360,7 +4693,8 @@ class _PhaseClock:
 
 
 PHASES = ("kernels", "serve", "servequant", "servespec", "servegraph", "train", "lmtrain",
-          "vittrain", "effnettrain", "fit", "warmup", "frontends", "launch", "trace", "bench")
+          "vittrain", "effnettrain", "fit", "warmup", "frontends", "launch", "trace", "bench",
+          "realdata")
 
 
 # A kernels-line entry -> (replayed family, what its kernel names hold,
@@ -4448,7 +4782,9 @@ def main(argv=None) -> int:
         _build.build(name)
         return time.perf_counter() - t0
 
-    names = ("paged_decode", "fused_block", "flash", "flash_packed", "fused_grads", "depthwise")
+    # ddl_native: the native IO tier's host library (csrc/ddl_native.cpp).
+    names = ("paged_decode", "fused_block", "flash", "flash_packed", "fused_grads", "depthwise",
+             "ddl_native")
     with ThreadPoolExecutor(len(names)) as pool:
         secs = list(pool.map(timed_build, names))
     for name, sec in zip(names, secs):
@@ -4643,9 +4979,20 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    harness_lm = None
     clock.start("bench")
     if "bench" in phases:
-        bench_phase(card)
+        wall = bench_phase(card)
+        harness_lm = wall.get("lm_base_synthetic_train_tokens_per_sec", {}).get("median")
+
+    clock.start("realdata")
+    if "realdata" in phases:
+        real = realdata_phase(fb, fl, pd, card, harness=harness_lm)
+        for e in entries:  # the same kernels' launches on the real-data plane
+            if e["name"] in real:
+                e["realdata_launches"] = real[e["name"]]
+        gc.collect()
+        torch.cuda.empty_cache()
 
     clock.start("end")
     print("phases " + json.dumps(dict(clock.seconds, total=time.perf_counter() - clock.t0)),

@@ -35,7 +35,13 @@ Ported so far:
   accumulation, checkpoints with JAX's manifest, callbacks, the loop's
   fault plan (``faults``) and host-sync ledger (``utils/hostsync``), and
   ``python -m distributeddeeplearning_tpu_torch.bench``, ``bench.py``'s
-  one-line record.
+  one-line record;
+* the real-data plane: ``FAKE=False`` with ``DATA_DIR`` through
+  ``data.make_dataset`` into ``data.imagenet`` (ImageFolder, tf.data and
+  TF-free TFRecord readers), ``data.stream`` (token and record shards,
+  the checkpointable cursor, host read-ahead), ``native`` (crc32c and
+  TFRecord framing over ``csrc/ddl_native.cpp``) and ``data.prepare``;
+  ``streamgen``, ``stream_bench`` and ``real_data_bench``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (the CPU tier's parity tests do). Importing the package

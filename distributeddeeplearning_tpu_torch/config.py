@@ -10,11 +10,17 @@ capture of the step, ``training/warmup.py``), the library cache
 (``COMPILATION_CACHE_DIR``: built kernel libraries, ``ops/_build.py``),
 ``DISTRIBUTED`` (``parallel/distributed.py``) and the elastic-worlds
 contract the launcher's supervisor exports (``ELASTIC``,
-``LR_WORLD_SIZE``; ``launch.py``).
+``LR_WORLD_SIZE``; ``launch.py``), and the real-data plane: ``FAKE``,
+``DATA_DIR``/``AZ_BATCHAI_INPUT_TRAIN``, ``VAL_DATA_DIR``/
+``AZ_BATCHAI_INPUT_TEST`` (the Batch AI spellings win), ``DATA_FORMAT``
+(``data.make_dataset``: ``auto`` | ``stream`` | ``imagefolder`` |
+``tfrecord`` | ``tfrecord-native``), ``NUM_WORKERS``, ``WORKER_MODE`` (or
+the reference's ``MULTIPROCESSING``), ``STREAM_SHUFFLE_BLOCK`` and
+``PREFETCH_HOST_BATCHES`` (``data/imagenet.py``, ``data/stream/``).
 
 Field names, defaults and ``from_env`` parsing are the JAX package's. A
 field of a later slice that the dataclass carries (``engine``,
-``optimizer``, ``fake``) must keep its default; any other value raises
+``optimizer``) must keep its default; any other value raises
 ``NotImplementedError`` naming the slice that brings it. An env var of
 the JAX contract whose field the port does not carry yet raises the
 same way from :meth:`from_env`: no setting is silently ignored. ``FUSED_DENSE_GRAD`` is no field in either
@@ -41,17 +47,10 @@ IMAGENET_TRAIN_LENGTH = 1_281_167  # FAKE_DATA_LENGTH default
 _GATED = {
     "engine": ("dp", "the mesh/engine slice (pjit, pp, sp)"),
     "optimizer": ("sgd", "the adamw optimizer (a later slice)"),
-    "fake": (True, "the real-data pipeline (data/imagenet.py, data/stream/)"),
 }
 
 # Env vars of the JAX contract whose fields this slice does not carry.
 _LATER_ENV = {
-    "NUM_WORKERS": "the real-data pipeline", "WORKER_MODE": "the real-data pipeline",
-    "MULTIPROCESSING": "the real-data pipeline", "DATA_FORMAT": "the real-data pipeline",
-    "STREAM_SHUFFLE_BLOCK": "the real-data pipeline",
-    "PREFETCH_HOST_BATCHES": "the real-data pipeline",
-    "AZ_BATCHAI_INPUT_TRAIN": "the real-data pipeline", "DATA_DIR": "the real-data pipeline",
-    "AZ_BATCHAI_INPUT_TEST": "the real-data pipeline", "VAL_DATA_DIR": "the real-data pipeline",
     "MOE_EXPERTS": "the MoE slice (models/moe.py)",
     "REMAT": "the gradient-checkpointing slice",
     "DECOUPLED_WEIGHT_DECAY": "the adamw optimizer (a later slice)",
@@ -112,6 +111,25 @@ class TrainConfig:
     # Data
     fake: bool = True
     fake_data_length: int = IMAGENET_TRAIN_LENGTH
+    data_dir: Optional[str] = None
+    val_data_dir: Optional[str] = None
+    # Real-data pipeline (data.make_dataset): "auto" detects stream
+    # shards (a stream_index.json in DATA_DIR) vs TFRecord shards vs an
+    # ImageFolder tree; force with "stream" (data/stream/: the O(1)
+    # checkpointable shuffle cursor) | "imagefolder" | "tfrecord"
+    # (tf.data) | "tfrecord-native" (TF-free, the native/ tier).
+    data_format: str = "auto"
+    # Streamed shards' shuffle block (STREAM_SHUFFLE_BLOCK): records mix
+    # globally at block granularity and exactly within blocks; >= the
+    # record count is one exact global permutation.
+    stream_shuffle_block: int = 256
+    # Host read-ahead of assembled batches (PREFETCH_HOST_BATCHES; 0 =
+    # off) for datasets that offer it (data/stream/prefetch.py, the
+    # data.* gauges); prefetch_batches stages batches onto the device.
+    prefetch_host_batches: int = 2
+    num_workers: int = 4  # Keras NUM_WORKERS (:44-46): decode workers
+    # "thread" | "process": the reference Keras MULTIPROCESSING knob.
+    worker_mode: str = "thread"
     # "process": disjoint per-process streams; "global": one stream,
     # each process taking its contiguous share of every global batch.
     data_topology: str = "process"
@@ -248,10 +266,24 @@ class TrainConfig:
             "AOT_WARMUP": ("aot_warmup", _str_to_bool),
             "ELASTIC": ("elastic", _str_to_bool),
             "LR_WORLD_SIZE": ("lr_world_size", int),
+            "NUM_WORKERS": ("num_workers", int),
+            "WORKER_MODE": ("worker_mode", str),
+            "DATA_FORMAT": ("data_format", str),
+            "STREAM_SHUFFLE_BLOCK": ("stream_shuffle_block", int),
+            "PREFETCH_HOST_BATCHES": ("prefetch_host_batches", int),
         }
         for var, (field, conv) in parse.items():
             if var in e:
                 kw[field] = conv(e[var])
+        if "WORKER_MODE" not in e and "MULTIPROCESSING" in e:  # the reference's spelling
+            kw["worker_mode"] = "process" if _str_to_bool(e["MULTIPROCESSING"]) else "thread"
+        # The Batch AI spellings take precedence (as in JAX).
+        data_dir = e.get("AZ_BATCHAI_INPUT_TRAIN") or e.get("DATA_DIR")
+        val_dir = e.get("AZ_BATCHAI_INPUT_TEST") or e.get("VAL_DATA_DIR")
+        if data_dir:
+            kw["data_dir"] = data_dir
+        if val_dir:
+            kw["val_data_dir"] = val_dir
         if "COMPILATION_CACHE_DIR" in e:
             kw["compilation_cache_dir"] = e["COMPILATION_CACHE_DIR"] or None
         model_dir = e.get("AZ_BATCHAI_OUTPUT_MODEL") or e.get("MODEL_DIR")

@@ -8,7 +8,8 @@ first use, never at import: importing this module needs no CUDA
 toolkit. The hash covers the source and the shared headers
 (``csrc/*.cuh``, ``csrc/*.h``), so a stale library is never loaded. A
 ``csrc/<name>.cpp`` (host code that a kernel's source shares, such as
-``depthwise_plan.cpp``) builds the same way with the host's C++
+``depthwise_plan.cpp``) or host IO code (``ddl_native.cpp``, the
+TFRecord tier of ``native/``) builds the same way with the host's C++
 compiler, which needs no card.
 
 ``set_cache_dir`` (``training/warmup.enable_persistent_cache``, from
@@ -45,7 +46,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-pthread")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _cache_dir: Optional[Path] = None

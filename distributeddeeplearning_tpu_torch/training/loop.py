@@ -5,9 +5,12 @@
 ``fit`` builds the state (deterministic seeded init, the broadcast),
 resumes from a checkpoint when there is one (the manifest's effective
 batch checked; mid-epoch by replaying the epoch's first batches, or by
-seeking a dataset that offers ``epoch_at``/``cursor``), runs epochs of
-device-prefetched batches through the step with the on-device metric
-accumulator, saves step-granular checkpoints, executes the fault plan,
+seeking a dataset that offers ``epoch_at``/``cursor``, the streamed
+shards of ``data/stream/``, whose position goes into every manifest as
+``data_cursor``), runs epochs of batches, read ahead on the host
+(``PREFETCH_HOST_BATCHES``, for a dataset with the ``host_prefetch``
+marker) and prefetched onto the device, through the step with the
+on-device metric accumulator, saves step-granular checkpoints, executes the fault plan,
 fires callbacks with the metrics still on the device, materialises ONE
 tensor an epoch (the epoch means and the non-finite counter), applies
 the non-finite guard, optionally evaluates, and prints the throughput
@@ -102,6 +105,12 @@ def resolve_engine(config: TrainConfig, device=None) -> Tuple[str, torch.device]
         raise ValueError(f"NONFINITE_ACTION={config.nonfinite_action!r} (have abort, warn, off)")
     if config.data_topology not in ("process", "global"):
         raise ValueError(f"DATA_TOPOLOGY={config.data_topology!r} (have process, global)")
+    if config.stream_shuffle_block < 1:
+        raise ValueError(
+            f"STREAM_SHUFFLE_BLOCK must be >= 1, got {config.stream_shuffle_block}")
+    if config.prefetch_host_batches < 0:
+        raise ValueError(
+            f"PREFETCH_HOST_BATCHES must be >= 0, got {config.prefetch_host_batches}")
     if config.lr_world_size is not None and config.lr_world_size < 1:
         raise ValueError(f"LR_WORLD_SIZE must be >= 1, got {config.lr_world_size}")
     if config.checkpoint_every_steps < 0:
@@ -270,6 +279,13 @@ def fit(
     warmup_info: Dict[str, float] = {}
     eager_start = getattr(train_step, "eager_calls", 0)
 
+    # Host read-ahead for datasets that offer it (the streamed shard
+    # readers set the marker; synthetic pools gain nothing from a thread).
+    host_prefetch_depth = (config.prefetch_host_batches
+                           if getattr(train_data, "host_prefetch", False) else 0)
+    if host_prefetch_depth:
+        from distributeddeeplearning_tpu_torch.data.stream import prefetch as stream_prefetch
+
     history: List[Dict[str, float]] = []
     # Throughput counts what the dataset delivers (the staged batch's
     # leading dim, shape metadata only) times the ranks.
@@ -317,6 +333,11 @@ def fit(
                 bus.point("resume_skip", epoch=epoch, skipped=skip_steps)
                 log.info("resume replayed %d skipped batch(es) in %.1f ms", skipped,
                          skip_s * 1000.0)
+        if host_prefetch_depth:
+            # The shard read and batch assembly on a background thread
+            # (data.wait, data.buffer_depth, data.bytes_per_s);
+            # prefetch_to_device below still stages onto the device.
+            batches = stream_prefetch.host_prefetch(batches, depth=host_prefetch_depth)
         for batch in prefetch_to_device(batches, dev, size=config.prefetch_batches):
             global_batch = int(batch[0].shape[0]) * world
             if warmup_pending:

@@ -5,8 +5,11 @@ and not ``chip_smoke.py`` or ``scripts/elastic_dp_check.py`` imports
 ``serve_bench``, among them), importing the whole port leaves ``jax``
 unloaded, the process tier (``launch``, ``faults``, ``obs.tail``,
 ``obs.report``) and the live plane (``obs.rollup``, ``obs.slo``,
-``obs.traces``) import neither torch nor JAX, and the entry points
-default to the CUDA device instead of falling back to the CPU."""
+``obs.traces``) import neither torch nor JAX, the real-data plane
+(``native``, ``data.imagenet``, ``data.prepare``, ``data.stream``,
+``streamgen``, ``stream_bench``, ``real_data_bench``) imports neither
+JAX nor TensorFlow nor PIL when imported, and the entry points default
+to the CUDA device instead of falling back to the CPU."""
 
 import ast
 import os
@@ -80,6 +83,31 @@ def test_process_tier_imports_neither_torch_nor_jax(module):
         f"importlib.import_module('distributeddeeplearning_tpu_torch.{module}')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'jaxlib', 'distributeddeeplearning_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+DATA_PLANE = ["native", "native.example_proto", "data", "data.imagenet", "data.prepare",
+              "data.stream", "data.stream.index", "data.stream.shuffle", "data.stream.reader",
+              "data.stream.records", "data.stream.tokens", "data.stream.prefetch",
+              "streamgen", "stream_bench", "real_data_bench"]
+
+
+@pytest.mark.parametrize("module", DATA_PLANE)
+def test_data_plane_imports_neither_jax_nor_tensorflow_nor_pil(module):
+    """The real-data plane imports no JAX and nothing of the JAX package
+    (its copies of the jax-free modules included), and TensorFlow and
+    PIL only when a reader decodes: the card has neither, and the
+    smoke's ``realdata`` phase checks for them before it decodes."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('distributeddeeplearning_tpu_torch.{module}')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'distributeddeeplearning_tpu', 'tensorflow', 'PIL')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
