@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--phases kernels,serve,servequant,servespec,servegraph,train,
                                     lmtrain,vittrain,effnettrain,fit,warmup,frontends,
-                                    launch,trace,bench,realdata]
+                                    launch,trace,bench,realdata,knobs]
 
 (all phases by default). Any failure raises and the script exits
 non-zero.
@@ -189,9 +189,28 @@ non-zero.
    to ``generate``); the TFRecord tier's write, verified index and read;
    where PIL imports, ``real_data_bench`` prepare, host and e2e. See
    :func:`realdata_phase`.
-19. The ``kernels`` JSON line (every kernel whose phases ran; rows 1–5
-   also with their launches a step under graph replay), then the
-   contract's last line ``{"ok": true, "device": {...}}``.
+19. ``knobs``: the model and optimizer knobs. ``moetrain``:
+   ``lm_moe_base`` (8 experts, top-2, cf 1.25; T 1024, batch 8, bf16,
+   ``pallas``, AdamW with ``DECOUPLED_WEIGHT_DECAY=0.1``) through
+   ``fit``, REMAT off and on, eager then graphed: step walls, busy share,
+   peak memory, graphed bit for bit against eager, the flash kernels a
+   replayed step (12 each; the forward's 24 under REMAT), the wrappers'
+   counts in the eager run, the load-balance loss and dropped share, and
+   dense ``lm_base`` graphed at the same config for tokens/s.
+   ``moeresume``: an AdamW ``fit`` resumed from a step-3 checkpoint, bit
+   for bit. ``moeserve``: ``lm_moe_base`` behind the paged, fused,
+   captured engine over the ``serve`` mix, greedy streams equal to
+   ``generate``'s, then the decode tick's profile. ``vitknobs``: flagged
+   ViT-B/16 with dropout 0.1 and REMAT, eager and graphed bit for bit,
+   24 + 24 + 49 packed/dW+db kernels a replayed step, beside the run
+   without the knobs. ``resnetknobs``: fused ResNet-50 with the s2d
+   stem and bf16 statistics beside the default, 32 fused-block kernels a
+   replayed step. Then the ``moe_audit`` twin's table at ``lm_small``.
+   See :func:`knobs_phase`.
+20. The ``kernels`` JSON line (every kernel whose phases ran; rows 1–5
+   also with their launches a step under graph replay, and on the
+   knobs' paths), then the contract's last line ``{"ok": true,
+   "device": {...}}``.
 
 Exits with code 2 and prints no result when CUDA is absent or the port
 is not importable (the script on its own, outside the repository).
@@ -1162,7 +1181,9 @@ def serve_mix(pd, card, env, label, params, solo=True, variant="base", device="c
         with torch.no_grad():
             prompt = torch.as_tensor(reqs[0].prompt, dtype=torch.long, device=device)
             cache = None
-            if engine.kv_dtype != "bf16":
+            if engine.kv_dtype != "bf16" or engine.model.moe_experts:
+                # an MoE model decodes without dropping tokens: so does a
+                # forward through a cache
                 cache = inference.dense_cache(engine.model, 1, prompt.shape[0], device,
                                               engine.kv_dtype)
             ref = engine.model(prompt[None], cache)[0, -1].float()
@@ -2004,6 +2025,52 @@ def fused_vs_unfused_step(depth=50, image_size=224, batch=64, num_classes=1000,
     return res
 
 
+def moe_remat_vs_xla_step(variant="tiny", experts=4, batch=8, seq=256, vocab=32_000,
+                          device="cuda"):
+    """One bf16 SGD step of ``lm_moe_<variant>`` with ``pallas`` attention
+    and REMAT against one with ``xla`` attention and stored activations,
+    from the same seeded weights on the same batch, within
+    :func:`lm_pallas_vs_xla_step`'s limits (``LM_AGREE_*``): the two
+    attentions round at other places, REMAT recomputes the same ops."""
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+    from distributeddeeplearning_tpu_torch.data import SyntheticTokenDataset
+    from distributeddeeplearning_tpu_torch.models import convert, get_model
+    from distributeddeeplearning_tpu_torch.training import (
+        create_optimizer,
+        create_train_state,
+        make_train_step,
+    )
+
+    sd = convert.init_params(variant, vocab, torch.Generator(device=device).manual_seed(42),
+                             seq, experts)
+    ds = SyntheticTokenDataset(length=batch, global_batch_size=batch, seq_len=seq,
+                               vocab_size=vocab, num_physical_batches=1)
+    tokens, labels = next(iter(ds.epoch(0)))
+    out = {}
+    for impl, remat in (("xla", False), ("pallas", True)):
+        cfg = TrainConfig(model=f"lm_moe_{variant}", batch_size_per_device=batch,
+                          num_classes=vocab, attn_impl=impl, remat=remat, moe_experts=experts)
+        model = get_model(cfg.model, **cfg.model_kwargs(), max_seq_len=seq, device=device)
+        tx, _ = create_optimizer(cfg, 10)
+        state = create_train_state(model, cfg, tx, device=device, state_dict=sd)
+        state, m = make_train_step(model, tx, cfg, device=device)(state, (tokens, labels))
+        out[impl] = (float(m["loss"]), {k: v.detach().clone() for k, v in
+                                        model.state_dict().items()})
+    (lx, px), (lp, pp) = out["xla"], out["pallas"]
+    sums = {}
+    for k, ref in sd.items():
+        dx, dp = px[k].double() - ref.double(), pp[k].double() - ref.double()
+        n, d = sums.get(_lm_group(k), (0.0, 0.0))
+        sums[_lm_group(k)] = (n + (dp - dx).pow(2).sum().item(), d + dx.pow(2).sum().item())
+    gaps = {grp: (n / d) ** 0.5 for grp, (n, d) in sums.items()}
+    res = {"loss_xla": lx, "loss_pallas_remat": lp, "loss_rel": abs(lp - lx) / abs(lx),
+           "update_rel_by_group": gaps,
+           "limits": {"loss_rel": LM_AGREE_LOSS_REL, "update_rel": LM_AGREE_UPDATE_REL}}
+    res["within_limits"] = (res["loss_rel"] <= LM_AGREE_LOSS_REL
+                            and max(gaps.values()) <= LM_AGREE_UPDATE_REL)
+    return res
+
+
 # The pallas and xla lm_base steps from the same weights and batch: the
 # limits (derived in lm_pallas_vs_xla_step's docstring).
 LM_AGREE_LOSS_REL = 1e-3
@@ -2095,6 +2162,8 @@ def _lm_group(name: str) -> str:
         return "attention"
     if ".mlp." in name:
         return "mlp"
+    if ".moe." in name:
+        return "moe"
     if "embed" in name:
         return "embeddings"
     return "layernorm"
@@ -3289,7 +3358,7 @@ def _bare_turn(model, tx, cfg, state, data, device):
 
 
 def _resnet_fit_setup(*, epochs, steps, accum_steps=1, model_dir=None, every=0,
-                      image_size=224, batch=64, num_classes=1000, device="cuda"):
+                      image_size=224, batch=64, num_classes=1000, device="cuda", **model_kw):
     from distributeddeeplearning_tpu_torch.config import TrainConfig
     from distributeddeeplearning_tpu_torch.data import SyntheticImageDataset
     from distributeddeeplearning_tpu_torch.models import get_model
@@ -3303,7 +3372,7 @@ def _resnet_fit_setup(*, epochs, steps, accum_steps=1, model_dir=None, every=0,
                                  image_size=image_size, num_classes=num_classes,
                                  num_physical_batches=4, seed=cfg.seed)
     model = get_model(cfg.model, num_classes=num_classes, dtype=cfg.compute_dtype, fused=True,
-                      device=device)
+                      device=device, **model_kw)
     return cfg, data, model
 
 
@@ -3522,6 +3591,30 @@ def fit_phase(fb, fl, card, bare_step_ms=None, device="cuda", image_size=224, ba
 WARM_GAP_LIMIT = 0.0  # graphed against eager: bitwise (see warmup_phase)
 
 
+def _replayed_ok(n, want, steps):
+    """Whether ``n``, a kernel's profiled launches a replayed step or
+    tick (a mean over ``steps``), reads ``want``. A replayed graph
+    launches the same kernels every replay, so the profile's total is
+    ``want·steps``, or one short: the profiler lost one kernel record
+    in a profile in three full smokes on one H100 (119 of 120 flash
+    forwards in 5 steps, 95 of 96 decode kernels in 8 ticks, 607 of 608
+    fused-block kernels in 19 steps), never more than one. A kernel
+    missing from the graph misses on every replay."""
+    total = round(n * steps)
+    return want * steps - 1 <= total <= want * steps
+
+
+def _check_launches(what, got, want, steps):
+    """``got``, the port's kernels a replayed step by name (a mean over
+    ``steps`` profiled steps), against ``want`` (mark -> launches a
+    step), by :func:`_replayed_ok`."""
+    for mark, n_want in want.items():
+        n = sum(v for k, v in got.items() if mark in k)
+        if not _replayed_ok(n, n_want, steps):
+            raise AssertionError(f"{what}: {mark} launched {n} times a replayed step "
+                                 f"({steps} profiled), want {n_want} ({got})")
+
+
 def _warm_fit(cfg, data, model, device, profile_steps=False):
     """``training.loop.fit`` on a fresh seeded state (``AOT_WARMUP`` as
     ``cfg.aot_warmup`` says), with each step end stamped on the host
@@ -3531,7 +3624,11 @@ def _warm_fit(cfg, data, model, device, profile_steps=False):
     launches of a captured step happen on replay, where no Python
     counter ticks. Returns the result, the steady step walls (ms), the
     peak memory (GB), the kernels by name a profiled step and the device
-    ms a profiled step (on the card)."""
+    ms a profiled step (on the card). Profiled,
+    ``res.perf["synced_step_ms"]`` is the profiled steps' mean wall
+    between a synchronize after the first step and one at the end (a
+    graphed loop's host runs ahead of the device, so its step stamps
+    time the enqueue)."""
     from distributeddeeplearning_tpu_torch.training import (
         create_optimizer,
         create_train_state,
@@ -3546,7 +3643,7 @@ def _warm_fit(cfg, data, model, device, profile_steps=False):
         """Profiles the steps after the first."""
 
         def __init__(self):
-            self.prof, self.steps = None, 0
+            self.prof, self.steps, self.span = None, 0, None
 
         def on_step_end(self, step, logs=None):
             if self.prof is None and profiling:
@@ -3555,12 +3652,14 @@ def _warm_fit(cfg, data, model, device, profile_steps=False):
                 torch.cuda.synchronize()
                 self.prof = profile(activities=[ProfilerActivity.CUDA])
                 self.prof.start()
+                self.span = time.perf_counter()
             elif self.prof is not None:
                 self.steps += 1
 
         def on_train_end(self, logs=None):
             if self.prof is not None:
                 torch.cuda.synchronize()
+                self.span = time.perf_counter() - self.span
                 self.prof.stop()
 
     tx, _ = create_optimizer(cfg, data.steps_per_epoch)
@@ -3580,6 +3679,8 @@ def _warm_fit(cfg, data, model, device, profile_steps=False):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         kernels = {e.key: e.count / prof.steps for e in events}
         device_ms = sum(e.device_time_total for e in events) / 1e3 / prof.steps
+        res.perf["synced_step_ms"] = prof.span * 1e3 / prof.steps
+        res.perf["profiled_steps"] = prof.steps
     return res, walls, peak, kernels, device_ms
 
 
@@ -3640,7 +3741,8 @@ def warmup_turns(name, make, device, marks, want_per_step, card, counter=None):
         res, walls, _, kernels, device_ms = _warm_fit(cfg, data, model, device, True)
         profiled["graphed" if aot else "eager"] = {
             "device_ms_per_step": device_ms, "ours_per_step": _ours(kernels, marks),
-            "kernels_per_step": sum(kernels.values()) if kernels else "not measured"}
+            "kernels_per_step": sum(kernels.values()) if kernels else "not measured",
+            "profiled_steps": res.perf.get("profiled_steps")}
         del res, model, data
         if on_card:
             torch.cuda.empty_cache()
@@ -3655,12 +3757,8 @@ def warmup_turns(name, make, device, marks, want_per_step, card, counter=None):
     if not (equal or gap <= WARM_GAP_LIMIT):
         raise AssertionError(f"warmup {name}: graphed run left the eager one by {gap}")
     if on_card:
-        got = profiled["graphed"]["ours_per_step"]
-        for mark, want in want_per_step.items():
-            n = sum(v for k, v in got.items() if mark in k)
-            if n != want:
-                raise AssertionError(f"warmup {name}: {mark} launched {n} times a replayed "
-                                     f"step, want {want} ({got})")
+        _check_launches(f"warmup {name}", profiled["graphed"]["ours_per_step"],
+                        want_per_step, profiled["graphed"]["profiled_steps"])
     return line
 
 
@@ -3755,7 +3853,8 @@ def warmup_phase(card, device="cuda", image_size=224, batch=64, num_classes=1000
             finals.append({k: v.detach().clone() for k, v in model.state_dict().items()})
             lines["graphed" if aot else "eager"] = {
                 "history": res.history, "graphs_captured": res.perf.get("graphs_captured", 0),
-                "eager_steps": res.perf.get("eager_steps"), "ours_per_step": _ours(kernels, marks)}
+                "eager_steps": res.perf.get("eager_steps"), "ours_per_step": _ours(kernels, marks),
+                "profiled_steps": res.perf.get("profiled_steps")}
             del res, model, data
         equal, gap = _state_gap(*finals)
         out = {"what": what, "size": small, "steps": 3, **lines, "bitwise_equal": equal,
@@ -3765,11 +3864,7 @@ def warmup_phase(card, device="cuda", image_size=224, batch=64, num_classes=1000
             raise AssertionError(f"warmup {what}: graphed run left the eager one by {gap}")
         if on_card:
             got = lines["graphed"]["ours_per_step"]
-            for mark, n_want in want.items():
-                n = sum(v for k, v in got.items() if mark in k)
-                if n != n_want:
-                    raise AssertionError(f"warmup {what}: {mark} launched {n} times a replayed "
-                                         f"step, want {n_want} ({got})")
+            _check_launches(f"warmup {what}", got, want, lines["graphed"]["profiled_steps"])
             if want:
                 replayed["vit"] = got
             if lines["graphed"]["graphs_captured"] < 1:
@@ -4501,7 +4596,8 @@ def realdata_phase(fb, fl, pd, card, harness=None, device="cuda",
         losses = [h["loss"] for h in res.history]
         if not (all(np.isfinite(losses)) and res.history[0]["epoch_images"] == records):
             raise AssertionError(f"realdata fit: {res.history}")
-        if on_card and (replayed != 32 or not res.perf.get("graphs_captured")
+        if on_card and (not _replayed_ok(replayed, 32, res.perf["profiled_steps"])
+                        or not res.perf.get("graphs_captured")
                         or min(real_launches.values()) == 0):
             raise AssertionError(f"realdata fit: {replayed} fused-block kernels a replayed "
                                  f"step (want 32), perf {res.perf}, launches {real_launches}")
@@ -4661,6 +4757,429 @@ def realdata_phase(fb, fl, pd, card, harness=None, device="cuda",
     return launches
 
 
+KNOB_STEPS = 5  # steps a fit of the knobs phase (the first is the graphed run's warm-up)
+KNOB_MARKS = {"flash": ("flash_",), "vit": ("packed_", "dw_db"), "resnet": ("matmul_stats",)}
+
+
+def _knob_turn(what, cfg, data, model, device, counter=None):
+    """One ``fit`` of the knobs phase, profiled from its second step:
+    the step's synchronized wall (``step_ms``; the host stamps' median
+    beside it), busy share (device ms a profiled step over it), peak
+    memory, the capture's figures, the losses, the port's
+    kernels a step by the profiler's names and, eager, the wrappers'
+    Python counts. Returns ``(line, state dict)``."""
+    if counter is not None:
+        counter.launches = 0
+    res, walls, peak, kernels, device_ms = _warm_fit(cfg, data, model, device, True)
+    step_ms = res.perf.get("synced_step_ms", statistics.median(walls))
+    line = {"what": what, "kind": "graphed" if cfg.aot_warmup else "eager",
+            "step_ms": step_ms, "step_stamp_ms_median": statistics.median(walls),
+            "device_ms_per_step": device_ms,
+            "busy_share": device_ms / step_ms if isinstance(device_ms, float) else "not measured",
+            "peak_gb": peak, "graphs_captured": res.perf.get("graphs_captured", 0),
+            "eager_steps": res.perf.get("eager_steps"), "compile_sec": res.perf.get("compile_sec"),
+            "losses": [h["loss"] for h in res.history],
+            "python_counter_launches": counter.launches if counter is not None else None,
+            "profiled_steps": res.perf.get("profiled_steps")}
+    line["ours_per_step"] = _ours(kernels, KNOB_MARKS.get(what.split()[0], ()))
+    if cfg.aot_warmup and torch.device(device).type == "cuda" and (
+            res.perf.get("graphs_captured", 0) < 1 or res.perf.get("eager_steps")):
+        raise AssertionError(f"knobs {what}: the graphed run did not replay ({res.perf})")
+    if not all(np.isfinite(line["losses"])):
+        raise AssertionError(f"knobs {what}: non-finite loss {line['losses']}")
+    final = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return line, final
+
+
+def _lm_knob_setup(variant, *, moe=True, remat=False, aot=False, steps=KNOB_STEPS, batch=8,
+                   seq=1024, vocab=VOCAB, device="cuda", epochs=1, **extra):
+    """``lm_moe_<variant>`` (or dense ``lm_<variant>``) under AdamW
+    (``DECOUPLED_WEIGHT_DECAY=0.1``, ``WEIGHT_DECAY=0``), ``pallas``
+    attention, bf16, on seeded synthetic tokens."""
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+    from distributeddeeplearning_tpu_torch.data import SyntheticTokenDataset
+    from distributeddeeplearning_tpu_torch.models import get_model
+
+    cfg = TrainConfig(model=f"lm_moe_{variant}" if moe else f"lm_{variant}",
+                      batch_size_per_device=batch, num_classes=vocab, attn_impl="pallas",
+                      optimizer="adamw", decoupled_weight_decay=0.1, weight_decay=0.0,
+                      remat=remat, fake_data_length=steps * batch, log_every_steps=1,
+                      aot_warmup=aot, epochs=epochs, **extra)
+    data = SyntheticTokenDataset(length=cfg.fake_data_length,
+                                 global_batch_size=cfg.global_batch_size, seq_len=seq,
+                                 vocab_size=vocab, num_physical_batches=4, seed=cfg.seed)
+    model = get_model(cfg.model, **cfg.model_kwargs(), max_seq_len=seq, device=device)
+    return cfg, data, model
+
+
+def moe_routing_stats(model, tokens):
+    """One training forward of ``tokens`` (no grad): the load-balance
+    loss summed over the MoE layers (``train_step.sown_aux_loss``) and
+    the share of (token, choice) pairs the capacity dropped."""
+    from distributeddeeplearning_tpu_torch.models.moe import MoEMlpBlock
+    from distributeddeeplearning_tpu_torch.training import sown_aux_loss
+
+    seen = []
+    blocks = [m for m in model.modules() if isinstance(m, MoEMlpBlock)]
+    hooks = [b.register_forward_pre_hook(lambda m, a: seen.append((m, a[0]))) for b in blocks]
+    model.train()
+    with torch.no_grad():
+        model(tokens)
+        aux = float(sown_aux_loss(model))
+        kept = pairs = 0
+        for m, x in seen:
+            dispatch, _, _ = m.route(x, m.capacity(x.shape[1]))
+            kept += float(dispatch.sum())
+            pairs += x.shape[0] * x.shape[1] * min(m.num_selected, m.num_experts)
+    for h in hooks:
+        h.remove()
+    return {"aux_loss": aux, "dropped_share": 1.0 - kept / pairs, "moe_layers": len(blocks)}
+
+
+def moetrain_phase(fl, card, device="cuda", variant="base", batch=8, seq=1024, vocab=VOCAB,
+                   steps=KNOB_STEPS):
+    """``lm_moe_<variant>`` (8 experts, top-2, cf 1.25) under AdamW
+    through ``fit``, REMAT off and on, eager then graphed
+    (``AOT_WARMUP=1``): step walls, busy share, peak memory; graphed
+    bit for bit against eager; under replay 12 launches a step of each
+    flash kernel, the forward's 24 under REMAT (the recompute runs it
+    again); the load-balance loss and dropped share after training;
+    dense ``lm_<variant>`` graphed at the same config as the yardstick
+    of tokens/s. Prints ``moetrain`` lines; returns the replayed
+    launches a step under REMAT by op."""
+    on_card = torch.device(device).type == "cuda"
+    out, remat_launches = {}, {}
+    for remat in (False, True):
+        finals, lines = [], {}
+        for aot in (False, True):
+            cfg, data, model = _lm_knob_setup(variant, remat=remat, aot=aot, steps=steps,
+                                              batch=batch, seq=seq, vocab=vocab, device=device)
+            line, final = _knob_turn(f"flash lm_moe_{variant} remat={int(remat)}", cfg, data,
+                                     model, device, None if aot else fl)
+            lines[line["kind"]] = line
+            finals.append(final)
+            if aot and not remat:
+                tokens = torch.as_tensor(next(iter(data.epoch(0)))[0], device=device)
+                out["routing"] = moe_routing_stats(model, tokens)
+            del model, data
+            if on_card:
+                torch.cuda.empty_cache()
+        equal, gap = _state_gap(*finals)
+        del finals
+        rec = {"remat": remat, **lines, "graphed_bitwise_equal_eager": equal,
+               "max_param_gap_rel": gap,
+               "tokens_per_s_graphed": batch * seq * 1e3 / lines["graphed"]["step_ms"],
+               "card": card}
+        print("moetrain " + json.dumps(rec), flush=True)
+        if not (equal or gap <= WARM_GAP_LIMIT):
+            raise AssertionError(f"moetrain remat={remat}: graphed left eager by {gap}")
+        fwd = 24 if remat else 12
+        want = {"flash_fwd": fwd, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+        if on_card:
+            _check_launches(f"moetrain remat={remat}", lines["graphed"]["ours_per_step"], want,
+                            lines["graphed"]["profiled_steps"])
+            eager = lines["eager"]["python_counter_launches"]
+            if eager != (fwd + 24) * steps:
+                raise AssertionError(f"moetrain remat={remat}: the wrappers counted {eager} "
+                                     f"launches in {steps} eager steps, want {(fwd + 24) * steps}")
+        out[remat] = rec
+        if remat:
+            remat_launches = {op: sum(v for k, v in lines["graphed"]["ours_per_step"].items()
+                                      if op in k) for op in want}
+    cfg, data, model = _lm_knob_setup(variant, moe=False, aot=True, steps=steps, batch=batch,
+                                      seq=seq, vocab=vocab, device=device)
+    dense, _ = _knob_turn(f"flash lm_{variant} dense", cfg, data, model, device)
+    del model, data
+    tps = batch * seq * 1e3 / dense["step_ms"]
+    summary = {"what": f"lm_moe_{variant} vs dense lm_{variant} (AdamW, pallas, graphed)",
+               "dense": dense, "dense_tokens_per_s": tps,
+               "moe_tokens_per_s": out[False]["tokens_per_s_graphed"],
+               "moe_vs_dense": out[False]["tokens_per_s_graphed"] / tps,
+               "moe_remat_tokens_per_s": out[True]["tokens_per_s_graphed"],
+               **out["routing"], "card": card}
+    print("moetrain " + json.dumps(summary), flush=True)
+    if not (np.isfinite(summary["aux_loss"]) and summary["aux_loss"] > 0):
+        raise AssertionError(f"moetrain: aux loss {summary['aux_loss']}")
+    if on_card:
+        torch.cuda.empty_cache()
+    return remat_launches
+
+
+def moeresume_phase(card, device="cuda", variant="tiny", batch=8, seq=256, vocab=VOCAB):
+    """``fit`` with AdamW (``lm_moe_<variant>``, REMAT, graphed), 2 epochs
+    of 4 steps, checkpointed every 3 steps; the step-3 checkpoint's
+    optimizer state carries ``count``, ``mu`` and ``nu``; a resume from
+    it ends bit for bit the uninterrupted run (parameters and both
+    moments)."""
+    import shutil
+    import tempfile
+
+    from distributeddeeplearning_tpu_torch import faults
+    from distributeddeeplearning_tpu_torch.training import loop
+
+    tmp = tempfile.mkdtemp(prefix="ddl-moeresume-")
+
+    def run(**kw):
+        cfg, data, model = _lm_knob_setup(variant, remat=True, aot=True, steps=4, batch=batch,
+                                          seq=seq, vocab=vocab, device=device, epochs=2, **kw)
+        return loop.fit(model, cfg, data, device=device, add_default_logger=False)
+
+    try:
+        t0 = time.perf_counter()
+        ref = run()
+        kw = dict(model_dir=os.path.join(tmp, "ckpt"), checkpoint_every_steps=3,
+                  checkpoint_async=False, checkpoint_keep=10)
+        run(**kw)
+        saved = torch.load(os.path.join(tmp, "ckpt", "3", "state.pt"), weights_only=False,
+                           map_location="cpu")
+        names = sorted(saved["opt"])
+        for s in faults.checkpoint_steps(kw["model_dir"]):
+            if s > 3:
+                shutil.rmtree(os.path.join(kw["model_dir"], str(s)))
+        resumed = run(**kw)
+        want, got = ref.state.model.state_dict(), resumed.state.model.state_dict()
+        equal = all(torch.equal(want[k], got[k]) for k in want) and all(
+            torch.equal(a, b) for n in ("mu", "nu")
+            for a, b in zip(ref.state.opt_state[n], resumed.state.opt_state[n]))
+        line = {"what": f"lm_moe_{variant} AdamW fit, resume from step 3 of 8",
+                "opt_state_names": names, "saved_count": saved["opt"]["count"],
+                "steps": resumed.state.step, "bitwise_equal": equal,
+                "graphs_captured": resumed.perf.get("graphs_captured", 0),
+                "seconds": time.perf_counter() - t0, "card": card}
+        print("moeresume " + json.dumps(line), flush=True)
+        if not equal or names != ["count", "mu", "nu"] or resumed.state.step != 8:
+            raise AssertionError(f"moeresume: {line}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def moeserve_phase(pd, card, variant="base", device="cuda"):
+    """``lm_moe_<variant>`` bf16 behind ``Server.build`` (paged, ``fused``,
+    the captured program set) answers the ``serve`` mix (``serve_mix``'s
+    checks: 12 decode-kernel launches a forward, the program set closed,
+    batched streams equal each request served alone, the first token's
+    logits against a no-drop re-forward); each greedy stream equals
+    ``inference.generate``'s on the same model but at a bf16 near-tie
+    (the two decode attentions round at other places; the flips are
+    printed), and the same engine in f32 serves the greedy requests
+    equal to ``generate`` token for token; then the decode tick's
+    profile. Returns the decode kernel's launches (bf16)."""
+    from distributeddeeplearning_tpu_torch import inference
+    from distributeddeeplearning_tpu_torch.models import convert, get_model
+    from distributeddeeplearning_tpu_torch.serving import Request, ServeConfig, Server
+
+    params = convert.init_params(variant, VOCAB, torch.Generator(device=device).manual_seed(0),
+                                 moe_experts=8)
+    summary, server, reqs, handles = serve_mix(pd, card, SERVE_ENV, "moeserve", params,
+                                               variant=f"moe_{variant}", device=device)
+    engine = server.engine
+    # The two lowerings' gap, measured on this run's first-token logits
+    # (the engine's prefill against a no-drop re-forward, serve_mix), as
+    # a share of the largest logit. Two logits that each move by at most
+    # ``lowering`` can swap only where their gap is within twice it.
+    lowering = summary["first_logit_max_abs_err"] / summary["first_logit_max_abs"]
+    flips = []
+    for i, (r, h) in enumerate(zip(reqs, handles)):
+        if r.temperature > 0:
+            continue
+        want = inference.generate(engine.model, r.prompt[None],
+                                  max_new_tokens=NEW_TOKENS)[0, len(r.prompt):].tolist()
+        got = [int(t) for t in h.new_tokens]
+        if got == want:
+            continue
+        # A flip is allowed only at a bf16 near-tie, read at the first
+        # token where the streams part, on the common prefix: in
+        # generate's logits (a no-drop forward through a dense cache)
+        # the engine's token is the runner-up, within 2·lowering of
+        # generate's choice; in the engine's own logits (its prefill of
+        # that prefix, served alone) generate's choice is within
+        # 2·lowering of the top. (Routing amplifies the lowerings' bf16
+        # noise: an expert choice near a tie moves a token's whole FFN
+        # output.)
+        j = next(n for n, (a, b) in enumerate(zip(got, want)) if a != b)
+        prefix = np.concatenate([r.prompt, np.asarray(want[:j], np.int32)])
+        seq = torch.as_tensor(prefix, dtype=torch.long, device=device)
+        with torch.no_grad():
+            cache = inference.dense_cache(engine.model, 1, seq.shape[0], device)
+            ref = engine.model(seq[None], cache)[0, -1].float()
+        engine.prefix_cache = False
+        alone = Server(engine)
+        alone.submit(Request(prompt=prefix, max_new_tokens=1))
+        alone.drain()
+        engine.prefix_cache = True
+        ours = engine.last_prefill["logits"].float()
+        flip = {"request": i, "position": j,
+                "runner_up_rank": int((ref > ref[got[j]]).sum()),
+                "generate_gap_over_max": ((ref[want[j]] - ref[got[j]])
+                                          / ref.abs().max()).item(),
+                "engine_gap_over_max": ((ours.max() - ours[want[j]])
+                                        / ours.abs().max()).item()}
+        flip["near_tie"] = (flip["runner_up_rank"] <= 1
+                            and flip["generate_gap_over_max"] <= 2 * lowering
+                            and flip["engine_gap_over_max"] <= 2 * lowering)
+        flips.append(flip)
+    summary.update(greedy_flips=flips, greedy_requests=sum(r.temperature == 0 for r in reqs),
+                   flip_limit_over_max=2 * lowering,
+                   launches_per_forward=summary["launches"] / max(
+                       summary["prefills"] + summary["decode_steps"], 1))
+    _print_line("moeserve", summary)
+    far = [f for f in flips if not f["near_tie"]]
+    if far:
+        raise AssertionError(f"moeserve: greedy streams differ from generate away from a "
+                             f"bf16 near-tie (limit {2 * lowering} of the largest logit): {far}")
+    # The same engine in f32 (an f32 KV store through the same kernel):
+    # f32 round-off flips no greedy token, so each stream must equal
+    # generate's exactly.
+    model32 = get_model(f"lm_moe_{variant}", num_classes=VOCAB, dtype=torch.float32,
+                        device=device)
+    server32 = Server.build(model32, params, ServeConfig.from_env(SERVE_ENV), device=device)
+    del params
+    server32.engine.warmup()
+    greedy = [r for r in reqs if r.temperature == 0]
+    _reset_launches(pd)
+    replayed0 = server32.engine.replayed_launches()
+    hs = [server32.submit(r) for r in greedy]
+    server32.drain()
+    launches32 = pd.launches + server32.engine.replayed_launches() - replayed0
+    equal32 = [[int(t) for t in h.new_tokens] == inference.generate(
+        server32.engine.model, r.prompt[None], max_new_tokens=NEW_TOKENS)[
+        0, len(r.prompt):].tolist() for r, h in zip(greedy, hs)]
+    line32 = {"requests": len(greedy), "greedy_equal_generate": equal32,
+              "kv_store": str(server32.engine._stores[0][0].dtype).replace("torch.", ""),
+              "launches": launches32, "prefills": len(greedy), "card": card}
+    print("moeserve_f32 " + json.dumps(line32), flush=True)
+    del server32, model32
+    if not all(equal32):
+        raise AssertionError(f"moeserve f32: streams differ from generate: {equal32}")
+    if torch.device(device).type == "cuda":
+        ticks, depth = 8, len(engine.model.blocks)
+        prof = profile_decode(server, VOCAB, card, ticks=ticks, label="moeserve_profile")
+        if not (_replayed_ok(prof["decode_attention_launches_per_tick"], depth, ticks)
+                and prof["replayed_launches_per_tick"] == depth):
+            raise AssertionError(f"moeserve: {prof['decode_attention_launches_per_tick']} "
+                                 f"decode kernels a tick by name, "
+                                 f"{prof['replayed_launches_per_tick']} replayed, want {depth}")
+    return summary["launches"]
+
+
+def vitknobs_phase(fp, card, device="cuda", image_size=224, batch=64, num_classes=1000,
+                   steps=KNOB_STEPS):
+    """Flagged ViT-B/16 (``fused`` attention, ``FUSED_DENSE_GRAD=1``) with
+    dropout 0.1 and REMAT through ``fit``: eager, then graphed (bit for
+    bit the eager run; under replay 24 ``packed_fwd``, 24 ``packed_bwd``
+    kernels and 49 ``dw_db`` a step), then graphed without the knobs (the
+    step walls and peak memory beside them). Returns the replayed
+    launches a step with the knobs by kernels-line name."""
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+    from distributeddeeplearning_tpu_torch.data import SyntheticImageDataset
+    from distributeddeeplearning_tpu_torch.models import get_model
+
+    on_card = torch.device(device).type == "cuda"
+
+    def make(knobs, aot):
+        cfg = TrainConfig(model="vit_b16", attn_impl="fused", image_size=image_size,
+                          batch_size_per_device=batch, num_classes=num_classes,
+                          fake_data_length=steps * batch, epochs=1, log_every_steps=1,
+                          aot_warmup=aot, remat=knobs)
+        data = SyntheticImageDataset(length=cfg.fake_data_length,
+                                     global_batch_size=cfg.global_batch_size,
+                                     image_size=image_size, num_classes=num_classes,
+                                     num_physical_batches=4, seed=cfg.seed)
+        model = get_model(cfg.model, **cfg.model_kwargs(), device=device, fused_dense_grad=True,
+                          dropout=0.1 if knobs else 0.0)
+        return cfg, data, model
+
+    lines, finals = {}, []
+    for knobs, aot in ((True, False), (True, True), (False, True)):
+        cfg, data, model = make(knobs, aot)
+        line, final = _knob_turn(f"vit vit_b16 knobs={int(knobs)}", cfg, data, model, device,
+                                 None if aot else fp)
+        lines[f"{line['kind']}{'' if knobs else '_no_knobs'}"] = line
+        if knobs:
+            finals.append(final)
+        del model, data, final
+        if on_card:
+            torch.cuda.empty_cache()
+    equal, gap = _state_gap(*finals)
+    del finals
+    rec = {"what": "vit_b16 fused FUSED_DENSE_GRAD=1 dropout=0.1 REMAT=1", **lines,
+           "graphed_bitwise_equal_eager": equal, "max_param_gap_rel": gap,
+           "step_ms_vs_no_knobs": (lines["graphed"]["step_ms"]
+                                   / lines["graphed_no_knobs"]["step_ms"]),
+           "card": card}
+    print("vitknobs " + json.dumps(rec), flush=True)
+    if not (equal or gap <= WARM_GAP_LIMIT):
+        raise AssertionError(f"vitknobs: graphed left eager by {gap}")
+    if on_card:
+        for key, fwd in (("graphed", 24), ("graphed_no_knobs", 12)):
+            _check_launches(f"vitknobs {key}", lines[key]["ours_per_step"],
+                            {"packed_fwd": fwd, "packed_bwd": 24, "dw_db": 49},
+                            lines[key]["profiled_steps"])
+    got = lines["graphed"]["ours_per_step"]
+    count = lambda mark: sum(v for k, v in got.items() if mark in k)  # noqa: E731
+    return {"fused_qkv_fwd": count("packed_fwd"), "fused_qkv_bwd": count("packed_bwd") / 2,
+            "matmul_dw_db": count("dw_db")}
+
+
+def resnetknobs_phase(fb, card, device="cuda", image_size=224, batch=64, num_classes=1000,
+                      steps=KNOB_STEPS + 2):
+    """Fused ResNet-50 with the s2d stem and bf16 BatchNorm statistics
+    through a graphed ``fit``, then with the default stem and statistics:
+    finite losses, 32 fused-block kernels a replayed step in both (the
+    in-block statistics stay f32), the step walls side by side. Returns
+    the replayed launches a step with the knobs by kernels-line name."""
+    on_card = torch.device(device).type == "cuda"
+    lines = {}
+    for knobs in (True, False):
+        cfg, data, model = _resnet_fit_setup(
+            epochs=1, steps=steps, image_size=image_size, batch=batch,
+            num_classes=num_classes, device=device, s2d_stem=knobs,
+            stats_dtype="bfloat16" if knobs else "float32")
+        cfg = cfg.replace(aot_warmup=True)
+        line, _ = _knob_turn(f"resnet resnet50 s2d={int(knobs)}", cfg, data, model, device)
+        lines["knobs" if knobs else "default"] = line
+        del model, data
+        if on_card:
+            torch.cuda.empty_cache()
+            _check_launches(f"resnetknobs s2d={knobs}", line["ours_per_step"],
+                            {"matmul_stats": 32}, line["profiled_steps"])
+    rec = {"what": "resnet50 fused, s2d_stem + stats_dtype=bfloat16 vs default (graphed)",
+           **lines, "step_ms_vs_default": (lines["knobs"]["step_ms"]
+                                           / lines["default"]["step_ms"]),
+           "card": card}
+    print("resnetknobs " + json.dumps(rec), flush=True)
+    got = lines["knobs"]["ours_per_step"]
+    return {"matmul_stats": sum(v for k, v in got.items() if ", false>" in k),
+            "bn_relu_matmul_stats": sum(v for k, v in got.items() if ", true>" in k)}
+
+
+def knobs_phase(fl, fp, fb, pd, card, device="cuda", small=None):
+    """The model and optimizer knobs on the card (``moetrain``,
+    ``moeresume``, ``moeserve``, ``vitknobs``, ``resnetknobs`` and the
+    ``moe_audit`` twin's table at ``lm_small``). ``small`` (a dict of
+    sizes) rehearses it on the CPU. Returns the replayed launches a step
+    on these paths by kernels-line name."""
+    from distributeddeeplearning_tpu_torch import moe_audit
+
+    s = small or {}
+    launches = {}
+    launches.update(moetrain_phase(fl, card, device, **s.get("moetrain", {})))
+    gc.collect()
+    moeresume_phase(card, device, **s.get("moeresume", {}))
+    gc.collect()
+    launches["paged_decode_attention"] = moeserve_phase(pd, card, device=device,
+                                                        **s.get("moeserve", {}))
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    launches.update(vitknobs_phase(fp, card, device, **s.get("vitknobs", {})))
+    gc.collect()
+    launches.update(resnetknobs_phase(fb, card, device, **s.get("resnetknobs", {})))
+    gc.collect()
+    moe_audit.audit(**{"steps": 5, **s.get("moe_audit", {})}, device=device)
+    return launches
+
+
 def _fb_entry(name, cases, timed_case, launches):
     main_case = next(c for c in cases if c["case"] == timed_case)
     return {
@@ -4694,7 +5213,7 @@ class _PhaseClock:
 
 PHASES = ("kernels", "serve", "servequant", "servespec", "servegraph", "train", "lmtrain",
           "vittrain", "effnettrain", "fit", "warmup", "frontends", "launch", "trace", "bench",
-          "realdata")
+          "realdata", "knobs")
 
 
 # A kernels-line entry -> (replayed family, what its kernel names hold,
@@ -4991,6 +5510,15 @@ def main(argv=None) -> int:
         for e in entries:  # the same kernels' launches on the real-data plane
             if e["name"] in real:
                 e["realdata_launches"] = real[e["name"]]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    clock.start("knobs")
+    if "knobs" in phases:
+        knobs = knobs_phase(fl, fp, fb, pd, card)
+        for e in entries:  # the same kernels' launches a step on the knobs' paths
+            if e["name"] in knobs:
+                e["knobs_launches"] = knobs[e["name"]]
         gc.collect()
         torch.cuda.empty_cache()
 

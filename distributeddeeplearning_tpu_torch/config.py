@@ -16,11 +16,14 @@ contract the launcher's supervisor exports (``ELASTIC``,
 (``data.make_dataset``: ``auto`` | ``stream`` | ``imagefolder`` |
 ``tfrecord`` | ``tfrecord-native``), ``NUM_WORKERS``, ``WORKER_MODE`` (or
 the reference's ``MULTIPROCESSING``), ``STREAM_SHUFFLE_BLOCK`` and
-``PREFETCH_HOST_BATCHES`` (``data/imagenet.py``, ``data/stream/``).
+``PREFETCH_HOST_BATCHES`` (``data/imagenet.py``, ``data/stream/``), and
+the model and optimizer knobs: ``MOE_EXPERTS`` (``models/moe.py``),
+``REMAT`` (gradient checkpointing of each block), ``OPTIMIZER=adamw``
+with ``DECOUPLED_WEIGHT_DECAY`` (``training/optimizer.AdamW``).
 
 Field names, defaults and ``from_env`` parsing are the JAX package's. A
-field of a later slice that the dataclass carries (``engine``,
-``optimizer``) must keep its default; any other value raises
+field of a later slice that the dataclass carries (``engine``) must keep
+its default; any other value raises
 ``NotImplementedError`` naming the slice that brings it. An env var of
 the JAX contract whose field the port does not carry yet raises the
 same way from :meth:`from_env`: no setting is silently ignored. ``FUSED_DENSE_GRAD`` is no field in either
@@ -46,14 +49,10 @@ IMAGENET_TRAIN_LENGTH = 1_281_167  # FAKE_DATA_LENGTH default
 # Fields of later slices: (default, the slice that implements the rest).
 _GATED = {
     "engine": ("dp", "the mesh/engine slice (pjit, pp, sp)"),
-    "optimizer": ("sgd", "the adamw optimizer (a later slice)"),
 }
 
 # Env vars of the JAX contract whose fields this slice does not carry.
 _LATER_ENV = {
-    "MOE_EXPERTS": "the MoE slice (models/moe.py)",
-    "REMAT": "the gradient-checkpointing slice",
-    "DECOUPLED_WEIGHT_DECAY": "the adamw optimizer (a later slice)",
     "PP_STAGES": "the mesh/engine slice", "PP_MICROBATCHES": "the mesh/engine slice",
     "PP_SCHEDULE": "the mesh/engine slice", "PARAM_SHARDING": "the mesh/engine slice",
     "ALLOW_SYNC_BN": "the mesh/engine slice", "MESH_AXES": "the mesh/engine slice",
@@ -89,13 +88,25 @@ class TrainConfig:
     # packed-QKV kernels (ops/flash_packed.py) | "auto" fused where it
     # applies on the card, else xla.
     attn_impl: str = "xla"
+    # Mixture-of-Experts width of the LM family (models/moe.py): None
+    # keeps each model's own default (8 for lm_moe_*, dense for lm_*).
+    moe_experts: Optional[int] = None
+    # Gradient checkpointing of each block (ViT, LM): activations are
+    # recomputed in the backward (torch.utils.checkpoint).
+    remat: bool = False
 
     # Optimization: LR 0.001 x world size, momentum 0.9, L2 5e-5 on
     # kernels, 5-epoch warmup, x0.1 at 30/60/80.
     batch_size_per_device: int = 64
     base_lr: float = 0.001
+    # "sgd" (the reference's) | "adamw" (decoupled decay on the kernels,
+    # the betas below; pair it with weight_decay=0).
     optimizer: str = "sgd"
     momentum: float = 0.9
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.95
+    adam_eps: float = 1e-8
+    decoupled_weight_decay: float = 0.0
     grad_accum_steps: int = 1
     accum_steps: int = 1
     weight_decay: float = 5e-5
@@ -213,11 +224,17 @@ class TrainConfig:
     def model_kwargs(self) -> dict:
         """The ``get_model`` kwargs this config implies, as the JAX
         package's ``model_kwargs`` (``get_model`` hands ``attn_impl`` to
-        the attention models only), plus ``image_size``, which sizes
+        the attention models only, ``moe_experts`` to the LM family and
+        ``remat`` to ViT and the LMs), plus ``image_size``, which sizes
         ViT's ``pos_embed`` (flax infers it from the first input) and
         which ``get_model`` hands to ViT only."""
-        return dict(num_classes=self.num_classes, dtype=self.compute_dtype,
-                    attn_impl=self.attn_impl, image_size=self.image_size)
+        kw = dict(num_classes=self.num_classes, dtype=self.compute_dtype,
+                  attn_impl=self.attn_impl, image_size=self.image_size)
+        if self.moe_experts is not None:
+            kw["moe_experts"] = self.moe_experts
+        if self.remat:
+            kw["remat"] = True
+        return kw
 
     def steps_per_epoch(self, data_length: Optional[int] = None) -> int:
         n = data_length if data_length is not None else self.fake_data_length
@@ -245,6 +262,9 @@ class TrainConfig:
             "MODEL": ("model", str),
             "COMPUTE_DTYPE": ("compute_dtype", str),
             "ATTN_IMPL": ("attn_impl", str),
+            "MOE_EXPERTS": ("moe_experts", int),
+            "REMAT": ("remat", _str_to_bool),
+            "DECOUPLED_WEIGHT_DECAY": ("decoupled_weight_decay", float),
             "OPTIMIZER": ("optimizer", str),
             "LR_SCHEDULE": ("lr_schedule", str),
             "INPUT_STAGING": ("input_staging", str),

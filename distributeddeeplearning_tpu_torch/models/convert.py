@@ -5,15 +5,18 @@ state dicts, and seeded initialisation.
 LayerNorm ``scale`` becomes ``weight``, a Dense ``kernel`` ``[in, out]``
 becomes a ``weight`` ``[out, in]`` and ViT's patch conv ``kernel`` HWIO
 an OIHW ``weight``. Embeddings (``tok_embed`` ``[V, H]``, ``pos_embed``
-``[1, L, H]``, ``cls_token`` ``[1, 1, H]``) and biases carry across
-unchanged. A tree quantized by the JAX package's ``quant.quantize_params``
-carries across too: a ``kernel`` ``{_q8: [in, out] int8, _q8_scale:
+``[1, L, H]``, ``cls_token`` ``[1, 1, H]``), biases and an MoE block's
+``moe`` leaves (``router [d, e]``, ``w1 [e, d, h]``, ``b1``, ``w2 [e, h,
+d]``, ``b2``: the port keeps flax's layouts) carry across unchanged. A
+tree quantized by the JAX package's ``quant.quantize_params`` carries
+across too: a ``kernel`` ``{_q8: [in, out] int8, _q8_scale:
 [1, out]}`` (or ``_qf8``/``_qf8_scale`` with float8_e4m3fn codes) becomes
 ``weight_q`` ``[out, in]`` and ``weight_scale`` ``[out, 1]``, and
 ``tok_embed``'s pair ``tok_embed_q`` ``[V, H]`` / ``tok_embed_scale``
 ``[V, 1]`` (the port's ``ops/quant.py`` layout).
 
-``ResNet``: module paths are the flax ones joined by dots. A conv
+``ResNet``: module paths are the flax ones joined by dots (the s2d
+stem's ``stem_conv_s2d`` kernel ``[4, 4, 12, 64]`` too). A conv
 ``kernel`` HWIO ``[kh, kw, in, out]`` becomes an OIHW ``weight`` (the
 fused block's ``_Conv1x1Kernel`` ``[1, 1, K, N]`` too: its ``[N, K]``
 view is the kernels' ``w``), the Dense head's ``[in, out]`` a ``[out,
@@ -145,10 +148,11 @@ def _xavier(shape, fan_in: int, fan_out: int, generator: torch.Generator) -> tor
 
 
 def _init_blocks(out: Dict[str, torch.Tensor], hidden: int, depth: int, mlp_dim: int,
-                 generator: torch.Generator) -> None:
+                 generator: torch.Generator, moe_layers=(), moe_experts: int = 0) -> None:
     """The transformer blocks and the final LayerNorm shared by the LM and
     ViT, in order: xavier-uniform Dense kernels, zero biases, LayerNorm
-    ones/zeros."""
+    ones/zeros; the blocks in ``moe_layers`` get an MoE FFN instead of
+    the MLP (:func:`_init_moe`)."""
     dev = generator.device
 
     def dense(prefix, n_in, n_out):
@@ -165,18 +169,44 @@ def _init_blocks(out: Dict[str, torch.Tensor], hidden: int, depth: int, mlp_dim:
         dense(f"{p}.attn.qkv", hidden, 3 * hidden)
         dense(f"{p}.attn.proj", hidden, hidden)
         layer_norm(f"{p}.ln2")
-        dense(f"{p}.mlp.fc1", hidden, mlp_dim)
-        dense(f"{p}.mlp.fc2", mlp_dim, hidden)
+        if i in moe_layers:
+            _init_moe(out, f"{p}.moe", hidden, mlp_dim, moe_experts, generator)
+        else:
+            dense(f"{p}.mlp.fc1", hidden, mlp_dim)
+            dense(f"{p}.mlp.fc2", mlp_dim, hidden)
     layer_norm("ln_final")
 
 
+def _init_moe(out: Dict[str, torch.Tensor], prefix: str, hidden: int, mlp_dim: int,
+              experts: int, generator: torch.Generator) -> None:
+    """An MoE FFN with the JAX block's initialisers: the router
+    normal(0.02), ``w1``/``w2`` xavier-uniform with flax's fans for a
+    3-D kernel (the expert axis is part of the receptive field, so
+    ``fan_in = e·d``, ``fan_out = e·h`` for ``w1 [e, d, h]``), zero
+    biases."""
+    dev = generator.device
+    out[f"{prefix}.router"] = torch.empty(hidden, experts, device=dev).normal_(
+        0.0, 0.02, generator=generator)
+    out[f"{prefix}.w1"] = _xavier((experts, hidden, mlp_dim), experts * hidden,
+                                  experts * mlp_dim, generator)
+    out[f"{prefix}.b1"] = torch.zeros(experts, mlp_dim, device=dev)
+    out[f"{prefix}.w2"] = _xavier((experts, mlp_dim, hidden), experts * mlp_dim,
+                                  experts * hidden, generator)
+    out[f"{prefix}.b2"] = torch.zeros(experts, hidden, device=dev)
+
+
 def init_params(variant: str, vocab_size: int, generator: torch.Generator,
-                max_seq_len: int = 2048) -> Dict[str, torch.Tensor]:
+                max_seq_len: int = 2048, moe_experts: int = 0,
+                moe_every: int = 2) -> Dict[str, torch.Tensor]:
     """Seeded parameters with the JAX model's initialisers: normal(0.02)
     embeddings, xavier-uniform Dense kernels, zero biases, LayerNorm
-    ones/zeros. Tensors are f32 on ``generator``'s device. (The draws
-    differ from ``jax.random``'s: same distributions, other numbers.)"""
+    ones/zeros; with ``moe_experts`` every ``moe_every``-th block's FFN
+    is routed (:func:`_init_moe`). Tensors are f32 on ``generator``'s
+    device. (The draws differ from ``jax.random``'s: same
+    distributions, other numbers.)"""
     hidden, depth, _, mlp_dim = _VARIANTS[variant]
+    moe_layers = (tuple(i for i in range(depth) if i % moe_every == moe_every - 1)
+                  if moe_experts else ())
 
     def normal(*shape):
         return torch.empty(*shape, device=generator.device).normal_(0.0, 0.02,
@@ -186,7 +216,7 @@ def init_params(variant: str, vocab_size: int, generator: torch.Generator,
         "tok_embed": normal(vocab_size, hidden),
         "pos_embed": normal(1, max_seq_len, hidden),
     }
-    _init_blocks(out, hidden, depth, mlp_dim, generator)
+    _init_blocks(out, hidden, depth, mlp_dim, generator, moe_layers, moe_experts)
     return out
 
 
@@ -298,16 +328,17 @@ def _init_conv_net(model: torch.nn.Module, generator: torch.Generator) -> Dict[s
     return out
 
 
-def init_resnet_params(depth: int, num_classes: int,
-                       generator: torch.Generator) -> Dict[str, torch.Tensor]:
+def init_resnet_params(depth: int, num_classes: int, generator: torch.Generator,
+                       s2d_stem: bool = False) -> Dict[str, torch.Tensor]:
     """Seeded ``ResNet`` state with the JAX model's initialisers: conv
     kernels ``variance_scaling(2, fan_out, truncated_normal)``, the head
     lecun-normal with a zero bias, BN γ = 1 (0 on each branch's last
     BN), β = 0, running mean 0 and variance 1. f32 on ``generator``'s
     device; the draws differ from ``jax.random``'s (same
     distributions, other numbers). Every rank that passes the same seed
-    gets the same tensors."""
-    model = ResNet(depth=depth, num_classes=num_classes, dtype=torch.float32, device="meta")
+    gets the same tensors. ``s2d_stem``: the 4×4 stem on 12 channels."""
+    model = ResNet(depth=depth, num_classes=num_classes, dtype=torch.float32, device="meta",
+                   s2d_stem=s2d_stem)
     return _init_conv_net(model, generator)
 
 

@@ -104,8 +104,14 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
             mask_shape: Sequence[int]) -> torch.Tensor:
     """flax ``nn.Dropout``: ``where(mask, x / keep, 0)`` with the mask of
     ``mask_shape`` broadcast over ``x`` (``[N, 1, 1, 1]`` is drop-path)."""
+    return apply_keep_mask(x, keep_mask(mask_shape, 1.0 - rate, generator, x.device), rate)
+
+
+def apply_keep_mask(x: torch.Tensor, mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """``where(mask, x / keep, 0)`` with a mask drawn beforehand by
+    :func:`keep_mask` (the blocks that are recomputed under ``REMAT``
+    draw theirs before the checkpointed call)."""
     keep = 1.0 - rate
-    mask = keep_mask(mask_shape, keep, generator, x.device)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

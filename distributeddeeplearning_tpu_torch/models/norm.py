@@ -10,6 +10,13 @@ under the dp engine, i.e. flax ``nn.BatchNorm`` on each replica's batch).
 * the running statistics move as ``0.9·r + 0.1·batch`` with the
   **biased** batch variance (torch uses the unbiased one).
 
+``stats_dtype`` other than f32 is flax's ``force_float32_reductions=
+False`` (the JAX ResNet's ``stats_dtype``): the batch statistics are
+reduced in the compute dtype (each mean summed in f32 and rounded, as
+``jnp.mean`` does), ``x - μ`` and ``rsqrt(σ² + eps)`` stay in it, and
+the product with γ, β promotes to f32 before the cast; the running
+statistics stay f32. In an f32 model it changes nothing.
+
 :meth:`BatchNorm2d.split` is the fused bottleneck's ``_SplitBN``: the
 batch moments come from elsewhere (a kernel's epilogue or a plain
 pass), and the module owns γ, β and the running-statistics update. The
@@ -30,9 +37,12 @@ class BatchNorm2d(nn.Module):
     tensor (any memory format). ``zero_init`` starts γ at 0."""
 
     def __init__(self, features: int, dtype: torch.dtype, zero_init: bool = False,
-                 eps: float = BN_EPS, device=None) -> None:
+                 eps: float = BN_EPS, device=None,
+                 stats_dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.dtype = dtype
+        # flax reduces in the compute dtype once f32 is not forced
+        self.reduce_dtype = torch.float32 if stats_dtype == torch.float32 else dtype
         self.eps = eps
         self.zero_init = zero_init
         self.weight = nn.Parameter(torch.empty(features, device=device))
@@ -42,9 +52,12 @@ class BatchNorm2d(nn.Module):
 
     @torch.no_grad()
     def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """``m·r + (1 - m)·batch``: the batch statistic is scaled in its
+        own dtype (flax's weak-typed ``(1 - m)``), then added in f32."""
         m = BN_MOMENTUM
-        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean.detach())
-        self.running_var.copy_(m * self.running_var + (1.0 - m) * var.detach())
+        rest = torch.tensor(1.0 - m, dtype=mean.dtype)
+        self.running_mean.copy_(m * self.running_mean + (rest * mean.detach()).float())
+        self.running_var.copy_(m * self.running_var + (rest * var.detach()).float())
 
     def split(self, batch_mean: torch.Tensor, batch_var: torch.Tensor):
         """``(mean, var, γ, β)`` to normalise with: the running stats in
@@ -57,17 +70,20 @@ class BatchNorm2d(nn.Module):
         return mean, var, self.weight, self.bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Training reduces the batch statistics in ``reduce_dtype`` (each
+        mean summed in f32, as ``jnp.mean`` does); in f32 the casts are
+        no-ops. Eval normalises in f32 with the running statistics."""
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        xf = x.float()
         if self.training:
             axes = [0] + list(range(2, x.dim()))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            xr = x.to(self.reduce_dtype)
+            mean = xr.float().mean(axes).to(xr.dtype)
+            var = torch.clamp((xr * xr).float().mean(axes).to(xr.dtype) - mean * mean, min=0.0)
             self._update(mean, var)
         else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+            xr, mean, var = x.float(), self.running_mean, self.running_var
+        mul = torch.rsqrt(var + torch.tensor(self.eps, dtype=var.dtype)).float() * self.weight
+        y = (xr - mean.reshape(shape)).float() * mul.reshape(shape) + self.bias.reshape(shape)
         return y.to(self.dtype)
 
 

@@ -16,6 +16,16 @@ The architecture and its parity traps follow the JAX model:
 * the bottleneck's stride sits in its 3×3 conv;
 * the head is the mean over H, W, a Dense in the compute dtype, f32.
 
+``s2d_stem=True`` is the MLPerf space-to-depth stem: the NHWC images go
+through :func:`space_to_depth` (block 2, channel ``(bh·2 + bw)·3 + c``,
+the JAX function's order, so a flax ``[4, 4, 12, 64]`` kernel maps to
+``[64, 12, 4, 4]`` by the usual transpose) and a 4×4 stride-1 conv
+(``stem_conv_s2d``) with SAME padding, 1 low and 2 high, padded before
+the conv since ``F.conv2d`` pads symmetrically. ``stats_dtype``
+(``torch.bfloat16``) reduces the BatchNorm statistics in the compute
+dtype (``models/norm.py``); the fused bottleneck's own statistics stay
+f32, as in JAX.
+
 ``fused=True`` runs each bottleneck's two 1×1 convs through
 ``ops/fused_block.py`` (``matmul_stats``: conv1 + BN0 statistics;
 ``bn_relu_matmul_stats``: BN1-apply → ReLU → conv3 + BN2 statistics),
@@ -56,24 +66,36 @@ STAGES = {
 }
 
 
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """NHWC ``(N, H, W, C) -> (N, H/b, W/b, C·b²)``, channel
+    ``(bh·b + bw)·C + c`` (the JAX package's ``space_to_depth``)."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // block, block, w // block, block, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h // block, w // block, c * block * block)
+
+
 class Conv2d(nn.Module):
     """Bias-free conv with the JAX model's padding; f32 ``weight``
     ``[out, in, k, k]`` cast to the compute dtype per call. A 1×1 conv's
-    weight viewed as ``[out, in]`` is the fused kernels' ``w``."""
+    weight viewed as ``[out, in]`` is the fused kernels' ``w``. Strided
+    convs pad ``(k-1)//2`` on both sides; stride 1 pads SAME, which for
+    an even kernel is ``(k-1)//2`` low and one more high."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int, stride: int,
                  dtype: torch.dtype, device=None) -> None:
         super().__init__()
-        if kernel % 2 == 0:
-            raise ValueError("even kernels (the s2d stem) are not ported")
         self.stride = stride
-        self.padding = (kernel - 1) // 2  # fixed for stride > 1, SAME for stride 1
+        low = (kernel - 1) // 2  # fixed for stride > 1, SAME for stride 1
+        self.pads = (low, low) if stride > 1 else (low, kernel - 1 - low)
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(c_out, c_in, kernel, kernel, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                        stride=self.stride, padding=self.padding)
+        low, high = self.pads
+        x = x.to(self.dtype)
+        if low != high:
+            x, low = F.pad(x, (low, high, low, high)), 0
+        return F.conv2d(x, self.weight.to(self.dtype), stride=self.stride, padding=low)
 
     def matrix(self) -> torch.Tensor:
         """The 1×1 kernel as ``[out, in]`` in the compute dtype."""
@@ -109,16 +131,18 @@ class BasicBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, c_in: int, filters: int, stride: int, dtype, device=None) -> None:
+    def __init__(self, c_in: int, filters: int, stride: int, dtype, device=None,
+                 stats_dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
+        bn = dict(device=device, stats_dtype=stats_dtype)
         self.Conv_0 = Conv2d(c_in, filters, 3, stride, dtype, device)
-        self.BatchNorm_0 = BatchNorm2d(filters, dtype, device=device)
+        self.BatchNorm_0 = BatchNorm2d(filters, dtype, **bn)
         self.Conv_1 = Conv2d(filters, filters, 3, 1, dtype, device)
-        self.BatchNorm_1 = BatchNorm2d(filters, dtype, zero_init=True, device=device)
+        self.BatchNorm_1 = BatchNorm2d(filters, dtype, zero_init=True, **bn)
         self.has_proj = stride != 1 or c_in != filters
         if self.has_proj:
             self.proj_conv = Conv2d(c_in, filters, 1, stride, dtype, device)
-            self.proj_bn = BatchNorm2d(filters, dtype, device=device)
+            self.proj_bn = BatchNorm2d(filters, dtype, **bn)
 
     def forward(self, x):
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -133,20 +157,23 @@ class BottleneckBlock(nn.Module):
     expansion = 4
 
     def __init__(self, c_in: int, filters: int, stride: int, dtype, device=None,
-                 fused: bool = False) -> None:
+                 fused: bool = False, stats_dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.fused = fused
         self.dtype = dtype
+        # The fused path's in-block statistics are f32 whatever stats_dtype.
+        bn = dict(device=device, stats_dtype=torch.float32 if fused else stats_dtype)
         self.Conv_0 = Conv2d(c_in, filters, 1, 1, dtype, device)
-        self.BatchNorm_0 = BatchNorm2d(filters, dtype, device=device)
+        self.BatchNorm_0 = BatchNorm2d(filters, dtype, **bn)
         self.Conv_1 = Conv2d(filters, filters, 3, stride, dtype, device)
-        self.BatchNorm_1 = BatchNorm2d(filters, dtype, device=device)
+        self.BatchNorm_1 = BatchNorm2d(filters, dtype, **bn)
         self.Conv_2 = Conv2d(filters, 4 * filters, 1, 1, dtype, device)
-        self.BatchNorm_2 = BatchNorm2d(4 * filters, dtype, zero_init=True, device=device)
+        self.BatchNorm_2 = BatchNorm2d(4 * filters, dtype, zero_init=True, **bn)
         self.has_proj = stride != 1 or c_in != 4 * filters
         if self.has_proj:
             self.proj_conv = Conv2d(c_in, 4 * filters, 1, stride, dtype, device)
-            self.proj_bn = BatchNorm2d(4 * filters, dtype, device=device)
+            self.proj_bn = BatchNorm2d(4 * filters, dtype, device=device,
+                                       stats_dtype=stats_dtype)
 
     def forward(self, x):
         if self.fused:
@@ -191,19 +218,27 @@ class ResNet(nn.Module):
     Built with uninitialised parameters on ``device`` (``None`` means
     CUDA, and raises without it): load ``convert.init_resnet_params``
     or ``convert.resnet_params_from_flax``. ``fused`` applies to the
-    bottleneck depths only, as in the JAX model."""
+    bottleneck depths only, as in the JAX model; ``s2d_stem`` and
+    ``stats_dtype`` as the module docstring says."""
 
     def __init__(self, depth: int = 50, num_classes: int = 1000,
                  dtype: torch.dtype = torch.bfloat16, fused: bool = False,
-                 device=None) -> None:
+                 device=None, s2d_stem: bool = False,
+                 stats_dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         if depth not in STAGES:
             raise ValueError(f"depth must be one of {sorted(STAGES)}, got {depth}")
         device = resolve_device(device)
+        if isinstance(stats_dtype, str):
+            stats_dtype = getattr(torch, stats_dtype)
         self.depth, self.num_classes, self.dtype, self.fused = depth, num_classes, dtype, fused
+        self.s2d_stem, self.stats_dtype = s2d_stem, stats_dtype
         kind, stage_sizes = STAGES[depth]
-        self.stem_conv = Conv2d(3, 64, 7, 2, dtype, device)
-        self.stem_bn = BatchNorm2d(64, dtype, device=device)
+        if s2d_stem:
+            self.stem_conv_s2d = Conv2d(12, 64, 4, 1, dtype, device)
+        else:
+            self.stem_conv = Conv2d(3, 64, 7, 2, dtype, device)
+        self.stem_bn = BatchNorm2d(64, dtype, device=device, stats_dtype=stats_dtype)
         c = 64
         self.block_names = []
         for stage, n_blocks in enumerate(stage_sizes):
@@ -211,9 +246,10 @@ class ResNet(nn.Module):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 filters = 64 * 2 ** stage
                 if kind == "basic":
-                    block = BasicBlock(c, filters, stride, dtype, device)
+                    block = BasicBlock(c, filters, stride, dtype, device, stats_dtype)
                 else:
-                    block = BottleneckBlock(c, filters, stride, dtype, device, fused=fused)
+                    block = BottleneckBlock(c, filters, stride, dtype, device, fused=fused,
+                                            stats_dtype=stats_dtype)
                 c = filters * block.expansion
                 name = f"stage{stage + 1}_block{b + 1}"
                 self.add_module(name, block)
@@ -222,8 +258,12 @@ class ResNet(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         # NHWC in, channels_last [N, C, H, W] from here on (a view)
-        x = images.permute(0, 3, 1, 2).to(self.dtype)
-        x = F.relu(self.stem_bn(self.stem_conv(x)))
+        x = images.to(self.dtype)
+        if self.s2d_stem:
+            x = self.stem_conv_s2d(space_to_depth(x, 2).permute(0, 3, 1, 2))
+        else:
+            x = self.stem_conv(x.permute(0, 3, 1, 2))
+        x = F.relu(self.stem_bn(x))
         x = max_pool_same(x)
         for name in self.block_names:
             x = getattr(self, name)(x)

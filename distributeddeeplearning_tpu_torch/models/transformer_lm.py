@@ -1,5 +1,12 @@
-"""Decoder-only Transformer LM (port of ``models/transformer_lm.py``,
-dense FFN; the MoE blocks are not ported yet).
+"""Decoder-only Transformer LM (port of ``models/transformer_lm.py``).
+
+``moe_experts = e > 0`` makes every ``moe_every``-th block an
+``MoEDecoderBlock`` (``models/moe.py``: top-``moe_top_k`` routing over e
+experts at ``moe_capacity_factor``; a forward with a KV cache drops no
+token). ``dropout`` is applied after the embedding and inside the blocks
+(``models/vit.py``'s places), and ``remat`` checkpoints each block, as
+JAX's ``nn.remat`` (off when decoding); a model with dropout sets
+``stochastic``, so the train step hands it its generator.
 
 Numerics follow the flax model: parameters in f32, compute in ``dtype``
 (bf16 by default); LayerNorm in f32 with flax's epsilon 1e-6 and its
@@ -36,12 +43,16 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from distributeddeeplearning_tpu_torch.models import efficientnet as noise
+from distributeddeeplearning_tpu_torch.models.moe import MoEDecoderBlock, MoEMlpBlock
 from distributeddeeplearning_tpu_torch.models.vit import (
     Attention,
     Dense,
     KVCache,
     LayerNorm,
+    Masks,
     MlpBlock,
+    run_block,
 )
 from distributeddeeplearning_tpu_torch.ops import quant
 from distributeddeeplearning_tpu_torch.utils.device import resolve_device
@@ -58,18 +69,26 @@ _VARIANTS = {
 class DecoderBlock(nn.Module):
     def __init__(self, hidden: int, num_heads: int, mlp_dim: int,
                  dtype: torch.dtype, device=None, attn_impl: str = "xla",
-                 fused_dense_grad: Optional[bool] = None) -> None:
+                 fused_dense_grad: Optional[bool] = None, dropout: float = 0.0) -> None:
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         self.ln1 = LayerNorm(hidden, device=device)
         self.attn = Attention(hidden, num_heads, dtype, device, attn_impl, causal=True,
                               fused_dense_grad=fused_dense_grad)
         self.ln2 = LayerNorm(hidden, device=device)
-        self.mlp = MlpBlock(hidden, mlp_dim, dtype, device, fused_dense_grad)
+        self.mlp = MlpBlock(hidden, mlp_dim, dtype, device, fused_dense_grad, dropout)
 
-    def forward(self, x, cache: Optional[KVCache] = None, layer: int = 0):
-        x = x + self.attn(self.ln1(x).to(self.dtype), cache, layer)
-        return x + self.mlp(self.ln2(x).to(self.dtype))
+    def mask_shapes(self, shape):
+        return [tuple(shape)] + self.mlp.mask_shapes(shape)
+
+    def forward(self, x, cache: Optional[KVCache] = None, layer: int = 0,
+                masks: Masks = None):
+        a = self.attn(self.ln1(x).to(self.dtype), cache, layer)
+        if masks:
+            a = noise.apply_keep_mask(a, masks[0], self.dropout)
+        x = x + a
+        return x + self.mlp(self.ln2(x).to(self.dtype), masks[1:] if masks else None)
 
 
 class TransformerLM(nn.Module):
@@ -81,7 +100,9 @@ class TransformerLM(nn.Module):
     def __init__(self, variant: str = "tiny", vocab_size: int = 32_000,
                  max_seq_len: int = 2048, dtype: torch.dtype = torch.bfloat16,
                  device=None, attn_impl: str = "xla",
-                 fused_dense_grad: Optional[bool] = None) -> None:
+                 fused_dense_grad: Optional[bool] = None, dropout: float = 0.0,
+                 moe_experts: int = 0, moe_every: int = 2, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25, remat: bool = False) -> None:
         super().__init__()
         if variant not in _VARIANTS:
             raise ValueError(f"variant must be one of {sorted(_VARIANTS)}")
@@ -96,34 +117,56 @@ class TransformerLM(nn.Module):
         self.head_dim = hidden // heads
         self.depth = depth
         self.attn_impl = attn_impl
+        self.dropout, self.remat = dropout, remat
+        self.moe_experts, self.moe_every = moe_experts, moe_every
+        # The train step hands a model that draws dropout noise its
+        # per-step, per-rank generator.
+        self.stochastic = dropout > 0
         self.tok_embed = nn.Parameter(torch.empty(vocab_size, hidden, device=device))
         self.pos_embed = nn.Parameter(
             torch.empty(1, max_seq_len, hidden, device=device)
         )
         self.blocks = nn.ModuleList(
-            DecoderBlock(hidden, heads, mlp_dim, dtype, device, attn_impl, fused_dense_grad)
-            for _ in range(depth)
+            MoEDecoderBlock(hidden, heads, mlp_dim, moe_experts, moe_top_k,
+                            moe_capacity_factor, dtype, device, attn_impl, dropout,
+                            fused_dense_grad)
+            if i in self.moe_layers() else
+            DecoderBlock(hidden, heads, mlp_dim, dtype, device, attn_impl, fused_dense_grad,
+                         dropout)
+            for i in range(depth)
         )
         self.ln_final = LayerNorm(hidden, device=device)
+
+    def moe_layers(self) -> Tuple[int, ...]:
+        """The blocks whose FFN is routed (every ``moe_every``-th)."""
+        if not self.moe_experts:
+            return ()
+        return tuple(i for i in range(self.depth)
+                     if i % self.moe_every == self.moe_every - 1)
 
     def kernel_parameters(self) -> Tuple[torch.Tensor, ...]:
         """The Dense weights of every block (``qkv``, ``proj``, ``fc1``,
         ``fc2``: the flax ``kernel`` leaves), what the L2 penalty covers;
-        the embeddings, biases and LayerNorm are exempt, as in JAX."""
+        the embeddings, biases, LayerNorm and the MoE ``router``, ``w1``
+        and ``w2`` (no ``kernel`` leaves in flax) are exempt, as in JAX."""
         return tuple(m.weight for m in self.modules() if isinstance(m, Dense))
 
     def cast_matmul_weights_(self) -> "TransformerLM":
         """Store every Dense weight/bias and the embeddings in the
         compute dtype, in place. The forward casts them at use anyway,
         so the results are bitwise the same; serving then streams half
-        the weight bytes per step. LayerNorm parameters and quantized
-        weights (codes and scales) stay as they are."""
+        the weight bytes per step. The experts' ``w1``, ``b1``, ``w2`` and
+        ``b2`` are cast too; the f32 router, LayerNorm parameters and
+        quantized weights (codes and scales) stay as they are."""
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, Dense):
                     if not quant.is_quantized_module(m, "weight"):
                         m.weight.data = m.weight.data.to(self.dtype)
                     m.bias.data = m.bias.data.to(self.dtype)
+                elif isinstance(m, MoEMlpBlock):
+                    for p in (m.w1, m.b1, m.w2, m.b2):
+                        p.data = p.data.to(self.dtype)
             if not quant.is_quantized_module(self, "tok_embed"):
                 self.tok_embed.data = self.tok_embed.data.to(self.dtype)
             self.pos_embed.data = self.pos_embed.data.to(self.dtype)
@@ -131,7 +174,9 @@ class TransformerLM(nn.Module):
 
     def quantize_weights_(self, dtype: str) -> "TransformerLM":
         """Quantize every Dense weight and ``tok_embed`` in place
-        (``"int8"`` or ``"fp8"``, one f32 scale per output row) from
+        (``"int8"`` or ``"fp8"``, one f32 scale per output row; the
+        experts and the router stay unquantized, as JAX's quantizer
+        covers 2-D ``kernel`` leaves only) from
         their current values: call it on the f32 parameters, before
         :meth:`cast_matmul_weights_`, since rounding to bf16 first moves
         each row's amax and so every code."""
@@ -151,8 +196,8 @@ class TransformerLM(nn.Module):
                 self.tok_embed_q[tokens], self.tok_embed_scale[tokens], self.dtype)
         return self.tok_embed[tokens].to(self.dtype)
 
-    def forward(self, tokens: torch.Tensor,
-                cache: Optional[KVCache] = None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, cache: Optional[KVCache] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, t = tokens.shape
         if t > self.max_seq_len:
             raise ValueError(
@@ -170,8 +215,14 @@ class TransformerLM(nn.Module):
             start = min(max(int(cache.index), 0), self.max_seq_len - t)
             pos_t = self.pos_embed[:, start:start + t]
         x = x + pos_t.to(self.dtype)
+        # Dropout and remat in training forwards only (JAX decodes with
+        # train=False and without nn.remat).
+        stochastic = self.training and cache is None and self.dropout > 0
+        if stochastic:
+            x = noise.dropout(x, self.dropout, generator, x.shape)
+        remat = self.remat and cache is None
         for i, block in enumerate(self.blocks):
-            x = block(x, cache, i)
+            x = run_block(block, x, generator, stochastic, remat, cache, i)
         x = self.ln_final(x)
         # Tied head: compute-dtype operands, f32 accumulation, logits
         # stored in the compute dtype.

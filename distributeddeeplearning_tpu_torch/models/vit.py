@@ -3,6 +3,17 @@
 ``LayerNorm``, ``FusedGradDense``, ``MlpBlock``, ``Attention`` with its
 two KV-cache decode paths, ``EncoderBlock`` and ``ViT``.
 
+``dropout > 0`` places flax's ``nn.Dropout`` where the JAX blocks do:
+after the attention's ``proj`` and after the MLP's GELU and ``fc2``.
+Each block draws its keep masks before it runs, in the order its forward
+applies them, through the port's one mask function
+(``efficientnet.keep_mask``) and the train step's generator
+(:func:`run_block`); a model with dropout sets ``stochastic``, so the
+train step hands it that generator. ``remat`` recomputes each block in
+the backward (non-reentrant ``torch.utils.checkpoint``, JAX's
+``nn.remat``): the masks drawn before the checkpointed call are its
+inputs, so the recompute applies the forward's masks.
+
 Numerics follow the flax model: parameters in f32, compute in ``dtype``
 (bf16 by default), LayerNorm in f32, the head an f32 Dense. A Dense
 whose weight went through ``ops/quant.quantize_module_`` holds int8 or
@@ -30,7 +41,9 @@ from typing import List, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from distributeddeeplearning_tpu_torch.models import efficientnet as noise
 from distributeddeeplearning_tpu_torch.ops import flash_packed
 from distributeddeeplearning_tpu_torch.ops import quant
 from distributeddeeplearning_tpu_torch.ops.attention import dot_product_attention
@@ -112,16 +125,47 @@ class LayerNorm(nn.Module):
         return (x - mu) * mul + self.bias
 
 
+Masks = Optional[Tuple[torch.Tensor, ...]]
+
+
+def run_block(block: nn.Module, x: torch.Tensor, generator: Optional[torch.Generator],
+              stochastic: bool, remat: bool, *args) -> torch.Tensor:
+    """``block(x, *args, masks)``: the block's dropout masks drawn first
+    when ``stochastic`` (``block.mask_shapes``), then the block, under
+    ``remat`` (and autograd) checkpointed with the masks among its
+    inputs. The step's generators are explicit, so no default RNG state
+    needs preserving."""
+    masks = None
+    if stochastic and block.dropout > 0:
+        masks = tuple(noise.keep_mask(shape, 1.0 - block.dropout, generator, x.device)
+                      for shape in block.mask_shapes(x.shape))
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, x, *args, masks, use_reentrant=False,
+                          preserve_rng_state=False)
+    return block(x, *args, masks)
+
+
 class MlpBlock(nn.Module):
     def __init__(self, hidden: int, mlp_dim: int, dtype: torch.dtype,
-                 device=None, fused_dense_grad: Optional[bool] = None) -> None:
+                 device=None, fused_dense_grad: Optional[bool] = None,
+                 dropout: float = 0.0) -> None:
         super().__init__()
+        self.dropout = dropout
         self.fc1 = _dense(hidden, mlp_dim, dtype, device, fused_dense_grad)
         self.fc2 = _dense(mlp_dim, hidden, dtype, device, fused_dense_grad)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def mask_shapes(self, shape) -> List[Tuple[int, ...]]:
+        """The keep masks' shapes for an input of ``shape``: after the
+        GELU, after ``fc2``."""
+        return [tuple(shape[:-1]) + (self.fc1.weight.shape[0],), tuple(shape)]
+
+    def forward(self, x: torch.Tensor, masks: Masks = None) -> torch.Tensor:
         # flax nn.gelu defaults to the tanh approximation.
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        h = F.gelu(self.fc1(x), approximate="tanh")
+        if masks:
+            h = noise.apply_keep_mask(h, masks[0], self.dropout)
+        h = self.fc2(h)
+        return noise.apply_keep_mask(h, masks[1], self.dropout) if masks else h
 
 
 @dataclasses.dataclass
@@ -332,22 +376,31 @@ class Attention(nn.Module):
 
 class EncoderBlock(nn.Module):
     """Pre-norm: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``; the
-    LayerNorms in f32, their outputs cast to the compute dtype."""
+    LayerNorms in f32, their outputs cast to the compute dtype. With
+    ``masks`` (:meth:`mask_shapes`), dropout after the attention's
+    ``proj`` and inside the MLP."""
 
     def __init__(self, hidden: int, num_heads: int, mlp_dim: int, dtype: torch.dtype,
                  device=None, attn_impl: str = "xla",
-                 fused_dense_grad: Optional[bool] = None) -> None:
+                 fused_dense_grad: Optional[bool] = None, dropout: float = 0.0) -> None:
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         self.ln1 = LayerNorm(hidden, device=device)
         self.attn = Attention(hidden, num_heads, dtype, device, attn_impl,
                               fused_dense_grad=fused_dense_grad)
         self.ln2 = LayerNorm(hidden, device=device)
-        self.mlp = MlpBlock(hidden, mlp_dim, dtype, device, fused_dense_grad)
+        self.mlp = MlpBlock(hidden, mlp_dim, dtype, device, fused_dense_grad, dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x).to(self.dtype))
-        return x + self.mlp(self.ln2(x).to(self.dtype))
+    def mask_shapes(self, shape) -> List[Tuple[int, ...]]:
+        return [tuple(shape)] + self.mlp.mask_shapes(shape)
+
+    def forward(self, x: torch.Tensor, masks: Masks = None) -> torch.Tensor:
+        a = self.attn(self.ln1(x).to(self.dtype))
+        if masks:
+            a = noise.apply_keep_mask(a, masks[0], self.dropout)
+        x = x + a
+        return x + self.mlp(self.ln2(x).to(self.dtype), masks[1:] if masks else None)
 
 
 class PatchEmbed(nn.Module):
@@ -374,7 +427,9 @@ class ViT(nn.Module):
     """ViT with a classification head (cls-token pooling) over NHWC
     images; returns f32 ``[B, num_classes]`` logits. ``attn_impl``
     defaults to ``"auto"``, as JAX's. flax sizes ``pos_embed`` from the
-    first input; here ``image_size`` does, at construction. Built with
+    first input; here ``image_size`` does, at construction. ``dropout``
+    and ``remat`` as the module docstring says: a training forward draws
+    its masks from ``generator``. Built with
     uninitialised parameters on ``device`` (``None`` means CUDA, and
     raises without it): load ``convert.init_vit_params`` or
     ``convert.vit_params_from_flax`` into it."""
@@ -386,13 +441,6 @@ class ViT(nn.Module):
         super().__init__()
         if variant not in _VARIANTS:
             raise ValueError(f"variant must be one of {sorted(_VARIANTS)}")
-        if dropout > 0:
-            raise NotImplementedError(
-                "ViT dropout is not ported yet: it is the next user of the train "
-                "step's dropout generator (training/train_step.py passes generator= to "
-                "a model that sets `stochastic`; ROADMAP.md queue A)")
-        if remat:
-            raise NotImplementedError("remat comes with the gradient-checkpointing slice")
         if image_size % patch_size:
             raise ValueError(f"image size {image_size} not divisible by patch {patch_size}")
         device = resolve_device(device)
@@ -404,12 +452,17 @@ class ViT(nn.Module):
         self.dtype = dtype
         self.attn_impl = attn_impl
         self.depth = depth
+        self.dropout, self.remat = dropout, remat
+        # The train step hands a model that draws dropout noise its
+        # per-step, per-rank generator.
+        self.stochastic = dropout > 0
         self.patch_embed = PatchEmbed(hidden, patch_size, dtype, device)
         tokens = (image_size // patch_size) ** 2 + 1
         self.cls_token = nn.Parameter(torch.empty(1, 1, hidden, device=device))
         self.pos_embed = nn.Parameter(torch.empty(1, tokens, hidden, device=device))
         self.blocks = nn.ModuleList(
-            EncoderBlock(hidden, heads, mlp_dim, dtype, device, attn_impl, fused_dense_grad)
+            EncoderBlock(hidden, heads, mlp_dim, dtype, device, attn_impl, fused_dense_grad,
+                         dropout)
             for _ in range(depth)
         )
         self.ln_final = LayerNorm(hidden, device=device)
@@ -422,7 +475,8 @@ class ViT(nn.Module):
         return (self.patch_embed.weight,) + tuple(
             m.weight for m in self.modules() if isinstance(m, Dense))
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, h, w, _ = images.shape
         if (h, w) != (self.image_size, self.image_size):
             raise ValueError(f"images {h}x{w}, but the model was built for {self.image_size}")
@@ -430,6 +484,6 @@ class ViT(nn.Module):
         cls = self.cls_token.to(self.dtype).expand(b, 1, x.shape[-1])
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
         for block in self.blocks:
-            x = block(x)
+            x = run_block(block, x, generator, self.training, self.remat)
         x = self.ln_final(x)[:, 0]  # cls token
         return self.head(x).float()

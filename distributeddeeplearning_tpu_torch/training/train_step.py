@@ -9,7 +9,8 @@ LM):
 * forward in train mode, with per-replica BatchNorm (each rank
   normalises with its own batch statistics and moves its running stats;
   the LM has none); a model whose training forward draws dropout noise
-  (``model.stochastic``: EfficientNet's drop-path and head dropout) gets
+  (``model.stochastic``: EfficientNet's drop-path and head dropout, ViT
+  and the LM with ``dropout > 0``) gets
   ``generator=``, a ``torch.Generator`` on the device seeded from
   ``(config.seed, state.step, rank)`` (:func:`dropout_seed`), so every
   step and every rank draws its own noise, as the JAX step's
@@ -20,8 +21,10 @@ LM):
   smoothing as the JAX package smooths (``on = 1 - ls``, ``off = ls /
   (V - 1)``, not ``F.cross_entropy``'s ``ls / V``), plus ``weight_decay
   · Σw²`` over the model's ``kernel_parameters()`` (conv and Dense
-  kernels) only; accuracy is top-1 per example (per token), against the
-  argmax of one-hot labels;
+  kernels) only, plus the MoE blocks' load-balance losses
+  (:func:`sown_aux_loss`; the reported ``loss`` is this total, as JAX's);
+  accuracy is top-1 per example (per token), against the argmax of
+  one-hot labels;
 * with a process group of more than one rank: one all-reduce **mean** of
   the gradients, the BatchNorm running statistics and the metrics
   ``{loss, accuracy}`` (``grad_norm`` is taken from the reduced
@@ -58,6 +61,7 @@ import torch
 
 from distributeddeeplearning_tpu_torch.config import TrainConfig
 from distributeddeeplearning_tpu_torch.data.pipeline import normalize_staged_images, to_device
+from distributeddeeplearning_tpu_torch.models.moe import MoEMlpBlock
 from distributeddeeplearning_tpu_torch.training import accum
 from distributeddeeplearning_tpu_torch.training.metrics import EvalStepFn, StepFn, StepParts
 from distributeddeeplearning_tpu_torch.training.state import TrainState
@@ -107,6 +111,17 @@ def l2_kernel_penalty(model, weight_decay: float) -> torch.Tensor:
     if weight_decay == 0.0:
         return torch.zeros((), device=kernels[0].device)
     return weight_decay * torch.stack([(w.float() * w.float()).sum() for w in kernels]).sum()
+
+
+def sown_aux_loss(model) -> Optional[torch.Tensor]:
+    """The sum of the auxiliary losses the last forward left on the
+    model's MoE blocks (``models/moe.MoEMlpBlock.aux_loss``, JAX's sown
+    ``"losses"``), f32 on the device; None for a model without MoE
+    blocks."""
+    losses = [m.aux_loss for m in model.modules() if isinstance(m, MoEMlpBlock)]
+    if not losses:
+        return None
+    return torch.stack([a.float() for a in losses]).sum()
 
 
 def dropout_seed(seed: int, step: int, rank: int, micro: Optional[int] = None) -> int:
@@ -162,15 +177,19 @@ def make_train_step(model, optimizer, config: Optional[TrainConfig] = None,
     generators = ([torch.Generator(device=device) for _ in range(k)] if stochastic else [])
     if not hasattr(optimizer, "prepare"):
         raise TypeError(f"{type(optimizer).__name__} has no prepare/update split: "
-                        "use training.optimizer's MomentumSGD or MultiSteps")
+                        "use training.optimizer's MomentumSGD, AdamW or MultiSteps")
+    has_aux = any(isinstance(m, MoEMlpBlock) for m in model.modules())
 
     def grads_and_metrics(inputs, labels, generator=None):
         """One forward and backward (of one microbatch): the raw
-        gradients and the f32 ``loss`` (with L2) and ``accuracy``."""
+        gradients and the f32 ``loss`` (with L2 and the MoE auxiliary
+        losses) and ``accuracy``."""
         inputs = normalize_staged_images(inputs)
         logits = model(inputs) if generator is None else model(inputs, generator=generator)
         loss = cross_entropy_loss(logits, labels, cfg.label_smoothing)
         loss = loss + l2_kernel_penalty(model, cfg.weight_decay)
+        if has_aux:
+            loss = loss + sown_aux_loss(model)
         grads = list(torch.autograd.grad(loss, params))
         accuracy = (logits.argmax(-1) == hard_labels(logits, labels)).float().mean()
         return grads, {"loss": loss.detach(), "accuracy": accuracy}

@@ -107,3 +107,18 @@ def assert_step_matches(init, want_metrics, want_final, got_metrics, got_final):
     for k in sw:
         np.testing.assert_allclose(sg[k], sw[k], rtol=0, atol=1e-4 * np.abs(sw[k]).max(),
                                    err_msg=k)
+
+
+def assert_updates_close(init, want, got, per_leaf, total):
+    """Each parameter's update (final - init, flax trees of numpy) within
+    ``per_leaf`` of its norm plus 2**-23 of the parameter's norm (its f32
+    resolution), and all updates together within ``total`` of theirs."""
+    p0, pw, pg = dict(leaves(init)), dict(leaves(want)), dict(leaves(got))
+    assert pw.keys() == pg.keys() == p0.keys()
+    num = den = 0.0
+    for k in pw:
+        dw, dg = pw[k] - p0[k], pg[k] - p0[k]
+        e = np.linalg.norm(dg - dw)
+        assert e <= per_leaf * np.linalg.norm(dw) + 2 ** -23 * np.linalg.norm(p0[k]), k
+        num, den = num + e * e, den + np.sum(dw * dw)
+    assert np.sqrt(num) <= total * np.sqrt(den), np.sqrt(num / den)

@@ -59,7 +59,11 @@ machine that has only PyTorch for CUDA:
 * the engine's program set captured as CUDA graphs (paged and dense,
   fused and plain, int8, speculative with the int8 self-draft and with
   n-grams) against the same members run uncaptured, bit for bit, with
-  no capture after ``warmup``.
+  no capture after ``warmup``;
+* ``lm_moe_tiny`` with ``pallas`` attention and REMAT, one bf16 step
+  against its eager ``xla`` twin (``chip_smoke.moe_remat_vs_xla_step``),
+  and a captured REMAT + dropout step replayed against an eager step
+  with stored activations, bit for bit.
 """
 
 import sys
@@ -812,3 +816,57 @@ def test_cuda_depthwise_wgrad_sweep(k, dtype, monkeypatch):
                                     cs.dw_wgrad_depth(plan, b, h, w))
             ratio = ((got.double() - ref).abs() / lim.clamp(min=1e-300)).max().item()
             assert got.shape == (k * k, c) and ratio <= 1.0, (what, ratio)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_pallas_remat_step_agrees_with_xla_step():
+    """``lm_moe_tiny`` (4 experts) with ``pallas`` attention and REMAT,
+    one bf16 step against its eager ``xla`` twin with stored activations,
+    within ``chip_smoke.lm_pallas_vs_xla_step``'s limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the pallas path runs CUDA kernels for sm_90a")
+    import chip_smoke
+
+    out = chip_smoke.moe_remat_vs_xla_step()
+    assert out["within_limits"], out
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_remat_dropout_step_equals_stored_step():
+    """A captured train step of ``lm_moe_tiny`` (``pallas``, dropout 0.1,
+    REMAT) replayed against an eager step without REMAT from the same
+    weights, seed and step: the same masks from the registered
+    generator, the recompute the same kernels; the parameters after one
+    SGD step equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the graph and the flash kernels need the card")
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+    from distributeddeeplearning_tpu_torch.data import SyntheticTokenDataset
+    from distributeddeeplearning_tpu_torch.models import convert, get_model
+    from distributeddeeplearning_tpu_torch.training import (
+        create_optimizer,
+        create_train_state,
+        make_train_step,
+    )
+
+    vocab, seq = 512, 128
+    sd = convert.init_params("tiny", vocab, torch.Generator(device="cuda").manual_seed(1), seq, 4)
+    batch = next(iter(SyntheticTokenDataset(length=4, global_batch_size=4, seq_len=seq,
+                                            vocab_size=vocab, num_physical_batches=1).epoch(0)))
+    finals = {}
+    for remat in (False, True):
+        cfg = TrainConfig(model="lm_moe_tiny", batch_size_per_device=4, num_classes=vocab,
+                          attn_impl="pallas", remat=remat, moe_experts=4)
+        model = get_model(cfg.model, **cfg.model_kwargs(), max_seq_len=seq, device="cuda",
+                          dropout=0.1)
+        tx, _ = create_optimizer(cfg, 10)
+        state = create_train_state(model, cfg, tx, device="cuda", state_dict=sd)
+        step = make_train_step(model, tx, cfg, device="cuda")
+        if remat:
+            step.aot_compile(state, batch)
+            assert step.graphs == 1
+        state, _ = step(state, batch)
+        assert step.eager_calls == 0 or not remat
+        finals[remat] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    for k, v in finals[False].items():
+        assert torch.equal(finals[True][k], v), k

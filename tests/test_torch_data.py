@@ -80,11 +80,13 @@ ENVS = [
      "NONFINITE_ACTION": "warn", "MODEL_DIR": "/ckpt", "AZ_BATCHAI_OUTPUT_MODEL": "/out"},
     {"AOT_WARMUP": "1"},
     {"COMPILATION_CACHE_DIR": "/cache"},
+    {"MODEL": "lm_moe_tiny", "OPTIMIZER": "adamw", "MOE_EXPERTS": "4", "REMAT": "1",
+     "DECOUPLED_WEIGHT_DECAY": "0.1", "WEIGHT_DECAY": "0"},
 ]
 
 
 @pytest.mark.parametrize("env", ENVS, ids=["defaults", "all-slice-vars", "aot-warmup",
-                                           "compilation-cache-dir"])
+                                           "compilation-cache-dir", "model-optimizer-knobs"])
 def test_config_from_env_resolves_like_jax(env):
     mine, ref = TrainConfig.from_env(env), JaxConfig.from_env(env)
     for f in dataclasses.fields(mine):
@@ -92,15 +94,16 @@ def test_config_from_env_resolves_like_jax(env):
     assert mine.steps_per_epoch() == max(mine.fake_data_length // mine.batch_size_per_device, 1)
 
 
-@pytest.mark.parametrize("env", [{"ENGINE": "pjit"}, {"OPTIMIZER": "adamw"},
-                                 {"MOE_EXPERTS": "4"}, {"REMAT": "1"}, {"MESH_SHAPE": "2,4"}])
+@pytest.mark.parametrize("env", [{"ENGINE": "pjit"}, {"PP_STAGES": "2"},
+                                 {"PARAM_SHARDING": "fsdp"}, {"ASYNC_COLLECTIVES": "1"},
+                                 {"MESH_SHAPE": "2,4"}])
 def test_config_settings_of_later_slices_raise(env):
     with pytest.raises(NotImplementedError):
         TrainConfig.from_env(env)
 
 
 def test_config_gated_fields_raise_when_built_directly():
-    for kw in (dict(engine="pp"), dict(optimizer="adamw")):
+    for kw in (dict(engine="pp"), dict(engine="pjit")):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             TrainConfig(**kw)
 

@@ -8,7 +8,9 @@ unloaded, the process tier (``launch``, ``faults``, ``obs.tail``,
 ``obs.traces``) import neither torch nor JAX, the real-data plane
 (``native``, ``data.imagenet``, ``data.prepare``, ``data.stream``,
 ``streamgen``, ``stream_bench``, ``real_data_bench``) imports neither
-JAX nor TensorFlow nor PIL when imported, and the entry points default
+JAX nor TensorFlow nor PIL when imported, the model and optimizer knobs
+(``models.moe``, AdamW, the ``moe_audit`` twin) import no JAX, and the
+entry points default
 to the CUDA device instead of falling back to the CPU."""
 
 import ast
@@ -108,6 +110,24 @@ def test_data_plane_imports_neither_jax_nor_tensorflow_nor_pil(module):
         f"importlib.import_module('distributeddeeplearning_tpu_torch.{module}')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'distributeddeeplearning_tpu', 'tensorflow', 'PIL')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("module", ["models.moe", "models.transformer_lm", "models.vit",
+                                    "models.resnet", "training.optimizer", "moe_audit"])
+def test_model_and_optimizer_knobs_import_no_jax(module):
+    """The MoE blocks, REMAT and dropout, the ResNet knobs, AdamW and the
+    MoE audit import no JAX and nothing of the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('distributeddeeplearning_tpu_torch.{module}')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'distributeddeeplearning_tpu')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -17,7 +17,9 @@ same numpy inputs and converted weights.
 * ``get_model`` and ``TrainConfig`` plumbing: ``ATTN_IMPL`` ``fused``
   and ``auto`` parse as in JAX and reach ViT and the LM,
   ``FUSED_DENSE_GRAD=1`` turns every Dense of ``lm_tiny`` and of ViT
-  into a ``FusedGradDense``, and ``dropout``/``remat`` raise.
+  into a ``FusedGradDense``, and ``dropout``/``remat`` no longer raise:
+  they build a stochastic, checkpointing model (``test_torch_dropout.py``
+  and ``test_torch_remat.py`` hold them to JAX).
 """
 
 import flax.linen as fnn
@@ -177,7 +179,7 @@ def test_fused_dense_grad_env_builds_fused_dense_layers(name, monkeypatch):
 
 
 def test_dropout_and_remat_raise():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        ViT("ti", dropout=0.1, device="meta")
-    with pytest.raises(NotImplementedError, match="remat"):
-        ViT("ti", remat=True, device="meta")
+    model = ViT("ti", dropout=0.1, device="meta")
+    assert model.stochastic and all(b.dropout == 0.1 for b in model.blocks)
+    assert not ViT("ti", device="meta").stochastic
+    assert ViT("ti", remat=True, device="meta").remat
