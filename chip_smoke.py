@@ -218,6 +218,7 @@ is not importable (the script on its own, outside the repository).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import json
@@ -5180,6 +5181,608 @@ def knobs_phase(fl, fp, fb, pd, card, device="cuda", small=None):
     return launches
 
 
+# The fleet phase: full-width lm_base in bf16 (the engine route in f32),
+# paged, fused, captured, 8 slots a replica, 512-token contexts (one
+# prefill bucket of 512: two members, four graphs a replica).
+FLEET_MAX_LEN = 512
+FLEET_SHAPES = ((448, 32), (320, 48), (480, 32), (384, 64))
+FLEET_REQUESTS = 48
+# The one-against-two fleet serves a longer backlog, six requests a slot
+# as the fleet bench's protocol has (48 on 2 x 4 slots): its fairness
+# window must span several turns of every slot, and at 48 requests on
+# 16 slots it spanned about one. Its first FLEET_REQUESTS requests are
+# the other parts' backlog.
+FLEET_FAIR_REQUESTS = 96
+FLEET_TENANTS = "gold:3,silver:2,bronze:1"
+FLEET_FAIRNESS_TOL = 0.15  # the fleet bench's SERVE_FLEET_FAIRNESS_TOL
+# The storm's peak memory may exceed the undisturbed run's by this share
+# (rebuilt engines release the old stores, graphs and pool first), and
+# what stays allocated after it the allocation before it by 32 MiB.
+FLEET_STORM_MEM_SLACK = 0.05
+FLEET_BENCHES = ("fleet_bench", "disagg_bench", "chaos_bench")
+# The storm: ``storm_plan(2, seed=217, spread=160)`` puts slow (tick 26),
+# corrupt (58), hang (142) and crash (151) on replica 0 and the flap
+# (101) on replica 1, slow first: a slow window that opens while its
+# replica rebuilds expires unseen. Replica 0 may fault three times (the
+# corrupt replay's heal, the hang, the crash), so the storm allows three
+# restarts a replica, and the flap crashes four times, one more than
+# that: its breaker opens and replica 0 carries the rest.
+FLEET_STORM = dict(seed=217, spread=160)
+FLEET_STORM_RESTARTS, FLEET_STORM_FLAPS = 3, 4
+
+
+class _FleetLaunches:
+    """Decode-kernel launches replayed by every fleet engine while
+    active: each engine's captured launches times its replays, read
+    when its router closes or the engine is released (a rebuilt
+    replica's old engine), by patching ``Router.close`` and
+    ``SlotEngine.close`` for the block; and each closed router's
+    ``handoff_ms`` (the ``serve.handoff_ms`` values)."""
+
+    def __init__(self):
+        self.total = 0
+        self.handoff_ms = []
+        self._seen = set()
+
+    def _take(self, engine):
+        if engine is not None and id(engine) not in self._seen and engine.programs:
+            self._seen.add(id(engine))
+            self.total += engine.replayed_launches()
+
+    def __enter__(self):
+        from distributeddeeplearning_tpu_torch.serving import Router, SlotEngine
+
+        self._patched = (Router.close, SlotEngine.close)
+        router_close, engine_close = self._patched
+        counter = self
+
+        def close_router(router):
+            for r in router.replicas:
+                counter._take(r.engine)
+            router_close(router)
+            counter.handoff_ms += list(router.handoff_ms)
+
+        def close_engine(engine):
+            counter._take(engine)
+            engine_close(engine)
+
+        Router.close, SlotEngine.close = close_router, close_engine
+        return self
+
+    def __exit__(self, *exc):
+        from distributeddeeplearning_tpu_torch.serving import Router, SlotEngine
+
+        Router.close, SlotEngine.close = self._patched
+        return False
+
+
+def _settled_allocated():
+    """Bytes allocated once the device is idle, garbage collected and the
+    caching allocator has processed the frees it deferred while other
+    threads' streams or captures were in flight (``empty_cache``)."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _fleet_requests(n, vocab, shapes):
+    """The seeded multi-tenant backlog (``loadgen.build_tenant_requests``,
+    closed, greedy), its first prompt cut below one KV block: the benches'
+    warm pass re-sends ``reqs[0]``, and a prefix-cache hit on it would
+    prefill a suffix at other shapes than a fresh prefill."""
+    from distributeddeeplearning_tpu_torch.serving.fleet.router import parse_tenant_weights
+    from distributeddeeplearning_tpu_torch.serving.loadgen import build_tenant_requests
+
+    tenants = sorted(parse_tenant_weights(FLEET_TENANTS))
+    reqs = build_tenant_requests(tenants, n, 0.0, 0, vocab, list(shapes))
+    reqs[0]["prompt"] = reqs[0]["prompt"][:8]
+    return reqs, tenants
+
+
+def _fleet_configs(num_slots=8):
+    from distributeddeeplearning_tpu_torch.serving import FleetConfig, ServeConfig
+    from distributeddeeplearning_tpu_torch.serving.fleet.router import parse_tenant_weights
+
+    scfg = ServeConfig(num_slots=num_slots, buckets=(FLEET_MAX_LEN,), kv_layout="paged",
+                       block_size=16, decode_kernel="fused")
+    fcfg = FleetConfig(replicas=2, tenant_weights=parse_tenant_weights(FLEET_TENANTS))
+    return scfg, fcfg
+
+
+def _wait_ready(router, timeout=600):
+    t0 = time.perf_counter()
+    while not all(r.state == "ready" for r in router.replicas):
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError("fleet warm-up timed out")
+        if any(r.state == "faulted" for r in router.replicas):
+            bad = [r for r in router.replicas if r.state == "faulted"]
+            raise AssertionError(f"replica {bad[0].rid} faulted while warming: {bad[0].fault!r}")
+        time.sleep(0.01)
+
+
+def _fleet_engine_route(card, variant, device, vocab, max_new):
+    """``generate(engine=server)`` at B = 1 against ``generate`` on the
+    same f32 weights (the engine paged through the kernel, ``generate``
+    on its dense plain path), and ``on_token`` against the result."""
+    from distributeddeeplearning_tpu_torch import inference
+    from distributeddeeplearning_tpu_torch.models import convert, get_model
+    from distributeddeeplearning_tpu_torch.serving import ServeConfig, Server
+
+    params = convert.init_params(variant, vocab, torch.Generator(device=device).manual_seed(3),
+                                 FLEET_MAX_LEN)
+    model = get_model(f"lm_{variant}", num_classes=vocab, max_seq_len=FLEET_MAX_LEN,
+                      dtype=torch.float32, device=device)
+    ref = copy.deepcopy(model)
+    ref.load_state_dict(params)
+    ref.eval()
+    scfg, _ = _fleet_configs()
+    server = Server.build(model, params, scfg, device=device, max_len=FLEET_MAX_LEN)
+    prompt = np.random.RandomState(5).randint(0, vocab, size=(1, 448)).astype(np.int32)
+    streamed = []
+    t0 = time.perf_counter()
+    got = inference.generate(None, prompt, max_new_tokens=max_new, engine=server,
+                             on_token=lambda row, tok: streamed.append((row, tok)))
+    wall = time.perf_counter() - t0
+    want = inference.generate(ref, prompt, max_new_tokens=max_new).cpu()
+    line = {"equal_to_generate": bool(torch.equal(got, want)),
+            "on_token_exact": [t for _, t in streamed] == got[0, 448:].tolist()
+            and all(r == 0 for r, _ in streamed),
+            "tokens": len(streamed), "wall_s": wall, "dtype": "float32",
+            "compile_count": server.engine.compile_count,
+            "programs_expected": server.engine.programs_expected, "card": card}
+    print("fleetroute " + json.dumps(line), flush=True)
+    if not (line["equal_to_generate"] and line["on_token_exact"]):
+        first = next((j for j in range(max_new) if got[0, 448 + j] != want[0, 448 + j]), None)
+        raise AssertionError(f"fleetroute: engine route differs from generate at new token "
+                             f"{first} (on_token exact: {line['on_token_exact']})")
+    server.engine.close()
+
+
+def _fleet_import_inplace(model, params, scfg, reqs, card, device, ticks=16):
+    """Slot transfer into a captured engine: a stream exported after a
+    few ticks is imported by two engines, one replaying its captured
+    members and one running the same members uncaptured. The import
+    writes the existing stores in place (their addresses do not move),
+    and both continue bit for bit as the exporting engine does."""
+    from distributeddeeplearning_tpu_torch.serving import ReqSpec, SlotEngine
+
+    def engine():
+        e = SlotEngine(copy.deepcopy(model), params, max_len=FLEET_MAX_LEN, device=device,
+                       **scfg.engine_kwargs())
+        e.warmup()
+        return e
+
+    def decode(e, slot, n):
+        return [t for _ in range(n) for s, t, _ in e.decode_step() if s == slot]
+
+    r = reqs[1]
+    src = engine()
+    src.prefill(0, ReqSpec(prompt=r["prompt"], max_new_tokens=r["max_new"]))
+    decode(src, 0, 3)
+    t0 = time.perf_counter()
+    state = src.export_slot(0)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    runs, moved, import_ms = [], [], []
+    for captured in (True, False):
+        dst = engine()
+        if not captured:
+            install_uncaptured(dst)
+        ptrs = [t.data_ptr() for t in dst._named_stores().values()]
+        t0 = time.perf_counter()
+        dst.import_slot(0, state)
+        import_ms.append((time.perf_counter() - t0) * 1e3)
+        moved.append([t.data_ptr() for t in dst._named_stores().values()] != ptrs)
+        runs.append(decode(dst, 0, ticks))
+        dst.close()
+    want = decode(src, 0, ticks)
+    payload_mb = sum(t.numel() * t.element_size() for t in state["payload"].values()) / 2**20
+    line = {"blocks": len(state["payload"]["block0.k"]), "payload_mib": payload_mb,
+            "export_ms": export_ms, "import_ms": import_ms, "stores_moved": moved,
+            "replayed_equal_uncaptured": runs[0] == runs[1],
+            "equal_to_source": runs[0] == want, "ticks": ticks, "card": card}
+    src.close()
+    print("fleetimport " + json.dumps(line), flush=True)
+    if any(moved) or not (line["replayed_equal_uncaptured"] and line["equal_to_source"]):
+        raise AssertionError(f"fleetimport: {line}")
+
+
+def _fleet_disturbed(model, params, reqs, scfg, fcfg, want, action, device):
+    """Two threaded replicas serve ``reqs``; once a quarter of the
+    tokens are out and replica 0 holds running streams, ``action``
+    (``drain`` or ``fault``) hits replica 0. Every stream must complete
+    equal to ``want``, spliced bitwise; a faulted replica then rejoins
+    (a rebuilt engine) and serves again."""
+    from distributeddeeplearning_tpu_torch.serving import Replica, Request, Router
+
+    router = Router(config=dataclasses.replace(fcfg, replicas=2))
+    for k in range(2):
+        router.add_replica(Replica(k, model, params, scfg, max_len=FLEET_MAX_LEN,
+                                   device=device), start=True, threaded=True)
+    _wait_ready(router)
+    handles = [router.submit(Request(prompt=r["prompt"], max_new_tokens=r["max_new"]),
+                             tenant=r["tenant"]) for r in reqs]
+    total = sum(r["max_new"] for r in reqs)
+    fired_at, moved = None, 0
+    t0 = time.perf_counter()
+    while router.step():
+        out = sum(len(fh.new_tokens) for fh in handles)
+        r0 = router._replica(0)
+        if fired_at is None and out >= total // 4 and r0.server.active_count:
+            fired_at = out
+            if action == "drain":
+                moved = router.drain_replica(0)
+            else:
+                moved = router.fail_replica(0, RuntimeError("smoke-injected fault"))
+        if time.perf_counter() - t0 > 300:
+            raise TimeoutError(f"fleet {action}: drain timed out")
+        time.sleep(0.0005)
+    wall = time.perf_counter() - t0
+    streams = [list(fh.new_tokens) for fh in handles]
+    line = {"action": action, "fired_at_tokens": fired_at, "rerouted": moved,
+            "completed": sum(fh.finish_reason in ("eos", "length") for fh in handles),
+            "requests": len(handles), "equal_to_baseline": streams == want,
+            "splices_consistent": all(fh.restart_consistent for fh in handles),
+            "requeued": router.stats["requeued"], "wall_s": wall,
+            "replica0": router._replica(0).state}
+    if action == "fault":
+        router.rejoin_replica(0)
+        _wait_ready(router)
+        h = router.submit(Request(prompt=reqs[1]["prompt"], max_new_tokens=reqs[1]["max_new"]))
+        router.drain(timeout=300)
+        line["rejoined_equal"] = list(h.new_tokens) == want[1]
+    line["closed"] = all(r.engine.compile_count == r.engine.programs_expected
+                         for r in router.replicas)
+    router.close()
+    if not (fired_at is not None and line["completed"] == len(handles)
+            and line["equal_to_baseline"] and line["splices_consistent"] and line["closed"]
+            and line.get("rejoined_equal", True)):
+        raise AssertionError(f"fleet {action} mid-load: {line}")
+    return line
+
+
+def _fleet_spec_brownout(model, params, reqs, scfg, want, device, k=4):
+    """A ``SERVE_SPEC_K=4`` int8-draft replica under the ladder
+    ``spec_off,max_new:8`` (an injected burn signal): the ladder steps
+    down (speculation suspended, new requests capped at 8 tokens), the
+    requests served there equal the plain replica's greedy streams cut
+    at 8, and it steps back up with speculation resumed."""
+    from distributeddeeplearning_tpu_torch.serving import (
+        BrownoutLadder,
+        Replica,
+        Request,
+        Router,
+        parse_brownout_stages,
+    )
+
+    spec_cfg = dataclasses.replace(scfg, spec_k=k, spec_draft="int8")
+    rep = Replica(0, model, params, spec_cfg, max_len=FLEET_MAX_LEN, device=device)
+    router = Router(config=dataclasses.replace(_fleet_configs()[1], replicas=1))
+    router.add_replica(rep, start=True, threaded=False)
+    burning = {"on": True}
+    ladder = BrownoutLadder(
+        parse_brownout_stages("spec_off,max_new:8"),
+        reader=lambda: {"slo": [{"objective": "smoke", "stat": "p99",
+                                 "metric": "serve.ttft", "burning": burning["on"]}]},
+        refresh_s=0.0, escalate_ticks=2, recover_ticks=4)
+    router.brownout = ladder
+    for _ in range(64):
+        router.step()
+        if ladder.level == 2:
+            break
+    suspended = rep.engine.spec_suspended
+    picked = [i for i, r in enumerate(reqs)
+              if len(r["prompt"]) + r["max_new"] + k <= FLEET_MAX_LEN][:8]
+    handles = [router.submit(Request(prompt=reqs[i]["prompt"], max_new_tokens=reqs[i]["max_new"]))
+               for i in picked]
+    router.drain(timeout=300)
+    capped = [list(h.new_tokens) for h in handles]
+    parity = capped == [want[i][:8] for i in picked]
+    verify_ticks = rep.engine.spec_stats["verify_ticks"]
+    burning["on"] = False
+    for _ in range(64):
+        router.step()
+        if ladder.level == 0:
+            break
+    h = router.submit(Request(prompt=reqs[picked[0]]["prompt"], max_new_tokens=16))
+    router.drain(timeout=300)
+    line = {"stages": "spec_off,max_new:8", "spec_k": k, "draft": "int8",
+            "suspended_at_level_2": suspended, "requests": len(picked),
+            "greedy_parity_under_spec_off": parity,
+            "verify_ticks_while_suspended": verify_ticks,
+            "transitions": [(t["direction"], t["stage"]) for t in ladder.transitions],
+            "resumed": not rep.engine.spec_suspended,
+            "verify_ticks_after": rep.engine.spec_stats["verify_ticks"],
+            "closed": rep.engine.compile_count == rep.engine.programs_expected,
+            "after_resume_ok": h.finish_reason == "length"}
+    router.close()
+    want_moves = [("down", "spec_off"), ("down", "max_new"), ("up", "max_new"), ("up", "spec_off")]
+    if not (suspended and parity and verify_ticks == 0 and line["transitions"] == want_moves
+            and line["resumed"] and line["verify_ticks_after"] > 0 and line["closed"]
+            and line["after_resume_ok"]):
+        raise AssertionError(f"fleet spec brownout: {line}")
+    return line
+
+
+def _fleet_profile_launches(model, params, scfg, reqs, card, device, ticks=4):
+    """Decode-kernel launches by the profiler's kernel names on one
+    inline replica: a prefill, then ``ticks`` decode ticks with all 8
+    slots busy. Want 12 a prefill and 12 a tick."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributeddeeplearning_tpu_torch.serving import Replica, Request
+
+    rep = Replica(0, model, params, scfg, max_len=FLEET_MAX_LEN, device=device).start(
+        threaded=False)
+    server, engine = rep.server, rep.engine
+    depth = len(engine.model.blocks)
+    picked = [r for r in reqs if r["max_new"] >= 3 * ticks][: engine.num_slots]
+    for r in picked[1:]:
+        server.submit(Request(prompt=r["prompt"], max_new_tokens=r["max_new"]))
+    while len(server._by_slot) < len(picked) - 1:
+        server.step()
+    server.submit(Request(prompt=picked[0]["prompt"], max_new_tokens=picked[0]["max_new"]))
+
+    def counted(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages() if "decode_attention" in e.key)
+
+    prefills0 = engine.prefill_execs
+    n_prefill = counted(lambda: server._admit(time.monotonic()))
+    steps0 = engine.decode_steps
+    n_ticks = counted(lambda: [engine.decode_step() for _ in range(ticks)])
+    got_ticks = engine.decode_steps - steps0
+    line = {"prefill_launches": n_prefill, "prefills": engine.prefill_execs - prefills0,
+            "tick_launches": n_ticks / max(got_ticks, 1), "ticks": got_ticks,
+            "want_per_call": depth, "card": card}
+    rep.stop()
+    rep.release()
+    if not (line["prefills"] == 1 and _replayed_ok(n_prefill, depth, 1)
+            and _replayed_ok(line["tick_launches"], depth, got_ticks)):
+        raise AssertionError(f"fleet launches by profiler names: {line}")
+    return line
+
+
+def _fleet_bench_twins(names, card, timeout=600):
+    """``python -m distributeddeeplearning_tpu_torch.<name>`` for each of
+    ``names`` at its protocol (its defaults, on the card), all at once
+    (the chaos twin idles most of its wall waiting for its storm to
+    settle): each record and exit code. A twin that prints no record or
+    an error record fails the phase; its gates decide only its exit
+    code, which is reported."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"distributeddeeplearning_tpu_torch.{name}"],
+        env=dict(os.environ), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__))) for name in names}
+    out = []
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=timeout)
+        records = [ln for ln in stdout.splitlines() if ln.startswith('{"metric"')]
+        if not records or "error" in json.loads(records[-1]):
+            raise AssertionError(f"{name} printed no record or an error (rc {proc.returncode}):"
+                                 f"\n{stdout[-2000:]}\n{stderr[-3000:]}")
+        out.append({"bench": name, "rc": proc.returncode,
+                    "seconds": time.perf_counter() - t0,
+                    "gates_failed": [ln for ln in stderr.splitlines() if "GATES FAILED" in ln],
+                    "record": json.loads(records[-1]), "card": card})
+    return out
+
+
+def _spec_harness(card, timeout=600):
+    """The serve harness's speculative compare (``SERVE_SPEC_K=4``, the
+    int8 self-draft, ``lm_base`` f32, fused) in a subprocess: its record
+    and exit code. Parity and closed program sets on both engines are
+    enforced. The 1.4× gate decides the exit code, which is reported as
+    ``gate_met`` and not enforced: on the H100 the self-draft misses it
+    (ROADMAP.md §C, an open fault), and this script's exit code is the
+    port's proof that it runs on the card."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributeddeeplearning_tpu_torch.serve_bench"],
+        env=dict(os.environ, SERVE_SPEC_K="4", SERVE_SPEC_DRAFT="int8", BENCH_MODEL="lm_base",
+                 SERVE_DECODE_KERNEL="fused"),
+        capture_output=True, text=True, timeout=timeout,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    records = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"metric"')]
+    record = json.loads(records[-1]) if records else {"error": "no record"}
+    runs = [record.get("detail", {}).get(k, {}) for k in ("greedy", "spec")]
+    if "error" in record or not record["detail"]["parity"] or any(
+            r.get("compiles_during_measure") != 0
+            or r.get("compile_count") != r.get("programs_expected") for r in runs):
+        raise AssertionError(f"serve_bench spec compare: {records[-1:]}\n{proc.stderr[-3000:]}")
+    return {"rc": proc.returncode, "seconds": time.perf_counter() - t0, "record": record,
+            "card": card}
+
+
+def fleet_phase(pd, card, variant="base", device="cuda", small=None):
+    """``fleet``: the serving fleet on the card. Prints one line a part:
+    ``fleetroute`` (the engine route), ``fleet`` (one replica against two
+    on the seeded three-tenant backlog: bitwise streams, tenant shares
+    at the end of contention, closed program sets), ``fleetdrain`` and
+    ``fleetfault`` (replica 0 drained, then faulted, mid-load; every
+    stream spliced bitwise; the faulted one rejoins), ``fleetdisagg``
+    (one prefill and two decode replicas: handoff streams equal to the
+    mixed replica's, a directory adoption with zero prefills, a live
+    migration, ``serve.handoff_ms``), ``fleetstorm`` (a seeded
+    crash/hang/slow/corrupt/flap storm over two replicas, streams equal
+    to the undisturbed run, peak memory before and after),
+    ``fleetbrownout`` (a spec int8-draft replica under
+    ``spec_off,max_new:8``), ``fleetlaunches`` (decode kernels by
+    profiler names), ``fleetbench`` (the three bench twins' records and
+    exit codes) and ``fleetspec`` (the serve harness's spec int8
+    compare). ``small`` (sizes) rehearses it on the CPU. Returns the
+    decode-kernel launches the fleets' captured engines replayed."""
+    from distributeddeeplearning_tpu_torch import chaos_bench, disagg_bench, fleet_bench
+    from distributeddeeplearning_tpu_torch.models import convert, get_model
+    from distributeddeeplearning_tpu_torch.serving import SlotEngine
+    from distributeddeeplearning_tpu_torch.serving.chaos import storm_plan
+
+    s = small or {}
+    on_card = torch.device(device).type == "cuda"
+    vocab = s.get("vocab", VOCAB)
+    fair_reqs, tenants = _fleet_requests(s.get("fair_requests", FLEET_FAIR_REQUESTS), vocab,
+                                         s.get("shapes", FLEET_SHAPES))
+    reqs = fair_reqs[:s.get("requests", FLEET_REQUESTS)]
+    _fleet_engine_route(card, variant, device, vocab, s.get("route_new", 64))
+    gc.collect()
+    params = convert.init_params(variant, vocab, torch.Generator(device=device).manual_seed(0),
+                                 FLEET_MAX_LEN)
+    model = get_model(f"lm_{variant}", num_classes=vocab, max_seq_len=FLEET_MAX_LEN,
+                      device=device)
+    scfg, fcfg = _fleet_configs(s.get("slots", 8))
+    _fleet_import_inplace(model, params, scfg, reqs, card, device)
+    gc.collect()
+    with _FleetLaunches() as fleet_launches:
+        single, want, single_status = fleet_bench.run_fleet(
+            model, params, fair_reqs, scfg, fcfg, 1, FLEET_MAX_LEN, tenants)
+        gc.collect()
+        two, streams, status = fleet_bench.run_fleet(
+            model, params, fair_reqs, scfg, fcfg, 2, FLEET_MAX_LEN, tenants)
+        gc.collect()
+        weights = fcfg.tenant_weights
+        window = two["fairness_at_contention"]
+        shares = {t: {"weight_share": w / sum(weights.values()),
+                      "token_share": window[t]["share"], "window_tokens": window[t]["tokens"]}
+                  for t, w in weights.items()}
+        for row in shares.values():
+            row["rel_err"] = abs(row["token_share"] - row["weight_share"]) / row["weight_share"]
+        ledgers = single["per_replica"] + two["per_replica"]
+        line = {"requests": len(fair_reqs), "single": {k: single[k] for k in (
+                    "tokens_per_sec", "wall_s", "ttft_p50_ms", "ttft_p99_ms", "per_replica")},
+                "fleet": {k: two[k] for k in ("tokens_per_sec", "wall_s", "ttft_p50_ms",
+                                              "ttft_p99_ms", "per_replica", "requeued")},
+                "scaling": two["tokens_per_sec"] / single["tokens_per_sec"],
+                "streams_equal": streams == want and status == single_status,
+                "contended": bool(window.get("_contended")),
+                "shares": shares, "card": card}
+        print("fleet " + json.dumps(line), flush=True)
+        if not (line["streams_equal"] and all(st in ("eos", "length") for st in status)
+                and line["contended"]
+                and all(r["rel_err"] <= FLEET_FAIRNESS_TOL for r in shares.values())
+                and all(r["compile_count"] == r["programs_expected"]
+                        and r["compiles_during_measure"] == 0 for r in ledgers)):
+            raise AssertionError("fleet: one replica against two failed a check (line above)")
+        want = want[:len(reqs)]
+
+        for action in ("drain", "fault"):
+            line = _fleet_disturbed(model, params, reqs, scfg, fcfg, want, action, device)
+            print(f"fleet{action} " + json.dumps(dict(line, card=card)), flush=True)
+            gc.collect()
+
+        # Disaggregated: one prefill and two decode replicas (migration
+        # needs a second decode replica), with the directory and a
+        # scheduled migration; the probe re-sends a published prompt.
+        fcfg_d = dataclasses.replace(fcfg, replicas=3, disagg=True, prefill_pool=1,
+                                     decode_pool=2)
+        donor = max(range(1, len(reqs)), key=lambda i: len(reqs[i]["prompt"]))
+        probe = {"prompt": reqs[donor]["prompt"], "max_new": reqs[donor]["max_new"],
+                 "tenant": tenants[-1]}
+        n0 = len(fleet_launches.handoff_ms)
+        run, d_streams, d_out, probe_out = disagg_bench.run_fleet(
+            model, params, reqs, scfg, fcfg_d, FLEET_MAX_LEN, migrate_tick=6, probe=probe)
+        ms = sorted(fleet_launches.handoff_ms[n0:])
+        handoff = {"n": len(ms), "p50": float(np.percentile(ms, 50)) if ms else None,
+                   "p99": float(np.percentile(ms, 99)) if ms else None,
+                   "max": ms[-1] if ms else None}
+        line = {"pools": run["pools"], "handoffs": run["stats"]["handoffs"],
+                "migrations": run["stats"]["migrations"],
+                "migrated_streams": run["migrated_streams"],
+                "streams_equal_mixed": d_streams == want,
+                "completed": all(o in ("eos", "length") for o in d_out),
+                "probe_prefill_execs": probe_out["prefill_execs_delta"],
+                "probe_directory_hits": probe_out["directory_hits_delta"],
+                "probe_equal": probe_out["tokens"] == want[donor],
+                "handoff_ms": handoff, "ttft_p99_ms": run["ttft_p99_ms"],
+                "itl_p99_ms": run["itl_p99_ms"], "tokens_per_sec": run["tokens_per_sec"],
+                "per_replica": run["per_replica"], "card": card}
+        print("fleetdisagg " + json.dumps(line), flush=True)
+        if not (line["streams_equal_mixed"] and line["completed"] and line["handoffs"] >= 1
+                and line["migrations"] >= 1 and line["probe_prefill_execs"] == 0
+                and line["probe_directory_hits"] >= 1 and line["probe_equal"]
+                and all(r["compile_count"] == r["programs_expected"]
+                        for r in run["per_replica"])):
+            raise AssertionError("fleetdisagg failed a check (line above)")
+        gc.collect()
+
+        # The storm, against the undisturbed run of the same geometry,
+        # under the chaos bench's drill-tempo knobs.
+        fcfg_c = dataclasses.replace(fcfg, max_restarts=FLEET_STORM_RESTARTS,
+                                     restart_backoff_s=0.05,
+                                     straggler_factor=4.0, straggler_ticks=5,
+                                     quarantine_ticks=60, heartbeat_timeout_s=0.75)
+        plan = storm_plan(2, **FLEET_STORM).replace("count=3", f"count={FLEET_STORM_FLAPS}")
+        mem = {}
+        if on_card:
+            mem["allocated_before_undisturbed"] = _settled_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        base = chaos_bench.run_storm(model, params, reqs, scfg, fcfg_c, FLEET_MAX_LEN, tenants,
+                                     chaos_plan="", brownout_stages="", burn_window=(20, 40))
+        if on_card:
+            mem["peak_undisturbed"] = torch.cuda.max_memory_allocated()
+            mem["allocated_before_storm"] = _settled_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        storm, s_streams, s_out, splice_ok, mismatches, _ = chaos_bench.run_storm(
+            model, params, reqs, scfg, fcfg_c, FLEET_MAX_LEN, tenants, chaos_plan=plan,
+            brownout_stages="", burn_window=(20, 40))
+        if on_card:
+            mem["peak_storm"] = torch.cuda.max_memory_allocated()
+            mem["allocated_after_storm"] = _settled_allocated()
+        fired = sorted({f["kind"] for f in storm["chaos_fired"]})
+        line = {"plan": plan, "fired": fired, "restarts": storm["stats"]["rejoins"],
+                "breaker_open": storm["stats"]["breaker_open"],
+                "splice_mismatch": storm["stats"]["splice_mismatch"],
+                "streams_equal_undisturbed": s_streams == base[1] == want,
+                "completed": all(o in ("eos", "length") for o in s_out),
+                "splices_consistent": splice_ok, "memory": mem,
+                "live_engines": sum(isinstance(o, SlotEngine) for o in gc.get_objects()),
+                "per_replica": storm["per_replica"], "wall_s": storm["wall_s"], "card": card}
+        print("fleetstorm " + json.dumps(line), flush=True)
+        corrupt_ok = "corrupt" not in fired or (mismatches >= 1 and splice_ok)
+        # The storm's peak above its start against the undisturbed run's.
+        mem_ok = not on_card or (
+            mem["peak_storm"] - mem["allocated_before_storm"]
+            <= (1 + FLEET_STORM_MEM_SLACK) * (mem["peak_undisturbed"]
+                                              - mem["allocated_before_undisturbed"])
+            and mem["allocated_after_storm"] <= mem["allocated_before_storm"] + 2 ** 25)
+        # A flap's crashes are recorded as crashes; its mark is the breaker.
+        if not (line["streams_equal_undisturbed"] and line["completed"] and corrupt_ok
+                and set(fired) >= {"crash", "hang", "slow", "corrupt"}
+                and line["breaker_open"] >= 1 and mem_ok):
+            raise AssertionError("fleetstorm failed a check (line above)")
+        gc.collect()
+
+        line = _fleet_spec_brownout(model, params, reqs, scfg, want, device)
+        print("fleetbrownout " + json.dumps(dict(line, card=card)), flush=True)
+        gc.collect()
+    launches = fleet_launches.total
+    if on_card:
+        line = _fleet_profile_launches(model, params, scfg, reqs, card, device)
+        print("fleetlaunches " + json.dumps(dict(line, replayed_total=launches)), flush=True)
+        torch.cuda.empty_cache()
+        for line in _fleet_bench_twins(s.get("benches", FLEET_BENCHES), card):
+            print("fleetbench " + json.dumps(line), flush=True)
+        spec = _spec_harness(card)
+        d = spec["record"]["detail"]
+        ticks = max(d["spec"]["decode_steps"], 1)
+        print("fleetspec " + json.dumps({
+            "rc": spec["rc"], "gate_met": spec["rc"] == 0,
+            "speedup": d["speedup"], "min_speedup": d["min_speedup"],
+            "parity": d["parity"], "accept_rate_mean": d["accept_rate_mean"],
+            "draft_ms_per_tick": d["draft_ms_total"] / ticks,
+            "verify_ms_per_tick": d["verify_ms_total"] / ticks,
+            "greedy_tokens_per_sec": d["greedy"]["tokens_per_sec"],
+            "spec_tokens_per_sec": d["spec"]["tokens_per_sec"],
+            "seconds": spec["seconds"], "card": card}), flush=True)
+        if spec["rc"] != 0:
+            print(f"fleetspec: the spec gate is not met ({d['speedup']} < "
+                  f"{d['min_speedup']}x), an open fault (ROADMAP.md §C)",
+                  file=sys.stderr, flush=True)
+    return launches
+
+
 def _fb_entry(name, cases, timed_case, launches):
     main_case = next(c for c in cases if c["case"] == timed_case)
     return {
@@ -5213,7 +5816,7 @@ class _PhaseClock:
 
 PHASES = ("kernels", "serve", "servequant", "servespec", "servegraph", "train", "lmtrain",
           "vittrain", "effnettrain", "fit", "warmup", "frontends", "launch", "trace", "bench",
-          "realdata", "knobs")
+          "realdata", "knobs", "fleet")
 
 
 # A kernels-line entry -> (replayed family, what its kernel names hold,
@@ -5519,6 +6122,15 @@ def main(argv=None) -> int:
         for e in entries:  # the same kernels' launches a step on the knobs' paths
             if e["name"] in knobs:
                 e["knobs_launches"] = knobs[e["name"]]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    clock.start("fleet")
+    if "fleet" in phases:
+        n = fleet_phase(pd, card)
+        for e in entries:  # the decode kernel's launches replayed by the fleets
+            if e["name"] == "paged_decode_attention":
+                e["fleet_launches"] = n
         gc.collect()
         torch.cuda.empty_cache()
 

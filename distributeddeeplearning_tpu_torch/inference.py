@@ -84,11 +84,22 @@ def generate(
     eos_token: Optional[int] = None,
     pad_token: Optional[int] = None,
     rng: Any = None,
+    engine=None,
+    on_token=None,
 ) -> torch.Tensor:
     """Sample ``max_new_tokens`` continuations of ``prompt`` ([B, Tp]
     integers) on the model's device. Returns ``[B, Tp + max_new_tokens]``
     int64 (prompt included). Once a row emits ``eos_token`` its
-    remaining positions hold ``pad_token`` (default: the eos token)."""
+    remaining positions hold ``pad_token`` (default: the eos token).
+
+    ``engine``: a ``serving.SlotEngine``, ``serving.Server`` or fleet
+    ``serving.Router``: the rows are then served as continuous-batching
+    requests on its slot pool(s) (``serving.generate_with_engine``),
+    bitwise equal to this function at B = 1 (rows b > 0 sample under
+    their own folded keys), and the result is a host tensor; ``model``
+    is not used. ``on_token``: a streaming callback ``(row, token)``,
+    engine route only, called as each token is committed; the returned
+    tokens are exactly the streamed ones."""
     from distributeddeeplearning_tpu_torch.serving import keys as keylib
     from distributeddeeplearning_tpu_torch.serving.sampling import sample_slot
 
@@ -98,6 +109,20 @@ def generate(
         raise ValueError(f"top_p must be in (0, 1], got {top_p}")
     if top_k is not None and top_k < 1:
         raise ValueError(f"top_k must be >= 1, got {top_k}")
+    if on_token is not None and engine is None:
+        raise ValueError(
+            "on_token streaming requires the engine route "
+            "(generate(engine=server_or_router))"
+        )
+    if engine is not None:
+        from distributeddeeplearning_tpu_torch.serving.scheduler import generate_with_engine
+
+        out = generate_with_engine(
+            engine, np.asarray(torch.as_tensor(prompt).cpu(), np.int32),
+            max_new_tokens=max_new_tokens, temperature=temperature, top_k=top_k,
+            top_p=top_p, eos_token=eos_token, pad_token=pad_token, rng=rng,
+            on_token=on_token)
+        return torch.from_numpy(out).long()
     device = model.tok_embed.device
     prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.long, device=device)
     b, t_prompt = prompt.shape

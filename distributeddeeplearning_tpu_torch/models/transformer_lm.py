@@ -53,6 +53,7 @@ from distributeddeeplearning_tpu_torch.models.vit import (
     Masks,
     MlpBlock,
     run_block,
+    with_window,
 )
 from distributeddeeplearning_tpu_torch.ops import quant
 from distributeddeeplearning_tpu_torch.utils.device import resolve_device
@@ -207,10 +208,9 @@ class TransformerLM(nn.Module):
         if cache is None:
             pos_t = self.pos_embed[:, :t]
         elif cache.vector_index:
-            rows = cache.index.long()[:, None] + torch.arange(
-                t, device=tokens.device
-            )
-            pos_t = self.pos_embed[0][rows]  # [B, t, hidden]
+            # Where the window goes, made once for every layer.
+            cache = with_window(cache, t)
+            pos_t = self.pos_embed[0][cache.window.q_pos]  # [B, t, hidden]
         else:
             start = min(max(int(cache.index), 0), self.max_seq_len - t)
             pos_t = self.pos_embed[:, start:start + t]

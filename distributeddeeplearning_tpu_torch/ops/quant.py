@@ -31,9 +31,8 @@ supported list.
 
 from __future__ import annotations
 
-import contextlib
 import functools
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -249,7 +248,7 @@ def is_quantized_module(module: torch.nn.Module, name: str) -> bool:
 
 
 def held(module: torch.nn.Module) -> Optional[Dict[str, torch.Tensor]]:
-    """The copies :func:`hold_dequantized` made for ``module``, if any."""
+    """The copies :func:`hold_resident_` made for ``module``, if any."""
     return module.__dict__.get("_held")
 
 
@@ -257,7 +256,7 @@ def weight(module: torch.nn.Module, name: str, dtype: torch.dtype) -> torch.Tens
     """``module.<name>`` in ``dtype``: the parameter cast, or the codes
     dequantized (``(q.float() * scale).to(dtype)``, the value JAX's
     ``dequantize_params`` gives and flax casts at use), or the copy
-    :func:`hold_dequantized` made."""
+    :func:`hold_resident_` made."""
     copies = held(module)
     if copies is not None and name in copies:
         return copies[name]
@@ -267,22 +266,19 @@ def weight(module: torch.nn.Module, name: str, dtype: torch.dtype) -> torch.Tens
     return dequantize_store(q, module._buffers[name + SCALE], dtype)
 
 
-@contextlib.contextmanager
-def hold_dequantized(model: torch.nn.Module, dtype: torch.dtype) -> Iterator[None]:
-    """Dequantize every quantized weight of ``model`` once, and let every
-    forward inside the block use that copy (the speculative draft's K
-    steps of a tick, as JAX hoists ``dequantize_params`` out of its
-    scan). The copies are dropped on exit."""
-    owners = []
+def hold_resident_(model: torch.nn.Module, dtype: torch.dtype) -> int:
+    """Dequantize every quantized weight of ``model`` once and keep the
+    copies for good: every later forward uses them instead of
+    dequantizing on use (the speculative int8 self-draft, whose K
+    forwards a tick would otherwise dequantize every weight K times, as
+    JAX hoists ``dequantize_params`` out of its scan once a tick).
+    Returns the bytes held."""
+    held_bytes = 0
     for mod in model.modules():
         names = [n[:-len(Q)] for n in mod._buffers if n.endswith(Q)]
         if names:
             mod._held = {n: dequantize_store(mod._buffers[n + Q],
                                              mod._buffers[n + SCALE], dtype)
                          for n in names}
-            owners.append(mod)
-    try:
-        yield
-    finally:
-        for mod in owners:
-            mod._held = None
+            held_bytes += sum(t.numel() * t.element_size() for t in mod._held.values())
+    return held_bytes

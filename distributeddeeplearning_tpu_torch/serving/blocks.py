@@ -2,8 +2,8 @@
 
 Copied from ``distributeddeeplearning_tpu/serving/blocks.py`` (pure
 numpy, so the port shares the JAX package's allocation, refcount and
-prefix-cache behaviour block for block). The fleet-tier
-``PrefixDirectory`` waits for the port of ``serving/fleet/``.
+prefix-cache behaviour block for block), with the fleet-wide
+``PrefixDirectory`` the router publishes to and adopts from.
 
 vLLM's PagedAttention observation, TPU-adapted: a dense slot pool wastes
 most of its HBM on long-tail traffic because every slot owns a full
@@ -320,5 +320,201 @@ class BlockAllocator:
             "live": self.live_count,
             "cached": len(self._lru),
             "pinned": len(self._pinned),
+            **self.stats,
+        }
+
+
+def prompt_key(tokens: np.ndarray) -> bytes:
+    """Directory key for a *whole* prompt (full and partial blocks):
+    one hash over every token, position-dependent by construction."""
+    toks = np.ascontiguousarray(np.asarray(tokens, np.int32))
+    return hashlib.sha1(toks.tobytes()).digest()
+
+
+class PrefixDirectory:
+    """Fleet-wide prefix directory: which replica holds which prefilled
+    KV blocks, keyed by the same position-dependent content-hash chains
+    the per-replica prefix cache uses (:func:`hash_prefix_chain`).
+
+    Pure host-side metadata plus host-staged block payloads — the
+    directory never touches a device or an allocator. The Router is the
+    only writer: it publishes after a prefill replica exports a slot
+    (the exporter pinned the blocks first, so every ``(rid, bid)`` the
+    directory maps stays resident on that replica), serves **adoptions**
+    (a second consumer of an identical greedy prompt seats decode state
+    straight from the entry — zero prefill-program executions), serves
+    **chain prefetches** (a different prompt sharing a full-block prefix
+    imports just those blocks into its target replica's local cache),
+    and re-homes or drops entries when a holder replica dies.
+
+    Entries are published only for greedy (``temperature == 0.0``)
+    requests: the entry carries the deterministic first token, which is
+    what makes adoption a pure state transplant. Payloads are staged on
+    host at export time, so no cross-thread device read ever races a
+    replica's pump writing its pool.
+
+    Refcount surface (``tests/test_serving_disagg.py`` ledger oracle):
+    ``holders`` maps ``rid -> [bid, ...]`` per entry — every mapped
+    block is pinned on that replica; ``drop_replica`` re-homes the
+    owner to a surviving holder or drops the entry, and ``clear``
+    returns every pin so allocator ledgers balance at teardown.
+    """
+
+    def __init__(self) -> None:
+        # prompt_key -> entry dict (see publish()).
+        self._entries: Dict[bytes, Dict] = {}
+        # chain hash -> (prompt_key, block index) for full-block
+        # prefix lookups across entries.
+        self._chains: Dict[bytes, Tuple[bytes, int]] = {}
+        self.stats = {
+            "publishes": 0, "lookups": 0, "hits": 0,
+            "chain_hits": 0, "rehomed": 0, "dropped": 0,
+        }
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    # -- publish -----------------------------------------------------------
+
+    def publish(
+        self,
+        rid: int,
+        prompt: np.ndarray,
+        block_ids: Sequence[int],
+        payload: Dict,
+        *,
+        first_token: int,
+        block_size: int,
+    ) -> bool:
+        """Record that replica ``rid`` holds the prefilled blocks of
+        ``prompt`` (``block_ids`` in logical order, covering every
+        written position — the tail entry may be a partial block).
+        ``payload`` is the host-staged block content (leaf-path ->
+        ``[len(block_ids), block_size, ...]`` numpy). First writer
+        wins; a later publish of the same prompt adds ``rid`` as
+        another holder. Returns True when ``rid`` became a holder
+        (caller keeps its pins), False when the publish was a no-op
+        (caller should unpin)."""
+        toks = np.ascontiguousarray(np.asarray(prompt, np.int32))
+        key = prompt_key(toks)
+        ent = self._entries.get(key)
+        if ent is not None:
+            if rid in ent["holders"]:
+                return False
+            ent["holders"][rid] = [int(b) for b in block_ids]
+            self.stats["publishes"] += 1
+            return True
+        ent = {
+            "prompt": toks.copy(),
+            "owner": int(rid),
+            "holders": {int(rid): [int(b) for b in block_ids]},
+            "payload": payload,
+            "first_token": int(first_token),
+            "block_size": int(block_size),
+            "adoptions": 0,
+        }
+        self._entries[key] = ent
+        for k, h in enumerate(hash_prefix_chain(toks, block_size)):
+            if k >= len(block_ids):
+                break
+            self._chains.setdefault(h, (key, k))
+        self.stats["publishes"] += 1
+        return True
+
+    # -- lookup ------------------------------------------------------------
+
+    def lookup(self, prompt: np.ndarray) -> Optional[Dict]:
+        """Exact whole-prompt entry (adoption candidate) or None."""
+        self.stats["lookups"] += 1
+        ent = self._entries.get(prompt_key(prompt))
+        if ent is not None:
+            self.stats["hits"] += 1
+        return ent
+
+    def adopt(self, prompt: np.ndarray) -> Optional[Dict]:
+        """:meth:`lookup` that also counts an adoption on the entry."""
+        ent = self.lookup(prompt)
+        if ent is not None:
+            ent["adoptions"] += 1
+        return ent
+
+    def lookup_chain(
+        self, prompt: np.ndarray, block_size: int
+    ) -> Tuple[int, Optional[Dict], Dict]:
+        """Longest directory-held chain of leading FULL blocks of
+        ``prompt``. Returns ``(n_blocks, entry, payload_slice)`` where
+        ``payload_slice`` maps leaf path -> the first ``n_blocks`` rows
+        of the holding entry's payload (host numpy). ``(0, None, {})``
+        on a miss or block-size mismatch."""
+        chain = hash_prefix_chain(prompt, block_size)
+        n = 0
+        ref: Optional[Tuple[bytes, int]] = None
+        for k, h in enumerate(chain):
+            hit = self._chains.get(h)
+            if hit is None:
+                break
+            ref = hit
+            n += 1
+        if n == 0 or ref is None:
+            return 0, None, {}
+        ent = self._entries.get(ref[0])
+        if ent is None or ent["block_size"] != block_size:
+            return 0, None, {}
+        self.stats["chain_hits"] += 1
+        sliced = {p: a[:n] for p, a in ent["payload"].items()}
+        return n, ent, sliced
+
+    # -- membership --------------------------------------------------------
+
+    def drop_replica(self, rid: int) -> List[Tuple[int, List[int]]]:
+        """Forget every block ``rid`` held (replica failed/removed).
+        Entries re-home to a surviving holder; an entry with no holder
+        left is dropped (its chain hashes too). Returns the
+        ``(rid, block_ids)`` pairs that were unmapped so a caller with
+        a live replica (drain path) can unpin them."""
+        unmapped: List[Tuple[int, List[int]]] = []
+        dead: List[bytes] = []
+        for key, ent in self._entries.items():
+            bids = ent["holders"].pop(rid, None)
+            if bids is None:
+                continue
+            unmapped.append((rid, bids))
+            if not ent["holders"]:
+                dead.append(key)
+            elif ent["owner"] == rid:
+                ent["owner"] = next(iter(ent["holders"]))
+                self.stats["rehomed"] += 1
+        for key in dead:
+            ent = self._entries.pop(key)
+            self._chains = {
+                h: ref for h, ref in self._chains.items() if ref[0] != key
+            }
+            self.stats["dropped"] += 1
+        return unmapped
+
+    def mapped_blocks(self, rid: int) -> List[int]:
+        """Every block id the directory maps on ``rid`` (test oracle:
+        each must be pinned + resident there)."""
+        out: List[int] = []
+        for ent in self._entries.values():
+            out.extend(ent["holders"].get(rid, []))
+        return out
+
+    def clear(self) -> List[Tuple[int, List[int]]]:
+        """Drop every entry, returning all ``(rid, block_ids)``
+        mappings so the caller can unpin them (teardown ledger
+        balance)."""
+        out: List[Tuple[int, List[int]]] = []
+        for ent in self._entries.values():
+            for rid, bids in ent["holders"].items():
+                out.append((int(rid), list(bids)))
+        self._entries.clear()
+        self._chains.clear()
+        return out
+
+    def snapshot(self) -> Dict[str, int]:
+        return {
+            "entries": len(self._entries),
+            "chains": len(self._chains),
             **self.stats,
         }

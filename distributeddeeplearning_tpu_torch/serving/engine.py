@@ -65,8 +65,26 @@ host (``serving/spec.py``), then runs ONE ``[num_slots, spec_k + 1]``
 verify forward of the target and commits 1 .. ``spec_k + 1`` tokens per
 slot (``sampling.spec_verify_slots``).
 
-Not ported yet (raise): pool typing (``pool_role != "both"``) and slot
-export/import.
+Disaggregated pools and slot transfer: ``pool_role`` ``"prefill"``
+holds only the prefill ladder and ``"decode"`` only the decode step
+(paged, non-speculative engines). :meth:`SlotEngine.export_slot` stages
+a slot's sampling state and the content of its written KV blocks on the
+host (torch CPU tensors keyed by the store names of
+:meth:`SlotEngine.store_names`), and :meth:`SlotEngine.import_slot` /
+:meth:`SlotEngine.adopt_prefix_blocks` write such content into freshly
+allocated blocks IN PLACE (an indexed copy into the existing stores:
+the captured graphs hold their addresses), so a replayed decode after an
+import continues the stream bit for bit.
+
+Threads: a fleet builds engines in replica threads while other
+replicas pump. Captures take one process-wide lock (one capture at a
+time: the caching allocator's pool bookkeeping and ``empty_cache``
+must not overlap another capture), run on one capture stream per device
+and in ``thread_local`` capture mode, so other threads' launches and
+synchronising copies on their own streams go on during a capture. Each
+engine's graphs get a merge-counter buffer of their own
+(``ops/_counters.py`` keys buffers by stream), so engines replaying on
+different streams never share one.
 """
 
 from __future__ import annotations
@@ -74,6 +92,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -104,6 +123,13 @@ from distributeddeeplearning_tpu_torch.utils.logging import get_logger
 
 # Eager runs of each member on the capture stream before its capture.
 _WARMUP_RUNS = 2
+
+# One capture (or engine teardown) at a time in the process, all on one
+# capture stream per device: cuBLAS keeps a workspace for every stream it
+# has run on, for the life of the process, so a new stream for each
+# capture would grow the allocation with every engine a fleet rebuilds.
+_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
 @dataclasses.dataclass
@@ -282,10 +308,27 @@ class SlotEngine:
             raise ValueError(
                 f"kv_layout must be 'dense' or 'paged', got {kv_layout!r}"
             )
-        if pool_role != "both":
-            raise NotImplementedError(
-                f"pool_role={pool_role!r}: disaggregated pools are not ported yet"
+        # A pool-typed engine (disaggregated serving) holds only its
+        # phase's programs: "prefill" the prefill ladder, "decode" the
+        # decode step. It needs the paged layout (the block table is the
+        # handoff unit) and no speculation (draft state does not travel).
+        if pool_role not in ("both", "prefill", "decode"):
+            raise ValueError(
+                f"pool_role must be one of ('both', 'prefill', 'decode'), "
+                f"got {pool_role!r}"
             )
+        if pool_role != "both":
+            if kv_layout != "paged":
+                raise ValueError(
+                    f"pool_role={pool_role!r} requires kv_layout='paged' "
+                    "(the block table is the handoff unit)"
+                )
+            if spec_k:
+                raise ValueError(
+                    f"pool_role={pool_role!r} is incompatible with "
+                    f"spec_k={spec_k} (draft state does not travel)"
+                )
+        self.pool_role = pool_role
         quant.validate_store_dtype("kv_dtype", kv_dtype)
         quant.validate_store_dtype("weight_dtype", weight_dtype)
         self.device = resolve_device(device)
@@ -325,8 +368,15 @@ class SlotEngine:
             model.quantize_weights_(weight_dtype)
         model.cast_matmul_weights_()
         model.eval()
+        # The draft's weights dequantized once, resident: the forward is
+        # launch-bound on the card (about 600 small kernels a forward of
+        # lm_base at 8 slots on an H100 80GB HBM3 at 700 W), so a per-tick
+        # dequantize of every weight only adds launches; the values, and
+        # so the proposals, are the same.
+        self._draft_held_bytes = 0
         if draft is not None:
             draft.quantize_weights_("int8").cast_matmul_weights_().eval()
+            self._draft_held_bytes = quant.hold_resident_(draft, draft.dtype)
         self.model = model
         self._draft = draft
         self.num_slots = int(num_slots)
@@ -404,6 +454,12 @@ class SlotEngine:
         self.decode_steps = 0
         self.prefill_execs = 0
         self._warmed = False
+        # Merge-counter buffers this engine's graphs were captured with.
+        self._counter_bufs: List[torch.Tensor] = []
+        # The brownout ladder's spec_off stage: ticks take the plain
+        # decode program (already in the closed set); the draft keeps
+        # tracking the committed stream.
+        self.spec_suspended = False
         self.spec_stats: Dict[str, Any] = {
             "verify_ticks": 0, "tokens_accepted": 0, "tokens_rejected": 0,
             "tokens_committed": 0, "draft_s": 0.0, "verify_s": 0.0,
@@ -435,7 +491,13 @@ class SlotEngine:
         per bucket, plus (speculative tier) the batched verify and, for
         the int8 self-draft, the draft phase + one draft prefill per
         bucket. ``compile_count`` equals this for the engine's whole
-        lifetime after :meth:`warmup`."""
+        lifetime after :meth:`warmup`. A pool-typed engine holds only
+        its phase's programs: ``prefill`` one per bucket, ``decode``
+        one."""
+        if self.pool_role == "prefill":
+            return len(self.buckets)
+        if self.pool_role == "decode":
+            return 1
         n = len(self.buckets) + 1
         if self.spec_enabled:
             n += 1  # the [S, spec_k + 1] verify
@@ -465,10 +527,13 @@ class SlotEngine:
             specs.append(ProgramSpec(name, fn, inputs.dev, span, samples))
 
         table = [("tables", (s, mb), i32)] if paged else []
-        member("decode",
-               [("tokens", (s, 1), i64), ("positions", (s,), i64)] + sampling((s,))
-               + [("eos", (s,), i64)] + table,
-               self._decode_fn, {"what": "serve_decode", "slots": s})
+        if self.pool_role != "prefill":
+            member("decode",
+                   [("tokens", (s, 1), i64), ("positions", (s,), i64)] + sampling((s,))
+                   + [("eos", (s,), i64)] + table,
+                   self._decode_fn, {"what": "serve_decode", "slots": s})
+        if self.pool_role == "decode":
+            return specs
         for bucket in self.buckets:
             first = [("tokens", (1, bucket), i64), ("last", (1,), i64),
                      ("key", (1, 2), i64), ("temp", (1,), f32), ("top_k", (1,), i64),
@@ -527,9 +592,9 @@ class SlotEngine:
             kernel=self.decode_kernel,
         )
         get_logger().info(
-            "serve warmup: %d programs (decode + %d prefill buckets %s%s) in %.2fs "
+            "serve warmup: %d programs (role %s, %d prefill buckets %s%s) in %.2fs "
             "(%s), slots=%d cache_len=%d layout=%s kernel=%s kv=%s weights=%s device=%s",
-            self.compile_count, len(self.buckets), list(self.buckets),
+            self.compile_count, self.pool_role, len(self.buckets), list(self.buckets),
             (f" + spec k={self.spec_k} draft={self.spec_draft}"
              if self.spec_enabled else ""),
             time.perf_counter() - t_all,
@@ -556,12 +621,22 @@ class SlotEngine:
         whole. Each member's captures then run in one ``compile`` span,
         and each graph counts the kernel launches it recorded. A failed
         capture raises. ``graph_pool_bytes`` grows by the memory the
-        captures reserved."""
-        from distributeddeeplearning_tpu_torch.ops import paged_decode
+        captures reserved. The whole capture holds the process-wide
+        capture lock and records in ``thread_local`` mode (other threads
+        keep pumping their own engines); the capture stream's merge
+        counters are this engine's own (:func:`_counters.isolate`)."""
+        with _CAPTURE_LOCK:
+            self._capture_locked(specs)
+
+    def _capture_locked(self, specs: List[ProgramSpec]) -> None:
+        from distributeddeeplearning_tpu_torch.ops import _counters, paged_decode
 
         dev = self.device
         uncaptured = {ps.name: ps.uncaptured() for ps in specs}
-        stream = torch.cuda.Stream(dev)
+        stream = _CAPTURE_STREAMS.get(dev)
+        if stream is None:
+            stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+        _counters.isolate(stream.cuda_stream)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             for _ in range(_WARMUP_RUNS):
@@ -580,7 +655,8 @@ class SlotEngine:
                 for variant, fn in uncaptured[ps.name].items():
                     n0 = dict(paged_decode.launches_by_store)
                     graph = torch.cuda.CUDAGraph()
-                    with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
+                    with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
+                                          capture_error_mode="thread_local"):
                         outputs = fn()
                     programs[variant] = CapturedProgram(graph, outputs, {
                         k: n - n0[k] for k, n in paged_decode.launches_by_store.items()})
@@ -589,6 +665,7 @@ class SlotEngine:
                 self.compile_sec += time.perf_counter() - t0
             self.compile_count += 1
         torch.cuda.synchronize(dev)
+        self._counter_bufs += _counters.held(stream.cuda_stream)
         self.graph_pool_bytes += torch.cuda.memory_reserved(dev) - reserved
 
     def replayed_launches(self) -> int:
@@ -637,6 +714,10 @@ class SlotEngine:
         obs.gauge("serve.block_pool_free", float(a.free_count))
         obs.gauge("serve.prefix_hits", float(a.stats["prefix_hit_blocks"]))
 
+    def pool_stats(self) -> Optional[Dict[str, int]]:
+        """Block-pool gauges (None on the dense layout)."""
+        return None if self.allocator is None else self.allocator.snapshot()
+
     def _store_bytes(self, model) -> float:
         """Bytes of one set of K/V stores (codes and scales itemized in)
         for ``model``'s geometry at this engine's pool size, per
@@ -654,8 +735,9 @@ class SlotEngine:
         ``serve.param_bytes`` gauges): KV-pool bytes per cached position,
         codes PLUS f32 scales when quantized, and the resident parameter
         bytes a decode step streams (codes, scales and the unquantized
-        rest). Under the int8 self-draft its dense KV pool and its
-        weights are itemized too."""
+        rest). Under the int8 self-draft its dense KV pool, its weights
+        and their resident dequantized copy (``draft_held_bytes``) are
+        itemized too."""
         rows = self._rows()
         positions = rows[0] * rows[1]
         per_pos = self._store_bytes(self.model)
@@ -668,6 +750,7 @@ class SlotEngine:
             out["draft_kv_pool_bytes"] = float(
                 self._store_bytes(self._draft) * self.num_slots * self.max_len)
             out["draft_param_bytes"] = self._param_bytes(self._draft)
+            out["draft_held_bytes"] = float(self._draft_held_bytes)
         return out
 
     # -- admission ---------------------------------------------------------
@@ -831,17 +914,16 @@ class SlotEngine:
         ``[S, 2]`` catch-up forward (the previous committed token and
         the next input; after an all-accepted tick the draft's cache is
         one position behind, and the pair closes the gap), then ``spec_k
-        - 1`` single-token steps, all over one dequantized copy of the
-        draft's weights."""
-        with quant.hold_dequantized(self._draft, self._draft.dtype):
-            logits = self._draft(catchup, self._cache(self._draft_stores, start))
+        - 1`` single-token steps, all over the draft's resident
+        dequantized weights."""
+        logits = self._draft(catchup, self._cache(self._draft_stores, start))
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        drafts = [tok]
+        for j in range(1, self.spec_k):
+            cache = self._cache(self._draft_stores, start + 1 + j)
+            logits = self._draft(tok[:, None], cache)
             tok = torch.argmax(logits[:, -1], dim=-1)
-            drafts = [tok]
-            for j in range(1, self.spec_k):
-                cache = self._cache(self._draft_stores, start + 1 + j)
-                logits = self._draft(tok[:, None], cache)
-                tok = torch.argmax(logits[:, -1], dim=-1)
-                drafts.append(tok)
+            drafts.append(tok)
         return (torch.stack(drafts, dim=1),)
 
     @torch.no_grad()
@@ -868,6 +950,11 @@ class SlotEngine:
         caller decides to :meth:`release`."""
         if self._active[slot]:
             raise ValueError(f"slot {slot} is occupied")
+        if self.pool_role == "decode":
+            raise RuntimeError(
+                "a decode-pool engine has no prefill programs; requests "
+                "reach it only through import_slot (handoff/migration)"
+            )
         tk = self.validate_spec(spec)
         if not self._warmed:
             self.warmup()
@@ -1103,16 +1190,6 @@ class SlotEngine:
             raise ValueError(f"slot {slot} is not occupied")
         self._tokens[slot] = int(token)
 
-    def export_slot(self, slot: int):
-        raise NotImplementedError(
-            "slot export (disaggregated serving, migration) is not ported yet"
-        )
-
-    def import_slot(self, slot: int, state, prompt=None):
-        raise NotImplementedError(
-            "slot import (disaggregated serving, migration) is not ported yet"
-        )
-
     def release(self, slot: int) -> None:
         """Free a slot (eviction). Host bookkeeping only: stale rows are
         unreachable (per-slot position masks) and overwritten by the next
@@ -1137,3 +1214,167 @@ class SlotEngine:
             self._slot_blocks[slot] = []
             self._tables[slot] = 0
             self._emit_pool_gauges()
+
+    # -- slot state transfer (disaggregation, migration) -------------------
+
+    def store_names(self) -> List[str]:
+        """The target's K/V stores by name, in :meth:`_named_stores`
+        order: ``block{i}.k``, ``block{i}.v`` and, quantized,
+        ``block{i}.k_scale`` / ``block{i}.v_scale`` per layer."""
+        return list(self._named_stores())
+
+    def _named_stores(self) -> Dict[str, torch.Tensor]:
+        self._ensure_stores()
+        out: Dict[str, torch.Tensor] = {}
+        for part, stores in zip(("k", "v", "k_scale", "v_scale"), self._stores):
+            for i, t in enumerate(stores or ()):
+                out[f"block{i}.{part}"] = t
+        return out
+
+    def export_blocks(self, block_ids) -> Dict[str, torch.Tensor]:
+        """Host-stage the KV content of ``block_ids``: store name ->
+        ``[len(block_ids), block_size, H, .]`` CPU rows gathered from
+        every store. A pure read (no program runs). The caller holds the
+        blocks resident (referenced or pinned); the pump that wrote them
+        has read its outputs back, so its writes are complete."""
+        if self.allocator is None:
+            raise RuntimeError("export_blocks requires kv_layout='paged'")
+        idx = torch.as_tensor(list(block_ids), dtype=torch.long).to(self.device)
+        return {name: store.index_select(0, idx).cpu()
+                for name, store in self._named_stores().items()}
+
+    def _import_block_payload(self, block_ids, payload) -> None:
+        """Write host-staged block content into ``block_ids`` of the
+        local stores IN PLACE (an indexed copy: the captured graphs read
+        these tensors' addresses), on the caller's stream, which is
+        synchronized before returning, so the pump's next replay reads
+        the new content. No program runs; nothing is captured."""
+        idx = torch.as_tensor(list(block_ids), dtype=torch.long).to(self.device)
+        for name, store in self._named_stores().items():
+            if name not in payload:
+                continue
+            rows = torch.as_tensor(payload[name]).to(self.device, store.dtype)
+            if store.element_size() == 1:  # int8 / fp8 codes (no fp8 index_copy_)
+                store, rows = store.view(torch.uint8), rows.view(torch.uint8)
+            store.index_copy_(0, idx, rows)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def export_slot(self, slot: int) -> Dict[str, Any]:
+        """Everything slot ``slot`` needs to continue decoding bit for
+        bit on ANOTHER engine: the sampling state, the key-ladder cursor
+        and the host-staged content of every written KV block. The slot
+        is untouched: the caller releases it (handoff) or keeps it."""
+        if self.allocator is None:
+            raise RuntimeError("export_slot requires kv_layout='paged'")
+        if self.spec_enabled:
+            raise RuntimeError(
+                "export_slot is incompatible with spec_k > 0 (the draft "
+                "pool's lookahead state does not travel)"
+            )
+        if not self._active[slot]:
+            raise ValueError(f"slot {slot} is not occupied")
+        written = int(self._positions[slot])
+        blocks = list(self._slot_blocks[slot])
+        nwritten = self.allocator.blocks_for_tokens(written)
+        ladder = self._ladders[slot]
+        return {
+            "block_size": self.block_size,
+            "n_blocks": len(blocks),
+            "blocks": blocks,
+            "written": written,
+            "token": int(self._tokens[slot]),
+            "temp": float(self._temps[slot]),
+            "top_k": int(self._top_ks[slot]),
+            "top_p": float(self._top_ps[slot]),
+            "eos": int(self._eos[slot]),
+            "ladder": None if ladder is None else np.array(ladder),
+            "cursor": int(self._cursor[slot]),
+            "payload": self.export_blocks(blocks[:nwritten]),
+        }
+
+    def can_import(self, state: Dict[str, Any]) -> bool:
+        """Room for an imported slot now: a free slot and the state's
+        block count allocatable."""
+        if self.allocator is None:
+            return False
+        return bool(self.free_slots) and self.allocator.free_count >= int(state["n_blocks"])
+
+    def import_slot(self, slot: int, state: Dict[str, Any],
+                    prompt: Optional[np.ndarray] = None) -> None:
+        """Seat an exported slot state (:meth:`export_slot`, or a
+        directory adoption's): allocate fresh blocks, write the staged
+        KV content in place and restore the sampling state, so the next
+        :meth:`decode_step` continues the stream bit for bit. ``prompt``
+        (with the prefix cache on) registers the full prompt blocks here
+        so later requests prefix-hit."""
+        if self.allocator is None:
+            raise RuntimeError("import_slot requires kv_layout='paged'")
+        if self.spec_enabled:
+            raise RuntimeError("import_slot is incompatible with spec_k > 0")
+        if self._active[slot]:
+            raise ValueError(f"slot {slot} is occupied")
+        if int(state["block_size"]) != self.block_size:
+            raise ValueError(
+                f"block_size mismatch: exported {state['block_size']}, "
+                f"local {self.block_size}"
+            )
+        if not self._warmed:
+            self.warmup()
+        n = int(state["n_blocks"])
+        blocks = self.allocator.alloc(n)  # BlockPoolExhausted -> caller
+        nwritten = self.allocator.blocks_for_tokens(int(state["written"]))
+        self._import_block_payload(blocks[:nwritten], state["payload"])
+        self._tables[slot] = 0
+        self._tables[slot, :n] = blocks
+        self._slot_blocks[slot] = blocks
+        self._active[slot] = True
+        self._tokens[slot] = int(state["token"])
+        self._positions[slot] = int(state["written"])
+        self._temps[slot] = np.float32(state["temp"])
+        self._top_ks[slot] = int(state["top_k"])
+        self._top_ps[slot] = np.float32(state["top_p"])
+        self._eos[slot] = int(state["eos"])
+        ladder = state.get("ladder")
+        self._ladders[slot] = None if ladder is None else np.array(ladder)
+        self._cursor[slot] = int(state["cursor"])
+        if prompt is not None and self.prefix_cache:
+            self.allocator.register_prefix(np.asarray(prompt, np.int32).reshape(-1), blocks)
+        self._emit_pool_gauges()
+
+    def adopt_prefix_blocks(self, tokens, payload) -> int:
+        """Seed the local prefix cache with directory-fetched full-block
+        content (a chain prefetch): allocate, write in place, register,
+        then decref into the evictable cache, so the next prefill of a
+        prompt starting with those blocks computes only its suffix.
+        Returns the blocks seeded (0 when already cached or no room)."""
+        if self.allocator is None or not self.prefix_cache:
+            return 0
+        a = self.allocator
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        n = min(len(next(iter(payload.values()))) if payload else 0,
+                len(toks) // self.block_size)
+        if n < 1 or a.peek_prefix(toks, n * self.block_size) >= n or a.free_count < n:
+            return 0
+        blocks = a.alloc(n)
+        self._import_block_payload(blocks, {p: arr[:n] for p, arr in payload.items()})
+        a.register_prefix(toks[: n * self.block_size], blocks)
+        for bid in blocks:
+            a.decref(bid)
+        self._emit_pool_gauges()
+        return n
+
+    def close(self) -> None:
+        """Release the device state: the installed programs, their graphs
+        and pool, the members' inputs, the KV stores and the model. The
+        engine is unusable afterwards (a fleet replica that restarts
+        builds a new one). Takes the capture lock: a graph pool must not
+        be freed while another engine captures."""
+        with _CAPTURE_LOCK:
+            self.programs.clear()
+            self._inputs.clear()
+            self._counter_bufs = []
+            self._graph_pool = None
+            self._stores = self._draft_stores = None
+            self.model = self._draft = None
+            self._warmed = False

@@ -14,6 +14,9 @@ counters ``serve.admitted``, ``serve.completed``, ``serve.tokens``,
         ``serve.rejected``, ``serve.evicted_deadline``, ``serve.cancelled``
 points  ``serve.request_done`` (req, reason, ttft_ms, tokens)
 
+Every per-request emit runs under the request's trace context, so each
+event carries its ``trace`` id across router, replica and tick.
+
 **Adaptive admission** (the telemetry feedback path): a pluggable
 :class:`AdmissionPolicy` runs at the top of every tick;
 :class:`AdaptiveAdmissionPolicy` reads the live plane's atomically
@@ -23,15 +26,24 @@ and tightens the ``QueueFull`` threshold — and restores both on
 ``slo_recover``. Derate and restore are visible in the event stream
 (``serve.admission_derate`` / ``serve.admission_restore`` points,
 ``serve.admission_prefills`` / ``serve.admission_queue_limit`` gauges).
+When the burn persists, the fleet's :class:`BrownoutLadder` steps
+through declared degradation stages (``spec_off``, ``max_new:N``,
+``shed:K``; ``SERVE_BROWNOUT_STAGES``) and walks back on recovery.
+
+The fleet hooks: ``Server(handoff=True)`` exports each slot after its
+first token (a disaggregated prefill pool), ``reclaim_queued``,
+``take_running``, ``take_handoffs``, ``export_running`` and
+``import_running`` move requests between replicas, ``serve_forever``
+pumps a background thread, and :func:`generate_with_engine` serves
+``inference.generate``'s signature through a server, an engine or a
+fleet router.
 
 ``ServeConfig.from_env`` reads the same ``SERVE_*`` variables with the
 same defaults: the quantized (``SERVE_KV_DTYPE``, ``SERVE_WEIGHT_DTYPE``)
 and speculative (``SERVE_SPEC_K``, ``SERVE_SPEC_DRAFT``,
 ``SERVE_SPEC_NGRAM_N``) tiers, ``SERVE_ADMISSION_POLICY`` (``static`` |
 ``adaptive``) and ``SERVE_ROLLUP_PATH`` (default
-``$OBS_DIR/rollup.json``). Not ported yet: the brownout ladder
-(``spec_off`` and the rest), prefill handoff, push callbacks and the
-fleet hooks, which ``Server`` takes no argument for.
+``$OBS_DIR/rollup.json``).
 """
 
 from __future__ import annotations
@@ -56,7 +68,7 @@ class QueueFull(RuntimeError):
 
 
 # ---------------------------------------------------------------------------
-# Admission policies (telemetry feedback)
+# Admission policies (telemetry feedback — docs/SERVING.md)
 # ---------------------------------------------------------------------------
 
 def burning_latency_objectives(
@@ -65,8 +77,10 @@ def burning_latency_objectives(
     """The *latency* objectives currently burning in a rollup snapshot
     — a latency objective is one whose stat is a span quantile
     (p50/p95/p99); rate/gauge objectives describe throughput or health
-    and shedding load would not help them (what
-    :class:`AdaptiveAdmissionPolicy` derates on)."""
+    and shedding load would not help them. Shared by
+    :class:`AdaptiveAdmissionPolicy` (derate) and
+    :class:`BrownoutLadder` (the degradation ladder that engages when
+    derating alone does not recover)."""
     if not snapshot:
         return []
     out = []
@@ -194,6 +208,179 @@ class AdaptiveAdmissionPolicy(AdmissionPolicy):
         obs.gauge("serve.admission_queue_limit", float(server.queue_limit))
 
 
+# ---------------------------------------------------------------------------
+# Brownout degradation ladder (docs/ROBUSTNESS.md serving failure model)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BrownoutStage:
+    """One declared degradation stage: ``spec_off`` (suspend the
+    speculative tier — the plain decode program is already captured),
+    ``max_new`` (cap newly dispatched requests at ``value`` tokens), or
+    ``shed`` (shed the ``value`` lowest-weight tenant lanes with the
+    distinct ``brownout`` outcome)."""
+
+    kind: str
+    value: int = 0
+
+
+def parse_brownout_stages(text: str) -> List[BrownoutStage]:
+    """``SERVE_BROWNOUT_STAGES`` grammar: comma-separated stages, e.g.
+    ``"spec_off,max_new:8,shed:1"`` — the order IS the ladder (stage k
+    applies at brownout level k+1; recovery reverts in reverse)."""
+    stages: List[BrownoutStage] = []
+    for part in str(text or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        kind, _, val = part.partition(":")
+        kind = kind.strip()
+        if kind == "spec_off":
+            if val.strip():
+                raise ValueError(
+                    f"brownout stage {part!r}: spec_off takes no value"
+                )
+            stages.append(BrownoutStage("spec_off"))
+        elif kind in ("max_new", "shed"):
+            try:
+                v = int(val)
+            except ValueError:
+                raise ValueError(
+                    f"brownout stage {part!r}: {kind} needs an int value "
+                    f"({kind}:N)"
+                )
+            if v < 1:
+                raise ValueError(
+                    f"brownout stage {part!r}: value must be >= 1"
+                )
+            stages.append(BrownoutStage(kind, v))
+        else:
+            raise ValueError(
+                f"unknown brownout stage {kind!r} in {part!r} "
+                f"(have: spec_off, max_new:N, shed:K)"
+            )
+    if not stages:
+        raise ValueError("SERVE_BROWNOUT_STAGES declared no stages")
+    return stages
+
+
+class BrownoutLadder:
+    """Step through declared degradation stages under sustained SLO
+    burn; walk back up on recovery.
+
+    :class:`AdaptiveAdmissionPolicy` is the first responder — it
+    derates admission the moment a latency SLO burns. This ladder is
+    the escalation tier: when the burn *persists* (``escalate_ticks``
+    consecutive burning observations — i.e. the derate did not
+    recover), it applies the next declared stage via
+    ``Router.apply_brownout_stage``; when the burn clears for
+    ``recover_ticks`` consecutive observations it reverts one stage, in
+    reverse order. Every transition is an obs point
+    (``serve.brownout_step``) and the level a gauge
+    (``fleet.brownout_stage``) — degradation is telemetry, never a
+    silent drop.
+
+    Signal sources mirror the admission policy: an injected ``reader``
+    (tests, chaos drills), else the live plane's ``rollup.json``.
+    """
+
+    def __init__(
+        self,
+        stages: List[BrownoutStage],
+        *,
+        snapshot_path: Optional[str] = None,
+        reader=None,
+        refresh_s: float = 0.25,
+        escalate_ticks: int = 8,
+        recover_ticks: int = 12,
+        watch_prefix: Optional[str] = None,
+    ) -> None:
+        if not stages:
+            raise ValueError("BrownoutLadder needs at least one stage")
+        if snapshot_path is None:
+            snapshot_path = os.path.join(
+                os.environ.get("OBS_DIR", "."), "rollup.json"
+            )
+        self.stages = list(stages)
+        self.snapshot_path = snapshot_path
+        self._reader = reader
+        self.refresh_s = max(float(refresh_s), 0.0)
+        self.escalate_ticks = max(int(escalate_ticks), 1)
+        self.recover_ticks = max(int(recover_ticks), 1)
+        self.watch_prefix = watch_prefix
+        self.level = 0  # stages[:level] are currently applied
+        self._hot = 0
+        self._cool = 0
+        self._next_read = 0.0
+        self._last_burning = False
+        self.transitions: List[Dict[str, Any]] = []
+
+    @property
+    def exhausted(self) -> bool:
+        """Every declared stage is applied and the last observation was
+        still burning — shedding alone did not recover the SLO. This is
+        the signal the colocation arbiter escalates on: the pool only
+        shrinks *training* after the serving-side ladder has been
+        walked to the bottom (brownout → shed → shrink,
+        docs/ROBUSTNESS.md)."""
+        return self.level >= len(self.stages) and self._last_burning
+
+    def _read(self) -> Optional[dict]:
+        if self._reader is not None:
+            return self._reader()
+        from distributeddeeplearning_tpu_torch.obs.rollup import read_snapshot
+
+        return read_snapshot(self.snapshot_path)
+
+    def tick(self, router, now: float) -> Optional[str]:
+        """One ladder decision (the router calls this every tick).
+        Returns ``"down"`` (degraded one stage), ``"up"`` (recovered
+        one), or None."""
+        if now < self._next_read:
+            return None
+        self._next_read = now + self.refresh_s
+        snap = self._read()
+        if snap is None:
+            return None  # no plane publishing: hold the current level
+        burning = burning_latency_objectives(snap, self.watch_prefix)
+        self._last_burning = bool(burning)
+        if burning:
+            self._hot += 1
+            self._cool = 0
+        else:
+            self._cool += 1
+            self._hot = 0
+        if (
+            burning and self._hot >= self.escalate_ticks
+            and self.level < len(self.stages)
+        ):
+            stage = self.stages[self.level]
+            self.level += 1
+            self._hot = 0
+            router.apply_brownout_stage(stage, True, key=self.level)
+            self._record("down", stage, objectives=";".join(burning))
+            return "down"
+        if not burning and self._cool >= self.recover_ticks and self.level:
+            stage = self.stages[self.level - 1]
+            router.apply_brownout_stage(stage, False, key=self.level)
+            self.level -= 1
+            self._cool = 0
+            self._record("up", stage)
+            return "up"
+        return None
+
+    def _record(self, direction: str, stage: BrownoutStage, **labels) -> None:
+        self.transitions.append({
+            "direction": direction, "level": self.level,
+            "stage": stage.kind, **labels,
+        })
+        obs.point(
+            "serve.brownout_step", direction=direction, level=self.level,
+            stage=stage.kind, value=stage.value, **labels,
+        )
+        obs.gauge("fleet.brownout_stage", float(self.level))
+
+
 @dataclasses.dataclass
 class ServeConfig:
     """Engine + scheduler knobs, env-overridable (SERVE_*)."""
@@ -204,27 +391,37 @@ class ServeConfig:
     deadline_ms: Optional[float] = None
     prefills_per_step: int = 1
     top_k_cap: int = 128
+    # Paged KV pool (docs/SERVING.md): "dense" keeps one max_len row per
+    # slot; "paged" switches to the block pool + per-slot block tables.
     kv_layout: str = "dense"
     block_size: int = 16
     # 0 = auto: dense-equivalent bytes (num_slots * ceil(max_len /
     # block_size) + the trash block).
     num_blocks: int = 0
     prefix_cache: bool = True
-    # "bf16" = the compute dtype; "int8"/"fp8" = codes plus f32 scales
-    # (ops/quant.py), for the KV pool and the inference weights.
+    # Quantized decode tier (docs/SERVING.md): "bf16" = native compute
+    # dtype; "int8"/"fp8" store the KV pool / stream the inference
+    # weights quantized + f32 scales (ops/quant.py — the registry
+    # quant.KV_DTYPES/WEIGHT_DTYPES is the source of truth; fp8 is
+    # platform-gated with an int8 fallback). Orthogonal to kv_layout —
+    # the paged pool quantizes too.
     kv_dtype: str = "bf16"
     weight_dtype: str = "bf16"
-    # "xla" = the plain masked path; "fused" = the hand-written decode
-    # kernel (ops/paged_decode.py).
+    # Decode attention lowering (SERVE_DECODE_KERNEL): "xla" = the plain
+    # masked path; "fused" = the hand-written decode kernel
+    # (ops/paged_decode.py). Same program set either way.
     decode_kernel: str = "xla"
-    # spec_k > 0: draft-K-then-verify ticks; spec_draft "int8" (the
-    # quantized self-draft) or "ngram" (prompt lookup, spec_ngram_n).
+    # Speculative decode tier (docs/SERVING.md): spec_k > 0 turns every
+    # scheduler tick into draft-K-then-verify — 1..K+1 tokens committed
+    # per slot per tick. spec_draft picks the proposal source ("int8" =
+    # quantized self-draft, "ngram" = host-side prompt lookup with
+    # spec_ngram_n match order, "off" only valid with spec_k == 0).
     spec_k: int = 0
     spec_draft: str = "int8"
     spec_ngram_n: int = 3
-    # "static" = fixed admission; "adaptive" = derate while a latency
-    # SLO burns, reading the live plane's rollup snapshot (rollup_path;
-    # None = $OBS_DIR/rollup.json).
+    # Telemetry feedback (docs/SERVING.md): "static" = fixed admission;
+    # "adaptive" = derate while a latency SLO burns, reading the live
+    # plane's rollup snapshot (rollup_path; None = $OBS_DIR/rollup.json).
     admission_policy: str = "static"
     rollup_path: Optional[str] = None
 
@@ -254,7 +451,9 @@ class ServeConfig:
             ) not in ("0", "false", "off"),
             kv_dtype=str(e.get("SERVE_KV_DTYPE", cls.kv_dtype)),
             weight_dtype=str(e.get("SERVE_WEIGHT_DTYPE", cls.weight_dtype)),
-            decode_kernel=str(e.get("SERVE_DECODE_KERNEL", cls.decode_kernel)),
+            decode_kernel=str(
+                e.get("SERVE_DECODE_KERNEL", cls.decode_kernel)
+            ),
             spec_k=int(e.get("SERVE_SPEC_K", cls.spec_k)),
             spec_draft=str(e.get("SERVE_SPEC_DRAFT", cls.spec_draft)),
             spec_ngram_n=int(e.get("SERVE_SPEC_NGRAM_N", cls.spec_ngram_n)),
@@ -276,8 +475,8 @@ class ServeConfig:
         )
 
     def engine_kwargs(self) -> dict:
-        # Reject unknown dtypes/kernels here, naming the supported list,
-        # before an engine is built.
+        # Reject unknown dtypes/kernels HERE, naming the supported list,
+        # so a typo'd SERVE_* env var fails before an engine is built.
         quant.validate_store_dtype("kv_dtype", self.kv_dtype)
         quant.validate_store_dtype("weight_dtype", self.weight_dtype)
         if self.decode_kernel not in ("xla", "fused"):
@@ -307,8 +506,16 @@ class ServeConfig:
 
 @dataclasses.dataclass
 class Request:
-    """What a client submits. ``rng``: raw key data, an int seed, or None
-    (seed 0)."""
+    """What a client submits. ``rng`` follows ``inference.generate``:
+    raw PRNG key data, an int seed, or None (PRNGKey(0)).
+
+    ``on_token``: optional streaming callback ``(handle, tokens)``
+    invoked from the serving thread the moment tokens are committed
+    (the push half of incremental streaming;
+    :meth:`RequestHandle.stream` is the pull half). It must be cheap
+    and must not raise — a raising callback is recorded as a
+    ``serve.stream_callback_error`` point and dropped, never allowed
+    to kill the serving loop."""
 
     prompt: np.ndarray
     max_new_tokens: int
@@ -318,6 +525,12 @@ class Request:
     eos_token: Optional[int] = None
     rng: Any = None
     deadline_ms: Optional[float] = None
+    on_token: Any = None
+    # Trace identity (docs/OBSERVABILITY.md trace plane): set by the
+    # fleet router so a re-routed attempt keeps the original request's
+    # trace across the router→replica thread boundary; None mints a
+    # fresh trace at admission (direct Server use).
+    trace: Optional[str] = None
 
     def spec(self) -> ReqSpec:
         return ReqSpec(
@@ -334,10 +547,13 @@ class Request:
 class RequestHandle:
     """Client-side view of one submitted request.
 
-    ``status``: queued → running → one of done / deadline / cancelled.
+    ``status``: queued → running → one of done / deadline / cancelled
+    (the fleet router may also park a reclaimed handle as ``requeued``
+    while it re-routes the request — serving/fleet/).
     ``result()`` blocks until finished and returns prompt + generated
-    tokens; :meth:`stream` yields tokens as the serving loop commits
-    them."""
+    tokens (up to and including eos when one was hit); :meth:`stream`
+    yields tokens incrementally as the serving loop commits them.
+    """
 
     def __init__(self, req: Request, req_id: int, now: float) -> None:
         self.request = req
@@ -349,13 +565,18 @@ class RequestHandle:
         self.queue_wait_s: Optional[float] = None
         self.ttft_s: Optional[float] = None
         self.finished_t: Optional[float] = None
-        self.trace = obs.new_trace_id()
+        # Trace plane: the request's causal identity (minted here at
+        # admission unless the fleet already owns one) and the wall
+        # spent inside _deliver (stream fan-out + client callbacks) —
+        # the critical path's delivery phase.
+        self.trace = req.trace or obs.new_trace_id()
         self.deliver_s = 0.0
         self.done = threading.Event()
         self._cond = threading.Condition()
         self._cancel = False
         self._deadline_t = (
-            now + req.deadline_ms / 1e3 if req.deadline_ms is not None else None
+            now + req.deadline_ms / 1e3 if req.deadline_ms is not None
+            else None
         )
 
     @property
@@ -374,10 +595,14 @@ class RequestHandle:
         return self.tokens
 
     def stream(self, timeout: Optional[float] = None):
-        """Incremental token iterator: yields each generated token the
-        moment the serving loop commits it, ending when the request
-        finishes. ``timeout`` bounds the wait for EACH next token;
-        requires a second thread pumping the server."""
+        """Incremental token iterator: yields each generated token (int)
+        the moment the serving loop commits it, ending when the request
+        finishes (a cancelled/deadline-evicted request ends the stream
+        after its last delivered token — the yielded prefix is still
+        exact, `tests/test_serving_fleet.py`). ``timeout`` bounds the
+        wait for EACH next token; requires a second thread pumping the
+        server (the single-pumper thread iterating its own stream would
+        deadlock)."""
         i = 0
         while True:
             with self._cond:
@@ -390,15 +615,28 @@ class RequestHandle:
             for tok in fresh:
                 yield int(tok)
             i += len(fresh)
+            # done is sticky and new_tokens never grows after it is set,
+            # so a drained iterator can finish without holding the lock.
             if self.done.is_set() and i >= len(self.new_tokens):
                 return
 
     def _deliver(self, toks: List[int]) -> None:
-        """Serving-loop side: commit tokens, wake stream iterators."""
+        """Serving-loop side: commit tokens to the handle, wake stream
+        iterators, fire the push callback. Never raises."""
+        if not toks:
+            return
         t0 = time.monotonic()
         with self._cond:
             self.new_tokens.extend(int(t) for t in toks)
             self._cond.notify_all()
+        cb = self.request.on_token
+        if cb is not None:
+            try:
+                cb(self, [int(t) for t in toks])
+            except Exception as e:  # client code must not kill the loop
+                obs.point(
+                    "serve.stream_callback_error", req=self.id, error=repr(e)
+                )
         self.deliver_s += time.monotonic() - t0
 
     def _notify_done(self) -> None:
@@ -416,9 +654,9 @@ class Server:
     Single-pumper model: exactly one thread drives :meth:`step` (or
     :meth:`drain` / :meth:`serve_forever`); ``submit``/``cancel`` are
     safe from any thread. Each tick: reap deadlines/cancels → admit up
-    to ``prefills_per_step`` queued requests into free slots → one
-    batched decode step (a speculative tick on a ``spec_k > 0`` engine)
-    → deliver tokens and evict finished slots.
+    to ``prefills_per_step`` queued requests into free slots (bucketed
+    prefill) → one batched decode step → deliver tokens and evict
+    finished slots.
     """
 
     def __init__(
@@ -429,6 +667,7 @@ class Server:
         prefills_per_step: int = 1,
         default_deadline_ms: Optional[float] = None,
         admission_policy: Optional[AdmissionPolicy] = None,
+        handoff: bool = False,
     ) -> None:
         if queue_depth < 1:
             raise ValueError(f"queue_depth must be >= 1, got {queue_depth}")
@@ -436,10 +675,33 @@ class Server:
             raise ValueError(
                 f"prefills_per_step must be >= 1, got {prefills_per_step}"
             )
+        if handoff and engine.allocator is None:
+            raise ValueError(
+                "handoff mode requires kv_layout='paged' (the block "
+                "table is the handoff unit)"
+            )
         self.engine = engine
+        # Disaggregated prefill pool (docs/SERVING.md): after the first
+        # token, export the slot's state + KV blocks and free the slot
+        # instead of decoding here — the fleet router collects the
+        # export (take_handoffs) and seats it on a decode replica.
+        self.handoff = bool(handoff)
+        self._handoffs: List[Tuple[RequestHandle, Dict[str, Any]]] = []
+        # Directory pin plane: the fleet router flips handoff_pin on
+        # (before any request reaches this server) when it owns a
+        # PrefixDirectory, and greedy exports then pin their full
+        # prefix blocks HERE, on the pump thread, before the slot is
+        # released — a pin from the router thread could race an
+        # in-flight eviction. The budget bounds how much of the pool a
+        # storm of distinct hot prompts can nail down; past it the
+        # export still publishes (payload rides the state), it just
+        # maps no resident blocks.
+        self.handoff_pin = False
+        self._handoff_pins = 0
         self.queue_depth = queue_depth
-        # The policy-adjustable knobs: queue_limit is the effective
-        # QueueFull threshold (<= queue_depth, the configured ceiling).
+        # The policy-adjustable knobs: queue_limit is the *effective*
+        # QueueFull threshold (<= queue_depth, the configured ceiling);
+        # prefills_per_step is mutable for the same reason.
         self.queue_limit = queue_depth
         self.prefills_per_step = prefills_per_step
         self.default_deadline_ms = default_deadline_ms
@@ -449,11 +711,18 @@ class Server:
         self._ids = itertools.count()
         self._by_slot: Dict[int, RequestHandle] = {}
         self._closed = False
+        # The shared engine tick's own trace identity: decode steps are
+        # fleet-shared work, so the tick span lives on this per-server
+        # trace while each occupied slot gets a per-request
+        # serve.decode_share attribution (tick wall / occupied slots).
         self._tick_trace = obs.new_trace_id()
         self.stats: Dict[str, Any] = {
             "admitted": 0, "completed": 0, "rejected": 0, "cancelled": 0,
             "deadline": 0, "tokens": 0, "decode_steps": 0,
-            "occupancy_sum": 0.0, "occupancy_samples": 0, "peak_active": 0,
+            "occupancy_sum": 0.0, "occupancy_samples": 0,
+            # Peak co-resident requests — the capacity headline the
+            # paged-vs-dense bench compares at a fixed pool-byte budget.
+            "peak_active": 0,
         }
 
     @classmethod
@@ -463,14 +732,15 @@ class Server:
         default). ``engine_kw`` reaches :class:`SlotEngine` (``device``,
         ``max_len``, ...)."""
         cfg = config or ServeConfig.from_env()
-        policy = cfg.build_admission_policy()
-        engine = SlotEngine(model, params, **cfg.engine_kwargs(), **engine_kw)
+        engine = SlotEngine(
+            model, params, **cfg.engine_kwargs(), **engine_kw,
+        )
         return cls(
             engine,
             queue_depth=cfg.queue_depth,
             prefills_per_step=cfg.prefills_per_step,
             default_deadline_ms=cfg.deadline_ms,
-            admission_policy=policy,
+            admission_policy=cfg.build_admission_policy(),
         )
 
     # -- client side -------------------------------------------------------
@@ -478,7 +748,8 @@ class Server:
     def submit(self, request: Request) -> RequestHandle:
         """Enqueue one request (validated eagerly so a malformed request
         fails the caller, not the serving loop). Raises
-        :class:`QueueFull` when the bounded queue is at capacity."""
+        :class:`QueueFull` when the bounded queue is at capacity — the
+        backpressure signal a front-end turns into HTTP 429."""
         if self._closed:
             raise RuntimeError("server is closed")
         if request.deadline_ms is None and self.default_deadline_ms:
@@ -492,12 +763,17 @@ class Server:
             # tightened the effective threshold while an SLO burns.
             if len(self._queue) >= self.queue_limit:
                 self.stats["rejected"] += 1
-                obs.counter("serve.rejected")
-                raise QueueFull(f"admission queue at capacity ({self.queue_limit})")
+                with obs.trace_ctx(request.trace):
+                    obs.counter("serve.rejected")
+                raise QueueFull(
+                    f"admission queue at capacity ({self.queue_limit})"
+                )
             handle = RequestHandle(request, next(self._ids), now)
             self._queue.append(handle)
             with obs.trace_ctx(handle.trace):
                 obs.gauge("serve.queue_depth", float(len(self._queue)))
+        # Flight-recorder registry: this server's process now holds the
+        # trace until _finish / reclaim closes it.
         obs.trace_open(handle.trace, req=handle.id)
         return handle
 
@@ -513,6 +789,8 @@ class Server:
                 self.stats["completed"] += 1
                 obs.counter("serve.completed")
             if handle.deliver_s:
+                # Stream fan-out + client-callback wall for this
+                # attempt — the critical path's delivery phase.
                 obs.span_event(
                     "serve.delivery", handle.deliver_s, req=handle.id,
                     tokens=len(handle.new_tokens),
@@ -556,7 +834,8 @@ class Server:
                 self.stats["cancelled" if h._cancel else "deadline"] += 1
                 with obs.trace_ctx(h.trace):
                     obs.counter(
-                        "serve.cancelled" if h._cancel else "serve.evicted_deadline"
+                        "serve.cancelled" if h._cancel
+                        else "serve.evicted_deadline"
                     )
                 self.engine.release(slot)
                 del self._by_slot[slot]
@@ -572,8 +851,11 @@ class Server:
                 if not self._queue:
                     return
                 handle = self._queue.popleft()
-            # Block-pool gate (paged): FIFO order is preserved — a head
-            # request that doesn't fit waits at the front.
+            # Block-pool gate (paged layout): FIFO order is preserved —
+            # a head request that doesn't fit waits at the front until
+            # running streams release blocks. A backed-up queue then
+            # surfaces as QueueFull at submit (backpressure), exactly
+            # like slot exhaustion.
             if not self.engine.can_admit(handle.request.spec()):
                 with self._lock:
                     self._queue.appendleft(handle)
@@ -589,9 +871,9 @@ class Server:
                     t=handle.submitted_t, req=handle.id,
                 )
                 with obs.span(
-                    "serve.prefill",
-                    bucket=self.engine.bucket_for(spec.prompt.shape[0]),
-                    slot=slot, prompt_len=int(spec.prompt.shape[0]),
+                    "serve.prefill", bucket=self.engine.bucket_for(
+                        spec.prompt.shape[0]
+                    ), slot=slot, prompt_len=int(spec.prompt.shape[0]),
                 ):
                     first, eos_hit = self.engine.prefill(slot, spec)
                 handle.status = "running"
@@ -602,11 +884,44 @@ class Server:
                 self.stats["admitted"] += 1
                 self.stats["tokens"] += 1
                 obs.counter("serve.admitted")
-                obs.counter("serve.tokens")
+                obs.counter("serve.tokens")  # prefill-sampled first token
             admitted += 1
             if eos_hit or len(handle.new_tokens) >= spec.max_new_tokens:
                 self.engine.release(slot)
                 self._finish(handle, "eos" if eos_hit else "length")
+            elif self.handoff:
+                # Disaggregated prefill: the slot's job here is done the
+                # moment the first token exists. Export state + blocks,
+                # free the slot for the next prefill, and park the
+                # handle for the router's handoff sweep. The trace
+                # leaves with the export (the decode replica re-opens
+                # it); ``handoff_t`` anchors the serve.handoff_ms
+                # window.
+                state = self.engine.export_slot(slot)
+                state["handoff_t"] = time.monotonic()
+                if (
+                    self.handoff_pin
+                    and float(state["temp"]) == 0.0
+                    and self.engine.allocator is not None
+                ):
+                    alloc = self.engine.allocator
+                    nfull = (
+                        int(np.asarray(handle.request.prompt).reshape(-1)
+                            .shape[0]) // state["block_size"]
+                    )
+                    bids = list(state["blocks"][:nfull])
+                    fresh = [b for b in bids if not alloc.pinned(b)]
+                    budget = alloc.capacity // 4
+                    if bids and self._handoff_pins + len(fresh) <= budget:
+                        for b in bids:
+                            alloc.pin(b)
+                        self._handoff_pins += len(fresh)
+                        state["pinned"] = bids
+                self.engine.release(slot)
+                handle.status = "handoff"
+                obs.trace_close(handle.trace)
+                with self._lock:
+                    self._handoffs.append((handle, state))
             else:
                 self._by_slot[slot] = handle
 
@@ -618,19 +933,35 @@ class Server:
             self.policy.tick(self, now)
         self._reap(now)
         self._admit(now)
-        self.stats["peak_active"] = max(self.stats["peak_active"], len(self._by_slot))
+        self.stats["peak_active"] = max(
+            self.stats["peak_active"], len(self._by_slot)
+        )
         if self._by_slot:
             active = len(self._by_slot)
             tick_t0 = time.monotonic()
             with obs.trace_ctx(self._tick_trace):
                 with obs.span("serve.decode_step", active=active):
-                    # A speculative tick commits 1 .. spec_k + 1 tokens
-                    # per slot; the plain step is its one-token case.
-                    if self.engine.spec_enabled:
+                    # Speculative tier: one tick commits 1..spec_k+1
+                    # tokens per slot (draft + batched verify); the
+                    # non-spec step is the single-token special case of
+                    # the same shape. A brownout spec_off stage suspends
+                    # speculation at runtime — the plain decode program
+                    # is already in the closed set, so the fallback
+                    # captures nothing.
+                    if self.engine.spec_enabled and not getattr(
+                        self.engine, "spec_suspended", False
+                    ):
                         emitted = self.engine.spec_step()
                     else:
-                        emitted = [(slot, [token], eos_hit) for slot, token, eos_hit
-                                   in self.engine.decode_step()]
+                        emitted = [
+                            (slot, [token], eos_hit)
+                            for slot, token, eos_hit in
+                            self.engine.decode_step()
+                        ]
+            # Shared-tick attribution (docs/OBSERVABILITY.md): each
+            # occupied slot is charged an equal share of the tick wall,
+            # so a per-request decode timeline exists even though the
+            # engine batches all slots into one program dispatch.
             share_s = (time.monotonic() - tick_t0) / active
             self.stats["decode_steps"] += 1
             n_tokens = 0
@@ -646,7 +977,9 @@ class Server:
                     h._deliver(toks)
                     self.stats["tokens"] += len(toks)
                     n_tokens += len(toks)
-                    if eos_hit or len(h.new_tokens) >= h.request.max_new_tokens:
+                    if eos_hit or (
+                        len(h.new_tokens) >= h.request.max_new_tokens
+                    ):
                         self.engine.release(slot)
                         del self._by_slot[slot]
                         self._finish(h, "eos" if eos_hit else "length")
@@ -654,6 +987,8 @@ class Server:
         with self._lock:
             busy = bool(self._by_slot or self._queue)
         if busy:
+            # Occupancy is sampled on working ticks only — idle polling
+            # between arrivals would dilute the mean to meaninglessness.
             occ = self.engine.occupancy
             self.stats["occupancy_sum"] += occ
             self.stats["occupancy_samples"] += 1
@@ -662,16 +997,127 @@ class Server:
 
     def drain(self, timeout: Optional[float] = None) -> None:
         """Graceful drain: pump until every queued + active request has
-        finished."""
+        finished (admissions keep flowing; callers stop submitting)."""
         t0 = time.monotonic()
         while self.step():
             if timeout is not None and time.monotonic() - t0 > timeout:
                 raise TimeoutError("drain timed out with work remaining")
 
+    def serve_forever(self, stop: threading.Event,
+                      idle_sleep_s: float = 0.001) -> None:
+        """Pump loop for a background serving thread: steps while work
+        exists, naps briefly when idle, drains once ``stop`` is set."""
+        while not stop.is_set():
+            if not self.step():
+                time.sleep(idle_sleep_s)
+        self.drain()
+
     def close(self) -> None:
         """Stop accepting, drain what was already admitted or queued."""
         self._closed = True
         self.drain()
+
+    # -- fleet hooks (serving/fleet/router.py) -----------------------------
+
+    def reclaim_queued(self) -> List[RequestHandle]:
+        """Pull every queued-but-not-yet-admitted request back out of
+        the server (status → ``requeued``, done NOT set) so a fleet
+        router can re-route it to another replica — the drain path's
+        zero-drop guarantee. Safe from any thread."""
+        with self._lock:
+            out = list(self._queue)
+            self._queue.clear()
+            obs.gauge("serve.queue_depth", 0.0)
+        for h in out:
+            h.status = "requeued"
+            # The trace leaves with the request — this process no
+            # longer holds it (flight-recorder registry).
+            obs.trace_close(h.trace)
+        return out
+
+    def take_running(self) -> List[RequestHandle]:
+        """Evict every RUNNING request and hand its handle back (status
+        → ``requeued``) for a from-scratch restart elsewhere — the
+        *faulted*-replica path. Per-request determinism (the serving
+        tier's bitwise-parity contract) makes the restart's stream an
+        exact superset of what was already delivered, so the fleet
+        handle can splice without duplication. Only call with the pump
+        stopped (the single-pumper thread dead or parked)."""
+        out = []
+        for slot, h in list(self._by_slot.items()):
+            try:
+                self.engine.release(slot)
+            except Exception:
+                pass  # a faulted engine's bookkeeping may be wrecked
+            del self._by_slot[slot]
+            h.status = "requeued"
+            obs.trace_close(h.trace)
+            out.append(h)
+        return out
+
+    def take_handoffs(self) -> List[Tuple[RequestHandle, Dict[str, Any]]]:
+        """Collect every pending prefill export (handoff mode). Safe
+        from any thread — the router calls this each tick and seats the
+        exports on decode replicas. Exports are pure host data, so they
+        survive this replica's death: anything already collected can be
+        imported anywhere."""
+        with self._lock:
+            out = self._handoffs
+            self._handoffs = []
+        return out
+
+    def export_running(
+        self, handle: RequestHandle
+    ) -> Optional[Dict[str, Any]]:
+        """Live migration export: snapshot ``handle``'s slot state + KV
+        blocks (:meth:`SlotEngine.export_slot`), release the slot, and
+        park the handle (status → ``requeued``). Unlike
+        :meth:`take_running`, the export makes the continuation a state
+        transplant — the importing replica replays nothing. Only call
+        with the pump parked. Returns None when the handle is not
+        running here."""
+        for slot, h in list(self._by_slot.items()):
+            if h is handle:
+                state = self.engine.export_slot(slot)
+                state["handoff_t"] = time.monotonic()
+                self.engine.release(slot)
+                del self._by_slot[slot]
+                h.status = "requeued"
+                obs.trace_close(h.trace)
+                return state
+        return None
+
+    def import_running(
+        self,
+        request: Request,
+        state: Dict[str, Any],
+        prior_tokens: Optional[List[int]] = None,
+    ) -> RequestHandle:
+        """Seat an exported slot state (handoff or migration) as a
+        RUNNING request — no queue, no prefill: the engine restores the
+        KV blocks and sampling cursor and the next decode tick continues
+        the stream bitwise. ``prior_tokens`` seeds the handle with the
+        tokens earlier attempts already delivered so the finish
+        condition (``len(new_tokens) >= max_new_tokens``) and the
+        stream splice stay exact. Raises when no slot/blocks are free —
+        the caller checked :meth:`SlotEngine.can_import` first."""
+        if self._closed:
+            raise RuntimeError("server is closed")
+        free = self.engine.free_slots
+        if not free:
+            raise RuntimeError("no free slot for import")
+        now = time.monotonic()
+        slot = free[0]
+        prompt = np.asarray(request.prompt, np.int32).reshape(-1)
+        self.engine.import_slot(slot, state, prompt=prompt)
+        handle = RequestHandle(request, next(self._ids), now)
+        handle.status = "running"
+        handle.queue_wait_s = 0.0
+        if prior_tokens:
+            handle.new_tokens = [int(t) for t in prior_tokens]
+        self._by_slot[slot] = handle
+        obs.trace_open(handle.trace, req=handle.id)
+        return handle
 
     @property
     def queued_count(self) -> int:
@@ -686,3 +1132,80 @@ class Server:
     def occupancy_mean(self) -> float:
         n = self.stats["occupancy_samples"]
         return self.stats["occupancy_sum"] / n if n else 0.0
+
+
+def generate_with_engine(
+    server_or_engine,
+    prompt: np.ndarray,
+    *,
+    max_new_tokens: int,
+    temperature: float = 0.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    eos_token: Optional[int] = None,
+    pad_token: Optional[int] = None,
+    rng: Any = None,
+    on_token: Any = None,
+) -> np.ndarray:
+    """``inference.generate``'s signature served by the slot engine:
+    each row of ``prompt`` ([B, Tp] int32) becomes one request; rows
+    co-decode in the pool and the result is reassembled to
+    ``[B, Tp + max_new_tokens]`` (eos freezes a row to ``pad_token``,
+    like ``generate``).
+
+    Row 0 uses ``rng`` directly, so at B=1 the output is bitwise-equal
+    to sequential ``generate``; rows b>0 sample under
+    ``fold_in(rng, b)`` (``generate`` draws all rows from one key per
+    step, which has no per-row equivalent).
+
+    ``server_or_engine`` may also be a fleet
+    :class:`~distributeddeeplearning_tpu_torch.serving.fleet.router.Router` —
+    rows then route through the fleet (default tenant).
+
+    ``on_token``: optional incremental streaming callback
+    ``(row_index, token)`` invoked as tokens are committed — the final
+    array equals exactly the streamed tokens (oracle-tested).
+    """
+    from distributeddeeplearning_tpu_torch.serving import keys as keylib
+    from distributeddeeplearning_tpu_torch.serving.fleet.router import Router
+
+    router: Optional[Router] = None
+    if isinstance(server_or_engine, Router):
+        router = server_or_engine
+    elif isinstance(server_or_engine, Server):
+        server = server_or_engine
+    else:
+        server = Server(server_or_engine)
+    prompt = np.asarray(prompt, np.int32)
+    if prompt.ndim != 2:
+        raise ValueError(f"prompt must be [B, Tp], got {prompt.shape}")
+    if eos_token is not None and pad_token is None:
+        pad_token = eos_token
+    base_key = ReqSpec(
+        prompt=prompt[0], max_new_tokens=max_new_tokens, rng=rng
+    ).key_data()
+    handles = []
+    for b in range(prompt.shape[0]):
+        row_key = base_key if b == 0 else keylib.fold_key(base_key, b)
+        cb = None
+        if on_token is not None:
+            def cb(_h, toks, b=b):
+                for tok in toks:
+                    on_token(b, int(tok))
+        req = Request(
+            prompt=prompt[b], max_new_tokens=max_new_tokens,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            eos_token=eos_token, rng=row_key, on_token=cb,
+        )
+        handles.append(
+            router.submit(req) if router is not None else server.submit(req)
+        )
+    (router if router is not None else server).drain()
+    out = np.full(
+        (prompt.shape[0], prompt.shape[1] + max_new_tokens),
+        0 if pad_token is None else pad_token, np.int32,
+    )
+    for b, h in enumerate(handles):
+        toks = h.result(timeout=0)
+        out[b, : toks.shape[0]] = toks
+    return out

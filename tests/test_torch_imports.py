@@ -9,9 +9,10 @@ unloaded, the process tier (``launch``, ``faults``, ``obs.tail``,
 (``native``, ``data.imagenet``, ``data.prepare``, ``data.stream``,
 ``streamgen``, ``stream_bench``, ``real_data_bench``) imports neither
 JAX nor TensorFlow nor PIL when imported, the model and optimizer knobs
-(``models.moe``, AdamW, the ``moe_audit`` twin) import no JAX, and the
-entry points default
-to the CUDA device instead of falling back to the CPU."""
+(``models.moe``, AdamW, the ``moe_audit`` twin) import no JAX, nor do
+the serving fleet (``serving.chaos``, ``serving.fleet.*``) and its bench
+twins, and the entry points (the fleet's replicas and benches among
+them) default to the CUDA device instead of falling back to the CPU."""
 
 import ast
 import os
@@ -29,7 +30,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distributeddeeplearning_tpu")
 
 def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "scripts" / "elastic_dp_check.py"]
+                                         ROOT / "scripts" / "elastic_dp_check.py",
+                                         ROOT / "scripts" / "spec_draft_profile.py",
+                                         ROOT / "scripts" / "spec_harness_ab.py"]
 
 
 def _imported(tree):
@@ -134,6 +137,64 @@ def test_model_and_optimizer_knobs_import_no_jax(module):
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+FLEET_MODULES = ("serving.chaos", "serving.blocks", "serving.fleet", "serving.fleet.replica",
+                 "serving.fleet.router", "serving.fleet.controller", "fleet_bench",
+                 "disagg_bench", "chaos_bench")
+
+
+def test_serving_fleet_imports_no_jax():
+    """The chaos plane, the prefix directory, the fleet and its bench
+    twins (copies of jax-free JAX modules among them) import no JAX and
+    nothing of the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {FLEET_MODULES!r}: "
+        "importlib.import_module('distributeddeeplearning_tpu_torch.' + m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'distributeddeeplearning_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_fleet_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from distributeddeeplearning_tpu_torch.models.transformer_lm import TransformerLM
+    from distributeddeeplearning_tpu_torch.serving import (
+        FleetConfig,
+        Replica,
+        ServeConfig,
+        build_fleet,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = TransformerLM("tiny", vocab_size=64, max_seq_len=32, device="meta")
+    scfg = ServeConfig(num_slots=2, buckets=(8,))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Replica(0, model, None, scfg, max_len=32).start(threaded=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_fleet(model, None, fleet_config=FleetConfig(replicas=1), serve_config=scfg,
+                    max_len=32, threaded=False)
+
+
+def test_fleet_benches_default_to_cuda_and_fail_without_it():
+    """Without ``BENCH_DEVICE`` each bench twin asks for the card: with
+    no CUDA it prints its error record and exits non-zero (the three run
+    at once)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    env.pop("BENCH_DEVICE", None)
+    procs = [subprocess.Popen([sys.executable, "-m", f"distributeddeeplearning_tpu_torch.{m}"],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for m in ("fleet_bench", "disagg_bench", "chaos_bench")]
+    for proc in procs:
+        out, _ = proc.communicate(timeout=120)
+        assert proc.returncode != 0
+        assert '"error"' in out and "CUDA" in out
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):

@@ -148,7 +148,8 @@ def test_tree_byte_split_and_dequantize_params_match_jax(flax_params, kind):
 def test_quantized_model_forward_equals_dequantized_weights(flax_params, kind):
     """A quantized TransformerLM computes exactly what the same model
     loaded with the dequantized weights computes (JAX's dequant-on-use),
-    with and without the held copies of the draft's tick."""
+    before and after ``hold_resident_`` keeps the dequantized copies the
+    speculative engine's int8 draft runs on."""
     state = convert.params_from_flax(flax_params)
 
     def lm():
@@ -164,9 +165,12 @@ def test_quantized_model_forward_equals_dequantized_weights(flax_params, kind):
     with torch.no_grad():
         want = ref_model(tokens)
         got = q_model(tokens)
-        with quant.hold_dequantized(q_model, torch.float32):
-            held = q_model(tokens)
+        held_bytes = quant.hold_resident_(q_model, torch.float32)
+        held = q_model(tokens)
     assert torch.equal(got, want) and torch.equal(held, want)
-    assert quant.held(q_model.blocks[0].attn.qkv) is None  # dropped on exit
+    qkv = q_model.blocks[0].attn.qkv
+    assert torch.equal(quant.held(qkv)["weight"], ref_model.blocks[0].attn.qkv.weight)
+    codes = [b for n, b in q_model.named_buffers() if n.endswith(quant.Q)]
+    assert held_bytes == sum(b.numel() * 4 for b in codes) > 0  # f32 copies
     assert not any(n.endswith(".weight") and p.dim() == 2
                    for n, p in q_model.named_parameters())
