@@ -171,7 +171,7 @@ non-zero.
    a Chrome trace an epoch naming the fused kernels. See
    :func:`trace_phase`.
 17. ``bench``: ``python -m distributeddeeplearning_tpu_torch.bench`` in a
-   subprocess, three runs of the canonical ResNet-50 protocol and three
+   subprocess, two runs of the canonical ResNet-50 protocol and two
    of ``BENCH_MODEL=lm_base``, each timing the captured step: each
    record printed (``platform`` cuda, ``graphs_captured`` 1,
    ``host_sync_count`` 1; ``lm_base``'s runs share a fresh
@@ -785,6 +785,11 @@ FLASH_CASES = (
     ("vit_b16_ragged", 32, 12, 197, 197, 64, False, 1.0),
     ("cross_ragged", 2, 4, 100, 300, 64, False, 1.0),
     ("peaky", 8, 12, 1024, 1024, 64, True, 8.0),  # softmax near one-hot
+    # what the mesh phase's lm_base engines hand the kernel on a rank:
+    # tp's 6 of 12 heads, fsdp's data shard of 4 rows, pp's microbatch of 2
+    ("mesh_tp_heads", 8, 6, 1024, 1024, 64, True, 1.0),
+    ("mesh_fsdp_rows", 4, 12, 1024, 1024, 64, True, 1.0),
+    ("mesh_pp_micro", 2, 12, 1024, 1024, 64, True, 1.0),
 )
 FLASH_OPS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -4373,7 +4378,7 @@ def trace_phase(fb, card, device="cuda", image_size=224, batch=64, num_classes=1
     return line
 
 
-BENCH_RUNS = 3
+BENCH_RUNS = 2  # enough for the cache check (misses, then hits); a third run cost 39 s
 
 
 # COMPILATION_CACHE_DIR None: a fresh directory that the protocol's runs share.
@@ -5783,6 +5788,454 @@ def fleet_phase(pd, card, variant="base", device="cuda", small=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# mesh: the pjit, sp and pp engines in multi-process worlds
+# ---------------------------------------------------------------------------
+
+# lm_base training's shapes (T 1024, batch 8, vocab 32,000; ResNet-50 and
+# ViT-B/16 at 224 px); the f32 first step against one rank at 2 layers
+# and batch 8; ``timed`` bf16 steps a world after one warm-up step.
+MESH_SIZE = dict(variant="base", vocab=32_000, seq=1024, batch=8, check_batch=8,
+                 check_layers=2, timed=2, image_size=224, resnet_batch=32, vit_batch=8)
+MESH_LOSS_REL = 1e-5  # f32: the same sums in another order
+MESH_PARAM_REL = 1e-4  # f32: of the largest value (the CPU tests' assert_step_matches)
+# One H100, two ranks sharing it under gloo (ranks_per_card 2).
+MESH_SCENARIOS = (
+    dict(name="pjit_tp", engine="pjit", param_sharding="tp", axes=["data", "model"],
+         shape=[1, 2], model="lm"),
+    dict(name="pjit_fsdp", engine="pjit", param_sharding="fsdp", axes=["data"], shape=[2],
+         model="lm"),
+    dict(name="sp_ring", engine="sp", axes=["data", "seq"], shape=[1, 2], model="lm"),
+    dict(name="pp_gpipe", engine="pp", pp_schedule="gpipe", axes=["data", "pipe"],
+         shape=[1, 2], model="lm"),
+    dict(name="pp_1f1b", engine="pp", pp_schedule="1f1b", axes=["data", "pipe"],
+         shape=[1, 2], model="lm"),
+    dict(name="resnet50_sync_bn", engine="pjit", param_sharding="dp", axes=["data"],
+         shape=[2], model="resnet", allow_sync_bn=True),
+    dict(name="vit_b16_pjit", engine="pjit", param_sharding="dp", axes=["data"], shape=[2],
+         model="vit"),
+)
+
+
+def _mesh_cfg(sc, dtype, attn_impl, size):
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+
+    kw = dict(engine=sc["engine"], mesh_axes=tuple(sc["axes"]), mesh_shape=tuple(sc["shape"]),
+              param_sharding=sc.get("param_sharding", "tp"),
+              pp_schedule=sc.get("pp_schedule", "gpipe"), pp_microbatches=4,
+              allow_sync_bn=sc.get("allow_sync_bn", False), compute_dtype=dtype,
+              scale_lr_by_world_size=False)
+    if sc["model"] == "lm":
+        return TrainConfig(model=f"lm_{size['variant']}", num_classes=size["vocab"],
+                           attn_impl=attn_impl, batch_size_per_device=size["batch"], **kw)
+    if sc["model"] == "vit":
+        return TrainConfig(model="vit_b16", num_classes=1000, attn_impl="fused",
+                           image_size=size["image_size"],
+                           batch_size_per_device=size["vit_batch"], **kw)
+    return TrainConfig(model="resnet50", num_classes=1000, image_size=size["image_size"],
+                       batch_size_per_device=size["resnet_batch"], **kw)
+
+
+def _mesh_model(sc, cfg, device, size, layers=None):
+    from distributeddeeplearning_tpu_torch.models import get_model
+
+    if sc["model"] == "lm":
+        return get_model(cfg.model, num_classes=size["vocab"], dtype=cfg.compute_dtype,
+                         attn_impl=cfg.attn_impl, max_seq_len=size["seq"], n_layers=layers,
+                         device=device)
+    if sc["model"] == "vit":
+        return get_model("vit_b16", num_classes=1000, dtype=cfg.compute_dtype,
+                         attn_impl="fused", fused_dense_grad=True,
+                         image_size=size["image_size"], device=device)
+    return get_model("resnet50", num_classes=1000, dtype=cfg.compute_dtype, fused=True,
+                     device=device)
+
+
+def _mesh_batch(sc, rows, size, seed=5):
+    """The global batch of a scenario (numpy, from ``seed``)."""
+    rng = np.random.RandomState(seed)
+    if sc["model"] == "lm":
+        r = rng.randint(0, size["vocab"], size=(rows, size["seq"] + 1)).astype(np.int32)
+        return r[:, :-1], r[:, 1:]
+    px = size["image_size"]
+    return (rng.randint(0, 256, size=(rows, px, px, 3)).astype(np.uint8),
+            rng.randint(0, 1000, size=(rows,)).astype(np.int32))
+
+
+def _resnet_agree_sd(device):
+    """``fused_vs_unfused_step``'s weights: the seeded init with every
+    BN γ drawn 1 ± 0.2 and the branches' last γ 0.1 ± 0.02."""
+    from distributeddeeplearning_tpu_torch.models import convert
+
+    sd = convert.init_resnet_params(50, 1000, torch.Generator(device=device).manual_seed(42))
+    g = torch.Generator(device=device).manual_seed(7)
+    for k, v in sd.items():
+        if k.endswith(".weight") and v.dim() == 1:
+            base = 0.1 if bool((v == 0).all()) else 1.0
+            sd[k] = base * (1.0 + 0.2 * torch.randn(v.shape, device=device, generator=g))
+    return sd
+
+
+def _mesh_engine(sc, cfg, device, size, mesh=None, layers=None):
+    """The scenario's engine through the port's entry points (seeded
+    init; the ResNet from the agreement weights)."""
+    from distributeddeeplearning_tpu_torch.training import create_optimizer, engines
+    from distributeddeeplearning_tpu_torch.training.pjit_step import build_pjit_state
+
+    model = _mesh_model(sc, cfg, device, size, layers)
+    tx, _ = create_optimizer(cfg, 100, world_size=1)
+    mesh = engines.resolve_mesh(cfg, mesh)
+    state = None
+    if sc["model"] == "resnet":
+        state = build_pjit_state(model, cfg, tx, mesh, device=device,
+                                 state_dict=_resnet_agree_sd(device))
+    return engines.build_engine(model, cfg, tx, state=state, device=device, mesh=mesh)
+
+
+def _local(eng, batch, device):
+    index, count = eng.batch_shard()
+    n = batch[0].shape[0] // count
+    return tuple(torch.as_tensor(x[index * n:(index + 1) * n]).to(device) for x in batch)
+
+
+def _mesh_counts():
+    from distributeddeeplearning_tpu_torch.ops import flash as fl
+    from distributeddeeplearning_tpu_torch.ops import flash_packed as fp
+    from distributeddeeplearning_tpu_torch.ops import fused_block as fb
+    from distributeddeeplearning_tpu_torch.ops import fused_grads as fg
+
+    out = dict(fl.launches_by_op)
+    out.update(fb.launches_by_op)
+    out.update(fp.launches_by_op)
+    out["matmul_dw_db"] = fg.launches
+    return out
+
+
+def _mesh_reset():
+    from distributeddeeplearning_tpu_torch.ops import flash as fl
+    from distributeddeeplearning_tpu_torch.ops import flash_packed as fp
+    from distributeddeeplearning_tpu_torch.ops import fused_block as fb
+    from distributeddeeplearning_tpu_torch.ops import fused_grads as fg
+
+    for mod in (fl, fb, fp):
+        mod.launches = 0
+        for k in mod.launches_by_op:
+            mod.launches_by_op[k] = 0
+    fg.launches = 0
+
+
+def mesh_child(spec_path, out_path):
+    """One rank of the ``mesh`` phase's world (``chip_smoke.py
+    --mesh-child SPEC OUT``, started by :func:`mesh_phase` or
+    ``scripts/mesh_check.py``): the world from ``DDL_*``
+    (``parallel.distributed``), then for each scenario
+    of ``SPEC`` the f32 first step at ``check_layers`` layers (LM;
+    rank 0 saves the whole state after it) and the full-depth bf16 run:
+    one warm-up step, ``timed`` steps (``SPEC``'s sizes), the kernels' launches
+    a step and the peak memory of this rank. Rank 0 writes every rank's
+    lines to ``OUT`` (JSON)."""
+    import torch.distributed as dist
+
+    from distributeddeeplearning_tpu_torch.parallel import collectives, distributed
+    from distributeddeeplearning_tpu_torch.training import checkpoint
+
+    distributed.maybe_initialize()
+    device = distributed.default_device()
+    backend = dist.get_backend()
+    rank, world = collectives.rank(), collectives.size()
+    spec = json.load(open(spec_path))
+    size = spec["size"]
+    cuda = device.type == "cuda"
+    ranks_per_card = max(1, world // torch.cuda.device_count()) if cuda else 0
+    lines = []
+    for sc in spec["scenarios"]:
+        t0 = time.perf_counter()
+        line = {"name": sc["name"], "rank": rank, "backend": backend, "world": world,
+                "ranks_per_card": ranks_per_card}
+        if sc["model"] == "lm" and spec.get("check", True):
+            cfg = _mesh_cfg(sc, "float32", "xla", size)
+            eng = _mesh_engine(sc, cfg, device, size, layers=size["check_layers"])
+            state, m = eng.train_step(eng.state, _local(eng, _mesh_batch(
+                sc, size["check_batch"], size), device))
+            line["check_loss"] = float(m["loss"])
+            payload = checkpoint._payload(state)
+            if rank == 0:
+                torch.save({"loss": float(m["loss"]), "model": {
+                    k: v.detach().cpu() for k, v in payload["model"].items()}},
+                    os.path.join(os.path.dirname(out_path), f"{sc['name']}_check.pt"))
+            del eng, state, payload
+            gc.collect()
+        attn = ("pallas" if cuda else "xla") if sc["model"] == "lm" else "fused"
+        cfg = _mesh_cfg(sc, "bfloat16" if cuda else "float32", attn, size)
+        eng = _mesh_engine(sc, cfg, device, size)
+        rows = cfg.batch_size_per_device * (world if sc["model"] != "lm" else 1)
+        timed = size["timed"]
+        batches = [_local(eng, _mesh_batch(sc, rows, size, seed=5 + i), device)
+                   for i in range(timed + 1)]
+        line["param_mib"] = sum(t.numel() * t.element_size()
+                                for t in eng.state.model.parameters()) / 2**20
+        state, m = eng.train_step(eng.state, batches[0])
+        if sc["model"] == "resnet" and rank == 0:
+            payload = {k: v.detach().cpu() for k, v in eng.state.model.state_dict().items()}
+        elif sc["model"] == "resnet":
+            payload = None
+        line["first_loss"] = float(m["loss"])
+        if sc["model"] == "resnet" and rank == 0:
+            torch.save({"loss": float(m["loss"]), "model": payload},
+                       os.path.join(os.path.dirname(out_path), f"{sc['name']}_check.pt"))
+        _sync(device)
+        collectives.barrier()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        _mesh_reset()
+        t1 = time.perf_counter()
+        losses = []
+        for b in batches[1:]:
+            state, m = eng.train_step(state, b)
+            losses.append(float(m["loss"]))
+        _sync(device)
+        line["step_ms"] = (time.perf_counter() - t1) / timed * 1e3
+        line["launches_per_step"] = {k: v / timed for k, v in _mesh_counts().items()}
+        line["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+        line["losses"] = losses
+        line["seconds"] = time.perf_counter() - t0
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{sc['name']}: non-finite losses {losses}")
+        del eng, state, batches
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        collectives.barrier()
+        every = [None] * world
+        dist.all_gather_object(every, line)
+        lines += every
+    if rank == 0:
+        json.dump({"lines": lines, "backend": backend}, open(out_path, "w"))
+    distributed.shutdown()
+
+
+def _mesh_want(sc, layers, on_card=True):
+    """Each kernel's launches a step on a rank (PERF.md §6's table): the
+    flash kernels once a layer a forward (tp: 6 of 12 heads; fsdp: the
+    whole model) and backward; pp ×4 microbatches over 6 layers a stage,
+    1F1B's forwards twice (its recompute); ring attention none; the
+    fused ResNet 16 + 16 a forward; the packed ViT kernels 12 + 12 and
+    dW+db 49 (every ``FusedGradDense``, on each rank's own tensors)."""
+    zero = {k: 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "matmul_stats",
+                           "bn_relu_matmul_stats", "fused_qkv_fwd", "fused_qkv_bwd",
+                           "matmul_dw_db")}
+    if not on_card:
+        return zero
+    if sc["model"] == "resnet":
+        return dict(zero, matmul_stats=16, bn_relu_matmul_stats=16)
+    if sc["model"] == "vit":
+        return dict(zero, fused_qkv_fwd=12, fused_qkv_bwd=12, matmul_dw_db=49)
+    if sc["engine"] == "sp":
+        return zero
+    if sc["engine"] == "pp":
+        n = layers // sc["shape"][sc["axes"].index("pipe")] * 4
+        return dict(zero, flash_fwd=2 * n if sc["pp_schedule"] == "1f1b" else n,
+                    flash_bwd_dq=n, flash_bwd_dkv=n)
+    return dict(zero, flash_fwd=layers, flash_bwd_dq=layers, flash_bwd_dkv=layers)
+
+
+def _mesh_reference(sc, device, size):
+    """One rank's step on the same global batch and weights: the dp
+    engine (LM: f32 at the check depth; ResNet: the fused bf16 step on
+    the whole batch), or for pp the pipeline of one stage holding both
+    stages' blocks (JAX's ``apply_reference``)."""
+    from distributeddeeplearning_tpu_torch.models.pipeline_lm import (
+        PipelineLM,
+        init_pipeline_params,
+    )
+    from distributeddeeplearning_tpu_torch.parallel.mesh import create_mesh
+    from distributeddeeplearning_tpu_torch.training import create_optimizer, engines
+    from distributeddeeplearning_tpu_torch.training.pp_step import create_pp_state
+    from distributeddeeplearning_tpu_torch.training.state import create_train_state
+
+    if sc["model"] == "resnet":
+        cfg = _mesh_cfg(sc, "bfloat16" if torch.device(device).type == "cuda" else "float32",
+                        "fused", size).replace(engine="dp", mesh_axes=("data",),
+                                               mesh_shape=None)
+        model = _mesh_model(sc, cfg, device, size)
+        tx, _ = create_optimizer(cfg, 100, world_size=1)
+        state = create_train_state(model, cfg, tx, device=device,
+                                   state_dict=_resnet_agree_sd(device))
+        eng = engines.build_engine(model, cfg, tx, state=state, device=device)
+        batch = _mesh_batch(sc, 2 * cfg.batch_size_per_device, size, seed=5)
+    elif sc["engine"] == "pp":
+        cfg = _mesh_cfg(sc, "float32", "xla", size).replace(mesh_shape=(1, 1))
+        lm = (size["variant"], size["vocab"], size["seq"])
+        sds = [init_pipeline_params(PipelineLM(*lm, 2, size["check_layers"], torch.float32,
+                                               stage=s, device=device), cfg.seed, device)
+               for s in range(2)]
+        one = {k: v for k, v in sds[0].items() if not k.startswith("core.")}
+        for s, sd in enumerate(sds):
+            one.update({f"core.layers.{s}." + k[len("core.layers.0."):]: v
+                        for k, v in sd.items() if k.startswith("core.layers.0.")})
+        pl = PipelineLM(*lm, 1, size["check_layers"], torch.float32, device=device)
+        tx, _ = create_optimizer(cfg, 100, world_size=1)
+        mesh = create_mesh(axes=("data", "pipe"))
+        state = create_pp_state(pl, cfg, tx, mesh, device=device, state_dict=one)
+        eng = engines.build_engine(pl, cfg, tx, state=state, device=device, mesh=mesh)
+        batch = _mesh_batch(sc, size["check_batch"], size)
+    else:
+        cfg = _mesh_cfg(sc, "float32", "xla", size).replace(
+            engine="dp", mesh_axes=("data",), mesh_shape=None)
+        model = _mesh_model(sc, cfg, device, size, size["check_layers"])
+        tx, _ = create_optimizer(cfg, 100, world_size=1)
+        eng = engines.build_engine(model, cfg, tx, device=device)
+        batch = _mesh_batch(sc, size["check_batch"], size)
+    state, m = eng.train_step(eng.state, tuple(torch.as_tensor(x).to(device) for x in batch))
+    from distributeddeeplearning_tpu_torch.training import checkpoint
+
+    got = checkpoint._payload(state)["model"]
+    return float(m["loss"]), {k: v.detach().cpu() for k, v in got.items()}
+
+
+def _mesh_compare(sc, want_loss, want, got_loss, got, device):
+    """The check of one scenario against its one-rank reference: f32
+    LM (and pp) loss within ``MESH_LOSS_REL`` and every parameter within
+    ``MESH_PARAM_REL`` of the largest value; the bf16 fused ResNet under
+    the fused-vs-unfused limits (``AGREE_LOSS_REL``, ``AGREE_UPDATE_REL``
+    on the update of each group, ``AGREE_STATS_REL``)."""
+    if sc["model"] == "resnet":
+        init = {k: v.cpu() for k, v in _resnet_agree_sd(device).items()}
+        sums, stats = {}, 0.0
+        for k, ref in init.items():
+            if "running" in k:
+                stats = max(stats, ((got[k] - want[k]).abs().max()
+                                    / want[k].abs().max()).item())
+                continue
+            dw, dg = want[k].double() - ref.double(), got[k].double() - ref.double()
+            n, d = sums.get(_agree_group(k), (0.0, 0.0))
+            sums[_agree_group(k)] = (n + (dg - dw).pow(2).sum().item(),
+                                     d + dw.pow(2).sum().item())
+        gaps = {g: (n / d) ** 0.5 for g, (n, d) in sums.items()}
+        loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+        res = {"loss_rel": loss_rel, "update_rel_by_group": gaps, "running_stats_rel": stats}
+        res["within_limits"] = (loss_rel <= AGREE_LOSS_REL
+                                and max(gaps.values()) <= AGREE_UPDATE_REL
+                                and stats <= AGREE_STATS_REL)
+        return res
+    scale = max(float(v.abs().max()) for v in want.values())
+    if sc["engine"] != "pp":
+        worst = max(float((got[k].float() - want[k].float()).abs().max()) for k in want)
+    else:  # stages stacked [S, ...] against one stage's blocks
+        worst = 0.0
+        for k, v in got.items():
+            if k.startswith("core.layers."):
+                for s in range(v.shape[0]):
+                    ref = want["core.layers." + str(s) + k[len("core.layers.0"):]]
+                    worst = max(worst, float((v[s] - ref).abs().max()))
+            else:
+                worst = max(worst, float((v - want[k]).abs().max()))
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    return {"loss_rel": loss_rel, "param_err_rel": worst / scale,
+            "within_limits": loss_rel <= MESH_LOSS_REL and worst <= MESH_PARAM_REL * scale}
+
+
+def run_mesh_world(scenarios, nprocs, tmp, size=MESH_SIZE, timeout=600, platform="gpu"):
+    """Start ``nprocs`` ranks of :func:`mesh_child` as a world from
+    ``DDL_*`` (NCCL with a card a rank when the machine has one for each,
+    else gloo with ranks sharing the cards) and return rank 0's JSON."""
+    import socket
+
+    os.makedirs(tmp, exist_ok=True)
+    spec, out = os.path.join(tmp, "spec.json"), os.path.join(tmp, "out.json")
+    json.dump({"scenarios": list(scenarios), "size": size}, open(spec, "w"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for r in range(nprocs):
+        env = dict(os.environ, DDL_COORDINATOR=f"127.0.0.1:{port}",
+                   DDL_NUM_PROCESSES=str(nprocs), DDL_PROCESS_ID=str(r), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(nprocs), DDL_PLATFORM=platform,
+                   PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), "--mesh-child", spec, out],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("mesh world failed:\n" + "\n".join(
+            f"--- rank {r} (exit {p.returncode}) ---\n{log[-6000:]}"
+            for r, (p, log) in enumerate(zip(procs, logs))))
+    return json.load(open(out))
+
+
+def mesh_phase(card, device="cuda", scenarios=MESH_SCENARIOS, nprocs=2, tmp=None,
+               size=MESH_SIZE):
+    """The ``mesh`` phase: every scenario in one world of ``nprocs``
+    ranks (:func:`run_mesh_world`), each rank's first step held against
+    the one-rank reference (:func:`_mesh_compare`), each rank's launches
+    a step against :func:`_mesh_want`, GPipe against 1F1B (equal losses
+    within the f32 limit at the check, 1F1B's peak memory lower at full
+    depth). Prints a ``mesh`` line a scenario and ``meshworld``; returns
+    each kernel's launches a step by scenario (rank 0)."""
+    import tempfile
+
+    tmp = tmp or tempfile.mkdtemp(prefix="ddl-mesh-")
+    got = run_mesh_world(scenarios, nprocs, tmp, size,
+                         platform="gpu" if device == "cuda" else "cpu")
+    by = {}
+    for line in got["lines"]:
+        by.setdefault(line["name"], []).append(line)
+    print("meshworld " + json.dumps({"backend": got["backend"], "world": nprocs,
+                                     "card": card}), flush=True)
+    launches = {}
+    for sc in scenarios:
+        ranks = by[sc["name"]]
+        path = os.path.join(tmp, f"{sc['name']}_check.pt")
+        agree = None
+        if os.path.exists(path):
+            saved = torch.load(path, weights_only=True)
+            want_loss, want = _mesh_reference(sc, device, size)
+            agree = _mesh_compare(sc, want_loss, want, saved["loss"], saved["model"], device)
+            gc.collect()
+        from distributeddeeplearning_tpu_torch.models.transformer_lm import _VARIANTS
+
+        want_launch = _mesh_want(sc, _VARIANTS[size["variant"]][1], device == "cuda")
+        line = {"name": sc["name"], "engine": sc["engine"],
+                "mesh": dict(zip(sc["axes"], sc["shape"])), "backend": ranks[0]["backend"],
+                "ranks_per_card": ranks[0]["ranks_per_card"],
+                "step_ms_by_rank": [r["step_ms"] for r in ranks],
+                "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in ranks],
+                "param_mib_by_rank": [r["param_mib"] for r in ranks],
+                "launches_per_step_rank0": ranks[0]["launches_per_step"],
+                "losses": ranks[0]["losses"], "agree": agree, "card": card}
+        print("mesh " + json.dumps(line), flush=True)
+        for r in ranks:
+            bad = {k: (r["launches_per_step"].get(k), v) for k, v in want_launch.items()
+                   if r["launches_per_step"].get(k) != v}
+            if bad:
+                raise AssertionError(f"{sc['name']} rank {r['rank']}: launches a step "
+                                     f"(got, want) {bad}")
+        if agree is not None and not agree["within_limits"]:
+            raise AssertionError(f"{sc['name']}: the first step disagrees with one rank: {agree}")
+        launches[sc["name"]] = {k: v for k, v in ranks[0]["launches_per_step"].items() if v}
+    pairs = [[by[sc["name"]] for sc in scenarios if sc.get("pp_schedule") == s]
+             for s in ("gpipe", "1f1b")]
+    if pairs[0] and pairs[1]:
+        g, o = pairs[0][0], pairs[1][0]
+        gl, ol = g[0]["check_loss"], o[0]["check_loss"]
+        if abs(gl - ol) > MESH_LOSS_REL * abs(gl):
+            raise AssertionError(f"GPipe and 1F1B first losses differ: {gl} {ol}")
+        gm, om = max(r["peak_mem_gb"] for r in g), max(r["peak_mem_gb"] for r in o)
+        print("meshpp " + json.dumps({"gpipe_loss": gl, "1f1b_loss": ol, "gpipe_peak_gb": gm,
+                                      "1f1b_peak_gb": om, "card": card}), flush=True)
+        if device == "cuda" and not om < gm:
+            raise AssertionError(f"1F1B's peak {om} GB is not below GPipe's {gm} GB")
+    return launches
+
+
 def _fb_entry(name, cases, timed_case, launches):
     main_case = next(c for c in cases if c["case"] == timed_case)
     return {
@@ -5816,7 +6269,7 @@ class _PhaseClock:
 
 PHASES = ("kernels", "serve", "servequant", "servespec", "servegraph", "train", "lmtrain",
           "vittrain", "effnettrain", "fit", "warmup", "frontends", "launch", "trace", "bench",
-          "realdata", "knobs", "fleet")
+          "realdata", "knobs", "fleet", "mesh")
 
 
 # A kernels-line entry -> (replayed family, what its kernel names hold,
@@ -5869,7 +6322,12 @@ def main(argv=None) -> int:
                     help="comma-separated subset of %s (default: all)" % ",".join(PHASES))
     ap.add_argument("--launch-child", action="store_true",
                     help="run one rank of a launch drill (the launch phase starts it)")
+    ap.add_argument("--mesh-child", nargs=2, metavar=("SPEC", "OUT"),
+                    help="run one rank of the mesh phase's world (the mesh phase starts it)")
     args = ap.parse_args(argv)
+    if args.mesh_child:
+        mesh_child(*args.mesh_child)
+        return 0
     if args.launch_child:
         launch_child()
         return 0
@@ -6131,6 +6589,16 @@ def main(argv=None) -> int:
         for e in entries:  # the decode kernel's launches replayed by the fleets
             if e["name"] == "paged_decode_attention":
                 e["fleet_launches"] = n
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    clock.start("mesh")
+    if "mesh" in phases:
+        meshed = mesh_phase(card)
+        for e in entries:  # the kernels' launches a step a rank on the mesh engines
+            got = {sc: n[e["name"]] for sc, n in meshed.items() if e["name"] in n}
+            if got:
+                e["mesh_launches"] = got
         gc.collect()
         torch.cuda.empty_cache()
 

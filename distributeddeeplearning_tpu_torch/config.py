@@ -19,14 +19,16 @@ the reference's ``MULTIPROCESSING``), ``STREAM_SHUFFLE_BLOCK`` and
 ``PREFETCH_HOST_BATCHES`` (``data/imagenet.py``, ``data/stream/``), and
 the model and optimizer knobs: ``MOE_EXPERTS`` (``models/moe.py``),
 ``REMAT`` (gradient checkpointing of each block), ``OPTIMIZER=adamw``
-with ``DECOUPLED_WEIGHT_DECAY`` (``training/optimizer.AdamW``).
+with ``DECOUPLED_WEIGHT_DECAY`` (``training/optimizer.AdamW``), and the
+mesh engines: ``ENGINE`` (``dp``, ``pjit``, ``pp``, ``sp``),
+``MESH_AXES``/``MESH_SHAPE``, ``PP_STAGES``, ``PP_MICROBATCHES``,
+``PP_SCHEDULE``, ``PARAM_SHARDING``, ``ALLOW_SYNC_BN``,
+``ASYNC_COLLECTIVES`` and ``ATTN_IMPL=ring`` (``training/engines.py``).
 
-Field names, defaults and ``from_env`` parsing are the JAX package's. A
-field of a later slice that the dataclass carries (``engine``) must keep
-its default; any other value raises
-``NotImplementedError`` naming the slice that brings it. An env var of
-the JAX contract whose field the port does not carry yet raises the
-same way from :meth:`from_env`: no setting is silently ignored. ``FUSED_DENSE_GRAD`` is no field in either
+Field names, defaults and ``from_env`` parsing are the JAX package's.
+Two settings of later slices raise ``NotImplementedError`` naming the
+slice that brings them: an ``expert`` mesh axis, and ``AOT_WARMUP=1``
+with a mesh engine. ``FUSED_DENSE_GRAD`` is no field in either
 package: ``models/vit._dense`` reads it whenever a Dense is built, as the
 JAX package's ``_dense`` does.
 """
@@ -46,24 +48,13 @@ IMAGENET_RGB_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_RGB_SD = (0.229, 0.224, 0.225)
 IMAGENET_TRAIN_LENGTH = 1_281_167  # FAKE_DATA_LENGTH default
 
-# Fields of later slices: (default, the slice that implements the rest).
-_GATED = {
-    "engine": ("dp", "the mesh/engine slice (pjit, pp, sp)"),
-}
+# Settings of later slices: each raises NotImplementedError naming the
+# slice that brings it. An 'expert' mesh axis is expert parallelism; a
+# CUDA-graph warm-up of a mesh engine captures NCCL collectives.
+_EXPERT_SLICE = "the expert-parallel slice (an 'expert' mesh axis, MoE all-to-all)"
+_AOT_MESH_SLICE = "the slice that captures NCCL worlds' collectives as CUDA graphs"
 
-# Env vars of the JAX contract whose fields this slice does not carry.
-_LATER_ENV = {
-    "PP_STAGES": "the mesh/engine slice", "PP_MICROBATCHES": "the mesh/engine slice",
-    "PP_SCHEDULE": "the mesh/engine slice", "PARAM_SHARDING": "the mesh/engine slice",
-    "ALLOW_SYNC_BN": "the mesh/engine slice", "MESH_AXES": "the mesh/engine slice",
-    "MESH_SHAPE": "the mesh/engine slice",
-    "ASYNC_COLLECTIVES": "the mesh/engine slice",
-}
-
-
-# Attention implementations: the port's, and those of later slices.
-_ATTN = ("xla", "pallas", "fused", "auto")
-_LATER_ATTN = {"ring": "the sp engine (parallel/ring_attention.py)"}
+_ATTN = ("xla", "pallas", "fused", "auto", "ring")
 
 
 def _str_to_bool(value: str) -> bool:
@@ -151,7 +142,26 @@ class TrainConfig:
     # Distribution: DISTRIBUTED asks parallel/distributed.maybe_initialize
     # for torch's env:// rendezvous when no DDL_* variables are set.
     distributed: bool = False
+    mesh_shape: Optional[Tuple[int, ...]] = None  # None -> all ranks on 'data'
+    mesh_axes: Tuple[str, ...] = ("data",)
+    # Training engine (training/engines.py): "dp" replicated data
+    # parallel; "pjit" parameters laid out by the rules table
+    # PARAM_SHARDING names over the mesh ("tp" Megatron over 'model',
+    # "fsdp" ZeRO-3 over 'data', "dp" replicated); "pp" GPipe/1F1B over
+    # a 'pipe' axis (LM); "sp" ring attention over a 'seq' axis (LM).
     engine: str = "dp"
+    pp_stages: Optional[int] = None
+    pp_microbatches: int = 4
+    pp_schedule: str = "gpipe"
+    param_sharding: str = "tp"
+    # BatchNorm under ENGINE=pjit: per data shard by default (the dp
+    # engine's statistics); ALLOW_SYNC_BN=1 all-reduces the batch sums
+    # over the data axis (required by ResNet(fused=True)).
+    allow_sync_bn: bool = False
+    # ASYNC_COLLECTIVES: the mesh engines' gradient all-reduces go out
+    # bucket by bucket during the backward (training/overlap.py); off,
+    # one synchronous pass after it. The same bits either way.
+    async_collectives: bool = True
 
     # Cheap-restart knobs: the directory built kernel libraries go to and
     # load from (COMPILATION_CACHE_DIR; None = the package's _build/), and
@@ -189,17 +199,17 @@ class TrainConfig:
     log_every_steps: int = 100
 
     def __post_init__(self):
-        for name, (default, later) in _GATED.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: the port supports only "
-                    f"{default!r} so far; the rest comes with {later}"
-                )
-        if self.attn_impl in _LATER_ATTN:
+        self.mesh_axes = tuple(self.mesh_axes)
+        if self.mesh_shape is not None:
+            self.mesh_shape = tuple(self.mesh_shape)
+        if "expert" in self.mesh_axes:
             raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r}: the port has {_ATTN} so far; "
-                f"{self.attn_impl!r} comes with {_LATER_ATTN[self.attn_impl]}"
-            )
+                f"MESH_AXES={','.join(self.mesh_axes)}: the port's mesh has no "
+                f"'expert' axis yet; it comes with {_EXPERT_SLICE}")
+        if self.aot_warmup and self.engine != "dp":
+            raise NotImplementedError(
+                f"AOT_WARMUP=1 with ENGINE={self.engine}: the port captures the dp "
+                f"step only; the mesh engines' capture comes with {_AOT_MESH_SLICE}")
         if self.attn_impl not in _ATTN:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
 
@@ -210,11 +220,29 @@ class TrainConfig:
 
     @property
     def data_parallel_width(self) -> int:
-        """Batch shards: the ``torch.distributed`` world size when a
-        process group is up, else 1 (one process per GPU)."""
+        """The batch width this config describes, before any mesh
+        exists (JAX's): under dp and pjit every rank is a batch slot
+        (the ``torch.distributed`` world, 1 without one; pjit's model
+        axis takes replicated batches); under pp and sp only the
+        ``replica``/``data`` axes shard the batch. Holders of a resolved
+        mesh use ``parallel.mesh.dp_size(mesh)`` instead."""
         dist = torch.distributed
-        if dist.is_available() and dist.is_initialized():
-            return dist.get_world_size()
+        n = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        if self.engine not in ("pp", "sp"):
+            return n
+        if self.mesh_shape is not None:
+            from distributeddeeplearning_tpu_torch.parallel.mesh import MeshConfig
+
+            shape = MeshConfig(axes=self.mesh_axes, shape=self.mesh_shape).resolve_shape(n)
+            width = 1
+            for axis, size in zip(self.mesh_axes, shape):
+                if axis in ("replica", "data"):
+                    width *= size
+            return width
+        # The engines' default meshes (loop.resolve_engine): pp puts
+        # PP_STAGES (or every rank) on pipe; sp puts every rank on seq.
+        if self.engine == "pp":
+            return n // (self.pp_stages or n)
         return 1
 
     @property
@@ -245,12 +273,6 @@ class TrainConfig:
         """Build a config from the JAX package's env-var contract, for the
         vars of this slice; a var of a later slice raises."""
         e = os.environ if env is None else env
-        later = sorted(k for k in e if k in _LATER_ENV)
-        if later:
-            raise NotImplementedError(
-                "the port does not read these settings yet: "
-                + ", ".join(f"{k} ({_LATER_ENV[k]})" for k in later)
-            )
         kw = {}
         parse = {
             "DISTRIBUTED": ("distributed", _str_to_bool),
@@ -272,6 +294,12 @@ class TrainConfig:
             "ACCUM_STEPS": ("accum_steps", int),
             "WEIGHT_DECAY": ("weight_decay", float),
             "ENGINE": ("engine", str),
+            "PP_STAGES": ("pp_stages", int),
+            "PP_MICROBATCHES": ("pp_microbatches", int),
+            "PP_SCHEDULE": ("pp_schedule", str),
+            "PARAM_SHARDING": ("param_sharding", str),
+            "ALLOW_SYNC_BN": ("allow_sync_bn", _str_to_bool),
+            "ASYNC_COLLECTIVES": ("async_collectives", _str_to_bool),
             "SEED": ("seed", int),
             "DATA_TOPOLOGY": ("data_topology", str),
             "IMAGE_SIZE": ("image_size", int),
@@ -295,6 +323,11 @@ class TrainConfig:
         for var, (field, conv) in parse.items():
             if var in e:
                 kw[field] = conv(e[var])
+        # Mesh topology (e.g. ENGINE=pjit MESH_AXES=data,model MESH_SHAPE=2,4)
+        if "MESH_AXES" in e:
+            kw["mesh_axes"] = tuple(a.strip() for a in e["MESH_AXES"].split(",") if a.strip())
+        if "MESH_SHAPE" in e:
+            kw["mesh_shape"] = tuple(int(x) for x in e["MESH_SHAPE"].split(",") if x.strip())
         if "WORKER_MODE" not in e and "MULTIPROCESSING" in e:  # the reference's spelling
             kw["worker_mode"] = "process" if _str_to_bool(e["MULTIPROCESSING"]) else "thread"
         # The Batch AI spellings take precedence (as in JAX).

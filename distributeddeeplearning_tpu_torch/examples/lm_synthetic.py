@@ -10,7 +10,9 @@ Run on the card::
         SEQ_LEN=128 VOCAB=1024 \\
         python -m distributeddeeplearning_tpu_torch.examples.lm_synthetic
 
-``DDL_PLATFORM=cpu`` runs it on the CPU.
+``DDL_PLATFORM=cpu`` runs it on the CPU. Under a mesh engine
+(``ENGINE=pjit|sp|pp`` with ``MESH_AXES``/``MESH_SHAPE``) each rank
+reads its data shard's rows (``parallel.mesh.batch_sharding``).
 """
 
 import os
@@ -20,6 +22,8 @@ from distributeddeeplearning_tpu_torch.data.synthetic import SyntheticTokenDatas
 from distributeddeeplearning_tpu_torch.frontends import explicit
 from distributeddeeplearning_tpu_torch.models import get_model
 from distributeddeeplearning_tpu_torch.parallel import collectives, distributed
+from distributeddeeplearning_tpu_torch.parallel.mesh import batch_sharding
+from distributeddeeplearning_tpu_torch.training.engines import resolve_mesh
 from distributeddeeplearning_tpu_torch.utils.logging import get_logger, log_summary
 from distributeddeeplearning_tpu_torch.utils.timer import Timer
 
@@ -39,16 +43,19 @@ def main():
 
     model = get_model(config.model, **{**config.model_kwargs(), "num_classes": vocab},
                       max_seq_len=seq_len, device=device)
+    mesh = resolve_mesh(config)
+    shard, shards = ((collectives.rank(), collectives.size()) if mesh is None
+                     else batch_sharding(mesh))
     data = SyntheticTokenDataset(
         length=config.fake_data_length,
         global_batch_size=config.global_batch_size,
         seq_len=seq_len,
         vocab_size=vocab,
         seed=config.seed,
-        process_index=collectives.rank(),
-        process_count=collectives.size(),
+        process_index=shard,
+        process_count=shards,
     )
-    pieces, state = explicit.setup(model, config, device=device,
+    pieces, state = explicit.setup(model, config, device=device, mesh=mesh,
                                    steps_per_epoch=data.steps_per_epoch)
 
     timer = Timer().start()
@@ -61,7 +68,7 @@ def main():
         data_length=tokens,
         duration_s=timer.elapsed,
         batch_size_per_device=config.batch_size_per_device,
-        num_devices=collectives.size(),
+        num_devices=shards,
         dataset_kind="synthetic-tokens",
     )
 

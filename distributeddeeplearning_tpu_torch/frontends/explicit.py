@@ -46,6 +46,7 @@ class Pieces:
     eval_step: Callable
     lr_schedule: Schedule
     process_group: object = None
+    mesh: object = None  # a mesh engine's (parallel/mesh.Mesh), None for dp
 
 
 def setup(
@@ -55,23 +56,27 @@ def setup(
     device=None,
     process_group=None,
     steps_per_epoch: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[Pieces, TrainState]:
     """Build the optimizer, the steps and the initial state on
     ``device`` (``None`` means CUDA) — the explicit analogue of
     reference ``main()`` setup (:267-338). ``config.engine`` selects the
     runtime exactly as in ``loop.fit``: both route through
-    ``training.engines.build_engine``, the one dispatch point."""
-    from distributeddeeplearning_tpu_torch.training.engines import build_engine
+    ``training.engines.build_engine``, the one dispatch point (a mesh
+    engine over ``mesh``, default the config's)."""
+    from distributeddeeplearning_tpu_torch.parallel.mesh import dp_size
+    from distributeddeeplearning_tpu_torch.training.engines import build_engine, resolve_mesh
     from distributeddeeplearning_tpu_torch.training.loop import resolve_engine
 
     _, dev = resolve_engine(config, device)
+    mesh = resolve_mesh(config, mesh)
     spe = steps_per_epoch or config.steps_per_epoch()
-    tx, schedule = create_optimizer(config, spe,
-                                    world_size=collectives.world_size(process_group))
-    eng = build_engine(model, config, tx, device=dev, process_group=process_group)
+    world = collectives.world_size(process_group) if mesh is None else dp_size(mesh)
+    tx, schedule = create_optimizer(config, spe, world_size=world)
+    eng = build_engine(model, config, tx, device=dev, process_group=process_group, mesh=mesh)
     pieces = Pieces(model=eng.model, config=config, device=dev, tx=tx,
                     train_step=eng.train_step, eval_step=eng.eval_step,
-                    lr_schedule=schedule, process_group=process_group)
+                    lr_schedule=schedule, process_group=process_group, mesh=mesh)
     return pieces, eng.state
 
 

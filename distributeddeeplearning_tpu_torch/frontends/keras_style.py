@@ -96,14 +96,19 @@ class Model:
             mults = [c.multiplier for c in ordered]
             ratios = tuple(m / (mults[i - 1] if i else 1.0) for i, m in enumerate(mults))
             cfg = cfg.replace(lr_decay_epochs=decay_epochs, lr_decay_factors=ratios)
-        tx, self.lr_schedule = create_optimizer(
-            cfg, data.steps_per_epoch, world_size=collectives.world_size(self.process_group))
+        from distributeddeeplearning_tpu_torch.parallel.mesh import dp_size
+        from distributeddeeplearning_tpu_torch.training.engines import resolve_mesh
+
+        mesh = resolve_mesh(cfg)  # a mesh engine's; its batch shards scale the LR
+        world = collectives.world_size(self.process_group) if mesh is None else dp_size(mesh)
+        tx, self.lr_schedule = create_optimizer(cfg, data.steps_per_epoch, world_size=world)
         result = engine.fit(
             self.module,
             cfg,
             data,
             device=self.device,
             process_group=self.process_group,
+            mesh=mesh,
             tx=tx,
             epochs=epochs,
             callbacks=callbacks,

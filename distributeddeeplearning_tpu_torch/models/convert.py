@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -197,14 +197,18 @@ def _init_moe(out: Dict[str, torch.Tensor], prefix: str, hidden: int, mlp_dim: i
 
 def init_params(variant: str, vocab_size: int, generator: torch.Generator,
                 max_seq_len: int = 2048, moe_experts: int = 0,
-                moe_every: int = 2) -> Dict[str, torch.Tensor]:
+                moe_every: int = 2, out=None,
+                depth: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Seeded parameters with the JAX model's initialisers: normal(0.02)
     embeddings, xavier-uniform Dense kernels, zero biases, LayerNorm
     ones/zeros; with ``moe_experts`` every ``moe_every``-th block's FFN
     is routed (:func:`_init_moe`). Tensors are f32 on ``generator``'s
     device. (The draws differ from ``jax.random``'s: same
-    distributions, other numbers.)"""
-    hidden, depth, _, mlp_dim = _VARIANTS[variant]
+    distributions, other numbers.) ``out``: the mapping the tensors go
+    into, in draw order (the pjit engine's keeps each rank's shard);
+    ``depth`` a cut depth (``TransformerLM(n_layers=...)``)."""
+    hidden, full_depth, _, mlp_dim = _VARIANTS[variant]
+    depth = full_depth if depth is None else depth
     moe_layers = (tuple(i for i in range(depth) if i % moe_every == moe_every - 1)
                   if moe_experts else ())
 
@@ -212,12 +216,54 @@ def init_params(variant: str, vocab_size: int, generator: torch.Generator,
         return torch.empty(*shape, device=generator.device).normal_(0.0, 0.02,
                                                                     generator=generator)
 
-    out: Dict[str, torch.Tensor] = {
-        "tok_embed": normal(vocab_size, hidden),
-        "pos_embed": normal(1, max_seq_len, hidden),
-    }
+    out = {} if out is None else out
+    out["tok_embed"] = normal(vocab_size, hidden)
+    out["pos_embed"] = normal(1, max_seq_len, hidden)
     _init_blocks(out, hidden, depth, mlp_dim, generator, moe_layers, moe_experts)
     return out
+
+
+def _index(tree: Mapping[str, Any], s: int) -> Dict[str, Any]:
+    return {k: (_index(v, s) if isinstance(v, Mapping) else np.asarray(v)[s])
+            for k, v in tree.items()}
+
+
+def pipeline_params_from_flax(tree: Mapping[str, Any], stage: int) -> Dict[str, torch.Tensor]:
+    """JAX's ``PipelineLM`` tree (``{"embed", "stages" stacked [S, …],
+    "head"}``) -> the state dict of ``models/pipeline_lm.PipelineLM`` of
+    ``stage``: ``embed.*`` and ``head.*`` as they are, the stage's
+    ``layer<i>`` blocks as ``core.layers.<i>.*`` (the LM's rules)."""
+    out = {f"embed.{k}": v for k, v in params_from_flax(tree["embed"]).items()}
+    out.update({f"head.{k}": v for k, v in params_from_flax(tree["head"]).items()})
+    stage_tree = _index(tree["stages"], stage)
+    blocks = {f"block{k[len('layer'):]}": v for k, v in stage_tree.items()}
+    for k, v in params_from_flax(blocks).items():
+        out["core.layers." + k[len("blocks."):]] = v
+    return out
+
+
+def pipeline_params_to_flax(stages) -> Dict[str, Any]:
+    """The inverse of :func:`pipeline_params_from_flax` over every
+    stage's state dict (in stage order): the stacked tree, the embedding
+    and head from stage 0."""
+    first = stages[0]
+    tree = {"embed": params_to_flax({k[len("embed."):]: v for k, v in first.items()
+                                     if k.startswith("embed.")}),
+            "head": params_to_flax({k[len("head."):]: v for k, v in first.items()
+                                    if k.startswith("head.")})}
+    per_stage = []
+    for sd in stages:
+        blocks = params_to_flax({"blocks." + k[len("core.layers."):]: v for k, v in sd.items()
+                                 if k.startswith("core.layers.")})
+        per_stage.append({f"layer{k[len('block'):]}": v for k, v in blocks.items()})
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack(nodes)
+
+    tree["stages"] = stack(per_stage)
+    return tree
 
 
 # ViT's trees follow the LM's rules (the patch conv is its only 4-D kernel).
@@ -226,7 +272,8 @@ vit_params_to_flax = params_to_flax
 
 
 def init_vit_params(variant: str, patch_size: int, num_classes: int,
-                    generator: torch.Generator, image_size: int = 224) -> Dict[str, torch.Tensor]:
+                    generator: torch.Generator, image_size: int = 224,
+                    out=None) -> Dict[str, torch.Tensor]:
     """Seeded ``ViT`` state with the JAX model's initialisers:
     xavier-uniform Dense kernels and patch conv (fans over the receptive
     field), zero biases and ``cls_token``, normal(0.02) ``pos_embed``,
@@ -237,14 +284,13 @@ def init_vit_params(variant: str, patch_size: int, num_classes: int,
     dev = generator.device
     tokens = (image_size // patch_size) ** 2 + 1
     field = patch_size * patch_size
-    out: Dict[str, torch.Tensor] = {
-        "patch_embed.weight": _xavier((hidden, 3, patch_size, patch_size), 3 * field,
-                                      hidden * field, generator),
-        "patch_embed.bias": torch.zeros(hidden, device=dev),
-        "cls_token": torch.zeros(1, 1, hidden, device=dev),
-        "pos_embed": torch.empty(1, tokens, hidden, device=dev).normal_(0.0, 0.02,
-                                                                        generator=generator),
-    }
+    out = {} if out is None else out
+    out["patch_embed.weight"] = _xavier((hidden, 3, patch_size, patch_size), 3 * field,
+                                        hidden * field, generator)
+    out["patch_embed.bias"] = torch.zeros(hidden, device=dev)
+    out["cls_token"] = torch.zeros(1, 1, hidden, device=dev)
+    out["pos_embed"] = torch.empty(1, tokens, hidden, device=dev).normal_(0.0, 0.02,
+                                                                          generator=generator)
     _init_blocks(out, hidden, depth, mlp_dim, generator)
     out["head.weight"] = _xavier((num_classes, hidden), hidden, num_classes, generator)
     out["head.bias"] = torch.zeros(num_classes, device=dev)

@@ -261,6 +261,12 @@ class EfficientNet(nn.Module):
         x = F.linear(x, self.head.weight.to(self.dtype), self.head.bias.to(self.dtype))
         return x.float()
 
+    @property
+    def per_replica_bn_capable(self) -> bool:
+        """Every BN here keeps per-replica statistics under the pjit
+        engine (JAX's ``per_replica_bn_capable``)."""
+        return True
+
     def kernel_parameters(self) -> Tuple[torch.Tensor, ...]:
         """The conv and Dense kernels (flax ``kernel`` leaves: every conv,
         the depthwise and squeeze-excite ones included, and the head):

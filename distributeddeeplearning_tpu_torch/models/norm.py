@@ -19,17 +19,59 @@ statistics stay f32. In an f32 model it changes nothing.
 
 :meth:`BatchNorm2d.split` is the fused bottleneck's ``_SplitBN``: the
 batch moments come from elsewhere (a kernel's epilogue or a plain
-pass), and the module owns γ, β and the running-statistics update. The
-grouped per-replica path of the pjit engine waits for that engine.
+pass), and the module owns γ, β and the running-statistics update.
+
+Under the pjit engine (JAX's ``per_replica_bn``, ``:106-161``) each
+rank holds its own data shard, so the default, per-replica statistics
+are what every BatchNorm computes anyway: the dp engine's. Inside
+:func:`sync_bn` (``ALLOW_SYNC_BN=1``) the batch sums (Σx, Σx², the
+fused kernels' epilogue sums among them, :func:`reduce_moments`) are
+all-reduced over the data group before the normalize, forward and
+backward (``collectives.sum_both_ways``): global-batch statistics.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 from torch import nn
 
+from distributeddeeplearning_tpu_torch.parallel import collectives
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax convention: the running stats keep 0.9 of themselves
+
+# The data group whose batch sums BatchNorm all-reduces (None: per replica).
+_SYNC_GROUP: contextvars.ContextVar = contextvars.ContextVar("sync_bn_group", default=None)
+
+
+@contextlib.contextmanager
+def sync_bn(group):
+    """BatchNorm statistics over ``group``'s whole batch inside (sync
+    BN); ``None`` keeps them per replica."""
+    token = _SYNC_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _SYNC_GROUP.reset(token)
+
+
+def sync_group():
+    return _SYNC_GROUP.get()
+
+
+def reduce_moments(s: torch.Tensor, ss: torch.Tensor, count: int):
+    """Mean and fast variance from f32 column sums over ``count`` rows,
+    the sums all-reduced over the :func:`sync_bn` group first when one
+    is active (the rows of every rank of it)."""
+    group = _SYNC_GROUP.get()
+    if group is not None:
+        both = collectives.sum_both_ways(torch.stack([s, ss]), group)
+        s, ss = both[0], both[1]
+        count = count * collectives.group_size(group)
+    return moments(s, ss, count)
 
 
 class BatchNorm2d(nn.Module):
@@ -77,8 +119,15 @@ class BatchNorm2d(nn.Module):
         if self.training:
             axes = [0] + list(range(2, x.dim()))
             xr = x.to(self.reduce_dtype)
-            mean = xr.float().mean(axes).to(xr.dtype)
-            var = torch.clamp((xr * xr).float().mean(axes).to(xr.dtype) - mean * mean, min=0.0)
+            if _SYNC_GROUP.get() is not None:
+                count = x.numel() // x.shape[1]
+                mean, var = reduce_moments(xr.float().sum(axes), (xr * xr).float().sum(axes),
+                                           count)
+                mean, var = mean.to(xr.dtype), torch.clamp(var, min=0.0).to(xr.dtype)
+            else:
+                mean = xr.float().mean(axes).to(xr.dtype)
+                var = torch.clamp((xr * xr).float().mean(axes).to(xr.dtype) - mean * mean,
+                                  min=0.0)
             self._update(mean, var)
         else:
             xr, mean, var = x.float(), self.running_mean, self.running_var

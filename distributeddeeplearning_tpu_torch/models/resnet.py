@@ -47,7 +47,8 @@ from distributeddeeplearning_tpu_torch.models.norm import (
     BN_EPS,
     BatchNorm2d,
     bn_apply,
-    moments,
+    reduce_moments,
+    sync_group,
 )
 from distributeddeeplearning_tpu_torch.ops.fused_block import (
     bn_relu_matmul_stats,
@@ -190,20 +191,23 @@ class BottleneckBlock(nn.Module):
         dt = self.dtype
         # conv1 (1×1) with the BN0-statistics epilogue
         y1, s1, ss1 = matmul_stats(rows(x), self.Conv_0.matrix())
-        mean1, var1, sc1, bi1 = self.BatchNorm_0.split(*moments(s1, ss1, y1.shape[0]))
+        mean1, var1, sc1, bi1 = self.BatchNorm_0.split(*reduce_moments(s1, ss1, y1.shape[0]))
         z1 = unrows(F.relu(bn_apply(y1, mean1, var1, sc1, bi1, BN_EPS, dt)), n, h, w)
         # conv2 (3×3, the stride) -> BN1 statistics in a plain f32 pass
         y2 = self.Conv_1(z1)
         _, _, ho, wo = y2.shape
         y2f = rows(y2)
         y2_32 = y2f.float()
-        m2 = y2_32.mean(0)
-        v2 = (y2_32 * y2_32).mean(0) - m2 * m2
+        if sync_group() is not None:
+            m2, v2 = reduce_moments(y2_32.sum(0), (y2_32 * y2_32).sum(0), y2f.shape[0])
+        else:
+            m2 = y2_32.mean(0)
+            v2 = (y2_32 * y2_32).mean(0) - m2 * m2
         mean2, var2, sc2, bi2 = self.BatchNorm_1.split(m2, v2)
         # BN1-apply -> ReLU -> conv3 (1×1) -> BN2 statistics, one kernel
         y3, s3, ss3 = bn_relu_matmul_stats(y2f, mean2, var2, sc2, bi2,
                                            self.Conv_2.matrix(), BN_EPS)
-        mean3, var3, sc3, bi3 = self.BatchNorm_2.split(*moments(s3, ss3, y3.shape[0]))
+        mean3, var3, sc3, bi3 = self.BatchNorm_2.split(*reduce_moments(s3, ss3, y3.shape[0]))
         y = unrows(bn_apply(y3, mean3, var3, sc3, bi3, BN_EPS, dt), n, ho, wo)
         residual = self.proj_bn(self.proj_conv(x)) if self.has_proj else x
         return F.relu(y + residual)
@@ -270,6 +274,13 @@ class ResNet(nn.Module):
         x = x.mean(dim=(2, 3))
         x = F.linear(x, self.head.weight.to(self.dtype), self.head.bias.to(self.dtype))
         return x.float()
+
+    @property
+    def per_replica_bn_capable(self) -> bool:
+        """The pjit engine's per-replica statistics hold for every BN but
+        the fused kernels' (JAX's ``per_replica_bn_capable``): the fused
+        model trains under pjit only with ``ALLOW_SYNC_BN=1``."""
+        return not self.fused
 
     def kernel_parameters(self) -> Tuple[torch.Tensor, ...]:
         """The conv and Dense kernels (flax ``kernel`` leaves): what the

@@ -17,7 +17,13 @@ accumulation and stored in the compute dtype.
 ``forward(tokens)`` is the full causal forward, its attention through
 ``attn_impl`` (``"xla"``, the default, serving's plain masked softmax;
 ``"pallas"``, the flash kernels of training; ``"fused"`` and ``"auto"``
-as ``models/vit.Attention`` takes them, for T ≤ 512).
+as ``models/vit.Attention`` takes them, for T ≤ 512; ``"ring"``, ring
+attention over the sp engine's ``seq`` group). ``n_layers`` cuts the
+variant's depth (its widths stay; ``convert.init_params`` takes the same
+``depth``). With ``seq_axis`` set
+(the sp engine's model) the tokens are this rank's sequence shard and
+their positions start at ``shard index × t``, as JAX's
+``transformer_lm.py:159-166``.
 ``fused_dense_grad`` (``None``: ``FUSED_DENSE_GRAD=1`` in the
 environment) builds the blocks' Dense layers as ``FusedGradDense``.
 ``forward(tokens, cache)`` is decode mode: the tokens sit at positions
@@ -103,12 +109,14 @@ class TransformerLM(nn.Module):
                  device=None, attn_impl: str = "xla",
                  fused_dense_grad: Optional[bool] = None, dropout: float = 0.0,
                  moe_experts: int = 0, moe_every: int = 2, moe_top_k: int = 2,
-                 moe_capacity_factor: float = 1.25, remat: bool = False) -> None:
+                 moe_capacity_factor: float = 1.25, remat: bool = False,
+                 seq_axis: Optional[str] = None, n_layers: Optional[int] = None) -> None:
         super().__init__()
         if variant not in _VARIANTS:
             raise ValueError(f"variant must be one of {sorted(_VARIANTS)}")
         device = resolve_device(device)
         hidden, depth, heads, mlp_dim = _VARIANTS[variant]
+        depth = depth if n_layers is None else n_layers  # a cut depth, widths as they are
         self.variant = variant
         self.vocab_size = vocab_size
         self.max_seq_len = max_seq_len
@@ -118,6 +126,7 @@ class TransformerLM(nn.Module):
         self.head_dim = hidden // heads
         self.depth = depth
         self.attn_impl = attn_impl
+        self.seq_axis = seq_axis
         self.dropout, self.remat = dropout, remat
         self.moe_experts, self.moe_every = moe_experts, moe_every
         # The train step hands a model that draws dropout noise its
@@ -205,7 +214,12 @@ class TransformerLM(nn.Module):
                 f"sequence {t} exceeds max_seq_len {self.max_seq_len}"
             )
         x = self._embed(tokens)
-        if cache is None:
+        if cache is None and self.seq_axis is not None:
+            from distributeddeeplearning_tpu_torch.parallel import ring_attention
+
+            start = ring_attention.axis_index() * t
+            pos_t = self.pos_embed[:, start:start + t]
+        elif cache is None:
             pos_t = self.pos_embed[:, :t]
         elif cache.vector_index:
             # Where the window goes, made once for every layer.

@@ -151,19 +151,24 @@ class MlpBlock(nn.Module):
                  dropout: float = 0.0) -> None:
         super().__init__()
         self.dropout = dropout
+        self.mlp_dim = mlp_dim
+        # Tensor parallel (training/pjit_step.py): this rank's GELU
+        # columns, which it takes from the full-width keep mask.
+        self.mask_cols: Optional[slice] = None
         self.fc1 = _dense(hidden, mlp_dim, dtype, device, fused_dense_grad)
         self.fc2 = _dense(mlp_dim, hidden, dtype, device, fused_dense_grad)
 
     def mask_shapes(self, shape) -> List[Tuple[int, ...]]:
         """The keep masks' shapes for an input of ``shape``: after the
-        GELU, after ``fc2``."""
-        return [tuple(shape[:-1]) + (self.fc1.weight.shape[0],), tuple(shape)]
+        GELU (full width), after ``fc2``."""
+        return [tuple(shape[:-1]) + (self.mlp_dim,), tuple(shape)]
 
     def forward(self, x: torch.Tensor, masks: Masks = None) -> torch.Tensor:
         # flax nn.gelu defaults to the tanh approximation.
         h = F.gelu(self.fc1(x), approximate="tanh")
         if masks:
-            h = noise.apply_keep_mask(h, masks[0], self.dropout)
+            keep = masks[0] if self.mask_cols is None else masks[0][..., self.mask_cols]
+            h = noise.apply_keep_mask(h, keep, self.dropout)
         h = self.fc2(h)
         return noise.apply_keep_mask(h, masks[1], self.dropout) if masks else h
 
@@ -398,6 +403,7 @@ class Attention(nn.Module):
                  fused_dense_grad: Optional[bool] = None) -> None:
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = hidden // num_heads
         self.attn_impl = attn_impl
         self.causal = causal
         self.qkv = _dense(hidden, 3 * hidden, dtype, device, fused_dense_grad)
@@ -413,8 +419,9 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, cache: Optional[KVCache] = None,
                 layer: int = 0) -> torch.Tensor:
-        b, t, d = x.shape
-        head_dim = d // self.num_heads
+        b, t, _ = x.shape
+        # num_heads is this rank's share under tensor parallelism
+        head_dim, d = self.head_dim, self.num_heads * self.head_dim
         qkv_flat = self.qkv(x)
         impl = self._resolve_impl(x, head_dim) if cache is None else None
         if impl == "fused":

@@ -8,7 +8,8 @@ tensors, one signature, two implementations:
   hand-written CUDA kernels on the card, their plain versions on the
   CPU. The port keeps the JAX package's value name.
 
-The ``ring`` implementation (sequence parallelism) is not ported yet.
+* ``ring`` — ring attention over the active sequence-parallel group
+  (``parallel/ring_attention.py``; the sp engine sets the group).
 """
 
 from __future__ import annotations
@@ -50,12 +51,16 @@ def dot_product_attention(
     scale: Optional[float] = None,
     impl: str = "xla",
 ) -> torch.Tensor:
-    """Multi-head attention over BTHD tensors (``impl`` ``"xla"`` or
-    ``"pallas"``)."""
+    """Multi-head attention over BTHD tensors (``impl`` ``"xla"``,
+    ``"pallas"`` or ``"ring"``)."""
     if impl == "xla":
         return _xla_attention(q, k, v, causal=causal, scale=scale)
     if impl == "pallas":
         return flash_attention(q, k, v, causal=causal, scale=scale)
+    if impl == "ring":
+        from distributeddeeplearning_tpu_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, causal=causal, scale=scale)
     raise NotImplementedError(
-        f"attention impl {impl!r} is not ported yet (have: 'xla', 'pallas')"
+        f"attention impl {impl!r} is not ported (have: 'xla', 'pallas', 'ring')"
     )

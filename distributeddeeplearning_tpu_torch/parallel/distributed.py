@@ -7,7 +7,12 @@ Env contract (set by a launcher), the JAX package's:
   ``DDL_NUM_PROCESSES`` / ``DDL_PROCESS_ID``
   ``DDL_PLATFORM`` — ``cpu`` forms a gloo world on the CPU; anything
   else (the default) an NCCL world, each process pinned to its card
-  (``LOCAL_RANK`` when set, else the process id modulo the cards).
+  (``LOCAL_RANK`` when set, else the process id modulo the cards). When
+  a node has more ranks (``LOCAL_WORLD_SIZE``, else the world) than
+  cards, or ``DDL_BACKEND=gloo`` asks for it, the ranks share the cards
+  (rank modulo cards) in a gloo world: NCCL takes one rank a card. The
+  collectives then stage what gloo does not take on the card through
+  pinned host buffers (``parallel/collectives.py``).
 Without ``DDL_*``, ``DISTRIBUTED=True`` (the reference's own flag) asks
 for torch's ``env://`` rendezvous (``MASTER_ADDR``, ``MASTER_PORT``,
 ``WORLD_SIZE``, ``RANK``, as ``torchrun`` sets them): the counterpart of
@@ -77,9 +82,17 @@ def maybe_initialize(
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available: an NCCL world needs the card; set "
                                "DDL_PLATFORM=cpu for a gloo world on the CPU")
-        local = int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count()))
-        torch.cuda.set_device(local)
-        backend = "nccl"
+        cards = torch.cuda.device_count()
+        local = int(os.environ.get("LOCAL_RANK", rank % cards))
+        ranks_here = int(os.environ.get("LOCAL_WORLD_SIZE", num_processes
+                                        or os.environ.get("WORLD_SIZE", 1)))
+        torch.cuda.set_device(local % cards)
+        shared = ranks_here > cards or os.environ.get("DDL_BACKEND") == "gloo"
+        backend = "gloo" if shared else "nccl"
+        if shared:
+            log.warning("%d ranks on this node share %d card(s): a gloo world (a world of "
+                        "several nodes sets LOCAL_WORLD_SIZE to the ranks a node)",
+                        ranks_here, cards)
     dist.init_process_group(backend=backend, **kwargs)
     _initialized = True
     log.info("distributed initialized: process %d/%d, backend %s", dist.get_rank(),

@@ -1164,9 +1164,14 @@ class Router:
         resumes the same tenant — without banking again — on the next
         tick; otherwise a fleet whose slots free up one at a time would
         hand every trickle slot to whichever tenant the scan happened
-        to start at, and weights would stop meaning anything. A tenant
-        that empties its queue forfeits its deficit (no credit
-        hoarding while idle)."""
+        to start at, and weights would stop meaning anything. A head
+        request that no replica can admit ends the tick the same way:
+        counted free slots can be a replica's slot that is still
+        prefilling (popped from its queue, not yet running, its KV
+        blocks taken), and moving on from it would bank fresh quanta
+        for every tenant on each tick it lasts. A tenant that empties
+        its queue forfeits its deficit (no credit hoarding while
+        idle)."""
         with self._lock:
             tenants = sorted(self._tenants.values(), key=lambda t: t.name)
         for t in tenants:
@@ -1221,7 +1226,7 @@ class Router:
                 self._dispatch_to(replica, fh)
                 capacity -= 1
                 served += 1
-            if capacity <= 0 and t.queue and not blocked:
+            if blocked or (capacity <= 0 and t.queue):
                 return  # resume THIS tenant next tick (cursor stays)
             # service ended on its own terms: move on
             if not t.queue:

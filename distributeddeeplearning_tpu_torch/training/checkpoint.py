@@ -21,7 +21,12 @@ contract.
   batches already trained.
 * **Ranks.** Every rank holds the same state (data parallel), so rank 0
   writes and the others wait at a barrier (``torch.distributed``); every
-  rank reads on restore.
+  rank reads on restore. A mesh engine's state (``state.layout``: the
+  pjit engine's slices, the pp engine's stages) is gathered into whole
+  arrays first, every rank taking part: the checkpoint holds the dp
+  model's state dict (stages stacked ``[S, …]``, as JAX's manifest
+  does), and a restore slices each rank's part back out, so the same
+  checkpoint resumes under another layout of the same model.
 * **Async.** The copy to the host happens at once, inside ``save*``,
   booked as one host sync labelled ``checkpoint``
   (``utils/hostsync.device_get``): the optimizer updates the parameters
@@ -90,9 +95,14 @@ def build_manifest(
 
 
 def _payload(state) -> Any:
-    """What a save holds: a TrainState as ``{step, model, opt}``; any
+    """What a save holds: a TrainState as ``{step, model, opt}`` (a
+    mesh engine's gathered whole: collective, every rank calls it); any
     other tree (dicts and lists of tensors and numbers) as it is."""
     if isinstance(state, TrainState):
+        layout = state.layout
+        if layout is not None:
+            return {"step": int(state.step), "model": layout.state_dict(),
+                    "opt": layout.per_param(layout.full, state.opt_state)}
         return {"step": int(state.step), "model": state.model.state_dict(),
                 "opt": state.opt_state}
     return state
@@ -189,9 +199,10 @@ class CheckpointManager:
             manifest = manifest()
         manifest = dict(manifest or {})
         with obs.span("checkpoint_save", **label):
+            payload = _payload(state)
             if collectives.is_master():
                 self._drain()  # one write in flight at a time
-                host_state = hostsync.device_get(_payload(state), label="checkpoint")
+                host_state = hostsync.device_get(payload, label="checkpoint")
                 if self._async:
                     if self._pool is None:
                         self._pool = ThreadPoolExecutor(1, thread_name_prefix="ddl-ckpt")
@@ -269,7 +280,14 @@ class CheckpointManager:
                                weights_only=True)
             with open(os.path.join(path, MANIFEST_FILE)) as fh:
                 manifest = json.load(fh)
-            if isinstance(state, TrainState):
+            if isinstance(state, TrainState) and state.layout is not None:
+                layout = state.layout
+                layout.load_state_dict(saved["model"])
+                _load_into(state.opt_state, layout.per_param(
+                    lambda n, t: layout.slice(n, t), saved["opt"]), "opt")
+                state.step = int(saved["step"])
+                restored = state
+            elif isinstance(state, TrainState):
                 state.model.load_state_dict(saved["model"])
                 _load_into(state.opt_state, saved["opt"], "opt")
                 state.step = int(saved["step"])

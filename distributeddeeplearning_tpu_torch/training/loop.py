@@ -54,10 +54,13 @@ from distributeddeeplearning_tpu_torch.training.checkpoint import (
     CheckpointManager,
     build_manifest,
 )
+from distributeddeeplearning_tpu_torch.models.sharding import rules_table
+from distributeddeeplearning_tpu_torch.parallel.mesh import dp_size
 from distributeddeeplearning_tpu_torch.training.engines import (
     build_engine,
     build_eval_step,
     check_engine,
+    resolve_mesh,
 )
 from distributeddeeplearning_tpu_torch.training.metrics import (
     accumulator_logs,
@@ -98,8 +101,17 @@ class FitResult:
 def resolve_engine(config: TrainConfig, device=None) -> Tuple[str, torch.device]:
     """Validate the loop's settings and resolve the device (``None``
     means CUDA, and raises without it): ``(engine_name, device)``. The
-    port has the ``dp`` engine only."""
+    mesh of a mesh engine comes from ``engines.resolve_mesh``."""
     check_engine(config.engine)
+    # The rules table's name (raises for an unknown one), and JAX's
+    # refusal of FSDP outside pjit: the other engines keep parameters
+    # replicated, so the user would silently not get ZeRO-3.
+    rules_table(config.param_sharding)
+    if config.engine != "pjit" and config.param_sharding == "fsdp":
+        raise ValueError(f"PARAM_SHARDING={config.param_sharding!r} requires ENGINE=pjit "
+                         f"(the {config.engine} engine keeps parameters replicated)")
+    if config.pp_schedule not in ("gpipe", "1f1b"):
+        raise ValueError(f"unknown PP_SCHEDULE {config.pp_schedule!r} (have gpipe, 1f1b)")
     resolve_accum_steps(config)
     if config.nonfinite_action not in ("abort", "warn", "off"):
         raise ValueError(f"NONFINITE_ACTION={config.nonfinite_action!r} (have abort, warn, off)")
@@ -136,12 +148,15 @@ def fit(
     state: Optional[TrainState] = None,
     initial_epoch: int = 0,
     process_group=None,
+    mesh=None,
 ) -> FitResult:
     """Train ``model`` for ``epochs`` over ``train_data`` on ``device``
     (``None`` means CUDA, and raises without it), data parallel over
     ``process_group`` (default: the ``torch.distributed`` world when one
-    is initialised). JAX's ``fit``, event for event (module docstring).
-    """
+    is initialised), or under a mesh engine over ``mesh`` (default: the
+    config's, ``engines.resolve_mesh``). JAX's ``fit``, event for event
+    (module docstring). ``train_data`` yields this rank's batches (its
+    data shard's, ``Engine.batch_shard``)."""
     log = get_logger()
     # OBS_DIR turns on JSONL capture; without it every emit below is a
     # host-side append to the flight ring. Either way no device work.
@@ -160,14 +175,17 @@ def fit(
         tracer.cuda = dev.type == "cuda"
     epochs = epochs if epochs is not None else config.epochs
     steps_per_epoch = train_data.steps_per_epoch
-    world = collectives.world_size(process_group)
+    mesh = resolve_mesh(config, mesh)
+    # Batch shards of the resolved mesh: the LR's linear scaling and the
+    # throughput accounting (JAX's dp_size(mesh)).
+    world = collectives.world_size(process_group) if mesh is None else dp_size(mesh)
     if tx is None:
         # An elastic world pins LR_WORLD_SIZE to the full world, so the
         # schedule (the linear-scaling rule) is the same at any size.
         tx, _ = create_optimizer(config, steps_per_epoch,
                                  world_size=config.lr_world_size or world)
     eng = build_engine(model, config, tx, state=state, device=dev,
-                       process_group=process_group)
+                       process_group=process_group, mesh=mesh)
     state, model = eng.state, eng.model
 
     cbs = list(callbacks)
@@ -496,9 +514,12 @@ def _run_eval(eval_step, state, eval_data, device, config) -> Dict[str, float]:
 
 
 def evaluate(model, config: TrainConfig, eval_data: EpochDataset, state: TrainState, *,
-             device=None, process_group=None) -> Dict[str, float]:
+             device=None, process_group=None, mesh=None) -> Dict[str, float]:
     """Standalone evaluation (the reference's ``validate()``) of
     ``state`` over ``eval_data`` on ``device`` (``None`` means CUDA)."""
     _, dev = resolve_engine(config, device)
-    _, eval_step = build_eval_step(model, config, device=dev, process_group=process_group)
+    if state.layout is not None:  # a mesh engine's model is the state's
+        model = state.model
+    _, eval_step = build_eval_step(model, config, device=dev, process_group=process_group,
+                                   mesh=mesh)
     return _run_eval(eval_step, state, eval_data, dev, config)

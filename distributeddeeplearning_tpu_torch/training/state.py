@@ -11,7 +11,7 @@ it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -28,6 +28,10 @@ class TrainState:
     step: int
     model: torch.nn.Module
     opt_state: Dict
+    # How a mesh engine's state lies across the ranks (the pjit and pp
+    # engines' layouts: slices, stages); None when every rank holds it
+    # whole. Checkpoints gather it to rank 0 and slice it on load.
+    layout: Optional[Any] = None
 
 
 def create_train_state(model, config: TrainConfig, tx, device=None,
@@ -49,7 +53,7 @@ def create_train_state(model, config: TrainConfig, tx, device=None,
         if isinstance(model, TransformerLM):
             state_dict = convert.init_params(model.variant, model.vocab_size, gen,
                                              model.max_seq_len, model.moe_experts,
-                                             model.moe_every)
+                                             model.moe_every, depth=model.depth)
         elif isinstance(model, ViT):
             state_dict = convert.init_vit_params(model.variant, model.patch_size,
                                                  model.num_classes, gen, model.image_size)

@@ -870,3 +870,22 @@ def test_cuda_graphed_remat_dropout_step_equals_stored_step():
         finals[remat] = {k: v.detach().clone() for k, v in model.state_dict().items()}
     for k, v in finals[False].items():
         assert torch.equal(finals[True][k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario", ["pjit_tp", "pp_gpipe"])
+def test_cuda_two_rank_mesh_world(scenario, tmp_path):
+    """On the card: a two-rank world from ``DDL_*`` (the ranks share the
+    card under gloo, or NCCL on two cards) running ``chip_smoke``'s mesh
+    scenario at ``lm_small`` widths (8 layers, T 256): the f32 first step
+    held to one rank's step, and the flash kernels' launches a bf16 step
+    (tp: 8 a pass; GPipe: 4 layers a stage × 4 microbatches = 16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the flash kernels are CUDA C++ for sm_90a")
+    import chip_smoke
+
+    sc = next(s for s in chip_smoke.MESH_SCENARIOS if s["name"] == scenario)
+    size = dict(chip_smoke.MESH_SIZE, variant="small", seq=256, timed=1)
+    got = chip_smoke.mesh_phase(chip_smoke.device_line(), scenarios=(sc,), tmp=str(tmp_path),
+                                size=size)
+    assert got[scenario]["flash_fwd"] == (16 if scenario == "pp_gpipe" else 8)

@@ -94,17 +94,21 @@ def test_config_from_env_resolves_like_jax(env):
     assert mine.steps_per_epoch() == max(mine.fake_data_length // mine.batch_size_per_device, 1)
 
 
-@pytest.mark.parametrize("env", [{"ENGINE": "pjit"}, {"PP_STAGES": "2"},
-                                 {"PARAM_SHARDING": "fsdp"}, {"ASYNC_COLLECTIVES": "1"},
-                                 {"MESH_SHAPE": "2,4"}])
+@pytest.mark.parametrize("env", [{"MESH_AXES": "data,expert"}, {"MESH_AXES": "expert"},
+                                 {"ENGINE": "pjit", "AOT_WARMUP": "1"},
+                                 {"ENGINE": "pp", "AOT_WARMUP": "1"},
+                                 {"ENGINE": "sp", "AOT_WARMUP": "1", "MESH_AXES": "data,seq"}])
 def test_config_settings_of_later_slices_raise(env):
+    """Since the mesh/engine slice only an 'expert' mesh axis and a
+    CUDA-graph warm-up of a mesh engine are still to come."""
     with pytest.raises(NotImplementedError):
         TrainConfig.from_env(env)
 
 
 def test_config_gated_fields_raise_when_built_directly():
-    for kw in (dict(engine="pp"), dict(engine="pjit")):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
+    for kw, word in ((dict(mesh_axes=("data", "expert")), "expert"),
+                     (dict(engine="pjit", aot_warmup=True), "AOT_WARMUP")):
+        with pytest.raises(NotImplementedError, match=word):
             TrainConfig(**kw)
 
 

@@ -173,6 +173,49 @@ def test_no_starvation_under_hot_neighbour(fleet):
     np.testing.assert_array_equal(cold.result(timeout=0), jax_ref(cp, 4))
 
 
+def _dispatch_order(router, stall=()):
+    """Submission indices in dispatch order for 8 requests each of
+    tenants a (3), b (2) and c (1), costs 2 to 4 tokens; ``_place``
+    finds no admitting replica on its calls numbered in ``stall``."""
+    for t, w in (("a", 3.0), ("b", 2.0), ("c", 1.0)):
+        router.set_tenant_weight(t, w)
+    rng = np.random.RandomState(4)
+    index, order, calls = {}, [], [0]
+    place, dispatch_to = router._place, router._dispatch_to
+
+    def stalled_place(fh):
+        calls[0] += 1
+        return None if calls[0] in stall else place(fh)
+
+    def recorded(replica, fh):
+        order.append(index[fh.id])
+        dispatch_to(replica, fh)
+
+    router._place, router._dispatch_to = stalled_place, recorded
+    for i in range(8):
+        for t in ("a", "b", "c"):
+            fh = router.submit(Request(prompt=prompt(rng), max_new_tokens=2 + (i + len(index)) % 3,
+                                       temperature=0.0), tenant=t)
+            index[fh.id] = len(index)
+    router.drain(timeout=300)
+    return order
+
+
+def test_blocked_placement_keeps_the_drr_order(fleet, _pair):
+    """A head request that no replica admits (a counted slot whose
+    replica is still prefilling it) ends the dispatch tick with the
+    cursor where it was: the dispatch order equals an unstalled fleet's.
+    Moving on instead banked a quantum for each tenant visited while the
+    stall lasted, and the weights stopped deciding the order."""
+    want = _dispatch_order(fleet)
+    again = Router(config=FleetConfig(replicas=2, quantum=8, straggler_factor=1e9))
+    for r in _pair:
+        again.add_replica(r, start=False)
+    got = _dispatch_order(again, stall={3, 4, 5, 6, 9, 10, 11, 12, 13, 14})
+    assert sorted(got) == list(range(24))
+    assert got == want, (got, want)
+
+
 # -- parity + placement --------------------------------------------------
 
 

@@ -11,8 +11,12 @@ unloaded, the process tier (``launch``, ``faults``, ``obs.tail``,
 JAX nor TensorFlow nor PIL when imported, the model and optimizer knobs
 (``models.moe``, AdamW, the ``moe_audit`` twin) import no JAX, nor do
 the serving fleet (``serving.chaos``, ``serving.fleet.*``) and its bench
-twins, and the entry points (the fleet's replicas and benches among
-them) default to the CUDA device instead of falling back to the CPU."""
+twins, nor the mesh engines (``parallel.mesh``, ``parallel.ring_attention``,
+``models.sharding``, ``models.pipeline_lm``, the pjit, sp and pp steps,
+``training.overlap``, ``pp_schedule_bench``, ``scripts/mesh_check.py``),
+nor ``scripts/fleet_fairness_trace.py``,
+and the entry points (the fleet's replicas and benches among them)
+default to the CUDA device instead of falling back to the CPU."""
 
 import ast
 import os
@@ -31,6 +35,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distributeddeeplearning_tpu")
 def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "scripts" / "elastic_dp_check.py",
+                                         ROOT / "scripts" / "fleet_fairness_trace.py",
+                                         ROOT / "scripts" / "mesh_check.py",
                                          ROOT / "scripts" / "spec_draft_profile.py",
                                          ROOT / "scripts" / "spec_harness_ab.py"]
 
@@ -121,8 +127,15 @@ def test_data_plane_imports_neither_jax_nor_tensorflow_nor_pil(module):
     assert res.returncode == 0, res.stderr
 
 
+MESH_ENGINES = ["parallel.mesh", "parallel.collectives", "parallel.ring_attention",
+                "models.sharding", "models.pipeline_lm", "training.overlap",
+                "training.pjit_step", "training.sp_step", "training.pp_step",
+                "training.engines", "pp_schedule_bench"]
+
+
 @pytest.mark.parametrize("module", ["models.moe", "models.transformer_lm", "models.vit",
-                                    "models.resnet", "training.optimizer", "moe_audit"])
+                                    "models.resnet", "training.optimizer", "moe_audit"]
+                         + MESH_ENGINES)
 def test_model_and_optimizer_knobs_import_no_jax(module):
     """The MoE blocks, REMAT and dropout, the ResNet knobs, AdamW and the
     MoE audit import no JAX and nothing of the JAX package."""

@@ -3,8 +3,7 @@ inputs.
 
 * ``SyntheticTokenDataset`` yields the JAX package's batches bit for
   bit, in both topologies and across epochs;
-* ``ATTN_IMPL`` parses as in JAX; ``ring`` raises
-  ``NotImplementedError`` (a later slice);
+* ``ATTN_IMPL`` parses as in JAX (``ring`` too, since the sp engine);
 * ``lm_tiny`` in f32 with ``attn_impl="pallas"`` on converted JAX
   weights: logits against JAX's ``pallas`` model (the Pallas kernel in
   interpret mode), rtol/atol 1e-4 as ``test_torch_transformer_lm.py``
@@ -75,15 +74,12 @@ def test_attn_impl_env_resolves_like_jax(impl):
 
 @pytest.mark.parametrize("impl", ["ring", "fused", "auto"])
 def test_attn_impls_of_later_slices_raise(impl):
-    """``ring`` waits for the sp engine and raises; ``fused`` and
-    ``auto`` came with the ViT slice and now parse as in JAX."""
-    if impl != "ring":
-        assert TrainConfig.from_env({"ATTN_IMPL": impl}).attn_impl == impl
-        return
-    with pytest.raises(NotImplementedError, match=impl):
-        TrainConfig.from_env({"ATTN_IMPL": impl})
-    with pytest.raises(NotImplementedError, match=impl):
-        TrainConfig(attn_impl=impl)
+    """``fused`` and ``auto`` came with the ViT slice, ``ring`` with the
+    sp engine: all three now parse as in JAX."""
+    from distributeddeeplearning_tpu.config import TrainConfig as JaxConfig
+
+    assert TrainConfig.from_env({"ATTN_IMPL": impl}).attn_impl == impl
+    assert TrainConfig(attn_impl=impl).attn_impl == JaxConfig(attn_impl=impl).attn_impl
 
 
 def test_unknown_attn_impl_raises():
