@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--phases kernels,serve,servequant,servespec,servegraph,train,
                                     lmtrain,vittrain,effnettrain,fit,warmup,frontends,
-                                    launch,trace,bench,realdata,knobs]
+                                    launch,trace,bench,realdata,knobs,fleet,mesh]
 
 (all phases by default). Any failure raises and the script exits
 non-zero.
@@ -16,7 +16,8 @@ non-zero.
    ``nvcc`` per source, all started together (the native IO tier's host
    library, ``csrc/ddl_native.cpp``, with them, by the host compiler);
    print ptxas's registers, spills and any wgmma serialization it
-   reports.
+   reports. The ``kernels`` phase checks each library as soon as its
+   build ends; every build ends before the next phase.
 3. ``kernels``: each hand-written kernel against its plain PyTorch
    version on the card (run in f32 on the same bf16 inputs), with
    CUDA-event times (device time: the device spins before each timed
@@ -89,7 +90,7 @@ non-zero.
    variant; ``SERVE_SPEC_K=4`` with the int8 self-draft: 19 in 29), their
    capture seconds and graph-pool bytes, no capture after warmup, every
    stream of the mix graphed equal bit for bit to the same members run
-   uncaptured; bf16 eager, graphed, graphed, eager (tick wall, device ms
+   uncaptured; bf16 eager then graphed (tick wall, device ms
    a tick, greedy and with half the slots sampling, busy share, TTFT,
    tokens/s); the decode kernel at 12 launches
    a tick and a prefill by the profiler's kernel names; the live plane
@@ -124,9 +125,9 @@ non-zero.
    taking the packed kernel once per layer of a forward on the card.
 11. ``effnettrain``: EfficientNet-B4 (380 px, 1000 classes, batch 64,
    bf16, drop-path and head dropout on) through the same entry points
-   on seeded synthetic images: 3 warm-up and 20 timed steps, finite
+   on seeded synthetic images: 3 warm-up and 10 timed steps, finite
    losses, no depthwise kernel launched by the model (its depthwise
-   convs are cuDNN's, as JAX's are XLA's); a profile of 5 steady steps;
+   convs are cuDNN's, as JAX's are XLA's); a profile of 3 steady steps;
    then the hook pass: one training forward and backward with the 28
    stride-1 depthwise layers handed to the kernels by forward hooks
    (28 launches of each of forward, dgrad and wgrad), each layer's
@@ -138,7 +139,7 @@ non-zero.
    forward, one host sync, no synchronizing CUDA call in the steady
    steps but the epoch readback, under
    ``torch.cuda.set_sync_debug_mode("warn")``), then against the bare
-   step in turns (bare, fit, fit, bare); 2 epochs with
+   step (bare, then fit); 2 epochs with
    ``CHECKPOINT_EVERY_STEPS=5`` under ``hostsync.track()`` (one sync an
    epoch and one a save); a resume from the step-15 checkpoint held to
    the uninterrupted run (``FIT_RESUME_*``); an epoch with
@@ -146,8 +147,8 @@ non-zero.
    unfused accumulated step; ``lm_base`` pallas through ``fit`` (12
    launches a pass of each flash kernel). See :func:`fit_phase`.
 13. ``warmup``: ``AOT_WARMUP`` (the step captured as CUDA graphs)
-   through ``fit``: fused ResNet-50 and ``lm_base`` ``pallas``, eager,
-   graphed, graphed, eager, each run's step medians, busy share, peak
+   through ``fit``: fused ResNet-50 and ``lm_base`` ``pallas``, eager
+   then graphed, each run's step medians, busy share, peak
    memory, ``compile_sec`` and ``graphs_captured``, graphed against
    eager bit for bit, the kernels counted under replay by the
    profiler's names; EfficientNet-B0 with dropout and ViT-B/16 flagged
@@ -171,7 +172,7 @@ non-zero.
    a Chrome trace an epoch naming the fused kernels. See
    :func:`trace_phase`.
 17. ``bench``: ``python -m distributeddeeplearning_tpu_torch.bench`` in a
-   subprocess, two runs of the canonical ResNet-50 protocol and two
+   subprocess, one run of the canonical ResNet-50 protocol and two
    of ``BENCH_MODEL=lm_base``, each timing the captured step: each
    record printed (``platform`` cuda, ``graphs_captured`` 1,
    ``host_sync_count`` 1; ``lm_base``'s runs share a fresh
@@ -207,7 +208,18 @@ non-zero.
    stem and bf16 statistics beside the default, 32 fused-block kernels a
    replayed step. Then the ``moe_audit`` twin's table at ``lm_small``.
    See :func:`knobs_phase`.
-20. The ``kernels`` JSON line (every kernel whose phases ran; rows 1–5
+20. ``fleet``: the serving fleet (routes, drain, faults, disaggregated
+   pools, the storm, the brownout ladder, the bench twins). See
+   :func:`fleet_phase`.
+21. ``mesh``: the mesh engines in one world of two ranks sharing the
+   card (``MESH_SCENARIOS``: pjit ``tp`` and ``fsdp``, ring attention,
+   GPipe and 1F1B, sync-BN ResNet-50, ViT-B/16, and ``lm_moe_base``
+   with its experts over ``expert``, under ``tp`` and under ``fsdp``):
+   each rank's f32 first step held to one rank's, the kernels' launches
+   a step a rank, and under expert parallelism the replicated
+   parameters bitwise equal across the expert ranks. See
+   :func:`mesh_phase`.
+22. The ``kernels`` JSON line (every kernel whose phases ran; rows 1–5
    also with their launches a step under graph replay, and on the
    knobs' paths), then the contract's last line ``{"ok": true,
    "device": {...}}``.
@@ -235,6 +247,9 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_S = 989e12  # dense bf16 tensor-core peak
 N_TIMED = 25  # timed launches per measurement (median reported)
+# The plain versions' yardstick times: up to 13 ms a launch (a B4
+# depthwise layer), so 7 launches each, to keep the kernels phase short.
+N_TIMED_PLAIN = 7
 SPIN_CYCLES = 4_000_000  # device spin before each timed span: about 2 ms
 
 
@@ -251,8 +266,8 @@ def device_line() -> str:
     return out[0]
 
 
-def time_ms(fn, flush: torch.Tensor) -> float:
-    """Median device time of ``fn`` over N_TIMED launches, each with a
+def time_ms(fn, flush: torch.Tensor, n: int = N_TIMED) -> float:
+    """Median device time of ``fn`` over ``n`` launches, each with a
     cold L2 (a 256 MB write between launches, outside the timed span),
     as a serving step finds the next layer's K/V. Before each span the
     device spins for SPIN_CYCLES (``torch.cuda._sleep``), so the host has
@@ -262,7 +277,7 @@ def time_ms(fn, flush: torch.Tensor) -> float:
     for _ in range(3):
         fn()
     times = []
-    for _ in range(N_TIMED):
+    for _ in range(n):
         flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
@@ -383,7 +398,7 @@ def kernel_case(name, pd, q, k, v, q_pos, flush, *, table=None, bs=0, k_scale=No
         "max_abs_err": err, "err_over_tol": tol_ratio, "repeats_bitwise": True,
         "ms": time_ms(lambda: pd.fused_decode_attention(q, k, v, q_pos, **kw), flush),
         "plain_ms": time_ms(
-            lambda: pd.fused_decode_attention_plain(q, k, v, q_pos, **kw), flush),
+            lambda: pd.fused_decode_attention_plain(q, k, v, q_pos, **kw), flush, N_TIMED_PLAIN),
         "library_ms": time_ms(library, flush),
         "sdpa_pregathered_ms": None if quantized else time_ms(pregathered, flush),
         "bound_ms": max(bound_bytes, bound_ops),
@@ -676,7 +691,7 @@ def fb_case(name, fb, op, a, w, flush, *, bn=None, plain=True):
             "max_abs_err": err, "y_err_over_limit": y_ratio,
             "stats_err_over_limit": s_ratio,
             "ms": time_ms(kern, flush),
-            "plain_ms": time_ms(plain_fn, flush) if plain else "not timed",
+            "plain_ms": time_ms(plain_fn, flush, N_TIMED_PLAIN) if plain else "not timed",
             "library_ms": time_ms(library, flush),
             "gemm_ms": time_ms(lambda: torch.matmul(z, w.t()), flush),
             "bound_ms": max(bound_bytes, bound_ops),
@@ -976,11 +991,14 @@ def flash_case(fl, name, b, h, tq, tk, d, causal, q_mul, flush, g):
                 lambda: fl.flash_bwd_dkv(q, k, v, do, lse, delta, causal, sc), flush),
         }
         plain = {
-            "flash_fwd": time_ms(lambda: fl.flash_forward_plain(q, k, v, causal, sc), flush),
+            "flash_fwd": time_ms(lambda: fl.flash_forward_plain(q, k, v, causal, sc), flush,
+                                 N_TIMED_PLAIN),
             "flash_bwd_dq": time_ms(
-                lambda: fl.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, sc), flush),
+                lambda: fl.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, sc), flush,
+                N_TIMED_PLAIN),
             "flash_bwd_dkv": time_ms(
-                lambda: fl.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, sc), flush),
+                lambda: fl.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, sc), flush,
+                N_TIMED_PLAIN),
         }
         sdpa_fwd = time_ms(sdpa, flush)
     sdpa_fb = time_ms(sdpa_fwd_bwd, flush)
@@ -1639,7 +1657,8 @@ def servegraph_phase(pd, card, variant="base", device="cuda", obs_dir=None,
       with the default ladder), ``compile_sec``, the graph pool's bytes,
       every stream of the mix graphed equal bit for bit to the same
       members uncaptured, and no capture after warmup (``_graph_tier``).
-    * bf16 in turns, eager, graphed, graphed, eager: the mix's tick-wall
+    * bf16 eager then graphed (one turn each: the graphed mix is served
+      again in ``fleet``): the mix's tick-wall
       median, TTFT p50/p99 and tokens/s, and two profiled steady decodes
       (``profile_decode``: device ms a tick, busy share; all slots greedy,
       the greedy-only graphs, then half sampling); where a graphed
@@ -1664,7 +1683,7 @@ def servegraph_phase(pd, card, variant="base", device="cuda", obs_dir=None,
     reqs = _request_mix()
     programs = dict(engine.programs)
     turns = []
-    for mode in ("eager", "graphed", "graphed", "eager"):
+    for mode in ("eager", "graphed"):
         if mode == "eager":
             install_uncaptured(engine)
         else:
@@ -2375,10 +2394,10 @@ def fp_case(fp, fl, name, b, t, h, d, causal, flush, g):
         }
         plain = {
             "fused_qkv_fwd": time_ms(
-                lambda: fp.fused_qkv_attention_plain(qkv, h, causal, sc), flush),
+                lambda: fp.fused_qkv_attention_plain(qkv, h, causal, sc), flush, N_TIMED_PLAIN),
             "fused_qkv_bwd": time_ms(
                 lambda: fp.fused_qkv_attention_backward_plain(qkv, out, do, h, causal, sc),
-                flush),
+                flush, N_TIMED_PLAIN),
         }
         sdpa_fwd = time_ms(sdpa, flush)
     sdpa_fb = time_ms(sdpa_fwd_bwd, flush)
@@ -2505,7 +2524,7 @@ def fg_case(fg, name, n, k, m, dtype, flush, g):
         "max_abs_err": {w: e[0] for w, e in errs.items()},
         "err_over_limit": {w: e[1] for w, e in errs.items()},
         "ms": time_ms(lambda: fg.matmul_dw_db_cuda(x, gr), flush),
-        "plain_ms": time_ms(lambda: fg.matmul_dw_db_plain(x, gr), flush),
+        "plain_ms": time_ms(lambda: fg.matmul_dw_db_plain(x, gr), flush, N_TIMED_PLAIN),
         "library_ms": time_ms(library, flush),
         "library_f32_ms": time_ms(library_f32, flush),
         "bound_ms": max(bound_bytes, bound_ops),
@@ -2919,9 +2938,10 @@ def dw_times(dwm, x, dy, taps, flush, plain=True):
         }
         if plain:
             out["plain_ms"] = {
-                "conv": time_ms(lambda: dwm.stencil_plain(x, taps), flush),
-                "dgrad": time_ms(lambda: dwm.stencil_plain(dy, taps, flip=True), flush),
-                "wgrad": time_ms(lambda: dwm.wgrad_plain(x, dy, k), flush)}
+                "conv": time_ms(lambda: dwm.stencil_plain(x, taps), flush, N_TIMED_PLAIN),
+                "dgrad": time_ms(lambda: dwm.stencil_plain(dy, taps, flip=True), flush,
+                                 N_TIMED_PLAIN),
+                "wgrad": time_ms(lambda: dwm.wgrad_plain(x, dy, k), flush, N_TIMED_PLAIN)}
     return out
 
 
@@ -3451,12 +3471,12 @@ def fit_phase(fb, fl, card, bare_step_ms=None, device="cuda", image_size=224, ba
         raise AssertionError(f"synchronizing CUDA calls in the steady steps: {stray}")
     st = watch.stamps
     steady = [(st[j] - st[j - 1]) * 1e3 for j in range(1, steps)]
-    # The loop against the bare step in turns (bare, fit, fit, bare), on
-    # the same model and state: each turn one epoch of 12 steps, its step
-    # walls the intervals between step ends on the host clock.
+    # The loop against the bare step, one turn each, on the same model and
+    # state: each turn one epoch of 12 steps, its step walls the intervals
+    # between step ends on the host clock.
     turns = []
     state, tx = res.state, _fit_tx(cfg, data)  # the optimizer is stateless: its state is in state
-    for kind in ("bare", "fit", "fit", "bare"):
+    for kind in ("bare", "fit"):
         if kind == "fit":
             r, w, *_ = _fit_run(fb, cfg, data, model, device, track=False, state=state, tx=tx)
             state, st = r.state, w.stamps
@@ -3706,8 +3726,9 @@ def _ours(kernels, marks):
 
 
 def warmup_turns(name, make, device, marks, want_per_step, card, counter=None):
-    """One model through ``fit`` with ``AOT_WARMUP=0`` and ``=1`` in turns
-    (eager, graphed, graphed, eager), then one profiled run of each kind.
+    """One model through ``fit`` with ``AOT_WARMUP=0`` and ``=1`` (eager,
+    then graphed: one turn each, as the graphed steps are timed again in
+    ``bench`` and ``knobs``), then one profiled run of each kind.
     ``make(aot)`` returns ``(cfg, data, model)``. Checks: the graphed
     runs captured graphs and took no eager step; the first graphed run's
     parameters and running statistics equal the first eager run's bit for
@@ -3718,7 +3739,7 @@ def warmup_turns(name, make, device, marks, want_per_step, card, counter=None):
     and returns it."""
     on_card = torch.device(device).type == "cuda"
     turns, finals = [], {}
-    for i, aot in enumerate((False, True, True, False)):
+    for aot in (False, True):
         cfg, data, model = make(aot)
         if counter is not None:
             counter.launches = 0
@@ -3734,8 +3755,7 @@ def warmup_turns(name, make, device, marks, want_per_step, card, counter=None):
             "dispatch_p50_ms": res.perf["dispatch_p50_ms"], "history": res.history})
         if aot and not (res.perf["graphs_captured"] >= on_card and res.perf["eager_steps"] == 0):
             raise AssertionError(f"warmup {name}: {res.perf}")
-        if i < 2:
-            finals[aot] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        finals[aot] = {k: v.detach().clone() for k, v in model.state_dict().items()}
         del res, model, data
         if on_card:
             torch.cuda.empty_cache()
@@ -3774,8 +3794,8 @@ def warmup_phase(card, device="cuda", image_size=224, batch=64, num_classes=1000
     graphs) through ``fit`` on the card:
 
     1. fused ResNet-50 (224 px, batch 64, 12 steps) and ``lm_base``
-       ``pallas`` (T 1024, batch 8, 6 steps), each eager, graphed,
-       graphed, eager (:func:`warmup_turns`): step medians, busy share,
+       ``pallas`` (T 1024, batch 8, 6 steps), each eager then graphed
+       (:func:`warmup_turns`): step medians, busy share,
        peak memory, ``compile_sec``, ``graphs_captured``; graphed against
        eager bit for bit; under replay 32 ``matmul_stats`` launches a
        step (16 a op) and 12 of each flash kernel;
@@ -4381,15 +4401,18 @@ def trace_phase(fb, card, device="cuda", image_size=224, batch=64, num_classes=1
 BENCH_RUNS = 2  # enough for the cache check (misses, then hits); a third run cost 39 s
 
 
-# COMPILATION_CACHE_DIR None: a fresh directory that the protocol's runs share.
-BENCH_PROTOCOLS = (("resnet50", {}),
+# COMPILATION_CACHE_DIR None: a fresh directory that the protocol's runs
+# share. A third item sets the protocol's runs: ResNet-50 takes one (its
+# step runs at full width in train, fit and warmup; a second run cost 25 s).
+BENCH_PROTOCOLS = (("resnet50", {}, 1),
                    ("lm_base", {"BENCH_MODEL": "lm_base", "COMPILATION_CACHE_DIR": None}))
 
 
 def bench_phase(card, runs=BENCH_RUNS, protocols=BENCH_PROTOCOLS, timeout=600):
     """The port's bench harness as a user runs it, in a subprocess:
     ``runs`` runs of each protocol (the canonical ResNet-50 one and
-    ``BENCH_MODEL=lm_base``; ``protocols`` pairs a label with its env).
+    ``BENCH_MODEL=lm_base``; ``protocols`` pairs a label with its env,
+    and a third item overrides ``runs``).
     Each must exit 0 and print its record with ``detail.platform ==
     "cuda"`` (``"cpu"`` under ``BENCH_DEVICE=cpu``), the step captured
     (``detail.graphs_captured`` 1; 0 on the CPU) and ``host_sync_count
@@ -4405,13 +4428,13 @@ def bench_phase(card, runs=BENCH_RUNS, protocols=BENCH_PROTOCOLS, timeout=600):
             if not k.startswith("BENCH_") and k != "COMPILATION_CACHE_DIR"}
     records = {}
     caches = []
-    for label, extra in protocols:
+    for label, extra, *own_runs in protocols:
         env = dict(base, **extra)
         if "COMPILATION_CACHE_DIR" in env and env["COMPILATION_CACHE_DIR"] is None:
             caches.append(tempfile.mkdtemp(prefix="ddl-cache-"))
             env["COMPILATION_CACHE_DIR"] = caches[-1]
         platform = "cpu" if env.get("BENCH_DEVICE") == "cpu" else "cuda"
-        for i in range(runs):
+        for i in range(own_runs[0] if own_runs else runs):
             t0 = time.perf_counter()
             proc = subprocess.run([sys.executable, "-m", "distributeddeeplearning_tpu_torch.bench"],
                                   env=env, capture_output=True, text=True, timeout=timeout)
@@ -5814,6 +5837,14 @@ MESH_SCENARIOS = (
          shape=[2], model="resnet", allow_sync_bn=True),
     dict(name="vit_b16_pjit", engine="pjit", param_sharding="dp", axes=["data"], shape=[2],
          model="vit"),
+    # lm_moe_base (12 layers, 6 routed over 8 experts): the experts over
+    # 'expert', each expert's mlp dim over 'model', their embed dims over 'data'
+    dict(name="pjit_ep", engine="pjit", param_sharding="tp", axes=["data", "expert"],
+         shape=[1, 2], model="lm", moe=True),
+    dict(name="pjit_tp_moe", engine="pjit", param_sharding="tp", axes=["data", "model"],
+         shape=[1, 2], model="lm", moe=True),
+    dict(name="pjit_fsdp_moe", engine="pjit", param_sharding="fsdp", axes=["data"], shape=[2],
+         model="lm", moe=True),
 )
 
 
@@ -5826,7 +5857,8 @@ def _mesh_cfg(sc, dtype, attn_impl, size):
               allow_sync_bn=sc.get("allow_sync_bn", False), compute_dtype=dtype,
               scale_lr_by_world_size=False)
     if sc["model"] == "lm":
-        return TrainConfig(model=f"lm_{size['variant']}", num_classes=size["vocab"],
+        family = "lm_moe" if sc.get("moe") else "lm"
+        return TrainConfig(model=f"{family}_{size['variant']}", num_classes=size["vocab"],
                            attn_impl=attn_impl, batch_size_per_device=size["batch"], **kw)
     if sc["model"] == "vit":
         return TrainConfig(model="vit_b16", num_classes=1000, attn_impl="fused",
@@ -5974,6 +6006,9 @@ def mesh_child(spec_path, out_path):
                    for i in range(timed + 1)]
         line["param_mib"] = sum(t.numel() * t.element_size()
                                 for t in eng.state.model.parameters()) / 2**20
+        line["expert_mib"] = sum(t.numel() * t.element_size()  # w1, b1, w2, b2
+                                 for n, t in eng.state.model.named_parameters()
+                                 if ".moe." in n and "router" not in n) / 2**20
         state, m = eng.train_step(eng.state, batches[0])
         if sc["model"] == "resnet" and rank == 0:
             payload = {k: v.detach().cpu() for k, v in eng.state.model.state_dict().items()}
@@ -5998,6 +6033,8 @@ def mesh_child(spec_path, out_path):
         line["launches_per_step"] = {k: v / timed for k, v in _mesh_counts().items()}
         line["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
         line["losses"] = losses
+        if eng.mesh is not None and eng.mesh.shape.get("expert", 1) > 1:
+            line["replicas_agree"] = state.layout.replicas_agree(eng.mesh.group("expert"))
         line["seconds"] = time.perf_counter() - t0
         if not all(np.isfinite(losses)):
             raise AssertionError(f"{sc['name']}: non-finite losses {losses}")
@@ -6209,6 +6246,8 @@ def mesh_phase(card, device="cuda", scenarios=MESH_SCENARIOS, nprocs=2, tmp=None
                 "step_ms_by_rank": [r["step_ms"] for r in ranks],
                 "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in ranks],
                 "param_mib_by_rank": [r["param_mib"] for r in ranks],
+                "expert_mib_by_rank": [r["expert_mib"] for r in ranks],
+                "replicas_agree": [r.get("replicas_agree") for r in ranks],
                 "launches_per_step_rank0": ranks[0]["launches_per_step"],
                 "losses": ranks[0]["losses"], "agree": agree, "card": card}
         print("mesh " + json.dumps(line), flush=True)
@@ -6220,6 +6259,9 @@ def mesh_phase(card, device="cuda", scenarios=MESH_SCENARIOS, nprocs=2, tmp=None
                                      f"(got, want) {bad}")
         if agree is not None and not agree["within_limits"]:
             raise AssertionError(f"{sc['name']}: the first step disagrees with one rank: {agree}")
+        if any(r.get("replicas_agree") is False for r in ranks):
+            raise AssertionError(f"{sc['name']}: the replicated parameters differ across the "
+                                 f"expert ranks after the timed steps")
         launches[sc["name"]] = {k: v for k, v in ranks[0]["launches_per_step"].items() if v}
     pairs = [[by[sc["name"]] for sc in scenarios if sc.get("pp_schedule") == s]
              for s in ("gpipe", "1f1b")]
@@ -6254,7 +6296,9 @@ def _fb_entry(name, cases, timed_case, launches):
 
 class _PhaseClock:
     """Seconds each phase took: ``start(name)`` closes the running
-    phase (the build first) and opens ``name``."""
+    phase (the build's start first: the builds then run on beside the
+    kernels phase, which waits for each library it checks) and opens
+    ``name``."""
 
     def __init__(self, phases):
         self.t0 = self.last = time.perf_counter()
@@ -6354,7 +6398,10 @@ def main(argv=None) -> int:
     print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
 
     clock = _PhaseClock(phases)
-    # One nvcc per source, all started together.
+    # One nvcc per source, all started together; the kernels phase checks
+    # each library as soon as its build ends, the shortest builds first,
+    # so the longest builds (depthwise, paged_decode: 33-40 s) overlap the
+    # other kernels' cases instead of delaying them.
     from concurrent.futures import ThreadPoolExecutor
 
     def timed_build(name):
@@ -6365,30 +6412,45 @@ def main(argv=None) -> int:
     # ddl_native: the native IO tier's host library (csrc/ddl_native.cpp).
     names = ("paged_decode", "fused_block", "flash", "flash_packed", "fused_grads", "depthwise",
              "ddl_native")
-    with ThreadPoolExecutor(len(names)) as pool:
-        secs = list(pool.map(timed_build, names))
-    for name, sec in zip(names, secs):
-        print(f"build {name} {sec:.1f}s", flush=True)
-        for line in _build.build_log(name).splitlines():
-            if ("registers" in line or "spill" in line or "Compiling entry" in line
-                    or "Performance Loss" in line):
-                print(f"ptxas {name}:", line.strip(), flush=True)
+    pool = ThreadPoolExecutor(len(names))
+    builds = {name: pool.submit(timed_build, name) for name in names}
+
+    def built(*libs):
+        """Wait for ``libs``' builds (a failed build raises here) and print
+        each one's seconds and ptxas lines once."""
+        for name in libs:
+            if name not in builds:
+                continue
+            sec = builds.pop(name).result()
+            print(f"build {name} {sec:.1f}s", flush=True)
+            for line in _build.build_log(name).splitlines():
+                if ("registers" in line or "spill" in line or "Compiling entry" in line
+                        or "Performance Loss" in line):
+                    print(f"ptxas {name}:", line.strip(), flush=True)
 
     entries = []
     pd_cases = fb_cases = flash_cases = fp_cases = fg_cases = dw_cases = None
     clock.start("kernels")
     if "kernels" in phases:
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
-        pd_cases = kernel_phase(pd, flush)
+        built("fused_block")
         fb_cases = fused_block_phase(fb, flush)
+        built("flash")
         flash_cases = flash_phase(fl, flush)
+        built("flash_packed")
         fp_cases = fp_phase(fp, fl, flush)
+        built("fused_grads")
         fg_cases = fg_phase(fg, flush)
+        built("paged_decode")
+        pd_cases = kernel_phase(pd, flush)
+        built("depthwise")
         dw_cases = dw_phase(dwm, flush)
         for c in pd_cases + fb_cases + flash_cases + fp_cases + fg_cases + dw_cases:
             print("case " + json.dumps(c), flush=True)
         del flush
         torch.cuda.empty_cache()
+    built(*names)
+    pool.shutdown()
 
     clock.start("serve")
     if "serve" in phases:
@@ -6497,10 +6559,12 @@ def main(argv=None) -> int:
 
     clock.start("effnettrain")
     if "effnettrain" in phases:
-        line, state, step, batches, ds, cfg = effnet_train_fit(dwm, card)
+        # 10 timed and 3 profiled steps: B4's step is 0.45 s, and the hook
+        # pass runs it at full width again.
+        line, state, step, batches, ds, cfg = effnet_train_fit(dwm, card, timed=10)
         profile_train(state, step, batches, card, line["step_ms"],
                       f"efficientnet_b4 train step, batch {line['batch']}, 380 px, bf16",
-                      ("dwconv_",))
+                      ("dwconv_",), steps=3)
         del step, batches
         torch.cuda.empty_cache()
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")

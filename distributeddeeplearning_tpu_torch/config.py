@@ -26,9 +26,11 @@ mesh engines: ``ENGINE`` (``dp``, ``pjit``, ``pp``, ``sp``),
 ``ASYNC_COLLECTIVES`` and ``ATTN_IMPL=ring`` (``training/engines.py``).
 
 Field names, defaults and ``from_env`` parsing are the JAX package's.
-Two settings of later slices raise ``NotImplementedError`` naming the
-slice that brings them: an ``expert`` mesh axis, and ``AOT_WARMUP=1``
-with a mesh engine. ``FUSED_DENSE_GRAD`` is no field in either
+An ``expert`` mesh axis shards the MoE experts under ``ENGINE=pjit``
+(``training/pjit_step.py``); an explicit ``MESH_SHAPE`` whose ``expert``
+size does not divide ``MOE_EXPERTS`` raises ``ValueError``.
+``AOT_WARMUP=1`` with a mesh engine raises ``NotImplementedError``
+naming the slice that brings it. ``FUSED_DENSE_GRAD`` is no field in either
 package: ``models/vit._dense`` reads it whenever a Dense is built, as the
 JAX package's ``_dense`` does.
 """
@@ -48,13 +50,20 @@ IMAGENET_RGB_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_RGB_SD = (0.229, 0.224, 0.225)
 IMAGENET_TRAIN_LENGTH = 1_281_167  # FAKE_DATA_LENGTH default
 
-# Settings of later slices: each raises NotImplementedError naming the
-# slice that brings it. An 'expert' mesh axis is expert parallelism; a
-# CUDA-graph warm-up of a mesh engine captures NCCL collectives.
-_EXPERT_SLICE = "the expert-parallel slice (an 'expert' mesh axis, MoE all-to-all)"
+# A setting of a later slice raises NotImplementedError naming the slice
+# that brings it: a CUDA-graph warm-up of a mesh engine captures NCCL
+# collectives.
 _AOT_MESH_SLICE = "the slice that captures NCCL worlds' collectives as CUDA graphs"
 
 _ATTN = ("xla", "pallas", "fused", "auto", "ring")
+
+
+def check_expert_split(experts: int, n_expert: int) -> None:
+    """Raise unless ``experts`` split evenly over an ``expert`` axis of
+    ``n_expert`` ranks (``-1``, the wildcard, is checked on the mesh)."""
+    if n_expert > 0 and experts % n_expert:
+        raise ValueError(f"{experts} experts do not split over expert={n_expert} ranks: "
+                         "MOE_EXPERTS must be a multiple of the mesh's 'expert' size")
 
 
 def _str_to_bool(value: str) -> bool:
@@ -202,10 +211,9 @@ class TrainConfig:
         self.mesh_axes = tuple(self.mesh_axes)
         if self.mesh_shape is not None:
             self.mesh_shape = tuple(self.mesh_shape)
-        if "expert" in self.mesh_axes:
-            raise NotImplementedError(
-                f"MESH_AXES={','.join(self.mesh_axes)}: the port's mesh has no "
-                f"'expert' axis yet; it comes with {_EXPERT_SLICE}")
+        if "expert" in self.mesh_axes and self.mesh_shape is not None and self.moe_experts:
+            check_expert_split(self.moe_experts,
+                               dict(zip(self.mesh_axes, self.mesh_shape)).get("expert", 1))
         if self.aot_warmup and self.engine != "dp":
             raise NotImplementedError(
                 f"AOT_WARMUP=1 with ENGINE={self.engine}: the port captures the dp "

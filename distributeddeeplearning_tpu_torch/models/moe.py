@@ -19,7 +19,11 @@ capacity routing with dense dispatch and combine contractions.
   the share of first choices, ``P_e`` the mean gate) is left on the
   block as ``aux_loss``, a device tensor, after each forward; the train
   step adds the blocks' losses to its loss (``train_step.sown_aux_loss``)
-  as JAX adds the sown ``"losses"`` collection.
+  as JAX adds the sown ``"losses"`` collection. Under the pjit engine
+  (``batch_group`` set) ``f_e`` and ``P_e`` are the global batch's, as
+  in JAX's GSPMD program: the data shards' means are averaged
+  (``collectives.sum_both_ways``: each shard's ``P_e`` feeds every
+  rank's loss).
 
 The contractions (dispatch ``bsec,bsd->ebcd``, the two expert products,
 combine ``bsec,ebcd->bsd``) are plain matrix products, outside any
@@ -30,6 +34,28 @@ keep flax's layouts: ``router [d, e]``, ``w1 [e, d, h]``, ``b1 [e, h]``,
 ``w2 [e, h, d]``, ``b2 [e, d]``; they are not Dense ``kernel`` leaves,
 so they take neither the L2 penalty nor AdamW's decoupled decay, and the
 serving tier's weight quantization leaves them as they are.
+
+**Expert parallelism** (``ENGINE=pjit`` with an ``expert`` mesh axis,
+``training/pjit_step.py`` sets :meth:`MoEMlpBlock.shard`): the ranks
+along ``expert`` hold the same tokens (the batch is sharded over
+``replica`` × ``data`` only, JAX's layout) and ``E / n`` experts each
+(``w1``, ``b1``, ``w2``, ``b2`` split on dim 0, the router on its ``E``
+dim). Every rank routes the whole token set alike: the router is
+gathered whole (``collectives.all_gather_keepgrad``; its gradient,
+which every rank computes whole, is sliced back) and the gates, masks,
+slots and load-balance loss are the one-rank ones. A rank then builds
+dispatch and combine for its own experts only, runs them, and the
+combine ``bsec,ebcd->bsd`` over its experts is a partial sum, added over
+the expert group in f32 (``collectives.psum_keepgrad``). The backward
+needs two sums over the group, no more: the token gradient of the
+dispatch (``copy_to_group`` on the input) and the gradient of the ``k``
+combine weights ``[B, S, k]`` (``copy_to_group`` on them): with ``k ≥
+2`` the renormalised gates couple every expert, so the router's
+gradient needs every expert's output, and their partial gradients add
+(the one-hot masks and slots carry none). Under ``tp`` the experts'
+``mlp`` dim is also split over ``model`` (Megatron inside each expert:
+``w1``/``b1`` columns, ``w2`` rows, the product summed over ``model``
+before ``b2``).
 """
 
 from __future__ import annotations
@@ -43,6 +69,7 @@ from torch import nn
 
 from distributeddeeplearning_tpu_torch.models import efficientnet as noise
 from distributeddeeplearning_tpu_torch.models.vit import Attention, KVCache, LayerNorm, Masks
+from distributeddeeplearning_tpu_torch.parallel import collectives
 
 
 def one_hot_f32(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -71,6 +98,16 @@ class MoEMlpBlock(nn.Module):
         self.w2 = nn.Parameter(torch.empty(e, mlp_dim, hidden, device=device))
         self.b2 = nn.Parameter(torch.empty(e, hidden, device=device))
         self.aux_loss: Optional[torch.Tensor] = None
+        self.expert_group = self.model_group = self.batch_group = None
+        self.expert_offset, self.local_experts = 0, e
+
+    def shard(self, expert_group, n_expert: int, index: int, model_group=None) -> None:
+        """Run experts ``[index·E/n, (index+1)·E/n)`` of ``n_expert`` ranks
+        of ``expert_group`` (the caller splits the parameters) and, with
+        ``model_group``, each expert's ``mlp`` columns over it."""
+        self.expert_group, self.model_group = expert_group, model_group
+        self.local_experts = self.num_experts // n_expert
+        self.expert_offset = index * self.local_experts
 
     def capacity(self, seq: int, capacity_factor: Optional[float] = None) -> int:
         """Buffer slots an expert has for a row of ``seq`` tokens."""
@@ -81,11 +118,13 @@ class MoEMlpBlock(nn.Module):
     def route(self, x: torch.Tensor, capacity: int):
         """``(dispatch, combine, aux)``: the f32 ``[B, S, E, C]`` dispatch
         and combine tensors (``dispatch.sum()`` counts the (token, choice)
-        pairs that kept a slot) and the load-balance loss."""
+        pairs that kept a slot; under expert parallelism ``[B, S, E/n, C]``,
+        this rank's experts) and the load-balance loss."""
         e = self.num_experts
         k = min(self.num_selected, e)
         b, s, _ = x.shape
-        gates = torch.softmax(x.float() @ self.router, dim=-1)  # [b, s, e] f32
+        router = collectives.all_gather_keepgrad(self.router, self.expert_group, 1)
+        gates = torch.softmax(x.float() @ router, dim=-1)  # [b, s, e] f32
         masks: List[torch.Tensor] = []
         chosen: List[torch.Tensor] = []
         g = gates
@@ -107,12 +146,21 @@ class MoEMlpBlock(nn.Module):
         kept_gate = [chosen[j] * kept_masks[j].sum(-1) for j in range(k)]
         denom = (torch.ones_like(kept_gate[0]) if k == 1
                  else torch.clamp(sum(kept_gate), min=1e-9))
+        weights = [kept_gate[j] / denom for j in range(k)]
+        if self.expert_group is not None:  # this rank's experts only
+            weights = list(collectives.copy_to_group(torch.stack(weights, -1),
+                                                     self.expert_group).unbind(-1))
+            lo = self.expert_offset
+            kept_masks = [m[..., lo:lo + self.local_experts] for m in kept_masks]
         slots = [one_hot_f32(p, capacity)[:, :, None, :] for p in positions]
         dispatch = sum(kept_masks[j][..., None] * slots[j] for j in range(k))
-        combine = sum((kept_gate[j] / denom)[..., None, None] * kept_masks[j][..., None]
-                      * slots[j] for j in range(k))
+        combine = sum(weights[j][..., None, None] * kept_masks[j][..., None] * slots[j]
+                      for j in range(k))
         f = masks[0].mean(dim=(0, 1))
         p = gates.mean(dim=(0, 1))
+        if self.batch_group is not None:  # the global batch's shares
+            fp = collectives.sum_both_ways(torch.stack([f, p]), self.batch_group)
+            f, p = (fp / collectives.group_size(self.batch_group)).unbind(0)
         aux = self.aux_loss_weight * e * torch.sum(f * p)
         return dispatch, combine, aux
 
@@ -121,12 +169,19 @@ class MoEMlpBlock(nn.Module):
         capacity = self.capacity(x.shape[1], capacity_factor)
         dispatch, combine, aux = self.route(x, capacity)
         self.aux_loss = aux
+        x = collectives.copy_to_group(x, self.expert_group)
         expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(dt), x.to(dt))
+        expert_in = collectives.copy_to_group(expert_in, self.model_group)
         h = torch.einsum("ebcd,edh->ebch", expert_in, self.w1.to(dt))
         h = F.gelu(h + self.b1[:, None, None, :].to(dt), approximate="tanh")
         out = torch.einsum("ebch,ehd->ebcd", h, self.w2.to(dt))
+        if self.model_group is not None:
+            out = collectives.psum_keepgrad(out.float(), self.model_group).to(dt)
         out = out + self.b2[:, None, None, :].to(dt)
-        return torch.einsum("bsec,ebcd->bsd", combine.to(dt), out).to(dt)
+        y = torch.einsum("bsec,ebcd->bsd", combine.to(dt), out)
+        if self.expert_group is not None:
+            y = collectives.psum_keepgrad(y.float(), self.expert_group)
+        return y.to(dt)
 
 
 class MoEDecoderBlock(nn.Module):

@@ -13,7 +13,10 @@ embed)``, ``cls_token`` ``(None, None, embed)``, the patch conv's
 kernel ``(None, None, None, embed)``, ``qkv`` ``(embed, heads)``,
 ``proj`` ``(heads, embed)``, ``fc1`` ``(embed, mlp)``, ``fc2`` ``(mlp,
 embed)``, ViT's ``head`` ``(embed, classes)``, each Dense bias its
-kernel's last axis, the pipeline head's ``proj`` ``(embed, vocab)``;
+kernel's last axis, the pipeline head's ``proj`` ``(embed, vocab)``,
+the MoE block's ``router`` ``(embed, expert)``, ``w1`` ``(expert, embed,
+mlp)``, ``b1`` ``(expert, mlp)``, ``w2`` ``(expert, mlp, embed)`` and
+``b2`` ``(expert, embed)`` (flax's layouts, which the port keeps);
 LayerNorm, the patch conv's bias and every ResNet and EfficientNet
 parameter carry none (replicated). :func:`flax_path` is the flax tree
 path ``models/convert.py`` maps the name to.
@@ -82,6 +85,15 @@ _DENSE_AXES = {
     "fc2": ("mlp", "embed"),
 }
 
+# The MoE block's parameters (models/moe.py), in flax's layout.
+_MOE_AXES = {
+    "router": ("embed", "expert"),
+    "w1": ("expert", "embed", "mlp"),
+    "b1": ("expert", "mlp"),
+    "w2": ("expert", "mlp", "embed"),
+    "b2": ("expert", "embed"),
+}
+
 
 def logical_axes(name: str, ndim: int, family: str = "transformer") -> Tuple[Optional[str], ...]:
     """The logical axes of port parameter ``name`` (rank ``ndim``) in
@@ -99,6 +111,8 @@ def logical_axes(name: str, ndim: int, family: str = "transformer") -> Tuple[Opt
         return (None, "seq", "embed")
     if leaf == "cls_token":
         return (None, None, "embed")
+    if owner == "moe" and leaf in _MOE_AXES:
+        return _MOE_AXES[leaf]
     if owner == "patch_embed":
         return ("embed", None, None, None) if leaf == "weight" else none
     if owner in _DENSE_AXES or owner == "head":

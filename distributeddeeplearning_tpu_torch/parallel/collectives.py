@@ -14,9 +14,11 @@ over ``torch.distributed`` (one process per rank).
 * Autograd-aware sums: :func:`psum_keepgrad` (JAX's ``psum`` whose
   transpose is the broadcast: forward sum, backward identity; the
   row-parallel output of tensor parallelism), :func:`copy_to_group`
-  (forward identity, backward sum: the column-parallel input) and
+  (forward identity, backward sum: the column-parallel input),
   :func:`sum_both_ways` (forward and backward sums: sync BatchNorm's
-  batch sums).
+  batch sums) and :func:`all_gather_keepgrad` (forward gather, backward
+  this rank's slice: a sharded weight read whole by every rank, as the
+  expert-parallel router is).
 * Host-level: :func:`broadcast_from_master`, :func:`allreduce_host_scalar`,
   :func:`barrier`.
 
@@ -211,6 +213,18 @@ class _SumBothWays(torch.autograd.Function):
         return all_reduce(g.contiguous().clone(), ctx.group), None
 
 
+class _AllGatherKeepgrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return all_gather(x.contiguous(), group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None
+
+
 def psum_keepgrad(x: torch.Tensor, group) -> torch.Tensor:
     """Sum over ``group`` whose gradient passes through unchanged (JAX's
     ``psum_keepgrad``: the transpose of a psum inside the loss is the
@@ -222,6 +236,14 @@ def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
     """Identity forward, gradient summed over ``group`` (the input of a
     column-parallel matmul: every rank's partial input gradient adds)."""
     return x if group is None else _CopyToGroup.apply(x, group)
+
+
+def all_gather_keepgrad(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The group's shards of ``x`` concatenated along ``dim``, whose
+    gradient is this rank's slice of the whole one (every rank computes
+    the same whole gradient, so no sum: the transpose of a gather whose
+    result every rank uses alike)."""
+    return x if group is None else _AllGatherKeepgrad.apply(x, group, dim)
 
 
 def sum_both_ways(x: torch.Tensor, group) -> torch.Tensor:

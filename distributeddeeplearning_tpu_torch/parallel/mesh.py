@@ -11,7 +11,9 @@ process (or no process group) is a mesh of size 1 with no groups.
 
 Axes, outer to inner: ``replica`` (the slow links between nodes),
 ``data`` (batch), ``model`` (tensor parallel), ``seq`` (ring attention),
-``expert`` (not in the port yet), ``pipe`` (pipeline stages).
+``expert`` (MoE experts, ``training/pjit_step.py``), ``pipe`` (pipeline
+stages). Only ``replica`` × ``data`` shard the batch (:func:`batch_axes`,
+JAX's): ranks along ``model`` and ``expert`` hold the same rows.
 :func:`mesh_from_config` reads ``MESH_AXES``/``MESH_SHAPE`` with one
 ``-1`` wildcard; a leading ``replica`` axis builds the hybrid mesh,
 whose slice count JAX reads from ``Device.slice_index`` and the port
@@ -89,11 +91,6 @@ class Mesh:
             raise ValueError(f"{self.devices.shape} ranks vs axes {self.axis_names}")
         if len(set(self.axis_names)) != len(self.axis_names):
             raise ValueError(f"repeated mesh axis in {self.axis_names}")
-        if EXPERT_AXIS in self.axis_names:
-            from distributeddeeplearning_tpu_torch.config import _EXPERT_SLICE
-
-            raise NotImplementedError(f"the port's mesh has no 'expert' axis yet; it comes "
-                                      f"with {_EXPERT_SLICE}")
         self.shape: Dict[str, int] = dict(zip(self.axis_names, self.devices.shape))
         world, me = _world()
         self.rank = me if rank is None else rank

@@ -25,6 +25,14 @@ by hand (:class:`MeshLayout`):
   and the backward reduce-scatters its gradient. Biases of ``qkv`` and
   ``fc1``, LayerNorm and every ResNet parameter stay replicated, as in
   JAX.
+* ``expert`` (``expert`` over ``expert``, under the ``tp`` rules): expert
+  parallelism. Every MoE block keeps ``E / n`` experts (``w1``, ``b1``,
+  ``w2``, ``b2`` on dim 0, the router on its ``E`` dim) and runs them on
+  the tokens it shares with its expert group, the combine summed over
+  the group (``models/moe.py``). With a ``model`` axis too, each
+  expert's ``mlp`` dim is split over it as well (a leaf split two ways:
+  :class:`Shards`); under ``fsdp`` the experts' ``embed`` dims go over
+  ``data`` like every annotated kernel's.
 * ``dp``: replicated.
 
 Seeded init is sharded at birth: the parameters are drawn in the dp
@@ -65,7 +73,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import parametrize
 
-from distributeddeeplearning_tpu_torch.config import TrainConfig
+from distributeddeeplearning_tpu_torch.config import TrainConfig, check_expert_split
 from distributeddeeplearning_tpu_torch.data.pipeline import normalize_staged_images, to_device
 from distributeddeeplearning_tpu_torch.models import convert
 from distributeddeeplearning_tpu_torch.models.efficientnet import EfficientNet
@@ -124,6 +132,26 @@ class Shard:
             return got
         parts = got.unflatten(self.dim, (self.n, self.packed, -1))
         return parts.transpose(self.dim, self.dim + 1).flatten(self.dim, self.dim + 2)
+
+
+@dataclasses.dataclass
+class Shards:
+    """One parameter split over several mesh axes in turn (an expert
+    weight's dim 0 over ``expert``, then its ``mlp`` dim over ``model``);
+    ``group`` spans all of them (a norm's partial sums add over it once)."""
+
+    parts: Tuple[Shard, ...]
+    group: Any
+
+    def take(self, full: torch.Tensor) -> torch.Tensor:
+        for part in self.parts:
+            full = part.take(full)
+        return full
+
+    def join(self, local: torch.Tensor) -> torch.Tensor:
+        for part in reversed(self.parts):
+            local = part.join(local)
+        return local
 
 
 class _GatherFn(torch.autograd.Function):
@@ -198,7 +226,7 @@ class MeshLayout:
     (BatchNorm running statistics) are replicated."""
 
     def __init__(self, model, names: List[str], leaves: Dict[str, torch.Tensor],
-                 shards: Dict[str, Optional[Shard]], rules: Dict[str, str],
+                 shards: Dict[str, Any], rules: Dict[str, str],
                  kernels: List[str]) -> None:
         self.model, self.names, self.leaves = model, names, leaves
         self.shards, self.rules, self.kernels = shards, rules, set(kernels)
@@ -244,6 +272,19 @@ class MeshLayout:
         out = {n: self.full(n, self.leaves[n]).detach() for n in self.names}
         out.update({n: b.detach() for n, b in self.buffers().items()})
         return out
+
+    @torch.no_grad()
+    def replicas_agree(self, group) -> bool:
+        """Whether every parameter this layout does not split is bitwise
+        equal on every rank of ``group`` (collective: the ranks of an
+        ``expert`` or ``model`` group update their copies alike)."""
+        flat = [self.leaves[n].contiguous().reshape(-1).view(torch.uint8)
+                for n in self.names if self.shards.get(n) is None]
+        if group is None or not flat:
+            return True
+        mine = torch.cat(flat)
+        every = collectives.all_gather(mine[None], group, 0)
+        return bool((every == mine).all())
 
     def per_param(self, fn, tree):
         """``fn(name, tensor)`` over every per-parameter list of an
@@ -337,6 +378,38 @@ def _tensor_parallel(model, mesh: Mesh) -> Dict[str, Shard]:
     return shards
 
 
+def _shard_experts(model, mesh: Mesh, rules) -> Dict[str, Any]:
+    """Split every MoE block's parameters over the mesh axes the rules
+    put their logical axes on (``expert``; ``mlp`` over ``model`` under
+    ``tp``), in place, and tell the block its groups; the shards by
+    parameter name."""
+    shards: Dict[str, Any] = {}
+    n, r = mesh.shape.get("expert", 1), mesh.coords.get("expert", 0)
+    for name, mod in list(model.named_modules()):
+        if not isinstance(mod, MoEMlpBlock):
+            continue
+        prefix = f"{name}." if name else ""
+        used = set()
+        for leaf in ("router", "w1", "b1", "w2", "b2"):
+            p = getattr(mod, leaf)
+            live = [(d, a) for d, a in enumerate(mesh_axes_of(prefix + leaf, p.dim(), rules))
+                    if a in ("expert", "model") and mesh.shape.get(a, 1) > 1]
+            if not live:
+                continue
+            axes = tuple(a for _, a in live)
+            if "expert" in axes:
+                check_expert_split(mod.num_experts, n)
+            used.update(axes)
+            parts = tuple(Shard(d, mesh.group(a), mesh.shape[a], mesh.coords[a]) for d, a in live)
+            shard = parts[0] if len(parts) == 1 else Shards(parts, mesh.group(axes))
+            setattr(mod, leaf, nn.Parameter(shard.take(p.detach())))
+            shards[prefix + leaf] = shard
+        ep = "expert" in used
+        mod.shard(mesh.group("expert") if ep else None, n if ep else 1, r if ep else 0,
+                  mesh.group("model") if "model" in used else None)
+    return shards
+
+
 def _fsdp(model, mesh: Mesh, rules) -> Dict[str, Shard]:
     """Register the gather parametrization on every parameter whose
     logical ``embed`` dim the rules put on ``data``."""
@@ -374,17 +447,17 @@ def layout_model(model, mesh: Mesh, param_sharding: str) -> MeshLayout:
     kernels = [n for n, p in model.named_parameters() if id(p) in kernel_ids]
     tp = _uses_axis(model, mesh, rules, "model")
     fsdp = _uses_axis(model, mesh, rules, "data")
-    if (tp or fsdp) and any(isinstance(m, MoEMlpBlock) for m in model.modules()):
-        from distributeddeeplearning_tpu_torch.config import _EXPERT_SLICE
-
-        raise NotImplementedError(
-            f"PARAM_SHARDING={param_sharding} over {mesh.shape} would shard an MoE model's "
-            f"experts: that comes with {_EXPERT_SLICE}; use PARAM_SHARDING=dp")
-    shards: Dict[str, Shard] = {}
+    ep = _uses_axis(model, mesh, rules, "expert")
+    shards: Dict[str, Any] = {}
     if tp:
         shards = _tensor_parallel(model, mesh)
     elif fsdp:
         shards = _fsdp(model, mesh, rules)
+    if tp or ep:
+        shards.update(_shard_experts(model, mesh, rules))
+    for mod in model.modules():  # GSPMD's load-balance loss: the global batch's
+        if isinstance(mod, MoEMlpBlock):
+            mod.batch_group = mesh.group(batch_axes(mesh))
     leaves: Dict[str, torch.Tensor] = {}
     for name in names:
         owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The mesh engines across cards: tensor parallel × data and pipeline
-parallel × data on a 2 × 2 mesh, in one world of ``--procs`` processes
+"""The mesh engines across cards: tensor parallel × data, pipeline
+parallel × data and expert parallel × data on a 2 × 2 mesh, in one
+world of ``--procs`` processes
 formed by ``parallel.distributed.maybe_initialize`` from the ``DDL_*``
 variables (NCCL, one card a process; with fewer cards than processes
 the ranks share them under gloo).
@@ -10,12 +11,16 @@ the ranks share them under gloo).
 It builds the kernels, then runs ``chip_smoke.py``'s mesh phase
 (``chip_smoke.mesh_phase``) over these meshes: ``pjit`` ``tp`` on
 ``(data 2, model 2)`` and ``pp`` on ``(data 2, pipe 2)`` with GPipe and
-1F1B (M = 4), ``lm_base`` at T 1024 and a global batch of 8. Each
+1F1B (M = 4), ``lm_base`` at T 1024 and a global batch of 8, and
+``pjit`` on ``(data 2, expert 2)`` with ``lm_moe_base`` (6 of its 12
+layers routed over 8 experts, 4 a rank). Each
 rank's f32 first step at 2 layers is held to one rank's step on the same
 global batch and weights (loss within 1e-5 relative, parameters within
 1e-4 of the largest value); each rank's flash launches a bf16 step at
 full depth are counted against the table (12 a layer's pass under tp, 24
-under GPipe, 48 forwards under 1F1B), and GPipe and 1F1B must agree. It
+under GPipe, 48 forwards under 1F1B), GPipe and 1F1B must agree, and
+under EP the parameters the layout does not split must be bitwise equal
+across the expert ranks after the timed steps. It
 prints chip_smoke's ``mesh`` lines and a ``mesh_check`` JSON line with
 the card (``nvidia-smi --query-gpu=name,power.limit``), and exits 0, or
 non-zero naming what failed.
@@ -38,6 +43,8 @@ MESH4 = (
          shape=[2, 2], model="lm"),
     dict(name="pp_1f1b_x_data", engine="pp", pp_schedule="1f1b", axes=["data", "pipe"],
          shape=[2, 2], model="lm"),
+    dict(name="pjit_ep_x_data", engine="pjit", param_sharding="tp", axes=["data", "expert"],
+         shape=[2, 2], model="lm", moe=True),
 )
 
 

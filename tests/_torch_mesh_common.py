@@ -62,10 +62,11 @@ def assert_step_matches(want, got, rel=1e-4):
         np.testing.assert_allclose(pg[k], pw[k], rtol=0, atol=rel * scale, err_msg=k)
 
 
-def jax_pjit(cfg_kw, model_name, model_kw, input_shape, input_dtype, batches, steps_per_epoch):
+def jax_pjit(cfg_kw, model_name, model_kw, input_shape, input_dtype, batches, steps_per_epoch,
+             n_devices=2):
     """JAX's pjit steps (``TrainConfig(**cfg_kw)``, ``get_model(model_name,
-    **model_kw)``) over the first two forced CPU devices; (initial
-    state, metrics, final state) as numpy, states ``(params,
+    **model_kw)``) over the first ``n_devices`` forced CPU devices;
+    (initial state, metrics, final state) as numpy, states ``(params,
     batch_stats)``."""
     import jax
     from distributeddeeplearning_tpu.config import TrainConfig as JaxConfig
@@ -77,7 +78,7 @@ def jax_pjit(cfg_kw, model_name, model_kw, input_shape, input_dtype, batches, st
     from distributeddeeplearning_tpu.training import pjit_step as jps
 
     cfg = JaxConfig(**cfg_kw)
-    mesh = jax_mesh(devices=jax.devices()[:2], axes=cfg.mesh_axes, shape=cfg.mesh_shape)
+    mesh = jax_mesh(devices=jax.devices()[:n_devices], axes=cfg.mesh_axes, shape=cfg.mesh_shape)
     model = jax_get_model(model_name, **cfg.model_kwargs(), **model_kw)
     tx, _ = jax_opt(cfg, steps_per_epoch, world_size=dp_size(mesh))
     state = jps.build_pjit_state(model, cfg, tx, mesh, input_shape=input_shape,

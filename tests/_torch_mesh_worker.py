@@ -26,6 +26,18 @@ A job is a dict with ``kind``:
 * ``fit`` — ``cfg``, ``model``, ``data`` (``SyntheticTokenDataset``
   kwargs), ``model_dir``, ``epochs``: ``loop.fit`` with checkpoints and
   ``VALIDATION`` through ``evaluate``; the history and whole state.
+* ``ckpt`` — ``model``, ``batch``, ``steps_per_epoch``, ``dir`` and
+  ``runs`` (each ``cfg`` and ``save``): each run builds its engine from
+  the seeded init, then either steps once on ``batch`` and saves
+  through ``CheckpointManager`` (JAX's manifest) or restores the newest
+  key; each run's whole state.
+* ``layout_error`` — ``cfg``, ``model``: the error ``build_pjit_state``
+  raises, as a string.
+
+A ``step`` job with ``replicas`` (mesh axis names) also reports, in
+``replicas_agree``, whether the parameters the layout does not split
+are bitwise equal across the ranks of each of those axes after the
+steps.
 """
 
 import sys
@@ -101,6 +113,9 @@ def _step_job(job):
         eng.state = state
         metrics.append({k: float(v) for k, v in m.items()})
     out = {"metrics": metrics, "state": checkpoint._payload(eng.state)}
+    if job.get("replicas"):
+        out["replicas_agree"] = {a: state.layout.replicas_agree(mesh.group(a))
+                                 for a in job["replicas"]}
     if job.get("eval") is not None:
         batch = job["eval"]
         n = batch[0].shape[0] // count
@@ -150,6 +165,10 @@ def collectives_job(job):
     x = torch.full((2,), float(r + 1), requires_grad=True)
     (collectives.sum_both_ways(x, world) * (r + 1)).sum().backward()
     res["both_grad"] = x.grad
+    x = torch.full((1, 2), float(r + 1), requires_grad=True)
+    y = collectives.all_gather_keepgrad(x, world, 0)
+    (y * torch.arange(float(w))[:, None]).sum().backward()
+    res["gather_keepgrad"], res["gather_keepgrad_grad"] = y.detach(), x.grad
     res["gather"] = collectives.all_gather(torch.full((1, 2), float(r)), world, 0)
     res["scatter"] = collectives.reduce_scatter(torch.arange(2.0 * w).reshape(w, 2) * (r + 1),
                                                 world, 0)
@@ -197,7 +216,47 @@ def fit_job(job):
             "step": res.state.step}
 
 
-KINDS = {"step": step_job, "ring": ring_job, "collectives": collectives_job,
+def ckpt_job(job):
+    out = []
+    for run in job["runs"]:
+        cfg = TrainConfig(**run["cfg"])
+        mesh = engines.resolve_mesh(cfg)
+        width = collectives.size() if mesh is None else engines.dp_size(mesh)
+        tx, _ = create_optimizer(cfg, job["steps_per_epoch"], world_size=width)
+        model, state = _state(_model(cfg, job["model"]), cfg, tx, mesh, {})
+        eng = engines.build_engine(model, cfg, tx, state=state, device="cpu", mesh=mesh)
+        mgr = checkpoint.CheckpointManager(job["dir"])
+        if run["save"]:
+            index, count = eng.batch_shard()
+            batch = job["batch"]
+            n = batch[0].shape[0] // count
+            local = tuple(torch.as_tensor(np.asarray(x[index * n:(index + 1) * n]))
+                          for x in batch)
+            state, _ = eng.train_step(eng.state, local)
+            mgr.save(0, state, force=True, manifest=checkpoint.build_manifest(
+                global_step=state.step, steps_per_epoch=job["steps_per_epoch"],
+                effective_batch=batch[0].shape[0]))
+        else:
+            state = mgr.restore(eng.state)
+        mgr.wait()
+        mgr.close()
+        out.append(checkpoint._payload(state))
+    return out
+
+
+def layout_error_job(job):
+    cfg = TrainConfig(**job["cfg"])
+    mesh = engines.resolve_mesh(cfg)
+    tx, _ = create_optimizer(cfg, 10)
+    try:
+        pjit_step.build_pjit_state(_model(cfg, job["model"]), cfg, tx, mesh, device="cpu")
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+KINDS = {"step": step_job, "ckpt": ckpt_job, "layout_error": layout_error_job,
+         "ring": ring_job, "collectives": collectives_job,
          "mesh": mesh_job, "fit": fit_job}
 
 

@@ -889,3 +889,21 @@ def test_cuda_two_rank_mesh_world(scenario, tmp_path):
     got = chip_smoke.mesh_phase(chip_smoke.device_line(), scenarios=(sc,), tmp=str(tmp_path),
                                 size=size)
     assert got[scenario]["flash_fwd"] == (16 if scenario == "pp_gpipe" else 8)
+
+
+@pytest.mark.cuda
+def test_cuda_two_rank_expert_parallel_world(tmp_path):
+    """On the card: ``chip_smoke``'s ``pjit_ep`` scenario (data 1, expert 2)
+    at ``lm_moe_small`` widths (8 layers, 4 routed over 8 experts, T 256):
+    the f32 first step held to one rank's step, the replicated parameters
+    bitwise equal across the expert ranks after the bf16 steps
+    (``mesh_phase`` raises otherwise), and 8 flash launches a pass."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the flash kernels are CUDA C++ for sm_90a")
+    import chip_smoke
+
+    sc = next(s for s in chip_smoke.MESH_SCENARIOS if s["name"] == "pjit_ep")
+    size = dict(chip_smoke.MESH_SIZE, variant="small", seq=256, timed=1)
+    got = chip_smoke.mesh_phase(chip_smoke.device_line(), scenarios=(sc,), tmp=str(tmp_path),
+                                size=size)
+    assert got["pjit_ep"]["flash_fwd"] == 8 and got["pjit_ep"]["flash_bwd_dkv"] == 8

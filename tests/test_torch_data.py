@@ -94,22 +94,35 @@ def test_config_from_env_resolves_like_jax(env):
     assert mine.steps_per_epoch() == max(mine.fake_data_length // mine.batch_size_per_device, 1)
 
 
-@pytest.mark.parametrize("env", [{"MESH_AXES": "data,expert"}, {"MESH_AXES": "expert"},
+@pytest.mark.parametrize("env", [{"MESH_AXES": "data,expert", "MESH_SHAPE": "1,3",
+                                  "MOE_EXPERTS": "8"},
+                                 {"MESH_AXES": "expert", "MESH_SHAPE": "3", "MOE_EXPERTS": "4"},
                                  {"ENGINE": "pjit", "AOT_WARMUP": "1"},
                                  {"ENGINE": "pp", "AOT_WARMUP": "1"},
                                  {"ENGINE": "sp", "AOT_WARMUP": "1", "MESH_AXES": "data,seq"}])
 def test_config_settings_of_later_slices_raise(env):
-    """Since the mesh/engine slice only an 'expert' mesh axis and a
-    CUDA-graph warm-up of a mesh engine are still to come."""
+    """Since the expert-parallel slice only a CUDA-graph warm-up of a
+    mesh engine is still to come (``NotImplementedError``); an 'expert'
+    mesh axis is accepted, but not one whose size does not divide the
+    expert count (``ValueError``)."""
+    if "MOE_EXPERTS" in env:
+        TrainConfig.from_env(dict(env, MOE_EXPERTS="6" if env["MESH_SHAPE"] == "1,3" else "3"))
+        with pytest.raises(ValueError, match="experts do not split"):
+            TrainConfig.from_env(env)
+        return
     with pytest.raises(NotImplementedError):
         TrainConfig.from_env(env)
 
 
 def test_config_gated_fields_raise_when_built_directly():
-    for kw, word in ((dict(mesh_axes=("data", "expert")), "expert"),
-                     (dict(engine="pjit", aot_warmup=True), "AOT_WARMUP")):
-        with pytest.raises(NotImplementedError, match=word):
+    for kw, err, word in ((dict(mesh_axes=("data", "expert"), mesh_shape=(1, 3), moe_experts=4),
+                           ValueError, "4 experts do not split over expert=3"),
+                          (dict(engine="pjit", aot_warmup=True), NotImplementedError,
+                           "AOT_WARMUP")):
+        with pytest.raises(err, match=word):
             TrainConfig(**kw)
+    assert TrainConfig(mesh_axes=("data", "expert"), mesh_shape=(1, 2),
+                       moe_experts=4).mesh_axes == ("data", "expert")
 
 
 SCHEDULES = [dict(), dict(lr_schedule="cosine", epochs=12), dict(lr_schedule="constant"),

@@ -1,7 +1,8 @@
 """The engines through the port's entry points (twins of
 ``tests/test_engines.py``): ``loop.fit`` with validation, ``evaluate``
 and checkpoint resume under ``ENGINE=pjit|pp|sp`` in 2-rank gloo worlds
-(``lm_tiny`` f32 on the synthetic token stream), the front-ends, and the
+(``lm_tiny`` f32 on the synthetic token stream; ``lm_moe_tiny`` with its
+experts over an ``expert`` axis), the front-ends, and the
 env contract (``ENGINE``, ``MESH_*``, ``PP_*``, ``PARAM_SHARDING``,
 ``ALLOW_SYNC_BN``, ``ASYNC_COLLECTIVES``, ``ATTN_IMPL=ring``) with JAX's
 defaults and errors.
@@ -32,9 +33,13 @@ ENGINE_CFG = {
     "pjit": dict(engine="pjit", mesh_axes=("data", "model"), mesh_shape=(1, 2)),
     "pp": dict(engine="pp", mesh_axes=("data", "pipe"), mesh_shape=(1, 2), pp_microbatches=2),
     "sp": dict(engine="sp", mesh_axes=("data", "seq"), mesh_shape=(1, 2)),
+    # docs/PARALLELISM.md's EP recipe (ENGINE=pjit MESH_AXES=data,expert), at 2 ranks
+    "pjit_ep": dict(engine="pjit", mesh_axes=("data", "expert"), mesh_shape=(1, 2),
+                    model="lm_moe_tiny", moe_experts=4),
 }
 DATA = dict(length=32, seq_len=T, vocab_size=VOCAB, num_physical_batches=2, seed=3)
 MODEL = dict(name="lm_tiny", kwargs=dict(max_seq_len=T))
+MOE_MODEL = dict(name="lm_moe_tiny", kwargs=dict(max_seq_len=T, moe_experts=4))
 
 
 @pytest.fixture(scope="module")
@@ -43,10 +48,11 @@ def fits(tmp_path_factory):
     jobs = []
     for name, extra in ENGINE_CFG.items():
         cfg = dict(BASE, **extra)
-        jobs.append(dict(kind="fit", cfg=cfg, model=MODEL, data=DATA, epochs=2))
+        model = MOE_MODEL if "moe_experts" in extra else MODEL
+        jobs.append(dict(kind="fit", cfg=cfg, model=model, data=DATA, epochs=2))
         resumed = dict(cfg, model_dir=str(tmp / name))
-        jobs.append(dict(kind="fit", cfg=resumed, model=MODEL, data=DATA, epochs=1))
-        jobs.append(dict(kind="fit", cfg=resumed, model=MODEL, data=DATA, epochs=2))
+        jobs.append(dict(kind="fit", cfg=resumed, model=model, data=DATA, epochs=1))
+        jobs.append(dict(kind="fit", cfg=resumed, model=model, data=DATA, epochs=2))
     out = run_world(jobs, 2, tmp / "world")
     return {name: out[3 * i:3 * i + 3] for i, name in enumerate(ENGINE_CFG)}
 
@@ -117,8 +123,14 @@ def test_resolve_engine_validation():
 
 
 def test_later_slices_still_refused():
-    with pytest.raises(NotImplementedError, match="expert"):
-        TrainConfig.from_env({"MESH_AXES": "data,expert", "ENGINE": "pjit"})
+    """The expert axis is accepted; an expert count it does not divide,
+    and AOT_WARMUP with a mesh engine, still raise."""
+    assert TrainConfig.from_env({"MESH_AXES": "data,expert", "MESH_SHAPE": "2,4",
+                                 "ENGINE": "pjit", "MODEL": "lm_moe_small"}).mesh_axes == (
+        "data", "expert")
+    with pytest.raises(ValueError, match="6 experts do not split over expert=4"):
+        TrainConfig.from_env({"MESH_AXES": "data,expert", "MESH_SHAPE": "2,4",
+                              "ENGINE": "pjit", "MOE_EXPERTS": "6"})
     with pytest.raises(NotImplementedError, match="AOT_WARMUP"):
         TrainConfig.from_env({"AOT_WARMUP": "1", "ENGINE": "pp"})
     TrainConfig.from_env({"AOT_WARMUP": "1", "ENGINE": "dp"})

@@ -14,7 +14,9 @@ the serving fleet (``serving.chaos``, ``serving.fleet.*``) and its bench
 twins, nor the mesh engines (``parallel.mesh``, ``parallel.ring_attention``,
 ``models.sharding``, ``models.pipeline_lm``, the pjit, sp and pp steps,
 ``training.overlap``, ``pp_schedule_bench``, ``scripts/mesh_check.py``),
-nor ``scripts/fleet_fairness_trace.py``,
+nor ``scripts/fleet_fairness_trace.py``, nor the expert-parallel path
+(``config``, ``models.moe``, the pjit step, the checkpoint, ``fit``, the
+LM example, ``scripts/mesh_check.py`` and ``chip_smoke.py`` loaded whole),
 and the entry points (the fleet's replicas and benches among them)
 default to the CUDA device instead of falling back to the CPU."""
 
@@ -142,6 +144,33 @@ def test_model_and_optimizer_knobs_import_no_jax(module):
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('distributeddeeplearning_tpu_torch.{module}')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'distributeddeeplearning_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+EP_PATH = ["config", "models.moe", "models.sharding", "parallel.collectives", "parallel.mesh",
+           "training.pjit_step", "training.checkpoint", "training.engines", "training.loop",
+           "examples.lm_synthetic", "scripts/mesh_check.py", "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("module", EP_PATH)
+def test_expert_parallel_path_imports_no_jax(module):
+    """The expert-parallel path (the MoE block's EP forward, its layout,
+    collectives, checkpoint and entry points) and the scripts that drive
+    it on the card load no JAX and nothing of the JAX package."""
+    if module.endswith(".py"):
+        load = (f"spec = importlib.util.spec_from_file_location('m', {str(ROOT / module)!r})\n"
+                "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n")
+    else:
+        load = f"importlib.import_module('distributeddeeplearning_tpu_torch.{module}')\n"
+    code = (
+        "import importlib, importlib.util, sys\n" + load +
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'distributeddeeplearning_tpu')]\n"
         "assert not bad, bad\n"

@@ -7,7 +7,8 @@ and hybrid (``replica``) meshes against JAX's meshes over the first four
 forced CPU devices (device ids for ranks), each rank's coordinates and
 the members of its axis groups; the collectives' values on fixed inputs
 (means and sums, the hierarchical mean equal to the flat one, the
-autograd-aware sums' gradients, gather, reduce-scatter, point to point,
+autograd-aware sums' gradients and the gather whose gradient is the
+rank's slice, gather, reduce-scatter, point to point,
 broadcast), exact.
 """
 
@@ -21,6 +22,7 @@ from distributeddeeplearning_tpu_torch.config import TrainConfig
 from distributeddeeplearning_tpu_torch.parallel import collectives
 from distributeddeeplearning_tpu_torch.parallel.mesh import (
     MeshConfig,
+    batch_axes,
     batch_sharding,
     create_mesh,
     dp_size,
@@ -35,6 +37,8 @@ MESHES = [
     dict(kind="mesh", axes=("data",), slices=2, groups=[("replica",), ("data",),
                                                         ("replica", "data")]),
     dict(kind="mesh", axes=("data", "pipe"), shape=(-1, 2), groups=[("pipe",)]),
+    dict(kind="mesh", axes=("data", "expert"), shape=(2, 2),
+         groups=[("expert",), ("data",), ("data", "expert")]),
 ]
 
 
@@ -78,8 +82,14 @@ def test_single_process_mesh():
 
 
 def test_expert_axis_and_replica_without_shape_refused():
-    with pytest.raises(NotImplementedError, match="expert"):
-        create_mesh(axes=("data", "expert"))
+    """An 'expert' axis is a mesh axis like the others; what still raises
+    is an expert count it does not divide (named with both numbers) and
+    a replica axis whose slice count nothing gives."""
+    mesh = create_mesh(axes=("data", "expert"))
+    assert mesh.shape == {"data": 1, "expert": 1} and batch_axes(mesh) == ("data",)
+    with pytest.raises(ValueError, match="8 experts do not split over expert=3"):
+        TrainConfig(engine="pjit", mesh_axes=("data", "expert"), mesh_shape=(1, 3),
+                    moe_experts=8)
     with pytest.raises(ValueError, match="slice count"):
         mesh_from_config(TrainConfig(mesh_axes=("replica", "data")))
 
@@ -134,6 +144,11 @@ def test_collectives_values(world):
         # copy_to_group and sum_both_ways: each rank's upstream (r + 1) summed
         assert torch.equal(res["copy_grad"], torch.full((2,), float(np.sum(ranks + 1))))
         assert torch.equal(res["both_grad"], torch.full((2,), float(np.sum(ranks + 1))))
+        # all_gather_keepgrad: every rank's row, and back this rank's slice
+        # of the (same on every rank) upstream
+        assert torch.equal(res["gather_keepgrad"], torch.tensor(ranks + 1.0)[:, None]
+                           .expand(W, 2))
+        assert torch.equal(res["gather_keepgrad_grad"], torch.full((1, 2), float(r)))
         assert torch.equal(res["gather"], torch.tensor(ranks, dtype=torch.float32)[:, None]
                            .expand(W, 2))
         full = sum(torch.arange(2.0 * W).reshape(W, 2) * (q + 1) for q in ranks)

@@ -119,17 +119,18 @@ def test_rules_tables_match_jax():
         rules_table("zero")
 
 
-@pytest.mark.parametrize("model_name", ["lm_tiny", "vit_ti16"])
+@pytest.mark.parametrize("model_name", ["lm_tiny", "vit_ti16", "lm_moe_tiny"])
 def test_logical_axes_match_the_jax_models(model_name):
     """The port's logical axes per parameter, read off JAX's abstract
     init (``nn.get_partition_spec``), through the flax path and the
-    port's layout (Dense and conv weights transposed)."""
+    port's layout (Dense and conv weights transposed; the MoE leaves keep
+    flax's layout)."""
     import flax.linen as nn
 
     from distributeddeeplearning_tpu.models import get_model as jax_get_model
     from distributeddeeplearning_tpu_torch.models.sharding import flax_path
 
-    if model_name == "lm_tiny":
+    if model_name.startswith("lm_"):
         jm = jax_get_model(model_name, num_classes=VOCAB, max_seq_len=T)
         x = jnp.zeros((1, T), jnp.int32)
         pm = get_model(model_name, num_classes=VOCAB, max_seq_len=T, device="meta")
