@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--phases kernels,serve,servequant,servespec,servegraph,train,
                                     lmtrain,vittrain,effnettrain,fit,warmup,frontends,
-                                    launch,trace,bench,realdata,knobs,fleet,mesh]
+                                    launch,trace,bench,realdata,knobs,fleet,mesh,generic]
 
 (all phases by default). Any failure raises and the script exits
 non-zero.
@@ -65,7 +65,12 @@ non-zero.
    against the plain version (f32; the wgrad f64) and cuDNN's grouped
    conv, with negative controls (the dgrad with unflipped taps must
    fail, on the staged-tile kernel and on the TMA stencil; the wgrad
-   with its last partial row left out of the sum must fail).
+   with its last partial row left out of the sum must fail); and the
+   generic routes (``generic_kernel_phase``): ``csrc/flash_generic.cu``
+   at ``lm_base_train`` in f32 and ViT-H/16's head dim 80 in bf16, packed
+   attention on that route at ViT-B/16 in f32, ``csrc/fused_block_f32.cu``
+   at stage 1's two shapes, and decode at ``lm_large``'s head dim 96 on
+   bf16, int8 and fp8 stores, each with a negative control.
 4. ``serve``: full-width ``lm_base`` with seeded random weights behind
    ``Server.build`` (paged KV, fused kernel, 8 slots, the engine's
    program set captured as CUDA graphs at warmup) answers 16 requests.
@@ -219,7 +224,14 @@ non-zero.
    a step a rank, and under expert parallelism the replicated
    parameters bitwise equal across the expert ranks. See
    :func:`mesh_phase`.
-22. The ``kernels`` JSON line (every kernel whose phases ran; rows 1–5
+22. ``generic``: the inputs the fast kernels refuse, at full width
+   through the entry points: f32 ``lm_base`` ``pallas`` through ``fit``
+   and its first step against ``xla``, f32 ViT-B/16 ``auto``, ViT-H/16
+   bf16 ``pallas``, f32 fused ResNet-50 through ``fit`` and its first
+   step against the unfused one, ``lm_large`` served (bf16 captured;
+   f32 against ``generate``), each route's launches counted. See
+   :func:`generic_phase`.
+23. The ``kernels`` JSON line (every kernel whose phases ran; rows 1–5
    also with their launches a step under graph replay, and on the
    knobs' paths), then the contract's last line ``{"ok": true,
    "device": {...}}``.
@@ -246,6 +258,7 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_S = 989e12  # dense bf16 tensor-core peak
+H100_F32_FLOP_S = 67e12  # float32 outside the tensor cores
 N_TIMED = 25  # timed launches per measurement (median reported)
 # The plain versions' yardstick times: up to 13 ms a launch (a B4
 # depthwise layer), so 7 launches each, to keep the kernels phase short.
@@ -855,14 +868,15 @@ def flash_lse_limit(q, k, lse, scale: float) -> torch.Tensor:
     return 2 ** -24 * (d * scale * qn * kn + k.shape[1] + 4 + lse.abs())
 
 
-def flash_terms(q, k, v, o, do, lse, delta, causal: bool, scale: float):
+def flash_terms(q, k, v, o, do, lse, delta, causal: bool, scale: float, amp: float = 2 ** 8):
     """Σ|terms| of each element of (O, dQ, dK, dV), f32 (see
-    :func:`flash_limit`). For dQ and dK each |ds| carries 2**8 times
+    :func:`flash_limit`). For dQ and dK each |ds| carries ``amp`` times
     its f32 cancellation bound: ds = p·(dp − Δ)·scale, where dp (the
     kernel's MMA) and Δ (a torch sum) are d-term f32 sums taken in
     other orders than the plain version's, each off by at most
     d·2**-24·Σ|do_i·v_i| (Σ|do_i·o_i| for Δ); where dp ≈ Δ that is all
-    of ds. Under the 2**-7 of the limit that allows twice the bound."""
+    of ds. Under the 2**-7 of the limit, ``amp`` 2**8 allows twice the
+    bound (:func:`flash_f32_limit` passes its own)."""
     b, tq, h, d = q.shape
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     keep = torch.ones(tq, k.shape[1], dtype=torch.bool, device=q.device)
@@ -876,7 +890,7 @@ def flash_terms(q, k, v, o, do, lse, delta, causal: bool, scale: float):
     dof = do.float().abs()
     cancel = torch.einsum("bqhd,bkhd->bhqk", dof, v.float().abs())
     cancel += (dof * o.float().abs()).sum(-1).permute(0, 2, 1)[..., None]
-    ads += p * (2 ** 8 * scale * d * 2 ** -24) * cancel
+    ads += p * (amp * scale * d * 2 ** -24) * cancel
     del cancel
     return (torch.einsum("bhqk,bkhd->bqhd", p, v.float().abs()),
             torch.einsum("bhqk,bkhd->bqhd", ads, k.float().abs()),
@@ -889,21 +903,23 @@ def _ratio(got, ref, lim) -> Tuple[float, float]:
     return diff.max().item(), (diff / lim.clamp(min=torch.finfo(torch.float32).tiny)).max().item()
 
 
-def flash_bounds(b, h, tq, tk, d, causal):
+def flash_bounds(b, h, tq, tk, d, causal, elem=2, peak=H100_BF16_FLOP_S):
     """Per kernel (bound_ms, bound_by, bytes, flops): bytes of each input
-    read once and each output written once; 4/6/8 flops per (q, k) pair
-    per head dim (QKᵀ and PV; + dOVᵀ and dS·K; + dSᵀQ and PᵀdO)."""
+    read once and each output written once (``elem`` bytes an element);
+    4/6/8 flops per (q, k) pair per head dim (QKᵀ and PV; + dOVᵀ and
+    dS·K; + dSᵀQ and PᵀdO) at ``peak`` flop/s (bf16 tensor cores; f32:
+    :data:`H100_F32_FLOP_S`)."""
     pairs = tq * (tq + 1) // 2 if causal else tq * tk
     nq, nk = b * tq * h * d, b * tk * h * d
     rows = b * h * tq
     work = {
-        "flash_fwd": (2 * (2 * nq + 2 * nk) + 4 * rows, 4.0 * b * h * pairs * d),
-        "flash_bwd_dq": (2 * (3 * nq + 2 * nk) + 8 * rows, 6.0 * b * h * pairs * d),
-        "flash_bwd_dkv": (2 * (2 * nq + 4 * nk) + 8 * rows, 8.0 * b * h * pairs * d),
+        "flash_fwd": (elem * (2 * nq + 2 * nk) + 4 * rows, 4.0 * b * h * pairs * d),
+        "flash_bwd_dq": (elem * (3 * nq + 2 * nk) + 8 * rows, 6.0 * b * h * pairs * d),
+        "flash_bwd_dkv": (elem * (2 * nq + 4 * nk) + 8 * rows, 8.0 * b * h * pairs * d),
     }
     out = {}
     for op, (nbytes, flops) in work.items():
-        tb, to = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOP_S * 1e3
+        tb, to = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
         out[op] = (max(tb, to), "bytes" if tb >= to else "operations", int(nbytes), flops)
     return out
 
@@ -1822,7 +1838,8 @@ AGREE_STATS_REL = 1e-2
 
 
 def _train_setup(fused, *, depth=50, image_size=224, batch=64, num_classes=1000,
-                 num_physical_batches=4, state_dict=None, accum_steps=1, device="cuda"):
+                 num_physical_batches=4, state_dict=None, accum_steps=1, device="cuda",
+                 compute_dtype="bfloat16"):
     """The port's entry points as a user calls them: config, synthetic
     data, model, optimizer, seeded train state and step, on the card
     (``device="cpu"`` rehearses the flow at a small size)."""
@@ -1837,7 +1854,7 @@ def _train_setup(fused, *, depth=50, image_size=224, batch=64, num_classes=1000,
 
     cfg = TrainConfig(model=f"resnet{depth}", image_size=image_size,
                       batch_size_per_device=batch, num_classes=num_classes,
-                      accum_steps=accum_steps)
+                      accum_steps=accum_steps, compute_dtype=compute_dtype)
     ds = SyntheticImageDataset(global_batch_size=cfg.global_batch_size,
                                image_size=cfg.image_size, num_classes=cfg.num_classes,
                                num_physical_batches=num_physical_batches, seed=cfg.seed)
@@ -1980,7 +1997,7 @@ def _agree_group(name: str) -> str:
 
 
 def fused_vs_unfused_step(depth=50, image_size=224, batch=64, num_classes=1000,
-                          accum_steps=1, device="cuda"):
+                          accum_steps=1, device="cuda", compute_dtype="bfloat16", limits=None):
     """One fused and one unfused bf16 step from the same weights on the
     same batch, and whether they agree (with ``accum_steps=2``: one
     accumulated step each, the fused kernels at the microbatch shapes,
@@ -2008,8 +2025,13 @@ def fused_vs_unfused_step(depth=50, image_size=224, batch=64, num_classes=1000,
     The limits are 2.3-6x those readings. The same rehearsal with the
     backward's 2·y·dΣ² term dropped moves the 1x1 kernels' update gap
     to 0.71, and fails. Predicted on the card: loss ~1e-4, update gaps
-    0.05-0.15, running statistics ~2e-3."""
+    0.05-0.15, running statistics ~2e-3. ``compute_dtype`` and ``limits``
+    (``loss_rel``, ``update_rel``, ``running_stats_rel``) run the same
+    comparison in another dtype (``F32_RESNET_LIMITS``)."""
     from distributeddeeplearning_tpu_torch.models import convert
+
+    lim = limits or {"loss_rel": AGREE_LOSS_REL, "update_rel": AGREE_UPDATE_REL,
+                     "running_stats_rel": AGREE_STATS_REL}
 
     sd = convert.init_resnet_params(depth, num_classes,
                                     torch.Generator(device=device).manual_seed(42))
@@ -2023,7 +2045,7 @@ def fused_vs_unfused_step(depth=50, image_size=224, batch=64, num_classes=1000,
         cfg, ds, model, state, step = _train_setup(
             fused, depth=depth, image_size=image_size, batch=batch,
             num_classes=num_classes, num_physical_batches=1, state_dict=sd,
-            accum_steps=accum_steps, device=device)
+            accum_steps=accum_steps, device=device, compute_dtype=compute_dtype)
         state, m = step(state, next(iter(ds.epoch(0))))
         out[fused] = (float(m["loss"]),
                       {k: v.detach().clone() for k, v in model.state_dict().items()})
@@ -2039,14 +2061,12 @@ def fused_vs_unfused_step(depth=50, image_size=224, batch=64, num_classes=1000,
         n, d = sums.get(_agree_group(k), (0.0, 0.0))
         sums[_agree_group(k)] = (n + (df - du).pow(2).sum().item(), d + du.pow(2).sum().item())
     gaps = {grp: (n / d) ** 0.5 for grp, (n, d) in sums.items()}
-    res = {"accum_steps": accum_steps,
+    res = {"accum_steps": accum_steps, "dtype": compute_dtype,
            "loss_fused": lf, "loss_unfused": lu, "loss_rel": abs(lf - lu) / abs(lu),
-           "update_rel_by_group": gaps, "running_stats_rel": stats,
-           "limits": {"loss_rel": AGREE_LOSS_REL, "update_rel": AGREE_UPDATE_REL,
-                      "running_stats_rel": AGREE_STATS_REL}}
-    res["within_limits"] = (res["loss_rel"] <= AGREE_LOSS_REL
-                            and max(gaps.values()) <= AGREE_UPDATE_REL
-                            and stats <= AGREE_STATS_REL)
+           "update_rel_by_group": gaps, "running_stats_rel": stats, "limits": lim}
+    res["within_limits"] = (res["loss_rel"] <= lim["loss_rel"]
+                            and max(gaps.values()) <= lim["update_rel"]
+                            and stats <= lim["running_stats_rel"])
     return res
 
 
@@ -2104,7 +2124,8 @@ LM_AGREE_LOGITS_REL = 2 ** -4
 
 
 def _lm_setup(attn_impl, *, variant="base", batch=8, seq=1024, vocab=32_000,
-              num_physical_batches=4, state_dict=None, device="cuda"):
+              num_physical_batches=4, state_dict=None, device="cuda",
+              compute_dtype="bfloat16"):
     """The port's entry points as a user calls them for LM training
     (bench.py's LM protocol): config, synthetic tokens, model, optimizer,
     seeded train state and step, on the card (``device="cpu"``
@@ -2119,7 +2140,7 @@ def _lm_setup(attn_impl, *, variant="base", batch=8, seq=1024, vocab=32_000,
     )
 
     cfg = TrainConfig(model=f"lm_{variant}", batch_size_per_device=batch, num_classes=vocab,
-                      attn_impl=attn_impl)
+                      attn_impl=attn_impl, compute_dtype=compute_dtype)
     ds = SyntheticTokenDataset(global_batch_size=cfg.global_batch_size, seq_len=seq,
                                vocab_size=vocab, num_physical_batches=num_physical_batches,
                                seed=cfg.seed)
@@ -2194,7 +2215,8 @@ def _lm_group(name: str) -> str:
     return "layernorm"
 
 
-def lm_pallas_vs_xla_step(variant="base", batch=8, seq=1024, vocab=32_000, device="cuda"):
+def lm_pallas_vs_xla_step(variant="base", batch=8, seq=1024, vocab=32_000, device="cuda",
+                          compute_dtype="bfloat16", limits=None):
     """One ``pallas`` and one ``xla`` bf16 step from the same seeded
     weights on the same batch, and whether they agree. Limits:
 
@@ -2220,8 +2242,13 @@ def lm_pallas_vs_xla_step(variant="base", batch=8, seq=1024, vocab=32_000, devic
     mask dropped from the pallas path read update gaps 1.0-1.5 and
     logits 1.3 (and fails); an O 1 % too large read 0.02-0.03, which
     only the kernel cases catch. Predicted on the card: loss ~1e-4,
-    update gaps 0.01-0.05, logits 0.01-0.03."""
+    update gaps 0.01-0.05, logits 0.01-0.03. ``compute_dtype`` and
+    ``limits`` (``loss_rel``, ``update_rel``, ``logits_rel``) run the same
+    comparison in another dtype (``F32_LM_LIMITS``)."""
     from distributeddeeplearning_tpu_torch.models import convert
+
+    lim = limits or {"loss_rel": LM_AGREE_LOSS_REL, "update_rel": LM_AGREE_UPDATE_REL,
+                     "logits_rel": LM_AGREE_LOGITS_REL}
 
     sd = convert.init_params(variant, vocab, torch.Generator(device=device).manual_seed(42),
                              seq)
@@ -2229,7 +2256,7 @@ def lm_pallas_vs_xla_step(variant="base", batch=8, seq=1024, vocab=32_000, devic
     for impl in ("xla", "pallas"):
         cfg, ds, model, state, step = _lm_setup(
             impl, variant=variant, batch=batch, seq=seq, vocab=vocab,
-            num_physical_batches=1, state_dict=sd, device=device)
+            num_physical_batches=1, state_dict=sd, device=device, compute_dtype=compute_dtype)
         tokens, labels = next(iter(ds.epoch(0)))
         with torch.no_grad():
             logits = model(torch.from_numpy(tokens).to(device)).float()
@@ -2245,13 +2272,12 @@ def lm_pallas_vs_xla_step(variant="base", batch=8, seq=1024, vocab=32_000, devic
         n, d = sums.get(_lm_group(k), (0.0, 0.0))
         sums[_lm_group(k)] = (n + (dp - dx).pow(2).sum().item(), d + dx.pow(2).sum().item())
     gaps = {grp: (n / d) ** 0.5 for grp, (n, d) in sums.items()}
-    res = {"loss_pallas": lp, "loss_xla": lx, "loss_rel": abs(lp - lx) / abs(lx),
-           "update_rel_by_group": gaps, "logits_rel": logits_rel,
-           "limits": {"loss_rel": LM_AGREE_LOSS_REL, "update_rel": LM_AGREE_UPDATE_REL,
-                      "logits_rel": LM_AGREE_LOGITS_REL}}
-    res["within_limits"] = (res["loss_rel"] <= LM_AGREE_LOSS_REL
-                            and max(gaps.values()) <= LM_AGREE_UPDATE_REL
-                            and logits_rel <= LM_AGREE_LOGITS_REL)
+    res = {"dtype": compute_dtype, "loss_pallas": lp, "loss_xla": lx,
+           "loss_rel": abs(lp - lx) / abs(lx), "update_rel_by_group": gaps,
+           "logits_rel": logits_rel, "limits": lim}
+    res["within_limits"] = (res["loss_rel"] <= lim["loss_rel"]
+                            and max(gaps.values()) <= lim["update_rel"]
+                            and logits_rel <= lim["logits_rel"])
     return res
 
 
@@ -2266,18 +2292,18 @@ FP_CASES = (
 FP_OPS = ("fused_qkv_fwd", "fused_qkv_bwd")
 
 
-def fp_bounds(b, t, h, d, causal):
+def fp_bounds(b, t, h, d, causal, elem=2, peak=H100_BF16_FLOP_S):
     """Per kernel (bound_ms, bound_by, bytes, flops): qkv in and O out
-    (forward); qkv, O and dO in and dqkv out (backward); 4 and 10 flops
-    per (query, key) pair per head dim (QKᵀ and PV; QKᵀ again, dOVᵀ, dS·K,
-    dSᵀQ and PᵀdO)."""
+    (forward); qkv, O and dO in and dqkv out (backward), ``elem`` bytes
+    an element; 4 and 10 flops per (query, key) pair per head dim (QKᵀ
+    and PV; QKᵀ again, dOVᵀ, dS·K, dSᵀQ and PᵀdO) at ``peak`` flop/s."""
     pairs = t * (t + 1) // 2 if causal else t * t
-    row = b * t * h * d * 2  # bytes of one [B, T, H·d] bf16 tensor
+    row = b * t * h * d * elem  # bytes of one [B, T, H·d] tensor
     work = {"fused_qkv_fwd": (4 * row, 4.0 * b * h * pairs * d),
             "fused_qkv_bwd": (8 * row, 10.0 * b * h * pairs * d)}
     out = {}
     for op, (nbytes, flops) in work.items():
-        tb, to = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOP_S * 1e3
+        tb, to = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
         out[op] = (max(tb, to), "bytes" if tb >= to else "operations", int(nbytes), flops)
     return out
 
@@ -2440,8 +2466,6 @@ def _fp_entry(op, cases, launches):
     }
 
 
-H100_F32_FLOP_S = 67e12  # float32 outside the tensor cores
-
 # dW+db cases: (name, N, K, M, dtype). ViT-B/16 at batch 64: N = 64·197;
 # a ragged N (the wgmma kernel's partial last chunk), and K and M that no
 # tensor map takes (the mma.sync kernel, rows loaded element by element).
@@ -2580,7 +2604,8 @@ def _fg_entry(cases, launches):
 
 
 def _vit_setup(attn_impl, fused_dense_grad, *, variant="b", image_size=224, batch=64,
-               num_classes=1000, num_physical_batches=4, state_dict=None, device="cuda"):
+               num_classes=1000, num_physical_batches=4, state_dict=None, device="cuda",
+               compute_dtype="bfloat16"):
     """The port's entry points as a user calls them for ViT training:
     config, synthetic images, model (``fused_dense_grad`` as
     ``FUSED_DENSE_GRAD=1`` sets it), optimizer, seeded train state and
@@ -2596,7 +2621,8 @@ def _vit_setup(attn_impl, fused_dense_grad, *, variant="b", image_size=224, batc
     )
 
     cfg = TrainConfig(model=f"vit_{variant}16", image_size=image_size,
-                      batch_size_per_device=batch, num_classes=num_classes, attn_impl=attn_impl)
+                      batch_size_per_device=batch, num_classes=num_classes, attn_impl=attn_impl,
+                      compute_dtype=compute_dtype)
     ds = SyntheticImageDataset(global_batch_size=cfg.global_batch_size,
                                image_size=cfg.image_size, num_classes=cfg.num_classes,
                                num_physical_batches=num_physical_batches, seed=cfg.seed)
@@ -3384,7 +3410,8 @@ def _bare_turn(model, tx, cfg, state, data, device):
 
 
 def _resnet_fit_setup(*, epochs, steps, accum_steps=1, model_dir=None, every=0,
-                      image_size=224, batch=64, num_classes=1000, device="cuda", **model_kw):
+                      image_size=224, batch=64, num_classes=1000, device="cuda",
+                      compute_dtype="bfloat16", **model_kw):
     from distributeddeeplearning_tpu_torch.config import TrainConfig
     from distributeddeeplearning_tpu_torch.data import SyntheticImageDataset
     from distributeddeeplearning_tpu_torch.models import get_model
@@ -3392,7 +3419,8 @@ def _resnet_fit_setup(*, epochs, steps, accum_steps=1, model_dir=None, every=0,
     cfg = TrainConfig(model="resnet50", image_size=image_size, batch_size_per_device=batch,
                       num_classes=num_classes, fake_data_length=steps * batch, epochs=epochs,
                       accum_steps=accum_steps, model_dir=model_dir,
-                      checkpoint_every_steps=every, log_every_steps=1)
+                      checkpoint_every_steps=every, log_every_steps=1,
+                      compute_dtype=compute_dtype)
     data = SyntheticImageDataset(length=cfg.fake_data_length,
                                  global_batch_size=cfg.global_batch_size,
                                  image_size=image_size, num_classes=num_classes,
@@ -6278,6 +6306,784 @@ def mesh_phase(card, device="cuda", scenarios=MESH_SCENARIOS, nprocs=2, tmp=None
     return launches
 
 
+# The generic routes (the inputs the fast kernels refuse): the kernels of
+# csrc/flash_generic.cu (flash and packed attention at f32 and at other
+# head dims), csrc/fused_block_f32.cu, and the decode kernel's head dim 96.
+
+# Generic flash cases: (name, B, H, Tq, Tk, d, causal, dtype): lm_base
+# training in f32, and ViT-H/16's head dim 80 (1280 / 16) in bf16.
+GENERIC_FLASH_CASES = (
+    ("lm_base_train_f32", 8, 12, 1024, 1024, 64, True, torch.float32),
+    ("vit_h16_bf16", 8, 16, 197, 197, 80, False, torch.bfloat16),
+)
+# The packed route: ViT-B/16 training in f32 (name, B, T, H, d, causal, dtype).
+GENERIC_PACKED_CASES = (("vit_b16_f32", 64, 197, 12, 64, False, torch.float32),)
+# Rows 1-2's timed stage-1 shapes, in f32: (op, where, M, K, N).
+F32_FB_SHAPES = (("matmul_stats", "stage1_conv1", 200_704, 256, 64),
+                 ("bn_relu_matmul_stats", "stage1_conv3", 200_704, 64, 256))
+# Decode at lm_large's head dim 96 (1536 / 16): (B, H, d, L) of 8 slots,
+# 16 heads, 512-token contexts, paged in 16-position blocks.
+D96_DECODE = (8, 16, 96, 512)
+
+
+def flash_f32_limit(ref: torch.Tensor, terms: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-element limit on |kernel − f32 plain| for f32 inputs (O, dQ,
+    dK, dV; ``terms`` from :func:`flash_terms` with ``amp = 2**24 / n``).
+
+    The generic kernels round nothing the plain version does not (their
+    roundings to the input dtype are no-ops at f32): the two differ only
+    in the order of their f32 sums. A score is a d-term sum, an output
+    an n-term sum over keys (queries for dK and dV) of terms that each
+    carry their score's error through exp: in all at most
+    n·2**-24·terms, n = max(Tq, Tk) + d (recursive summation's worst
+    case), and the division by l and the store a few 2**-24·|ref|. ds
+    also carries dp's and Δ's cancellation (:func:`flash_terms`, ``amp``
+    chosen so that the limit holds twice its bound). Limit:
+    2**-24·(2·n·terms + 8·|ref|), twice the worst case. Written before
+    the first run on the card."""
+    return 2 ** -24 * (2 * n * terms + 8 * ref.abs())
+
+
+def _generic_limits(q, k, v, o, do, lse, delta, causal, sc):
+    """(limit function, (t_o, t_dq, t_dk, t_dv)) of q's dtype: the flash
+    limits in bf16, :func:`flash_f32_limit` in f32."""
+    if q.dtype == torch.bfloat16:
+        return flash_limit, flash_terms(q, k, v, o, do, lse, delta, causal, sc)
+    n = max(q.shape[1], k.shape[1]) + q.shape[-1]
+    terms = flash_terms(q, k, v, o, do, lse, delta, causal, sc, amp=2 ** 24 / n)
+    return (lambda ref, t: flash_f32_limit(ref, t, n)), terms
+
+
+def _dtype_rates(dtype):
+    """(bytes an element, peak flop/s) of a kernel's inputs."""
+    return (4, H100_F32_FLOP_S) if dtype == torch.float32 else (2, H100_BF16_FLOP_S)
+
+
+def _sdpa_times(q, k, v, do, causal, sc, flush):
+    """SDPA's forward, and its forward+backward minus forward, on BTHD
+    views (the library yardstick; timed only)."""
+    import torch.nn.functional as F
+
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, scale=sc)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, scale=sc)
+        return torch.autograd.grad(o, (qg, kg, vg), doh)
+
+    with torch.no_grad():
+        fwd = time_ms(sdpa, flush)
+    return fwd, time_ms(sdpa_fwd_bwd, flush) - fwd
+
+
+def generic_flash_case(fl, name, b, h, tq, tk, d, causal, dtype, flush, g):
+    """The three generic flash kernels (``csrc/flash_generic.cu``) against
+    their plain versions (f32 on the same inputs; the backward's plain
+    version gets the kernel's own O and LSE), the dtype's limits
+    (:func:`_generic_limits`), the backward twice with equal bits, one
+    launch of each counted on the generic route, a negative control (the
+    forward dropping each row's last key tile must fail the O limit),
+    and CUDA-event times of each kernel, its plain version, SDPA in the
+    same dtype and the bound."""
+    if fl.route(dtype, d) != "generic":
+        raise AssertionError(f"{name}: {dtype} at head dim {d} is not on the generic route")
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    q, k, v, do = randn(b, tq, h, d), randn(b, tk, h, d), randn(b, tk, h, d), randn(b, tq, h, d)
+    sc = d ** -0.5
+    before = dict(fl.generic_launches_by_op)
+    out, lse = fl.flash_forward(q, k, v, causal, sc)
+    delta = fl.flash_delta(out, do)
+    dq = fl.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc)
+    dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, causal, sc)
+    again = (fl.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc),
+             *fl.flash_bwd_dkv(q, k, v, do, lse, delta, causal, sc))
+    torch.cuda.synchronize()
+    got = {op: fl.generic_launches_by_op[op] - before[op] for op in before}
+    if got != {"flash_fwd": 1, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}:
+        raise AssertionError(f"{name}: generic launches {got}")
+    for x, what in ((out, "O"), (lse, "LSE"), (dq, "dQ"), (dk, "dK"), (dv, "dV")):
+        if not torch.isfinite(x.float()).all():
+            raise AssertionError(f"{name}: non-finite kernel {what}")
+    if not all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)):
+        raise AssertionError(f"{name}: the backward does not repeat bit for bit")
+    del again
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    ref_o, ref_lse = fl.flash_forward_plain(qf, kf, vf, causal, sc)
+    ref_dq = fl.flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, causal, sc)
+    ref_dk, ref_dv = fl.flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, causal, sc)
+    limit, (t_o, t_dq, t_dk, t_dv) = _generic_limits(q, k, v, out, do, lse, delta, causal, sc)
+    errs = {}
+    for what, got_x, ref, lim in (
+        ("O", out, ref_o, limit(ref_o, t_o)),
+        ("LSE", lse, ref_lse, flash_lse_limit(q, k, ref_lse, sc)),
+        ("dQ", dq, ref_dq, limit(ref_dq, t_dq)),
+        ("dK", dk, ref_dk, limit(ref_dk, t_dk)),
+        ("dV", dv, ref_dv, limit(ref_dv, t_dv)),
+    ):
+        errs[what] = _ratio(got_x, ref, lim)
+        if errs[what][1] > 1.0:
+            raise AssertionError(
+                f"{name}: |generic {what} - plain| exceeds its limit "
+                f"{errs[what][1]:.2f}x (max abs error {errs[what][0]})")
+    bad, _ = fl.flash_forward(q, k, v, causal, sc, drop_last_tile=True)
+    control = _ratio(bad, ref_o, limit(ref_o, t_o))[1]
+    if not control > 1.0:
+        raise AssertionError(f"{name}: the dropped-tile variant passes ({control:.2f}x)")
+    del bad, ref_o, ref_dq, ref_dk, ref_dv, t_o, t_dq, t_dk, t_dv
+
+    with torch.no_grad():
+        times = {
+            "flash_fwd": time_ms(lambda: fl.flash_forward(q, k, v, causal, sc), flush),
+            "flash_bwd_dq": time_ms(
+                lambda: fl.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc), flush),
+            "flash_bwd_dkv": time_ms(
+                lambda: fl.flash_bwd_dkv(q, k, v, do, lse, delta, causal, sc), flush),
+        }
+        plain = {
+            "flash_fwd": time_ms(lambda: fl.flash_forward_plain(q, k, v, causal, sc), flush,
+                                 N_TIMED_PLAIN),
+            "flash_bwd_dq": time_ms(
+                lambda: fl.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, sc), flush,
+                N_TIMED_PLAIN),
+            "flash_bwd_dkv": time_ms(
+                lambda: fl.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, sc), flush,
+                N_TIMED_PLAIN),
+        }
+    sdpa_fwd, sdpa_bwd = _sdpa_times(q, k, v, do, causal, sc, flush)
+    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd, "flash_bwd_dkv": sdpa_bwd}
+    bounds = flash_bounds(b, h, tq, tk, d, causal, *_dtype_rates(dtype))
+    return {
+        "case": f"generic/{name}", "route": "generic",
+        "shape": {"B": b, "H": h, "Tq": tq, "Tk": tk, "d": d, "causal": causal,
+                  "dtype": str(dtype).replace("torch.", "")},
+        "max_abs_err": {w: e[0] for w, e in errs.items()},
+        "err_over_limit": {w: e[1] for w, e in errs.items()},
+        "negative_control_O_err_over_limit": control, "backward_repeats_bitwise": True,
+        "kernels": {op: {"ms": times[op], "plain_ms": plain[op], "library_ms": library[op],
+                         "bound_ms": bounds[op][0], "bound_by": bounds[op][1],
+                         "bytes": bounds[op][2], "flops": bounds[op][3]}
+                    for op in FLASH_OPS},
+    }
+
+
+def generic_packed_case(fp, fl, name, b, t, h, d, causal, dtype, flush, g):
+    """Packed attention on the generic route: ``fused_qkv_forward`` (the
+    generic forward with packed numerics, q, k and v read as column views
+    of the projection, its LSE returned) and ``fused_qkv_backward`` (the
+    generic dq and dk/dv kernels writing views of one dqkv) against their
+    plain versions (f32 on the same inputs; the backward's gets the
+    kernel's own O), the dtype's limits, the backward twice with equal
+    bits, one call of each counted on the generic route, the dropped-tile
+    control, and times of each call, its plain version, SDPA and the
+    bound."""
+    if fp.route(dtype, t, d) != "generic":
+        raise AssertionError(f"{name}: {dtype} at T {t}, head dim {d} is not on the generic route")
+    qkv = torch.randn(b, t, 3 * h * d, device="cuda", generator=g).to(dtype)
+    do = torch.randn(b, t, h * d, device="cuda", generator=g).to(dtype)
+    sc = d ** -0.5
+    before = dict(fp.generic_launches_by_op)
+    out, lse = fp.fused_qkv_forward(qkv, h, causal, sc, return_lse=True)
+    dqkv = fp.fused_qkv_backward(qkv, out, do, h, causal, sc, lse=lse)
+    again = fp.fused_qkv_backward(qkv, out, do, h, causal, sc, lse=lse)
+    torch.cuda.synchronize()
+    got = {op: fp.generic_launches_by_op[op] - before[op] for op in before}
+    if got != {"fused_qkv_fwd": 1, "fused_qkv_bwd": 2}:
+        raise AssertionError(f"{name}: generic launches {got}")
+    for x, what in ((out, "O"), (lse, "LSE"), (dqkv, "dQKV")):
+        if not torch.isfinite(x.float()).all():
+            raise AssertionError(f"{name}: non-finite kernel {what}")
+    if not torch.equal(dqkv, again):
+        raise AssertionError(f"{name}: the backward does not repeat bit for bit")
+    del again
+    ref_o = fp.fused_qkv_attention_plain(qkv.float(), h, causal, sc)
+    ref_d = fp.fused_qkv_attention_backward_plain(qkv.float(), out.float(), do.float(), h,
+                                                  causal, sc)
+    q, k, v = qkv.view(b, t, 3, h, d).unbind(2)
+    o4, do4 = out.view(b, t, h, d), do.view(b, t, h, d)
+    ref_lse = fl.flash_forward_plain(q.float(), k.float(), v.float(), causal, sc)[1]
+    errs = {"LSE": _ratio(lse, ref_lse, flash_lse_limit(q, k, ref_lse, sc))}
+    limit, (t_o, t_dq, t_dk, t_dv) = _generic_limits(q, k, v, o4, do4, lse,
+                                                     fl.flash_delta(o4, do4), causal, sc)
+    ref_o4 = ref_o.view(b, t, h, d)
+    o_limit = limit(ref_o4, t_o)
+    errs["O"] = _ratio(o4, ref_o4, o_limit)
+    got_parts, ref_parts = dqkv.view(b, t, 3, h, d), ref_d.view(b, t, 3, h, d)
+    for i, (what, terms) in enumerate((("dQ", t_dq), ("dK", t_dk), ("dV", t_dv))):
+        errs[what] = _ratio(got_parts[:, :, i], ref_parts[:, :, i],
+                            limit(ref_parts[:, :, i], terms))
+    for what, (err, ratio) in errs.items():
+        if ratio > 1.0:
+            raise AssertionError(f"{name}: |generic {what} - plain| exceeds its limit "
+                                 f"{ratio:.2f}x (max abs error {err})")
+    bad = fp.fused_qkv_forward(qkv, h, causal, sc, drop_last_tile=True)
+    control = _ratio(bad.view(b, t, h, d), ref_o4, o_limit)[1]
+    if not control > 1.0:
+        raise AssertionError(f"{name}: the dropped-tile variant passes ({control:.2f}x)")
+    del bad, ref_o, ref_d, ref_lse, t_o, t_dq, t_dk, t_dv, o_limit
+
+    with torch.no_grad():
+        times = {
+            "fused_qkv_fwd": time_ms(lambda: fp.fused_qkv_forward(qkv, h, causal, sc), flush),
+            "fused_qkv_bwd": time_ms(
+                lambda: fp.fused_qkv_backward(qkv, out, do, h, causal, sc, lse=lse), flush),
+        }
+        plain = {
+            "fused_qkv_fwd": time_ms(
+                lambda: fp.fused_qkv_attention_plain(qkv, h, causal, sc), flush, N_TIMED_PLAIN),
+            "fused_qkv_bwd": time_ms(
+                lambda: fp.fused_qkv_attention_backward_plain(qkv, out, do, h, causal, sc),
+                flush, N_TIMED_PLAIN),
+        }
+    sdpa_fwd, sdpa_bwd = _sdpa_times(q, k, v, do4, causal, sc, flush)
+    library = {"fused_qkv_fwd": sdpa_fwd, "fused_qkv_bwd": sdpa_bwd}
+    bounds = fp_bounds(b, t, h, d, causal, *_dtype_rates(dtype))
+    return {
+        "case": f"generic/{name}", "route": "generic",
+        "shape": {"B": b, "T": t, "H": h, "d": d, "causal": causal,
+                  "dtype": str(dtype).replace("torch.", "")},
+        "max_abs_err": {w: e[0] for w, e in errs.items()},
+        "err_over_limit": {w: e[1] for w, e in errs.items()},
+        "negative_control_O_err_over_limit": control, "backward_repeats_bitwise": True,
+        "kernels": {op: {"ms": times[op], "plain_ms": plain[op], "library_ms": library[op],
+                         "bound_ms": bounds[op][0], "bound_by": bounds[op][1],
+                         "bytes": bounds[op][2], "flops": bounds[op][3]}
+                    for op in FP_OPS},
+    }
+
+
+def fb_f32_y_limit(terms: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-element limit on |kernel y − plain y| for f32 operands, given
+    ``terms`` = |z|·|w|ᵀ (Σ_k |z_k·w_k| of each element).
+
+    The f32 kernel rounds nothing the plain version does not: its
+    prologue is the plain version's multiply, add and ReLU (no fused
+    multiply-add), its product K f32 FMAs in order where the plain
+    version's cuBLAS sums in another order (TF32 off). Recursive
+    summation of K terms errs by at most K·2**-24·terms, in each, and a
+    one-ulp difference of the folded affine (rsqrt) moves each z by
+    2**-23 of itself. Limit: 2**-24·(2K + 4)·terms. Written before the
+    first run on the card."""
+    return 2 ** -24 * (2 * k + 4) * terms
+
+
+def f32_fb_depth(fb, m: int, n: int, sms: int) -> int:
+    """The f32 kernel's summation depth of a column's statistics
+    (``fused_block.f32_plan``): a thread's 8 rows of each of its row
+    tiles, then the block's 16 row lanes, then the panel's groups."""
+    p = fb.f32_plan(m, n, sms)
+    return 8 * -(-p["tiles"] // p["groups"]) + 16 + p["groups"]
+
+
+def f32_fb_case(name, fb, op, a, w, flush, *, bn=None, control=False):
+    """The f32 fused-block kernel (``csrc/fused_block_f32.cu``) against
+    its plain version (the same f32 inputs), :func:`fb_f32_y_limit` and
+    ``fb_stats_limit`` at :func:`f32_fb_depth`, run twice for equal bits,
+    each launch counted on the ``f32`` route; with ``control`` the kernel
+    leaving each panel's last group out of its statistics must miss the
+    limit more than tenfold; and CUDA-event times of the kernel, the
+    plain version, the library yardstick (an f32 ``torch.matmul``, TF32
+    off, the prologue first for bn_relu, then the two column sums) and
+    the bound (f32 bytes; 67 TFLOP/s)."""
+    m, k = a.shape
+    n = w.shape[0]
+    if fb.route(a.dtype, k, n) != "f32":
+        raise AssertionError(f"{name}: {a.dtype} K={k} N={n} is not on the f32 route")
+    if bn is None:
+        def kern(**kw):
+            return fb.matmul_stats(a, w, **kw)
+
+        def plain_fn():
+            return fb.matmul_stats_plain(a, w)
+
+        def z_of():
+            return a
+
+        prologue_bytes = 0
+    else:
+        mean, var, scale, bias = bn
+        inv = torch.rsqrt(var + 1e-5) * scale
+        shift = bias - mean * inv
+
+        def kern(**kw):
+            return fb.bn_relu_matmul_stats(a, mean, var, scale, bias, w, **kw)
+
+        def plain_fn():
+            return fb.bn_relu_matmul_stats_plain(a, mean, var, scale, bias, w)
+
+        def z_of():
+            return torch.relu(a * inv + shift)
+
+        prologue_bytes = 4 * 4 * k
+    before = fb.launches_by_route["f32"]
+    with torch.no_grad():
+        y, s, ss = kern()
+        y2, s2, ss2 = kern()
+    torch.cuda.synchronize()
+    if fb.launches_by_route["f32"] != before + 2:
+        raise AssertionError(f"{name}: {fb.launches_by_route['f32'] - before} f32 launches, "
+                             f"want 2")
+    if not (torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(ss, ss2)):
+        raise AssertionError(f"{name}: a second launch did not repeat the first bit for bit")
+    del y2, s2, ss2
+    if y.shape != (m, n) or y.dtype != torch.float32:
+        raise AssertionError(f"{name}: y {tuple(y.shape)} {y.dtype}")
+    if not (torch.isfinite(y).all() and torch.isfinite(s).all() and torch.isfinite(ss).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    diff = (y - plain_fn()[0]).abs()
+    lim = fb_f32_y_limit(z_of().abs() @ w.abs().t(), k)
+    err = diff.max().item()
+    y_ratio = (diff / lim.clamp(min=torch.finfo(torch.float32).tiny)).max().item()
+    if not (diff <= lim).all():
+        raise AssertionError(f"{name}: |y - plain| exceeds its limit {y_ratio:.2f}x (max {err})")
+    del diff, lim
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    depth = f32_fb_depth(fb, m, n, sms)
+    s_ratio = _fb_stats_ratio(s, ss, y, depth)
+    if s_ratio > 1.0:
+        raise AssertionError(f"{name}: the statistics exceed their limit {s_ratio:.2f}x")
+    factor = None
+    if control:
+        with torch.no_grad():
+            yb, sb, ssb = kern(drop_last_partial=True)
+        factor = _fb_stats_ratio(sb, ssb, yb, depth)
+        del yb, sb, ssb
+        print("control " + json.dumps({"case": f"f32_{name}_drop_last_group",
+                                       "err_over_limit": factor}), flush=True)
+        if not factor > 10:
+            raise AssertionError(f"{name}: the f32 kernel without each panel's last group "
+                                 f"stays within {factor:.2f}x of its limit")
+
+    def library():
+        yl = torch.matmul(z_of(), w.t())
+        return yl, yl.sum(0), (yl * yl).sum(0)
+
+    nbytes = 4 * (m * k + k * n + m * n) + 8 * n + prologue_bytes
+    flops = 2.0 * m * k * n
+    bound_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ops = flops / H100_F32_FLOP_S * 1e3
+    with torch.no_grad():
+        return {
+            "case": f"f32/{op}/{name}", "op": op, "route": "f32",
+            "shape": {"M": m, "K": k, "N": n}, "plan": fb.f32_plan(m, n, sms),
+            "stat_depth": depth, "repeats_bitwise": True, "max_abs_err": err,
+            "y_err_over_limit": y_ratio, "stats_err_over_limit": s_ratio,
+            "negative_control_stats_err_over_limit": factor,
+            "ms": time_ms(kern, flush),
+            "plain_ms": time_ms(plain_fn, flush, N_TIMED_PLAIN),
+            "library_ms": time_ms(library, flush),
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "bytes": int(nbytes), "flops": flops,
+        }
+
+
+def generic_kernel_phase(fl, fp, fb, pd, flush):
+    """The generic routes' kernel cases: the generic flash kernels
+    (``GENERIC_FLASH_CASES``), packed attention on the generic route
+    (``GENERIC_PACKED_CASES``), the f32 fused block at rows 1-2's
+    stage-1 shapes (``F32_FB_SHAPES``; the dropped-group control at
+    conv3), and the decode kernel at head dim 96 (``D96_DECODE``: bf16,
+    int8 and fp8 stores, paged, each twice with equal bits; the
+    dropped-split control on the bf16 store). Returns the case lines."""
+    from distributeddeeplearning_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cuda").manual_seed(2121)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    cases = []
+    for case in GENERIC_FLASH_CASES:
+        cases.append(generic_flash_case(fl, *case, flush, g))
+        torch.cuda.empty_cache()
+    for case in GENERIC_PACKED_CASES:
+        cases.append(generic_packed_case(fp, fl, *case, flush, g))
+        torch.cuda.empty_cache()
+    for op, where, m, k, n in F32_FB_SHAPES:
+        w = randn(n, k) * (2.0 / n) ** 0.5
+        if op == "matmul_stats":
+            cases.append(f32_fb_case(where, fb, op, randn(m, k), w, flush))
+        else:
+            a = randn(m, k) * (randn(k).abs() * 0.5 + 0.5) + randn(k) * 0.5
+            mean = a.mean(0)
+            bn = (mean, (a * a).mean(0) - mean * mean, 1.0 + 0.1 * randn(k), 0.1 * randn(k))
+            cases.append(f32_fb_case(where, fb, op, a, w, flush, bn=bn, control=True))
+            del a, bn
+        torch.cuda.empty_cache()
+
+    b, h, d, length = D96_DECODE
+    bs, rng = 16, np.random.RandomState(2121)
+    pos = rng.randint(0, length, size=b)
+    pos[0] = length - 1
+    q_pos = torch.from_numpy(pos[:, None].astype(np.int32)).cuda()
+    mb = length // bs
+    k = randn(b * mb + 1, bs, h, d).to(torch.bfloat16)
+    v = randn(b * mb + 1, bs, h, d).to(torch.bfloat16)
+    table = torch.from_numpy((1 + rng.permutation(b * mb)).reshape(b, mb).astype(np.int32)).cuda()
+    q = randn(b, 1, h, d).to(torch.bfloat16)
+    cases.append(kernel_case("lm_large_decode_d96", pd, q, k, v, q_pos, flush, table=table,
+                             bs=bs))
+    for kind in ("int8", "fp8"):
+        (kq, ks), (vq, vs) = quant.quantize_kv(k, kind), quant.quantize_kv(v, kind)
+        cases.append(kernel_case(f"lm_large_decode_d96_{kind}", pd, q, kq, vq, q_pos, flush,
+                                 table=table, bs=bs, k_scale=ks, v_scale=vs))
+    kw = dict(block_table=table, block_size=bs)
+    ref = pd.fused_decode_attention_plain(q.float(), k.float(), v.float(), q_pos, **kw)
+    wrong = pd.fused_decode_attention(q, k, v, q_pos, drop_last_split=True, **kw)
+    factor = ((wrong.float() - ref).abs() / bf16_tolerance(ref)).max().item()
+    print("control " + json.dumps({"case": "lm_large_decode_d96_drop_last_split",
+                                   "err_over_tol": factor}), flush=True)
+    if not factor > 10:
+        raise AssertionError(f"the d96 decode without each tile's last split stays within "
+                             f"{factor:.2f}x of the tolerance")
+    return cases
+
+
+# The generic phase: the generic routes' user paths at full width through the
+# normal entry points, each on the routes the fast kernels refuse.
+GENERIC_STEPS = 3  # steps of each training path (a fit's first is its warm-up)
+GENERIC_PROFILED = 2  # profiled steps (the busy share)
+# f32 first steps against their yardstick steps from the same weights on
+# the same batch (derived in generic_phase's docstring).
+F32_LM_LIMITS = {"loss_rel": 1e-5, "update_rel": 1e-3, "logits_rel": 1e-5}
+F32_RESNET_LIMITS = {"loss_rel": 1e-5, "update_rel": 1e-2, "running_stats_rel": 1e-4}
+
+
+def _reset_routes(*mods):
+    for mod in mods:
+        mod.launches = 0
+        for table in ("launches_by_op", "launches_by_route", "generic_launches_by_op"):
+            for key in getattr(mod, table, {}):
+                getattr(mod, table)[key] = 0
+
+
+def _generic_steps(label, setup, counted, want, card, device, steps=GENERIC_STEPS):
+    """``setup()`` -> (cfg, ds, model, state, step) through the port's
+    entry points; one warm-up step, then ``steps`` steps timed to a host
+    readback of the loss with the launch counters zeroed before them, the
+    peak memory, and ``profile_train``'s busy share over
+    ``GENERIC_PROFILED`` more steps. ``counted(model)`` reads the counts
+    the path must show, ``want(model)`` what they must be."""
+    from distributeddeeplearning_tpu_torch.data import prefetch_to_device
+
+    cfg, ds, model, state, step = setup()
+    batches = prefetch_to_device(ds.epoch(0), device)
+    state, m = step(state, next(batches))
+    _sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    counts0 = counted(model)
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, next(batches))
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    wall = time.perf_counter() - t0
+    got = {k: v - counts0.get(k, 0) for k, v in counted(model).items()}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite losses {losses}")
+    line = {"what": label, "model": cfg.model, "dtype": cfg.compute_dtype,
+            "attn_impl": cfg.attn_impl, "batch": cfg.global_batch_size, "steps": steps,
+            "step_ms": wall / steps * 1e3, "losses": losses, "launches": got,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 2 ** 30 if device == "cuda"
+                            else "not measured"), "card": card}
+    print("generic " + json.dumps(line), flush=True)
+    if got != want(model, steps):
+        raise AssertionError(f"{label}: launches {got}, want {want(model, steps)}")
+    if device == "cuda":
+        profile_train(state, step, batches, card, line["step_ms"], label, ("_generic_",),
+                      steps=GENERIC_PROFILED)
+    else:
+        batches.close()
+    return line
+
+
+def _flash_counts(fl):
+    return lambda model: dict(fl.generic_launches_by_op, wgmma=fl.launches_by_route["wgmma"])
+
+
+def generic_phase(fl, fp, fb, pd, card, device="cuda", small=None):
+    """The generic routes' user paths at full width (``small`` cuts them for a
+    CPU rehearsal), each through the port's entry points on the routes
+    the fast kernels refuse, with the launch counters zeroed before each:
+
+    * ``lm_base`` f32, ``attn_impl="pallas"``, T 1024, batch 8, through
+      ``fit`` (``GENERIC_STEPS`` steps): the generic flash kernels 12 / 12
+      / 12 a step, none on the wgmma route; the first step from seeded
+      weights against the same step with ``"xla"``
+      (``lm_pallas_vs_xla_step`` in f32, ``F32_LM_LIMITS``);
+    * ViT-B/16 f32 with ``attn_impl="auto"`` (224 px, batch 64): auto
+      resolves to the packed kernels, which take the generic route, 12
+      forward and 12 backward calls a step;
+    * ViT-H/16 bf16 with ``"pallas"`` (head dim 80; batch 8): the generic
+      flash kernels 32 / 32 / 32 a step;
+    * fused ResNet-50 f32 through ``fit`` (224 px, batch 64): the f32
+      fused-block kernel 16 + 16 times a forward, none on the TMA route;
+      one fused step against one unfused f32 step (TF32 off:
+      ``fused_vs_unfused_step`` in f32, ``F32_RESNET_LIMITS``);
+    * ``lm_large`` (head dim 96) served paged with the fused decode
+      kernel: bf16 on the captured program set (``serve_mix``: 24
+      launches a forward, the streams against each request alone, the
+      first token's logits against a re-forward), a decode tick's
+      profile; then f32, whose greedy streams must equal ``generate``'s.
+
+    Each training path prints step ms, peak GB and (``profile``) the
+    busy share. The f32 limits, written before the first run on the
+    card: both f32 steps of a pair run the same f32 math with the sums in
+    other orders (TF32 off), so the loss moves by round-off, about 1e-7
+    relative. The CPU rehearsal (``small``: lm_tiny T 64 batch 2;
+    ResNet-50 64 px batch 4) read loss gaps 0 and 1.1e-7, update gaps up
+    to 3.1e-5 (LM) and 8.0e-5 (ResNet: BN amplifies round-off by the
+    inverse of small standard deviations), logits 4.9e-7 and running
+    statistics 1.1e-6; the limits are 10x or more above those readings
+    and far below the bf16 pairs' gaps (0.01-0.15).
+    Returns each new kernel's launches on this phase's paths."""
+    from distributeddeeplearning_tpu_torch import inference
+    from distributeddeeplearning_tpu_torch.config import TrainConfig
+    from distributeddeeplearning_tpu_torch.data import SyntheticTokenDataset
+    from distributeddeeplearning_tpu_torch.models import convert, get_model
+    from distributeddeeplearning_tpu_torch.serving import ServeConfig, Server
+    from distributeddeeplearning_tpu_torch.training import create_train_state
+
+    sz = {"lm": dict(variant="base", batch=8, seq=1024, vocab=32_000),
+          "vit_b": dict(variant="b", image_size=224, batch=64, num_classes=1000),
+          "vit_h": dict(variant="h", image_size=224, batch=8, num_classes=1000),
+          "resnet": dict(image_size=224, batch=64, num_classes=1000),
+          "serve": "large", **(small or {})}
+    on_card = torch.device(device).type == "cuda"
+    out = {}
+
+    # lm_base f32 pallas through fit, and its first step against xla.
+    lm = sz["lm"]
+    cfg = TrainConfig(model=f"lm_{lm['variant']}", batch_size_per_device=lm["batch"],
+                      num_classes=lm["vocab"], attn_impl="pallas", compute_dtype="float32",
+                      fake_data_length=GENERIC_STEPS * lm["batch"], epochs=1, log_every_steps=1)
+    data = SyntheticTokenDataset(length=cfg.fake_data_length,
+                                 global_batch_size=cfg.global_batch_size, seq_len=lm["seq"],
+                                 vocab_size=lm["vocab"], num_physical_batches=2, seed=cfg.seed)
+    model = get_model(cfg.model, **cfg.model_kwargs(), max_seq_len=lm["seq"], device=device)
+    tx = _fit_tx(cfg, data)
+    state = create_train_state(model, cfg, tx, device=device)
+    _reset_routes(fl)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, _, launches, by_label, _ = _fit_run(fl, cfg, data, model, device, state=state, tx=tx)
+    wall = time.perf_counter() - t0
+    want = {k: model.depth * GENERIC_STEPS if on_card else 0 for k in launches}
+    _check_fit_run("generic lm f32 pallas", res, launches, by_label, want, 1)
+    generic = dict(fl.generic_launches_by_op)
+    if generic != want or fl.launches_by_route["wgmma"]:
+        raise AssertionError(f"lm f32 pallas: generic launches {generic}, wgmma "
+                             f"{fl.launches_by_route['wgmma']}, want {want} and 0")
+    print("generic " + json.dumps({
+        "what": "lm f32 pallas fit", "model": cfg.model, "seq_len": lm["seq"],
+        "batch": lm["batch"], "steps": GENERIC_STEPS, "history": res.history,
+        "generic_launches_by_op": generic, "fit_wall_s": wall,
+        "step_ms": cfg.global_batch_size / res.images_per_sec * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+        else "not measured", "card": card}), flush=True)
+    out.update({f"lm_{k}": v for k, v in generic.items()})
+    if on_card:
+        from distributeddeeplearning_tpu_torch.data import prefetch_to_device
+        from distributeddeeplearning_tpu_torch.training import make_train_step
+
+        profile_train(res.state, make_train_step(model, tx, cfg, device=device),
+                      prefetch_to_device(data.epoch(1), device), card,
+                      cfg.global_batch_size / res.images_per_sec * 1e3,
+                      "lm f32 pallas train step", ("_generic_",), steps=GENERIC_PROFILED)
+    del res, model, data, state
+    agree = lm_pallas_vs_xla_step(variant=lm["variant"], batch=lm["batch"], seq=lm["seq"],
+                                  vocab=lm["vocab"], device=device, compute_dtype="float32",
+                                  limits=F32_LM_LIMITS)
+    print("genericlmagree " + json.dumps(dict(agree, card=card)), flush=True)
+    if not agree["within_limits"]:
+        raise AssertionError(f"f32 pallas and xla LM steps disagree: {agree}")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ViT-B/16 f32 auto: the packed kernels on the generic route.
+    vb = sz["vit_b"]
+    line = _generic_steps(
+        "vit_b16 f32 auto",
+        lambda: _vit_setup("auto", False, device=device, compute_dtype="float32", **vb),
+        lambda model: dict(fp.generic_launches_by_op, wgmma=fp.launches_by_route["wgmma"]),
+        lambda model, n: {"fused_qkv_fwd": model.depth * n if on_card else 0,
+                          "fused_qkv_bwd": model.depth * n if on_card else 0, "wgmma": 0},
+        card, device)
+    out.update({f"vit_{k}": v for k, v in line["launches"].items()})
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ViT-H/16 bf16 pallas: head dim 80 on the generic flash kernels.
+    vh = sz["vit_h"]
+    line = _generic_steps(
+        "vit_h16 bf16 pallas (head dim 80)",
+        lambda: _vit_setup("pallas", False, device=device, **vh),
+        _flash_counts(fl),
+        lambda model, n: {**{op: model.depth * n if on_card else 0 for op in FLASH_OPS},
+                          "wgmma": 0},
+        card, device)
+    for op in FLASH_OPS:
+        out[f"vith_{op}"] = line["launches"][op]
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # Fused ResNet-50 f32 through fit, and one fused against one unfused step.
+    rn = sz["resnet"]
+    cfg, data, model = _resnet_fit_setup(epochs=1, steps=GENERIC_STEPS, device=device,
+                                         image_size=rn["image_size"], batch=rn["batch"],
+                                         num_classes=rn["num_classes"], compute_dtype="float32")
+    tx = _fit_tx(cfg, data)
+    state = create_train_state(model, cfg, tx, device=device)
+    _reset_routes(fb)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    res, _, launches, by_label, _ = _fit_run(fb, cfg, data, model, device, state=state, tx=tx)
+    want = {k: 16 * GENERIC_STEPS if on_card else 0 for k in launches}
+    _check_fit_run("generic resnet50 f32 fused", res, launches, by_label, want, 1)
+    routes = dict(fb.launches_by_route)
+    if routes != {"tma": 0, "f32": 32 * GENERIC_STEPS if on_card else 0}:
+        raise AssertionError(f"resnet50 f32 fused: launches by route {routes}")
+    step_ms = cfg.global_batch_size / res.images_per_sec * 1e3
+    print("generic " + json.dumps({
+        "what": "resnet50 f32 fused fit", "steps": GENERIC_STEPS, "history": res.history,
+        "launches_by_op": launches, "launches_by_route": routes, "step_ms": step_ms,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+        else "not measured", "card": card}), flush=True)
+    out.update({f"resnet_{k}": v for k, v in launches.items()})
+    if on_card:
+        from distributeddeeplearning_tpu_torch.data import prefetch_to_device
+        from distributeddeeplearning_tpu_torch.training import make_train_step
+
+        profile_train(res.state, make_train_step(model, tx, cfg, device=device),
+                      prefetch_to_device(data.epoch(1), device), card, step_ms,
+                      "resnet50 f32 fused train step", ("matmul_stats_f32",),
+                      steps=GENERIC_PROFILED)
+    del res, model, data, state
+    agree = fused_vs_unfused_step(image_size=rn["image_size"], batch=rn["batch"],
+                                  num_classes=rn["num_classes"], device=device,
+                                  compute_dtype="float32", limits=F32_RESNET_LIMITS)
+    print("genericresnetagree " + json.dumps(dict(agree, card=card)), flush=True)
+    if not agree["within_limits"]:
+        raise AssertionError(f"f32 fused and unfused ResNet steps disagree: {agree}")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # lm_large served: bf16 captured and timed, then f32 against generate.
+    variant = sz["serve"]
+    params = convert.init_params(variant, VOCAB, torch.Generator(device=device).manual_seed(0))
+    summary, server, reqs, _ = serve_mix(pd, card, SERVE_ENV, "genericserve", params,
+                                         variant=variant, device=device)
+    _print_line("genericserve", summary)
+    out["decode_d96_bf16"] = summary["launches"]
+    if on_card:
+        ticks, depth = 4, len(server.engine.model.blocks)
+        prof = profile_decode(server, VOCAB, card, ticks=ticks, label="genericserve_profile")
+        if not (_replayed_ok(prof["decode_attention_launches_per_tick"], depth, ticks)
+                and prof["replayed_launches_per_tick"] == depth):
+            raise AssertionError(f"genericserve: {prof['decode_attention_launches_per_tick']} "
+                                 f"decode kernels a tick by name, "
+                                 f"{prof['replayed_launches_per_tick']} replayed, want {depth}")
+    del server
+    if on_card:
+        torch.cuda.empty_cache()
+    model32 = get_model(f"lm_{variant}", num_classes=VOCAB, dtype=torch.float32, device=device)
+    server32 = Server.build(model32, params, ServeConfig.from_env(SERVE_ENV), device=device)
+    del params
+    server32.engine.warmup()
+    greedy = [r for r in reqs if r.temperature == 0]
+    _reset_launches(pd)
+    replayed0 = server32.engine.replayed_launches()
+    hs = [server32.submit(r) for r in greedy]
+    server32.drain()
+    launches32 = pd.launches + server32.engine.replayed_launches() - replayed0
+    equal32 = [[int(t) for t in h.new_tokens] == inference.generate(
+        server32.engine.model, r.prompt[None], max_new_tokens=NEW_TOKENS)[
+        0, len(r.prompt):].tolist() for r, h in zip(greedy, hs)]
+    print("genericserve_f32 " + json.dumps({
+        "requests": len(greedy), "greedy_equal_generate": equal32, "launches": launches32,
+        "kv_store": str(server32.engine._stores[0][0].dtype).replace("torch.", ""),
+        "card": card}), flush=True)
+    del server32, model32
+    if not all(equal32):
+        raise AssertionError(f"genericserve f32: streams differ from generate: {equal32}")
+    out["decode_d96_f32"] = launches32
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _generic_entries(cases, launched):
+    """The ``kernels`` line's entries of the generic routes' kernels: the times
+    of each one's timed case, the largest error over its cases, and its
+    launches on the ``generic`` phase's paths."""
+    def case(name):
+        return next(c for c in cases if c["case"] == name)
+
+    entries = []
+    flash_case_ = case("generic/lm_base_train_f32")
+    outputs = {"flash_fwd": ("O",), "flash_bwd_dq": ("dQ",), "flash_bwd_dkv": ("dK", "dV"),
+               "fused_qkv_fwd": ("O",), "fused_qkv_bwd": ("dQ", "dK", "dV")}
+    for op, line in (("flash_fwd", "179"), ("flash_bwd_dq", "371"), ("flash_bwd_dkv", "394")):
+        k = flash_case_["kernels"][op]
+        entries.append({
+            "name": op.replace("flash_", "flash_generic_"), "route": "cuda",
+            "source": "distributeddeeplearning_tpu_torch/csrc/flash_generic.cu",
+            "replaces": f"distributeddeeplearning_tpu/ops/pallas/flash.py:{line}",
+            "launches": launched[f"lm_{op}"] + launched[f"vith_{op}"],
+            "max_abs_err": max(c["max_abs_err"][w] for c in cases
+                               if c["case"].startswith("generic/") and "flash_fwd" in c["kernels"]
+                               for w in outputs[op]),
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "timed_case": "generic/lm_base_train_f32"})
+    packed = case("generic/vit_b16_f32")
+    for op, line in (("fused_qkv_fwd", "259"), ("fused_qkv_bwd", "285")):
+        k = packed["kernels"][op]
+        entries.append({
+            "name": op.replace("fused_qkv_", "fused_qkv_generic_"), "route": "cuda",
+            "source": "distributeddeeplearning_tpu_torch/csrc/flash_generic.cu",
+            "replaces": f"distributeddeeplearning_tpu/ops/pallas/flash_packed.py:{line}",
+            "launches": launched[f"vit_{op}"],
+            "max_abs_err": max(packed["max_abs_err"][w] for w in outputs[op]),
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "timed_case": "generic/vit_b16_f32"})
+    for op, where, line in (("matmul_stats", "stage1_conv1", "160"),
+                            ("bn_relu_matmul_stats", "stage1_conv3", "194")):
+        c = case(f"f32/{op}/{where}")
+        entries.append({
+            "name": f"{op}_f32", "route": "cuda",
+            "source": "distributeddeeplearning_tpu_torch/csrc/fused_block_f32.cu",
+            "replaces": f"distributeddeeplearning_tpu/ops/pallas/fused_block.py:{line}",
+            "launches": launched[f"resnet_{op}"], "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "timed_case": c["case"]})
+    d96 = [c for c in cases if c["case"].startswith("lm_large_decode_d96")]
+    c = case("lm_large_decode_d96")
+    entries.append({
+        "name": "paged_decode_attention_d96", "route": "cuda",
+        "source": "distributeddeeplearning_tpu_torch/csrc/paged_decode.cu",
+        "replaces": "distributeddeeplearning_tpu/ops/pallas/paged_decode.py:175",
+        "launches": launched["decode_d96_bf16"] + launched["decode_d96_f32"],
+        "launches_by_store": {"bf16": launched["decode_d96_bf16"],
+                              "f32": launched["decode_d96_f32"]},
+        "max_abs_err": max(x["max_abs_err"] for x in d96),
+        "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+        "timed_case": "lm_large_decode_d96"})
+    return entries
+
+
 def _fb_entry(name, cases, timed_case, launches):
     main_case = next(c for c in cases if c["case"] == timed_case)
     return {
@@ -6313,7 +7119,7 @@ class _PhaseClock:
 
 PHASES = ("kernels", "serve", "servequant", "servespec", "servegraph", "train", "lmtrain",
           "vittrain", "effnettrain", "fit", "warmup", "frontends", "launch", "trace", "bench",
-          "realdata", "knobs", "fleet", "mesh")
+          "realdata", "knobs", "fleet", "mesh", "generic")
 
 
 # A kernels-line entry -> (replayed family, what its kernel names hold,
@@ -6411,7 +7217,7 @@ def main(argv=None) -> int:
 
     # ddl_native: the native IO tier's host library (csrc/ddl_native.cpp).
     names = ("paged_decode", "fused_block", "flash", "flash_packed", "fused_grads", "depthwise",
-             "ddl_native")
+             "flash_generic", "fused_block_f32", "ddl_native")
     pool = ThreadPoolExecutor(len(names))
     builds = {name: pool.submit(timed_build, name) for name in names}
 
@@ -6429,7 +7235,7 @@ def main(argv=None) -> int:
                     print(f"ptxas {name}:", line.strip(), flush=True)
 
     entries = []
-    pd_cases = fb_cases = flash_cases = fp_cases = fg_cases = dw_cases = None
+    pd_cases = fb_cases = flash_cases = fp_cases = fg_cases = dw_cases = generic_cases = None
     clock.start("kernels")
     if "kernels" in phases:
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
@@ -6445,7 +7251,10 @@ def main(argv=None) -> int:
         pd_cases = kernel_phase(pd, flush)
         built("depthwise")
         dw_cases = dw_phase(dwm, flush)
-        for c in pd_cases + fb_cases + flash_cases + fp_cases + fg_cases + dw_cases:
+        built("flash_generic", "fused_block_f32")
+        generic_cases = generic_kernel_phase(fl, fp, fb, pd, flush)
+        for c in (pd_cases + fb_cases + flash_cases + fp_cases + fg_cases + dw_cases
+                  + generic_cases):
             print("case " + json.dumps(c), flush=True)
         del flush
         torch.cuda.empty_cache()
@@ -6663,6 +7472,15 @@ def main(argv=None) -> int:
             got = {sc: n[e["name"]] for sc, n in meshed.items() if e["name"] in n}
             if got:
                 e["mesh_launches"] = got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    clock.start("generic")
+    if "generic" in phases:
+        launched = generic_phase(fl, fp, fb, pd, card)
+        print("genericlaunches " + json.dumps(launched), flush=True)
+        if generic_cases is not None:
+            entries += _generic_entries(generic_cases, launched)
         gc.collect()
         torch.cuda.empty_cache()
 

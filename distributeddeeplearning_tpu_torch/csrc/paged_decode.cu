@@ -757,6 +757,8 @@ int dispatch_d(int d, const Params& p, cudaStream_t stream) {
       return launch<T, S, 32>(p, stream);
     case 64:
       return launch<T, S, 64>(p, stream);
+    case 96:  // lm_large: 6 k-steps and 12 n-tiles of mma.sync; 192-byte bf16 rows
+      return launch<T, S, 96>(p, stream);
     case 128:
       return launch<T, S, 128>(p, stream);
     default:

@@ -8,16 +8,22 @@ saves ``(q, k, v, out, lse)`` and whose backward computes ``Δ =
 rowsum(do·o)`` in f32, then the dq and dk/dv kernels (the JAX custom
 VJP ``_flash_fwd_rule`` / ``_flash_bwd_rule``).
 
-On a CUDA tensor each step launches a hand-written Hopper kernel of
-``csrc/flash.cu`` (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``;
-each launch counted in :data:`launches` and :data:`launches_by_op`):
-bf16 only, head dim 32, 64, 96 or 128; any other dtype or head dim
-raises ``NotImplementedError``. The kernels read q, k and v by TMA
-through tensor maps over their strided views (the slices of the packed
-qkv projection need no copy; LSE and Δ must start 16-byte aligned) and
-write ``out`` BTHD. On a CPU tensor it runs the plain versions,
-:func:`flash_forward_plain` and :func:`flash_backward_plain`; any other
-device raises.
+On a CUDA tensor each step launches a hand-written Hopper kernel, on
+the route :func:`route` picks from the dtype and head dim before any
+launch: bf16 at head dim 32, 64, 96 or 128 takes ``csrc/flash.cu``
+(``"wgmma"``: TMA + wgmma), f32 at any head dim up to 256 and bf16 at
+any other head dim up to 256 take ``csrc/flash_generic.cu``
+(``"generic"``: f32 FMA on the CUDA cores); f16 and head dims past 256
+raise ``NotImplementedError``. Neither route gives way to the other or
+to the plain version: a build or launch failure raises. Each launch is
+counted in :data:`launches`, :data:`launches_by_op` and
+:data:`launches_by_route`, and a generic one also in
+:data:`generic_launches_by_op`. The kernels read q, k and v through
+their strided views (the slices of the packed qkv projection need no
+copy; for the wgmma route by TMA, so LSE and Δ must start 16-byte
+aligned) and write ``out`` BTHD. On a CPU tensor it runs the plain
+versions, :func:`flash_forward_plain` and :func:`flash_backward_plain`;
+any other device raises.
 
 Numerics (the JAX kernels' rounding points): scores ``f32(q·kᵀ)·scale``,
 masked keys at the finite ``-1e30``, online softmax in f32, ``p``
@@ -40,9 +46,26 @@ from distributeddeeplearning_tpu_torch.ops import _build
 # them after).
 launches = 0
 launches_by_op: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+launches_by_route: Dict[str, int] = {"wgmma": 0, "generic": 0}
+generic_launches_by_op: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 NEG_INF = -1e30  # the kernels' finite mask value (flash.py's _NEG_INF)
-HEAD_DIMS = (32, 64, 96, 128)
+HEAD_DIMS = (32, 64, 96, 128)  # csrc/flash.cu's instances (bf16)
+GENERIC_MAX_HEAD_DIM = 256  # csrc/flash_generic.cu pads d to 64, 128 or 256
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}  # csrc/flash_generic.cu's dtype
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel route of a CUDA call, from the dtype and head dim alone:
+    ``"wgmma"`` (``csrc/flash.cu``) for bf16 at :data:`HEAD_DIMS`,
+    ``"generic"`` (``csrc/flash_generic.cu``) for f32 or bf16 at any
+    other head dim in ``[1, 256]``; raises ``NotImplementedError`` naming
+    what is taken for anything else (f16, head dims past 256)."""
+    if dtype not in _DTYPE_CODE or not 1 <= head_dim <= GENERIC_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"the flash kernels take bf16 or f32 at head dims 1..{GENERIC_MAX_HEAD_DIM} on the "
+            f"card, got {dtype} at head dim {head_dim}")
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in HEAD_DIMS else "generic"
 
 
 def _mask(tq: int, tk: int, causal: bool, device) -> torch.Tensor:
@@ -139,10 +162,11 @@ def _check_shapes(q, k, v, causal: bool) -> None:
             f"{tuple(k.shape)}, {tuple(v.shape)}")
 
 
-def _check_cuda(q, k, v, causal: bool, do=None, rows=()) -> None:
-    """What the kernels take: BTHD bf16 q, k, v (and dO shaped as q) on
-    one device, a head dim they are built for, and f32 contiguous
-    ``[B·H, Tq]`` per-row vectors (LSE, Δ)."""
+def _check_cuda(q, k, v, causal: bool, do=None, rows=()) -> str:
+    """What the kernels take: BTHD q, k, v (and dO shaped as q) of one
+    dtype on one device, a dtype and head dim :func:`route` sends to a
+    kernel, and f32 contiguous ``[B·H, Tq]`` per-row vectors (LSE, Δ;
+    16-byte aligned). Returns the route."""
     _check_shapes(q, k, v, causal)
     xs = (q, k, v) if do is None else (q, k, v, do)
     if do is not None and do.shape != q.shape:
@@ -150,20 +174,19 @@ def _check_cuda(q, k, v, causal: bool, do=None, rows=()) -> None:
     for x in xs + tuple(rows):
         if x.device != q.device:
             raise ValueError(f"tensors on {x.device} and {q.device}")
-    for x in xs:
-        if x.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"the flash kernels take bf16 on the card, got {x.dtype}")
     b, tq, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(
-            f"the flash kernels take head dims {HEAD_DIMS}, got {d}")
+    path = route(q.dtype, d)
+    for x in xs:
+        if x.dtype != q.dtype:
+            raise NotImplementedError(
+                f"the flash kernels take q, k, v and dO of one dtype, got {x.dtype} and {q.dtype}")
     for r in rows:
         if (r.shape != (b * h, tq) or r.dtype != torch.float32 or not r.is_contiguous()
                 or r.data_ptr() % 16):
             raise ValueError(
                 f"LSE and delta must be contiguous 16-byte aligned f32 [{b * h}, {tq}], got "
                 f"{r.dtype} {tuple(r.shape)}")
+    return path
 
 
 def _strides(*xs: torch.Tensor):
@@ -173,6 +196,18 @@ def _strides(*xs: torch.Tensor):
 
 def _library() -> ctypes.CDLL:
     return bind(_build.load("flash"))
+
+
+def _generic_library() -> ctypes.CDLL:
+    lib = _build.load("flash_generic")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.POINTER(ctypes.c_longlong)
+    lib.flash_generic_fwd.argtypes = [p] * 5 + [ll] + [i] * 6 + [f, i, i, i, p]
+    lib.flash_generic_bwd_dq.argtypes = [p] * 7 + [ll] + [i] * 6 + [f, i, p]
+    lib.flash_generic_bwd_dkv.argtypes = [p] * 8 + [ll] + [i] * 6 + [f, i, p]
+    for fn in (lib.flash_generic_fwd, lib.flash_generic_bwd_dq, lib.flash_generic_bwd_dkv):
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -189,61 +224,96 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _launch(op: str, device: torch.device, *args) -> None:
-    """Call the C entry point ``op`` on ``device``'s current stream (the
-    stream autograd runs the backward on), raise on a launch error and
-    count the launch."""
-    global launches
-    fn = getattr(_library(), op)
+def call_generic(entry: str, device: torch.device, *args) -> None:
+    """Call ``csrc/flash_generic.cu``'s C entry point ``entry`` on
+    ``device``'s current stream and raise on a launch error. Counts
+    nothing: its callers count (this module's wrappers, and packed
+    attention's generic route, ``ops/flash_packed.py``)."""
+    fn = getattr(_generic_library(), entry)
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{op} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+
+
+def _launch(op: str, path: str, device: torch.device, *args) -> None:
+    """Call the C entry point of ``op`` on ``path``'s library on
+    ``device``'s current stream (the stream autograd runs the backward
+    on), raise on a launch error and count the launch."""
+    global launches
+    if path == "generic":
+        call_generic(op.replace("flash_", "flash_generic_"), device, *args)
+        generic_launches_by_op[op] += 1
+    else:
+        fn = getattr(_library(), op)
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{op} launch failed: CUDA error {rc}")
     launches += 1
     launches_by_op[op] += 1
+    launches_by_route[path] += 1
+
+
+def _views(path: str, *xs: torch.Tensor):
+    """``xs`` as views the route's kernels read: the wgmma kernels'
+    (:func:`_rows`), or the last dim contiguous for the generic ones (a
+    copy only where the view is not)."""
+    if path == "wgmma":
+        return tuple(_rows(x) for x in xs)
+    return tuple(x if x.stride(-1) == 1 else x.contiguous() for x in xs)
 
 
 def flash_forward(q, k, v, causal: bool, scale: float, *,
                   drop_last_tile: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``flash_fwd`` on CUDA bf16 BTHD views: ``(out, lse)``.
-    ``drop_last_tile`` skips each row's last key tile: a wrong variant,
-    only for a negative control."""
-    _check_cuda(q, k, v, causal)
-    q, k, v = _rows(q), _rows(k), _rows(v)
+    """Launch the forward kernel of :func:`route`'s route on CUDA BTHD
+    views: ``(out, lse)``. ``drop_last_tile`` skips each row's last key
+    tile: a wrong variant, only for a negative control."""
+    path = _check_cuda(q, k, v, causal)
+    q, k, v = _views(path, q, k, v)
     b, tq, h, d = q.shape
     out = torch.empty(b, tq, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b * h, tq, dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _strides(q, k, v, out), b, h, tq, k.shape[1], d, int(causal),
-            scale, int(drop_last_tile))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            _strides(q, k, v, out), b, h, tq, k.shape[1], d, int(causal), scale)
+    if path == "generic":
+        args += (_DTYPE_CODE[q.dtype], 0)  # flash numerics (online softmax)
+    _launch("flash_fwd", path, q.device, *args, int(drop_last_tile))
     return out, lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float) -> torch.Tensor:
-    """Launch ``flash_bwd_dq`` on CUDA bf16 BTHD views: ``dq`` BTHD."""
-    _check_cuda(q, k, v, causal, do, (lse, delta))
-    q, k, v, do = _rows(q), _rows(k), _rows(v), _rows(do)
+    """Launch the dq kernel of :func:`route`'s route on CUDA BTHD views:
+    ``dq`` BTHD."""
+    path = _check_cuda(q, k, v, causal, do, (lse, delta))
+    q, k, v, do = _views(path, q, k, v, do)
     b, tq, h, d = q.shape
     dq = torch.empty(b, tq, h, d, dtype=q.dtype, device=q.device)
-    _launch("flash_bwd_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _strides(q, k, v, do, dq), b, h,
-            tq, k.shape[1], d, int(causal), scale)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), _strides(q, k, v, do, dq), b, h, tq, k.shape[1], d,
+            int(causal), scale)
+    if path == "generic":
+        args += (_DTYPE_CODE[q.dtype],)
+    _launch("flash_bwd_dq", path, q.device, *args)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``flash_bwd_dkv`` on CUDA bf16 BTHD views: ``(dk, dv)``
-    BTHD."""
-    _check_cuda(q, k, v, causal, do, (lse, delta))
-    q, k, v, do = _rows(q), _rows(k), _rows(v), _rows(do)
+    """Launch the dk/dv kernel of :func:`route`'s route on CUDA BTHD
+    views: ``(dk, dv)`` BTHD."""
+    path = _check_cuda(q, k, v, causal, do, (lse, delta))
+    q, k, v, do = _views(path, q, k, v, do)
     b, tq, h, d = q.shape
     tk = k.shape[1]
     dk = torch.empty(b, tk, h, d, dtype=k.dtype, device=q.device)
     dv = torch.empty(b, tk, h, d, dtype=v.dtype, device=q.device)
-    _launch("flash_bwd_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _strides(q, k, v, do, dk, dv), b, h, tq, tk, d, int(causal), scale)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do, dk, dv), b, h,
+            tq, tk, d, int(causal), scale)
+    if path == "generic":
+        args += (_DTYPE_CODE[q.dtype],)
+    _launch("flash_bwd_dkv", path, q.device, *args)
     return dk, dv
 
 
@@ -297,6 +367,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 __all__ = [
     "bind",
+    "call_generic",
     "flash_attention",
     "flash_backward",
     "flash_backward_plain",
@@ -307,6 +378,9 @@ __all__ = [
     "flash_delta",
     "flash_forward",
     "flash_forward_plain",
+    "generic_launches_by_op",
     "launches",
     "launches_by_op",
+    "launches_by_route",
+    "route",
 ]

@@ -11,16 +11,28 @@ packed ``dqkv`` (the JAX custom VJP ``_packed_fwd_rule`` /
 ``_packed_bwd_rule``). ViT's ``attn_impl="fused"`` calls it, and
 ``"auto"`` does on the card where :func:`supports` holds.
 
-On a CUDA tensor each step launches hand-written Hopper kernels of
-``csrc/flash_packed.cu`` (``fused_qkv_fwd``, ``fused_qkv_bwd``; each
-call counted once in :data:`launches` and :data:`launches_by_op`): bf16
-only, head dim 32, 64 or 128, T ≤ :data:`MAX_T`; anything else raises
-``NotImplementedError``. The backward is two kernels on one stream:
-dq, which also writes each row's ``m``, ``1/l`` and ``Δ`` to an f32
-scratch (:func:`backward_row_stats_plain` is its plain version), then
-dk/dv, which reads them. On a CPU tensor it runs the plain versions,
-:func:`fused_qkv_attention_plain` and
-:func:`fused_qkv_attention_backward_plain`; any other device raises.
+On a CUDA tensor each step launches hand-written Hopper kernels, on the
+route :func:`route` picks before any launch (each call counted once in
+:data:`launches`, :data:`launches_by_op` and :data:`launches_by_route`,
+a generic one also in :data:`generic_launches_by_op`). bf16 at head dim
+32, 64 or 128 takes ``csrc/flash_packed.cu`` (``"wgmma"``:
+``fused_qkv_fwd``, ``fused_qkv_bwd``); its backward is two kernels on
+one stream: dq, which also writes each row's ``m``, ``1/l`` and ``Δ`` to
+an f32 scratch (:func:`backward_row_stats_plain` is its plain version),
+then dk/dv, which reads them. f32 at any head dim up to 256, and bf16 at
+another head dim up to 256 (JAX's 16 or 256), take
+``csrc/flash_generic.cu`` (``"generic"``): its forward, with packed
+numerics (``p`` over the row's full max), reads q, k and v as strided
+column views of the projection and writes ``out`` as a ``[B, T, H, d]``
+view of ``[B, T, H·d]``, and also the rows' LSE, which the Function
+saves beside ``(qkv, out)``; the backward computes ``Δ`` as a torch op,
+then the generic dq and dk/dv kernels write into strided views of one
+``dqkv``: no reshape and no copy, as JAX's packed kernel. T past
+:data:`MAX_T`, f16 and head dims past 256 raise ``NotImplementedError``;
+neither route gives way to the other or to the plain version. On a CPU
+tensor it runs the plain versions, :func:`fused_qkv_attention_plain`
+and :func:`fused_qkv_attention_backward_plain`; any other device
+raises.
 
 Numerics (the JAX kernels' rounding points): scores ``f32(q·kᵀ)·scale``,
 masked entries (keys past T; later keys when causal) at the finite
@@ -38,19 +50,22 @@ from typing import Dict, Optional
 
 import torch
 
-from distributeddeeplearning_tpu_torch.ops import _build
+from distributeddeeplearning_tpu_torch.ops import _build, flash
 
 # Kernel launches since the last reset, in all and by kernel
 # (chip_smoke.py zeroes them before driving the training path and reads
 # them after).
 launches = 0
 launches_by_op: Dict[str, int] = {"fused_qkv_fwd": 0, "fused_qkv_bwd": 0}
+launches_by_route: Dict[str, int] = {"wgmma": 0, "generic": 0}
+generic_launches_by_op: Dict[str, int] = {"fused_qkv_fwd": 0, "fused_qkv_bwd": 0}
 
 MAX_T = 512  # the JAX kernel's whole-sequence limit (flash_packed.MAX_T)
 NEG_INF = -1e30  # the kernels' finite mask value
-HEAD_DIMS = (32, 64, 128)  # csrc/flash_packed.cu's instances
+HEAD_DIMS = (32, 64, 128)  # csrc/flash_packed.cu's instances (bf16)
 STATS_TILE = 128  # the backward's scratch pads T to whole 128-row blocks
 _LANES = 128
+_VMEM_BUDGET = 13 * 2 ** 20  # JAX's flash_packed._VMEM_BUDGET
 
 
 def heads_per_block(head_dim: int) -> int:
@@ -58,19 +73,43 @@ def heads_per_block(head_dim: int) -> int:
     return max(1, _LANES // head_dim)
 
 
+def _bwd_vmem_bytes(tp: int, width: int) -> int:
+    """JAX's backward VMEM estimate (``flash_packed._bwd_vmem_bytes`` at
+    one sample a block, bf16 blocks): 15 blocks of ``[tp, width]`` and
+    six ``[tp, tp]`` f32 score intermediates, with 30 % slack."""
+    return int(((5 * 2 + 2 + 3) * tp * width * 2 + 6 * tp * tp * 4) * 1.3)
+
+
 def supports(seq_len: int, num_heads: int, head_dim: int) -> bool:
-    """JAX's shape rule (``flash_packed.supports``), so that ``auto``
-    resolves as in JAX: T ≤ 512, whole 128-lane head groups
-    (``H % max(1, 128 // d) == 0``), d dividing 128 or a multiple of it;
-    and d one of the kernel's :data:`HEAD_DIMS`. JAX's VMEM term is
-    left out: its backward estimate stays under its budget for every
-    T ≤ 512 and d ≤ 256, so it never binds where the others hold."""
+    """JAX's shape rule (``flash_packed.supports``), term for term, so
+    that ``auto`` resolves as in JAX: T ≤ 512, whole 128-lane head groups
+    (``H % max(1, 128 // d) == 0``), d dividing 128 or a multiple of it,
+    and JAX's backward VMEM estimate within its budget. Where it holds
+    and d ≤ 256 the card has a kernel (:func:`route`)."""
+    hp = heads_per_block(head_dim)
     return (
         seq_len <= MAX_T
-        and num_heads % heads_per_block(head_dim) == 0
+        and num_heads % hp == 0
         and (head_dim % _LANES == 0 or _LANES % head_dim == 0)
-        and head_dim in HEAD_DIMS
+        and _bwd_vmem_bytes(-(-seq_len // 16) * 16, hp * head_dim) <= _VMEM_BUDGET
     )
+
+
+def route(dtype: torch.dtype, seq_len: int, head_dim: int) -> str:
+    """The kernel route of a CUDA call, from the dtype and shape alone:
+    ``"wgmma"`` (``csrc/flash_packed.cu``) for bf16 at :data:`HEAD_DIMS`,
+    ``"generic"`` (``csrc/flash_generic.cu``) for f32, or bf16 at another
+    head dim, up to 256; raises ``NotImplementedError`` naming what is
+    taken for anything else (T past :data:`MAX_T`, f16, head dims past
+    256)."""
+    if seq_len > MAX_T:
+        raise NotImplementedError(
+            f"the packed attention kernels take T <= {MAX_T}, got T={seq_len}")
+    if dtype not in (torch.bfloat16, torch.float32) or not 1 <= head_dim <= 256:
+        raise NotImplementedError(
+            f"the packed attention kernels take bf16 or f32 at head dims 1..256 on the card, "
+            f"got {dtype} at head dim {head_dim}")
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in HEAD_DIMS else "generic"
 
 
 def stats_rows(seq_len: int) -> int:
@@ -162,24 +201,21 @@ def _geometry(qkv: torch.Tensor, num_heads: int):
 
 
 def _check_cuda(qkv: torch.Tensor, num_heads: int, *rows: torch.Tensor):
-    """What the kernels take: contiguous bf16 ``qkv`` (and ``out``,
-    ``dout`` shaped ``[B, T, H·d]``) on one device, a head dim they are
-    built for and T ≤ MAX_T."""
+    """What the kernels take: contiguous ``qkv`` (and ``out``, ``dout``
+    shaped ``[B, T, H·d]``) of one dtype on one device, a dtype and shape
+    :func:`route` sends to a kernel. Returns ``(b, t, d, route)``."""
     b, t, d = _geometry(qkv, num_heads)
+    path = route(qkv.dtype, t, d)
     for x in (qkv,) + rows:
         if x.device != qkv.device:
             raise ValueError(f"tensors on {x.device} and {qkv.device}")
-        if x.dtype != torch.bfloat16:
+        if x.dtype != qkv.dtype:
             raise NotImplementedError(
-                f"the packed attention kernels take bf16 on the card, got {x.dtype}")
+                f"the packed attention kernels take one dtype, got {x.dtype} and {qkv.dtype}")
     for x in rows:
         if x.shape != (b, t, num_heads * d):
             raise ValueError(f"expected [{b}, {t}, {num_heads * d}], got {tuple(x.shape)}")
-    if d not in HEAD_DIMS or t > MAX_T:
-        raise NotImplementedError(
-            f"the packed attention kernels take head dims {HEAD_DIMS} and T <= {MAX_T}, "
-            f"got d={d}, T={t}")
-    return b, t, d
+    return b, t, d, path
 
 
 def _packed(x: torch.Tensor) -> torch.Tensor:
@@ -205,41 +241,87 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _launch(op: str, device: torch.device, *args) -> None:
-    """Call the C entry point ``op`` on ``device``'s current stream (the
-    stream autograd runs the backward on), raise on a launch error and
-    count the call (one, whatever kernels it launches)."""
+def _count(op: str, path: str) -> None:
     global launches
+    launches += 1
+    launches_by_op[op] += 1
+    launches_by_route[path] += 1
+    if path == "generic":
+        generic_launches_by_op[op] += 1
+
+
+def _launch(op: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``op`` of ``csrc/flash_packed.cu`` on
+    ``device``'s current stream (the stream autograd runs the backward
+    on), raise on a launch error and count the call (one, whatever
+    kernels it launches)."""
     fn = getattr(_library(), op)
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{op} launch failed: CUDA error {rc}")
-    launches += 1
-    launches_by_op[op] += 1
+    _count(op, "wgmma")
 
 
 def fused_qkv_forward(qkv: torch.Tensor, num_heads: int, causal: bool, scale: float, *,
-                      drop_last_tile: bool = False) -> torch.Tensor:
-    """Launch ``fused_qkv_fwd`` on a CUDA bf16 ``[B, T, 3·H·d]``: ``out
-    [B, T, H·d]``. ``drop_last_tile`` skips each 128-query block's last
-    key tile: a wrong variant, only for a negative control."""
-    b, t, d = _check_cuda(qkv, num_heads)
+                      drop_last_tile: bool = False, return_lse: bool = False):
+    """Launch the forward of :func:`route`'s route on a CUDA
+    ``[B, T, 3·H·d]``: ``out [B, T, H·d]`` (with ``return_lse``, ``(out,
+    lse)``: the rows' f32 ``[B·H, T]`` LSE on the generic route, which
+    its backward reads, and ``None`` on the wgmma route, whose backward
+    recomputes its statistics). ``drop_last_tile`` skips each row's (the
+    wgmma route: each 128-query block's) last key tile: a wrong variant,
+    only for a negative control."""
+    b, t, d, path = _check_cuda(qkv, num_heads)
     qkv = _packed(qkv)
     out = torch.empty(b, t, num_heads * d, dtype=qkv.dtype, device=qkv.device)
-    _launch("fused_qkv_fwd", qkv.device, qkv.data_ptr(), out.data_ptr(), b, t, num_heads, d,
-            int(causal), scale, int(drop_last_tile))
-    return out
+    lse = None
+    if path == "wgmma":
+        _launch("fused_qkv_fwd", qkv.device, qkv.data_ptr(), out.data_ptr(), b, t, num_heads, d,
+                int(causal), scale, int(drop_last_tile))
+    else:
+        q, k, v = _split(qkv, num_heads)
+        o4 = out.view(b, t, num_heads, d)
+        lse = torch.empty(b * num_heads, t, dtype=torch.float32, device=qkv.device)
+        flash.call_generic(
+            "flash_generic_fwd", qkv.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o4.data_ptr(), lse.data_ptr(), flash._strides(q, k, v, o4), b, num_heads, t, t, d,
+            int(causal), scale, flash._DTYPE_CODE[qkv.dtype], 1, int(drop_last_tile))
+        _count("fused_qkv_fwd", "generic")
+    return (out, lse) if return_lse else out
 
 
 def fused_qkv_backward(qkv: torch.Tensor, out: torch.Tensor, do: torch.Tensor, num_heads: int,
-                       causal: bool, scale: float, *, return_stats: bool = False):
-    """Launch ``fused_qkv_bwd`` on CUDA bf16 tensors: the packed ``dqkv
-    [B, T, 3·H·d]`` (and, with ``return_stats``, the rows < T of the
-    statistics scratch, ``[3, B·H, T]`` as :func:`backward_row_stats_plain`)."""
-    b, t, d = _check_cuda(qkv, num_heads, out, do)
+                       causal: bool, scale: float, *, lse: Optional[torch.Tensor] = None,
+                       return_stats: bool = False):
+    """Launch the backward of :func:`route`'s route on CUDA tensors: the
+    packed ``dqkv [B, T, 3·H·d]``. The generic route needs the forward's
+    ``lse``; the wgmma route recomputes its statistics and, with
+    ``return_stats``, also returns the rows < T of its statistics
+    scratch, ``[3, B·H, T]`` as :func:`backward_row_stats_plain`."""
+    b, t, d, path = _check_cuda(qkv, num_heads, out, do)
     qkv, out, do = _packed(qkv), _packed(out), _packed(do)
     dqkv = torch.empty_like(qkv)
+    if path == "generic":
+        if return_stats:
+            raise ValueError("return_stats reads the wgmma route's statistics scratch")
+        if lse is None or lse.shape != (b * num_heads, t) or lse.dtype != torch.float32:
+            raise ValueError(f"the generic route's backward needs the forward's f32 LSE "
+                             f"[{b * num_heads}, {t}]")
+        q, k, v = _split(qkv, num_heads)
+        dq, dk, dv = _split(dqkv, num_heads)
+        o4, do4 = out.view(b, t, num_heads, d), do.view(b, t, num_heads, d)
+        delta = flash.flash_delta(o4, do4)
+        lse = lse.contiguous()
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do4.data_ptr(), lse.data_ptr(),
+                delta.data_ptr())
+        dims = (b, num_heads, t, t, d, int(causal), scale, flash._DTYPE_CODE[qkv.dtype])
+        flash.call_generic("flash_generic_bwd_dq", qkv.device, *ptrs, dq.data_ptr(),
+                           flash._strides(q, k, v, do4, dq), *dims)
+        flash.call_generic("flash_generic_bwd_dkv", qkv.device, *ptrs, dk.data_ptr(),
+                           dv.data_ptr(), flash._strides(q, k, v, do4, dk, dv), *dims)
+        _count("fused_qkv_bwd", "generic")
+        return dqkv
     stats = torch.empty(3, b * num_heads, stats_rows(t), dtype=torch.float32, device=qkv.device)
     _launch("fused_qkv_bwd", qkv.device, qkv.data_ptr(), out.data_ptr(), do.data_ptr(),
             dqkv.data_ptr(), stats.data_ptr(), b, t, num_heads, d, int(causal), scale)
@@ -255,22 +337,25 @@ def _on_cpu(x: torch.Tensor) -> bool:
 class _FusedQKVAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, num_heads, causal, scale):
+        lse = None
         if _on_cpu(qkv):
             out = fused_qkv_attention_plain(qkv, num_heads, causal, scale)
         else:
-            out = fused_qkv_forward(qkv, num_heads, causal, scale)
-        ctx.save_for_backward(qkv, out)
+            out, lse = fused_qkv_forward(qkv, num_heads, causal, scale, return_lse=True)
+        # The generic route's backward reads the forward's LSE ([B·H, T]
+        # f32); the wgmma route's recomputes its statistics (lse None).
+        ctx.save_for_backward(qkv, out, lse)
         ctx.num_heads, ctx.causal, ctx.scale = num_heads, causal, scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        qkv, out = ctx.saved_tensors
+        qkv, out, lse = ctx.saved_tensors
         args = (ctx.num_heads, ctx.causal, ctx.scale)
         if _on_cpu(qkv):
             dqkv = fused_qkv_attention_backward_plain(qkv, out, do, *args)
         else:
-            dqkv = fused_qkv_backward(qkv, out, do, *args)
+            dqkv = fused_qkv_backward(qkv, out, do, *args, lse=lse)
         return dqkv, None, None, None
 
 
@@ -284,7 +369,7 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int, *, causal: bool = Fal
     if not supports(t, num_heads, d):
         raise ValueError(
             f"unsupported shape for packed attention: T={t}, H={num_heads}, d={d} "
-            f"(need T <= {MAX_T}, whole 128-lane head groups, d in {HEAD_DIMS})")
+            f"(need T <= {MAX_T}, whole 128-lane head groups)")
     scale = float(scale) if scale is not None else d ** -0.5
     return _FusedQKVAttention.apply(qkv, num_heads, bool(causal), scale)
 
@@ -298,8 +383,11 @@ __all__ = [
     "fused_qkv_attention_plain",
     "fused_qkv_backward",
     "fused_qkv_forward",
+    "generic_launches_by_op",
     "launches",
     "launches_by_op",
+    "launches_by_route",
+    "route",
     "stats_rows",
     "supports",
 ]

@@ -13,11 +13,16 @@
 port's ResNet keeps it (``models/resnet.py``), so no transpose runs per
 call. On a CUDA tensor the forward launches the hand-written kernel
 ``csrc/fused_block.cu`` (bf16, TMA and wgmma, persistent, one launch a
-call under :func:`plan_for`; counted in :data:`launches`) or raises; on
-a CPU tensor it runs the plain version (``*_plain``), the same math in
-plain PyTorch; any other device raises. :func:`plan` is the kernel's
-plan (``csrc/fused_block_plan.h``) built for the host, :func:`walk` its
-blocks' items.
+call under :func:`plan_for`; bf16 at K a multiple of 32 and N of 64) or,
+for f32 operands at any K and N, ``csrc/fused_block_f32.cu`` (f32 FMA,
+one launch a call under :func:`f32_plan`), on the route :func:`route`
+picks before any launch; each launch is counted in :data:`launches`,
+:data:`launches_by_op` and :data:`launches_by_route`. Anything else
+raises: neither route gives way to the other or to the plain version.
+On a CPU tensor it runs the plain version (``*_plain``), the same math
+in plain PyTorch; any other device raises. :func:`plan` is the TMA
+kernel's plan (``csrc/fused_block_plan.h``) built for the host,
+:func:`walk` its blocks' items.
 
 Each op is a ``torch.autograd.Function`` whose backward is the JAX
 package's custom VJP line for line (``_matmul_stats_bwd``,
@@ -42,6 +47,7 @@ from distributeddeeplearning_tpu_torch.ops._counters import counters as _counter
 # reads them after).
 launches = 0
 launches_by_op: Dict[str, int] = {"matmul_stats": 0, "bn_relu_matmul_stats": 0}
+launches_by_route: Dict[str, int] = {"tma": 0, "f32": 0}
 
 _K_STEP = 32  # K a multiple of this (the kernel zero-fills its 64-column K box)
 _N_STEP = 64  # the kernel's narrowest column panel
@@ -52,6 +58,40 @@ _PLAN_FIELDS = ("panel", "panels", "box_k", "kblocks", "stages", "row_tiles", "i
                 "transforms_per_element", "stat_depth", "smem", "part_floats", "counters",
                 "per_sm")
 _card_plans: Dict[tuple, dict] = {}
+
+# csrc/fused_block_f32.cu's items: 128 rows x one 64-column panel.
+_F32_ROWS, _F32_COLS = 128, 64
+_F32_BLOCKS_PER_SM = 4
+
+
+def route(dtype: torch.dtype, k: int, n: int) -> str:
+    """The kernel route of a CUDA call, from the dtype and shape alone:
+    ``"tma"`` (``csrc/fused_block.cu``) for bf16 with K a multiple of 32
+    and N of 64, ``"f32"`` (``csrc/fused_block_f32.cu``) for f32 at any
+    K, N >= 1; raises ``ValueError`` naming what is taken for anything
+    else (f16; bf16 at another K or N)."""
+    if dtype == torch.float32 and k >= 1 and n >= 1:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the kernels take bf16 or f32 operands, got {dtype}")
+    if k < _K_STEP or k % _K_STEP or n < _N_STEP or n % _N_STEP:
+        raise ValueError(
+            f"the bf16 kernel takes K % {_K_STEP} == 0 and N % {_N_STEP} == 0, got K={k} N={n}")
+    return "tma"
+
+
+def f32_plan(m: int, n: int, sm_count: int = 132) -> dict:
+    """How ``csrc/fused_block_f32.cu`` cuts a call, from shapes alone:
+    ``panels`` of 64 columns, each walked by ``groups`` blocks (block g
+    takes row tiles g, g + groups, ... of 128 rows; about four blocks an
+    SM in all, at most one a row tile), whose per-column partials
+    (``part_floats`` of scratch) the panel's last block sums in group
+    order."""
+    panels = -(-n // _F32_COLS)
+    tiles = -(-m // _F32_ROWS)
+    groups = max(1, min(tiles, -(-_F32_BLOCKS_PER_SM * sm_count // panels)))
+    return {"panels": panels, "groups": groups, "tiles": tiles,
+            "part_floats": panels * groups * 2 * _F32_COLS}
 
 
 def _affine_rows(mean, var, scale, bias, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -157,19 +197,16 @@ def plan_for(a: torch.Tensor, w: torch.Tensor, bn_relu: bool) -> dict:
 
 
 def _launch(a, w, bn, op: str, drop_last_partial: bool = False):
-    """Run the CUDA kernel: ``(y, Σy, Σy²)``. ``bn``: ``None``, or the
-    prologue's ``(mean, var, scale, bias, eps)``, which the kernel folds
-    into its affine itself (as :func:`_affine_rows`)."""
+    """Run the CUDA kernel of :func:`route`'s route: ``(y, Σy, Σy²)``.
+    ``bn``: ``None``, or the prologue's ``(mean, var, scale, bias, eps)``,
+    which the kernel folds into its affine itself (as
+    :func:`_affine_rows`)."""
     _check(a, w)
     m, k = a.shape
     n = w.shape[0]
-    if a.dtype != torch.bfloat16:
-        raise ValueError(f"the kernel takes bf16 operands, got {a.dtype}")
-    if m < 1 or k % _K_STEP or n % _N_STEP:
-        raise ValueError(
-            f"the kernel takes M >= 1, K % {_K_STEP} == 0 and N % {_N_STEP} == 0, "
-            f"got M={m} K={k} N={n}"
-        )
+    if m < 1:
+        raise ValueError(f"the kernels take M >= 1, got M={m}")
+    path = route(a.dtype, k, n)
     stats_in = [] if bn is None else [x.float().contiguous() for x in bn[:4]]
     if any(x.shape != (k,) for x in stats_in):
         raise ValueError(f"the prologue's statistics must be [K] = [{k}] each")
@@ -181,27 +218,40 @@ def _launch(a, w, bn, op: str, drop_last_partial: bool = False):
     for x in (a, w):
         if x.data_ptr() % 16:
             raise ValueError("kernel operands must be 16-byte aligned")
-    p = plan_for(a, w, bn is not None)
-    if drop_last_partial and p["blocks_per_panel"] < 2:
-        raise ValueError(f"drop_last_partial needs a plan of several blocks a panel, got {p}")
+    if path == "f32":
+        p = f32_plan(m, n, torch.cuda.get_device_properties(a.device).multi_processor_count)
+        splits, n_counters = p["groups"], p["panels"]
+    else:
+        p = plan_for(a, w, bn is not None)
+        splits, n_counters = p["blocks_per_panel"], p["counters"]
+    if drop_last_partial and splits < 2:
+        raise ValueError(f"drop_last_partial needs a plan of several partials a panel, got {p}")
     y = torch.empty(m, n, dtype=a.dtype, device=a.device)
     stats = torch.empty(2, n, dtype=torch.float32, device=a.device)
     part = torch.empty(p["part_floats"], dtype=torch.float32, device=a.device)
     ptrs = [x.data_ptr() for x in stats_in] or [None] * 4
+    eps = float(bn[4]) if bn is not None else 0.0
+    outs = (y.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), part.data_ptr())
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        counters = _counters(a.device, stream, p["counters"])
-        rc = _library().fused_block_matmul_stats(
-            a.data_ptr(), w.data_ptr(), *ptrs, float(bn[4]) if bn is not None else 0.0,
-            y.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), part.data_ptr(),
-            part.numel(), counters.data_ptr(), counters.numel(), m, k, n, int(bn is not None),
-            int(drop_last_partial), stream,
-        )
+        counters = _counters(a.device, stream, n_counters)
+        if path == "f32":
+            entry = "fused_block_f32_matmul_stats"
+            rc = _f32_library().fused_block_f32_matmul_stats(
+                a.data_ptr(), w.data_ptr(), *ptrs, eps, *outs, counters.data_ptr(), m, k, n,
+                p["groups"], int(bn is not None), int(drop_last_partial), stream)
+        else:
+            entry = "fused_block_matmul_stats"
+            rc = _library().fused_block_matmul_stats(
+                a.data_ptr(), w.data_ptr(), *ptrs, eps, *outs, part.numel(),
+                counters.data_ptr(), counters.numel(), m, k, n, int(bn is not None),
+                int(drop_last_partial), stream)
     if rc != 0:
-        raise RuntimeError(f"fused_block_matmul_stats launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     global launches
     launches += 1
     launches_by_op[op] += 1
+    launches_by_route[path] += 1
     return y, stats[0], stats[1]
 
 
@@ -214,6 +264,15 @@ def _forward(a, w, bn, op: str, drop_last_partial: bool = False):
     if a.device.type != "cuda":
         raise ValueError(f"{op}: unsupported device {a.device}")
     return _launch(a, w, bn, op, drop_last_partial)
+
+
+def _f32_library() -> ctypes.CDLL:
+    lib = _build.load("fused_block_f32")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # Pointers as c_void_p: without argtypes ctypes would pass 32 bits.
+    lib.fused_block_f32_matmul_stats.argtypes = [p] * 6 + [ctypes.c_float] + [p] * 5 + [i] * 6 + [p]
+    lib.fused_block_f32_matmul_stats.restype = i
+    return lib
 
 
 def _library() -> ctypes.CDLL:
@@ -312,11 +371,14 @@ def bn_relu_matmul_stats(a, mean, var, scale, bias, w, eps: float = 1e-5, *,
 __all__ = [
     "bn_relu_matmul_stats",
     "bn_relu_matmul_stats_plain",
+    "f32_plan",
     "launches",
     "launches_by_op",
+    "launches_by_route",
     "matmul_stats",
     "matmul_stats_plain",
     "plan",
     "plan_for",
+    "route",
     "walk",
 ]

@@ -44,7 +44,7 @@ _NEG_INIT = -1e30  # the online softmax's running-max init
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 # Quantized storage dtypes -> (C entry's store code, launch-count key).
 _STORE_CODE = {torch.int8: (1, "int8"), torch.float8_e4m3fn: (2, "fp8")}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 96, 128)
 
 
 def _check_args(q, k_cache, v_cache, q_pos, block_table, block_size,
@@ -154,7 +154,7 @@ def fused_decode_attention_plain(
 # rows per tile by compute dtype, and the shared memory a block may use.
 _CHUNK = 16
 _CONSUMER_WARPS = 12
-_HEADS_PER_WARP = {32: 2, 64: 1, 128: 1}
+_HEADS_PER_WARP = {32: 2, 64: 1, 96: 1, 128: 1}
 _MAX_SMEM = 232_448  # dynamic shared memory of one block (227 KB)
 _SM_SMEM = 233_472  # one SM's shared memory (228 KB); each block reserves 1 KB
 _MAX_CHUNKS_PER_SPLIT = 8  # at most 128 keys a block
@@ -279,7 +279,7 @@ def fused_decode_attention(
     CPU tensors run :func:`fused_decode_attention_plain`. CUDA tensors
     launch ``csrc/paged_decode.cu`` on the current stream under
     :func:`split_plan` (bf16 or f32 q; caches in q's dtype, or int8 /
-    fp8 e4m3 with f32 scales; head_dim 32/64/128) and raise on anything
+    fp8 e4m3 with f32 scales; head_dim 32/64/96/128) and raise on anything
     the kernel does not take. The merge's counters are kept per (device,
     stream): calls on one stream run in order, and calls on two streams
     never share a buffer. Returns ``[B, t, H, d]`` in ``q.dtype``.

@@ -40,7 +40,7 @@ machine that has only PyTorch for CUDA:
   a trash block of large finite codes) against its plain version, with
   chip_smoke's ``bf16_tolerance``, and a scales-of-1 control that must
   miss it; a sweep over t ∈ {1, 5, 16, 17}, L ∈ {48, 2048}, d ∈ {32, 64,
-  128}, bf16 / f32 / int8 / fp8 stores, dense and paged (rows live to 1,
+  96, 128}, bf16 / f32 / int8 / fp8 stores, dense and paged (rows live to 1,
   16, 17 and L positions; kv_len below L with NaN past it; kv_len 0 and
   all-negative query positions, which give zeros), each call one launch
   and repeated bit for bit; and the dropped-split control;
@@ -522,7 +522,7 @@ DECODE_STORES = ("bf16", "f32", "int8", "fp8")
 @pytest.mark.cuda
 @pytest.mark.parametrize("store", DECODE_STORES)
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 def test_cuda_decode_kernel_sweep(store, paged, d):
     """The decode kernel against its plain version (f32, on the same
     inputs and codes) within chip_smoke's bf16_tolerance, at t in {1, 5,
@@ -907,3 +907,257 @@ def test_cuda_two_rank_expert_parallel_world(tmp_path):
     got = chip_smoke.mesh_phase(chip_smoke.device_line(), scenarios=(sc,), tmp=str(tmp_path),
                                 size=size)
     assert got["pjit_ep"]["flash_fwd"] == 8 and got["pjit_ep"]["flash_bwd_dkv"] == 8
+
+
+def _generic_flash_check(b, h, tq, tk, d, causal, dtype, seed=0):
+    """The generic flash kernels (``csrc/flash_generic.cu``) against their
+    plain versions with chip_smoke's limits for the dtype
+    (``_generic_limits``, ``flash_lse_limit``): every launch counted on
+    the generic route and none on the wgmma route, the backward run twice
+    with equal bits, and where Tq == Tk q, k and v are strided views of a
+    packed [B, T, 3, H, d] projection."""
+    import chip_smoke as cs
+    from distributeddeeplearning_tpu_torch.ops import flash as fl
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    if tq == tk:
+        q, k, v = randn(b, tq, 3, h, d).unbind(2)
+    else:
+        q, k, v = randn(b, tq, h, d), randn(b, tk, h, d), randn(b, tk, h, d)
+    do = randn(b, tq, h, d)
+    sc = d ** -0.5
+    before = dict(fl.generic_launches_by_op)
+    wgmma = fl.launches_by_route["wgmma"]
+    out, lse = fl.flash_forward(q, k, v, causal, sc)
+    delta = fl.flash_delta(out, do)
+    dq = fl.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc)
+    dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, causal, sc)
+    dq2 = fl.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc)
+    dk2, dv2 = fl.flash_bwd_dkv(q, k, v, do, lse, delta, causal, sc)
+    torch.cuda.synchronize()
+    assert {op: fl.generic_launches_by_op[op] - before[op] for op in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert fl.launches_by_route["wgmma"] == wgmma
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert out.dtype == dtype and dq.dtype == dtype
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    ref_o, ref_lse = fl.flash_forward_plain(qf, kf, vf, causal, sc)
+    ref_dq = fl.flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, causal, sc)
+    ref_dk, ref_dv = fl.flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, causal, sc)
+    limit, (t_o, t_dq, t_dk, t_dv) = cs._generic_limits(q, k, v, out, do, lse, delta, causal, sc)
+    assert ((lse - ref_lse).abs() <= cs.flash_lse_limit(q, k, ref_lse, sc)).all()
+    for what, got, ref, terms in (("O", out, ref_o, t_o), ("dQ", dq, ref_dq, t_dq),
+                                  ("dK", dk, ref_dk, t_dk), ("dV", dv, ref_dv, t_dv)):
+        ratio = cs._ratio(got, ref, limit(ref, terms))[1]
+        assert ratio <= 1.0, (what, ratio)
+
+
+# (Tq, Tk, d, causal, dtype): f32 at head dims on both sides of each
+# padded width (64, 128, 256), bf16 at the head dims the wgmma kernels do
+# not take; T of one row, ragged tiles and two tiles; cross lengths.
+GENERIC_FLASH_SHAPES = (
+    [(t, t, d, c, torch.float32) for t in (1, 65, 129) for d in (8, 64, 80, 128, 200, 256)
+     for c in (False, True)]
+    + [(t, t, d, c, torch.bfloat16) for t in (65, 129) for d in (16, 48, 80, 256)
+       for c in (False, True)]
+    + [(100, 300, 64, False, torch.float32), (300, 100, 80, False, torch.bfloat16)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk,d,causal,dtype", GENERIC_FLASH_SHAPES,
+                         ids=[f"q{tq}-k{tk}-d{d}-{str(dt)[6:]}" + ("-causal" if c else "")
+                              for tq, tk, d, c, dt in GENERIC_FLASH_SHAPES])
+def test_cuda_generic_flash_matches_plain(tq, tk, d, causal, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the generic flash kernels are CUDA C++ for sm_90a")
+    _generic_flash_check(2, 3, tq, tk, d, causal, dtype, seed=tq + d)
+
+
+@pytest.mark.cuda
+def test_cuda_generic_flash_autograd_and_control():
+    """f32 flash attention through autograd on views of a packed qkv
+    takes the generic route (one launch of each kernel) and equals the
+    same call on contiguous copies; the dropped-tile variant misses the
+    O limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the generic flash kernels are CUDA C++ for sm_90a")
+    import chip_smoke as cs
+    from distributeddeeplearning_tpu_torch.ops import flash as fl
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    qkv = torch.randn(2, 300, 3, 4, 80, device="cuda", generator=g)
+    do = torch.randn(2, 300, 4, 80, device="cuda", generator=g)
+    packed = qkv.clone().requires_grad_()
+    before = dict(fl.generic_launches_by_op)
+    out = fl.flash_attention(*packed.unbind(2), causal=True)
+    (grad,) = torch.autograd.grad(out, packed, do)
+    assert {op: fl.generic_launches_by_op[op] - before[op] for op in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    parts = [x.contiguous().requires_grad_() for x in qkv.unbind(2)]
+    ref = fl.flash_attention(*parts, causal=True)
+    assert torch.equal(out, ref)
+    assert torch.equal(grad, torch.stack(torch.autograd.grad(ref, parts, do), dim=2))
+    q, k, v = (x.contiguous() for x in qkv.unbind(2))
+    ref_o, ref_lse = fl.flash_forward_plain(q, k, v, True, 80 ** -0.5)
+    bad, _ = fl.flash_forward(q, k, v, True, 80 ** -0.5, drop_last_tile=True)
+    lim = cs.flash_f32_limit(ref_o, torch.ones_like(ref_o), 300 + 80)
+    assert ((bad - ref_o).abs() / lim).max().item() > 1.0
+
+
+# (T, d, causal, dtype): packed attention's generic route.
+PACKED_GENERIC_SHAPES = [(t, d, c, dt) for t, d, dt in (
+    (197, 64, torch.float32), (65, 16, torch.bfloat16), (257, 256, torch.bfloat16),
+    (512, 32, torch.float32), (100, 128, torch.float32), (1, 64, torch.float32))
+    for c in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,causal,dtype", PACKED_GENERIC_SHAPES,
+                         ids=[f"t{t}-d{d}-{str(dt)[6:]}" + ("-causal" if c else "")
+                              for t, d, c, dt in PACKED_GENERIC_SHAPES])
+def test_cuda_packed_generic_matches_plain(t, d, causal, dtype):
+    """``fused_qkv_forward`` / ``fused_qkv_backward`` on the generic
+    route (B 2, H 128 // d or 1, at least 2) against the plain versions
+    with chip_smoke's limits, the forward's LSE, the backward twice with
+    equal bits, one call of each counted on the generic route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the generic kernels are CUDA C++ for sm_90a")
+    import chip_smoke as cs
+    from distributeddeeplearning_tpu_torch.ops import flash as fl
+    from distributeddeeplearning_tpu_torch.ops import flash_packed as fp
+
+    b, h = 2, max(2, 128 // d)
+    g = torch.Generator(device="cuda").manual_seed(t + d)
+    qkv = torch.randn(b, t, 3 * h * d, device="cuda", generator=g).to(dtype)
+    do = torch.randn(b, t, h * d, device="cuda", generator=g).to(dtype)
+    sc = d ** -0.5
+    before = dict(fp.generic_launches_by_op)
+    out, lse = fp.fused_qkv_forward(qkv, h, causal, sc, return_lse=True)
+    dqkv = fp.fused_qkv_backward(qkv, out, do, h, causal, sc, lse=lse)
+    again = fp.fused_qkv_backward(qkv, out, do, h, causal, sc, lse=lse)
+    torch.cuda.synchronize()
+    assert {op: fp.generic_launches_by_op[op] - before[op] for op in before} == {
+        "fused_qkv_fwd": 1, "fused_qkv_bwd": 2}
+    assert torch.equal(dqkv, again)
+    ref_o = fp.fused_qkv_attention_plain(qkv.float(), h, causal, sc).view(b, t, h, d)
+    ref_d = fp.fused_qkv_attention_backward_plain(qkv.float(), out.float(), do.float(), h,
+                                                  causal, sc).view(b, t, 3, h, d)
+    q, k, v = qkv.view(b, t, 3, h, d).unbind(2)
+    o4, do4 = out.view(b, t, h, d), do.view(b, t, h, d)
+    ref_lse = fl.flash_forward_plain(q.float(), k.float(), v.float(), causal, sc)[1]
+    assert ((lse - ref_lse).abs() <= cs.flash_lse_limit(q, k, ref_lse, sc)).all()
+    limit, terms = cs._generic_limits(q, k, v, o4, do4, lse, fl.flash_delta(o4, do4), causal, sc)
+    assert cs._ratio(o4, ref_o, limit(ref_o, terms[0]))[1] <= 1.0
+    parts = dqkv.view(b, t, 3, h, d)
+    for i, what in enumerate(("dQ", "dK", "dV")):
+        ratio = cs._ratio(parts[:, :, i], ref_d[:, :, i], limit(ref_d[:, :, i], terms[i + 1]))[1]
+        assert ratio <= 1.0, (what, ratio)
+
+
+@pytest.mark.cuda
+def test_cuda_packed_generic_autograd_and_auto():
+    """f32 ViT attention: ``attn_impl="auto"`` resolves to the packed
+    kernel on the card, whose Function runs the generic route (one
+    forward, one backward call) and equals the two launchers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the generic kernels are CUDA C++ for sm_90a")
+    from distributeddeeplearning_tpu_torch.models.vit import Attention
+    from distributeddeeplearning_tpu_torch.ops import flash_packed as fp
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.randn(2, 197, 3 * 4 * 64, device="cuda", generator=g)
+    do = torch.randn(2, 197, 4 * 64, device="cuda", generator=g)
+    x = qkv.clone().requires_grad_()
+    before = dict(fp.generic_launches_by_op)
+    out = fp.fused_qkv_attention(x, 4)
+    (grad,) = torch.autograd.grad(out, x, do)
+    assert {op: fp.generic_launches_by_op[op] - before[op] for op in before} == {
+        "fused_qkv_fwd": 1, "fused_qkv_bwd": 1}
+    ref, lse = fp.fused_qkv_forward(qkv, 4, False, 64 ** -0.5, return_lse=True)
+    assert torch.equal(out, ref)
+    assert torch.equal(grad, fp.fused_qkv_backward(qkv, ref, do, 4, False, 64 ** -0.5, lse=lse))
+    attn = Attention(256, 4, torch.float32, device="cuda", attn_impl="auto")
+    before = fp.generic_launches_by_op["fused_qkv_fwd"]
+    with torch.no_grad():
+        attn(torch.randn(2, 197, 256, device="cuda", generator=g))
+    assert fp.generic_launches_by_op["fused_qkv_fwd"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["matmul_stats", "bn_relu_matmul_stats"])
+@pytest.mark.parametrize("m", [1, 127, 129, 3_213])
+def test_cuda_f32_fused_block_sweep(op, m):
+    """The f32 kernel (``csrc/fused_block_f32.cu``) at M rows over K ∈ {1,
+    3, 64, 100} and N ∈ {1, 5, 64, 130} (shapes the bf16 kernel refuses)
+    against the plain version: y within chip_smoke's ``fb_f32_y_limit``,
+    the statistics within ``fb_stats_limit`` at ``f32_fb_depth``, a
+    second call equal bit for bit, one launch a call on the f32 route.
+    The prologue's shift is positive, so rows past M and K past its end
+    would not be zero if they were read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ for sm_90a")
+    import chip_smoke as cs
+
+    g = torch.Generator(device="cuda").manual_seed(m)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for k in (1, 3, 64, 100):
+        a = torch.randn(m, k, device="cuda", generator=g)
+        mean = 0.1 * torch.randn(k, device="cuda", generator=g)
+        var = 1.0 + torch.rand(k, device="cuda", generator=g)
+        scale = 1.0 + 0.1 * torch.randn(k, device="cuda", generator=g)
+        bias = 0.5 + 0.1 * torch.rand(k, device="cuda", generator=g)
+        for n in (1, 5, 64, 130):
+            w = torch.randn(n, k, device="cuda", generator=g) * k ** -0.5
+            before = fb.launches_by_route["f32"]
+            if op == "matmul_stats":
+                outs = [fb.matmul_stats(a, w) for _ in range(2)]
+                z = a
+            else:
+                outs = [fb.bn_relu_matmul_stats(a, mean, var, scale, bias, w) for _ in range(2)]
+                inv = torch.rsqrt(var + 1e-5) * scale
+                z = torch.relu(a * inv + (bias - mean * inv))
+            torch.cuda.synchronize()
+            assert fb.launches_by_route["f32"] == before + 2
+            (y, s, ss), (y2, s2, ss2) = outs
+            assert torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(ss, ss2), (k, n)
+            ref = fb.matmul_stats_plain(z, w)[0]
+            lim = cs.fb_f32_y_limit(z.abs() @ w.abs().t(), k)
+            assert ((y - ref).abs() <= lim).all(), (k, n)
+            assert cs._fb_stats_ratio(s, ss, y, cs.f32_fb_depth(fb, m, n, sms)) <= 1.0, (k, n)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_fused_block_autograd_and_control():
+    """An f32 ``bn_relu_matmul_stats`` through autograd launches the f32
+    kernel once and returns the gradients of the plain version's (the
+    backward is torch in both); leaving each panel's last group out of
+    the statistics misses their limit more than tenfold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ for sm_90a")
+    import chip_smoke as cs
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    m, k, n = 12_544, 64, 256
+    a = torch.randn(m, k, device="cuda", generator=g)
+    stats = [a.mean(0), a.var(0, unbiased=False), 1.0 + 0.1 * torch.randn(k, device="cuda",
+                                                                          generator=g),
+             0.1 * torch.randn(k, device="cuda", generator=g)]
+    w = torch.randn(n, k, device="cuda", generator=g) * 0.1
+    leaves = [x.clone().requires_grad_() for x in [a, *stats, w]]
+    before = fb.launches_by_route["f32"]
+    y, s, ss = fb.bn_relu_matmul_stats(*leaves)
+    grads = torch.autograd.grad((y.sum(), s.sum(), ss.sum()), leaves)
+    assert fb.launches_by_route["f32"] == before + 1
+    cpu = [x.detach().cpu().requires_grad_() for x in leaves]
+    yc, sc_, ssc = fb.bn_relu_matmul_stats(*cpu)
+    want = torch.autograd.grad((yc.sum(), sc_.sum(), ssc.sum()), cpu)
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fb.f32_plan(m, n, sms)["groups"] >= 2
+    yb, sb, ssb = fb.bn_relu_matmul_stats(a, *stats, w, drop_last_partial=True)
+    assert cs._fb_stats_ratio(sb, ssb, yb, cs.f32_fb_depth(fb, m, n, sms)) > 10

@@ -12,8 +12,8 @@ CPU, as its own tests run them) on the same numpy inputs.
   tolerance of the JAX package's own kernel-against-scan test;
 * ``torch.autograd.grad`` through ``flash_attention`` against the
   port's ``xla`` attention, f32, atol 1e-4;
-* the wrapper's checks: BTHD only, causal needs equal lengths, and the
-  card path's dtype and head-dim limits, which raise
+* the wrapper's checks: BTHD only, causal needs equal lengths, and what
+  no card route takes (f16, head dims past 256), which raises
   ``NotImplementedError`` instead of running the plain version.
 
 The CUDA kernels are held to their plain versions on the card in
@@ -150,12 +150,14 @@ def test_launchers_reject_misaligned_rows():
             flash.flash_bwd_dq(xb, xb, xb, xb, lse, delta, False, 1.0)
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float16, 64),
-                                     (torch.bfloat16, 48), (torch.bfloat16, 256)])
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.float16, 80),
+                                     (torch.bfloat16, 320), (torch.float32, 384)])
 def test_card_path_raises_on_unsupported_dtype_or_head_dim(dtype, d):
-    """The launchers check dtype and head dim before touching the card:
-    bf16 only, head dims 32/64/96/128; anything else raises instead of
-    running the plain version."""
+    """The launchers route by dtype and head dim before touching the
+    card (``flash.route``: bf16 at 32/64/96/128 to the wgmma kernels, f32
+    and other bf16 head dims up to 256 to the generic ones); what no
+    kernel takes, f16 and head dims past 256, raises instead of running
+    the plain version."""
     x = torch.zeros(1, 8, 2, d, dtype=dtype)
     with pytest.raises(NotImplementedError):
         flash.flash_forward(x, x, x, False, 1.0)

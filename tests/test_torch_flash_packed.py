@@ -29,11 +29,12 @@ inputs.
   sums of magnitude ≤ 13). Measured: 1.7e-6, 1.3e-6 and 1.3e-6; and
   ``stats_rows`` (T rounded up to 128);
 * ``supports`` equals JAX's over d ∈ {32, 64, 80, 128}, H ∈ {1, 2, 3, 6,
-  12}, T ∈ {17, 197, 512, 513};
+  12}, T ∈ {17, 197, 512, 513} (wider grids, with JAX's VMEM term:
+  ``test_torch_kernel_inputs.py``);
 * autograd through ``fused_qkv_attention`` on the CPU runs the plain
-  versions and launches nothing; the wrapper's checks, and the card
-  path's dtype and head-dim limits, which raise ``NotImplementedError``
-  instead of running the plain version.
+  versions and launches nothing; the wrapper's checks, and what no card
+  route takes (f16, head dims past 256, T past 512), which raises
+  ``NotImplementedError`` instead of running the plain version.
 
 The CUDA kernels are held to their plain versions on the card in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -158,11 +159,13 @@ def test_validation():
         fp.fused_qkv_attention(x.to("meta"), 2)
 
 
-@pytest.mark.parametrize("dtype,d,t", [(torch.float32, 64, 8), (torch.float16, 64, 8),
-                                       (torch.bfloat16, 16, 8), (torch.bfloat16, 64, 600)])
+@pytest.mark.parametrize("dtype,d,t", [(torch.float32, 64, 600), (torch.float16, 64, 8),
+                                       (torch.bfloat16, 384, 8), (torch.bfloat16, 64, 600)])
 def test_card_path_raises_on_what_the_kernels_do_not_take(dtype, d, t):
-    """The launchers check dtype, head dim and T before touching the
-    card: bf16 only, head dims 32/64/128, T <= 512; anything else raises
+    """The launchers route by dtype, head dim and T before touching the
+    card (``flash_packed.route``: bf16 at 32/64/128 to the wgmma kernels,
+    f32 and other bf16 head dims up to 256 to the generic ones, T <= 512);
+    what no kernel takes, f16, head dims past 256 and T past 512, raises
     instead of running the plain version."""
     qkv = torch.zeros(1, t, 3 * 2 * d, dtype=dtype)
     rows = torch.zeros(1, t, 2 * d, dtype=dtype)

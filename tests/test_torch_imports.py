@@ -17,8 +17,11 @@ twins, nor the mesh engines (``parallel.mesh``, ``parallel.ring_attention``,
 nor ``scripts/fleet_fairness_trace.py``, nor the expert-parallel path
 (``config``, ``models.moe``, the pjit step, the checkpoint, ``fit``, the
 LM example, ``scripts/mesh_check.py`` and ``chip_smoke.py`` loaded whole),
-and the entry points (the fleet's replicas and benches among them)
-default to the CUDA device instead of falling back to the CPU."""
+nor the kernel wrappers' routes (``ops.flash``, ``ops.flash_packed``,
+``ops.fused_block``, ``ops.paged_decode``: the generic and f32 kernels
+and decode at head dim 96), and the entry points (the fleet's replicas
+and benches among them) default to the CUDA device instead of falling
+back to the CPU."""
 
 import ast
 import os
@@ -179,6 +182,19 @@ def test_expert_parallel_path_imports_no_jax(module):
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+KERNEL_WRAPPERS = ["ops.flash", "ops.flash_packed", "ops.fused_block", "ops.paged_decode",
+                   "ops._build", "models.vit", "models.resnet", "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("module", KERNEL_WRAPPERS)
+def test_kernel_route_wrappers_import_no_jax(module):
+    """The wrappers that route the inputs JAX's kernels take to the
+    generic CUDA kernels (flash and packed attention, the f32 fused
+    block, decode at head dim 96), the models that call them, and the
+    smoke that drives them load no JAX and nothing of the JAX package."""
+    test_expert_parallel_path_imports_no_jax(module)
 
 
 FLEET_MODULES = ("serving.chaos", "serving.blocks", "serving.fleet", "serving.fleet.replica",
